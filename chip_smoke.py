@@ -5,10 +5,23 @@ Usage: python3 chip_smoke.py      (from the root of the repository)
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each kernel against its plain PyTorch version on the card, then drives the
-port's main path once through ``render_linear``: the 1920x1080, 1 spp,
-depth-10 book-cover frame with the hash RNG, 5 chunks of 414,720 rays, one
-fused-hit launch per chunk and bounce. Every phase raises on failure, so the
-script exits non-zero; without CUDA it raises before printing any result.
+port's paths through ``render_linear``, each with the kernels' launch
+counts set to 0 just before it and read just after:
+
+  - the sphere path: the 1920x1080, 1 spp, depth-10 book-cover frame (5
+    chunks of 414,720 rays, one fused-hit launch per chunk and bounce);
+  - the mesh-world path: the ~100k-triangle terrain (BASELINE config 4),
+    1920x1080, 1 spp, depth 5 (fused hit, first crossed cluster and mesh
+    search once per chunk and bounce);
+  - the mesh-world path with next-event estimation: the true Cornell box
+    (BASELINE config 2), 512x512, 64 spp, depth 10 (fused hit, shadow-mode
+    fused hit and two mesh searches per chunk, sample batch and bounce).
+
+Each frame is checked for finite values and against the same frame with the
+plain versions (at a reduced size where the plain mesh search is too slow),
+and sphere-scene NEE on the card against the CPU. Every phase raises on
+failure, so the script exits non-zero; without CUDA it raises before
+printing any result.
 
 Output: the card's name and power limit (nvidia-smi), per-phase numbers, a
 ``{"kernels": [...]}`` line, and as the last line
@@ -26,13 +39,21 @@ import time
 
 import torch
 
-WIDTH, HEIGHT, DEPTH, SEED = 1920, 1080, 10, 0
-T_RTOL = 1e-5                 # refined t of agreeing live lanes
+WIDTH, HEIGHT, DEPTH, SEED = 1920, 1080, 10, 0   # book-cover frame
+TERRAIN = dict(width=1920, height=1080, spp=1, max_depth=5)
+TERRAIN_PLAIN_WH = (240, 135)      # terrain kernel vs plain frame
+CORNELL = dict(width=512, height=512, spp=64, max_depth=10, nee=True,
+               samples_per_batch=4)
+CORNELL_PLAIN_SPP = 4              # Cornell kernel vs plain frame
+SUBSET_RAYS = 32768                # strided subset for the plain mesh search
+T_RTOL = 1e-5                 # t of agreeing live lanes
 OUT_ATOL = OUT_RTOL = 1e-5    # every other float output
 IDX_AGREE_MIN = 0.9999        # live lanes whose winner ids agree
 IMG_ATOL = IMG_RTOL = 2e-3    # frame vs plain frame, per channel
 IMG_MISMATCH_MAX = 0.01
 TIMED_RUNS = 7
+KERNELS = ("fused_hit", "fused_hit_shadow", "mesh_first_cluster",
+           "mesh_search")
 
 
 def phase(name):
@@ -73,8 +94,17 @@ def cuda_ms(fn, runs=TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
+def wall_s(fn):
+    """(result, seconds) of fn() on the host clock, card synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def compare_hits(fh, kern: dict, plain: dict, alive: torch.Tensor) -> dict:
-    """Agreement of the kernel's outputs with the plain version's."""
+    """Agreement of the full-mode kernel's outputs with the plain version's."""
     idx_eq = kern["idx"] == plain["idx"]
     agree = alive & idx_eq
     live = int(alive.sum())
@@ -109,14 +139,98 @@ def compare_hits(fh, kern: dict, plain: dict, alive: torch.Tensor) -> dict:
     return stats
 
 
+def compare_t_idx(big, kern, plain, alive) -> dict:
+    """Agreement of a (t, idx) kernel (A2, A3) with its plain version: ids
+    on live lanes, t within T_RTOL where the ids agree on a hit, BIG/0 on
+    dead lanes."""
+    (tk, ik), (tp, ip) = kern, plain
+    live = int(alive.sum())
+    agree = alive & (ik == ip)
+    hit = agree & (tp < big)
+    err = (tk[hit].double() - tp[hit].double()).abs()
+    worst = float((err / (T_RTOL * tp[hit].double().abs())).max()) \
+        if err.numel() else 0.0
+    stats = {"live": live, "idx_agree": float(agree.sum()) / max(live, 1),
+             "hits": int(hit.sum()),
+             "max_abs_err": float(err.max()) if err.numel() else 0.0,
+             "worst_err_over_tol": worst,
+             "bitwise": bool(torch.equal(tk[alive], tp[alive])
+                             and torch.equal(ik[alive], ip[alive]))}
+    dead = ~alive
+    for x in (tk, tp):
+        if not bool((x[dead] == big).all()):
+            raise AssertionError("dead lanes do not hold t = BIG")
+    for x in (ik, ip):
+        if not bool((x[dead] == 0).all()):
+            raise AssertionError("dead lanes do not hold idx = 0")
+    if stats["idx_agree"] < IDX_AGREE_MIN or worst > 1.0:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{stats}")
+    return stats
+
+
+def reset_counts(fh, mi) -> None:
+    fh.launches = fh.shadow_launches = 0
+    mi.launches = mi.first_cluster_launches = 0
+
+
+def read_counts(fh, mi) -> dict:
+    return {"fused_hit": fh.launches, "fused_hit_shadow": fh.shadow_launches,
+            "mesh_first_cluster": mi.first_cluster_launches,
+            "mesh_search": mi.launches}
+
+
+def drive_frame(fh, mi, render_linear, scene, camera, cfg, expected: dict,
+                steady_runs: int = 3) -> tuple[torch.Tensor, dict]:
+    """Drive one path through render_linear: launch counts set to 0 just
+    before its first frame and read just after, then steady frames."""
+    reset_counts(fh, mi)
+    img, first_s = wall_s(lambda: render_linear(scene, camera, cfg, SEED))
+    counts = read_counts(fh, mi)
+    if counts != expected:
+        raise AssertionError(f"kernel launches {counts}, expected {expected}")
+    if img.shape != (cfg.height, cfg.width, 3) or \
+            not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"frame is not a finite "
+                             f"[{cfg.height}, {cfg.width}, 3] image")
+    steady = [wall_s(lambda: render_linear(scene, camera, cfg, SEED))[1]
+              for _ in range(steady_runs)]
+    frame_s = statistics.median(steady)
+    return img, {"launches": counts, "first_s": first_s, "steady_s": frame_s,
+                 "steady_runs": steady,
+                 "msamples_per_s": cfg.num_pixels * cfg.spp / frame_s / 1e6,
+                 "mean": float(img.mean())}
+
+
+def against_plain_frame(render_linear, scene, camera, cfg, img=None) -> dict:
+    """The kernel frame against the plain-version frame of cfg."""
+    if img is None:
+        img = render_linear(scene, camera, cfg, SEED)
+    plain_cfg = dataclasses.replace(cfg, intersector="fused_interpret")
+    ref, plain_s = wall_s(lambda: render_linear(scene, camera, plain_cfg,
+                                                SEED))
+    mismatch = (img - ref).abs() > IMG_ATOL + IMG_RTOL * ref.abs()
+    out = {"size": [cfg.width, cfg.height, cfg.spp, cfg.max_depth],
+           "plain_frame_s": plain_s,
+           "mismatch_frac": float(mismatch.float().mean()),
+           "bitwise_frac": float((img == ref).float().mean())}
+    if not bool(torch.isfinite(ref).all()) or \
+            out["mismatch_frac"] > IMG_MISMATCH_MAX:
+        raise AssertionError(f"frame differs from the plain frame: {out}")
+    return out
+
+
 def main() -> None:
     dev = require_card()
 
     from qt_raytracer_tpu_torch import RenderConfig, render_linear, scenes
+    from qt_raytracer_tpu_torch.accel import mesh as mesh_mod
     from qt_raytracer_tpu_torch.core import render as render_mod
     from qt_raytracer_tpu_torch.core import sampling
-    from qt_raytracer_tpu_torch.core.integrator_flat import bounce, initial_state
+    from qt_raytracer_tpu_torch.core import integrator_flat as itg
+    from qt_raytracer_tpu_torch.core.scene import LAMBERTIAN
     from qt_raytracer_tpu_torch.kernels import fused_hit as fh
+    from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
     from qt_raytracer_tpu_torch.runtime import cuda_build
 
     phase("build")
@@ -124,30 +238,52 @@ def main() -> None:
     lib = cuda_build.load_library()
     print(f"built and loaded {cuda_build.library_path().name} in "
           f"{time.perf_counter() - t0:.3f} s ({lib._name})")
+    for line in cuda_build.build_log.splitlines():
+        if "Compiling entry" in line or "registers" in line:
+            print(line.strip())
 
+    def primary(camera, cfg, spb=1, index=0):
+        """Chunk `index` of cfg's first sample batch, as render_linear makes
+        it."""
+        chunk = render_mod.resolve_pixel_chunk(cfg) or cfg.num_pixels
+        part = slice(index * chunk, (index + 1) * chunk)
+        i, j, pix = render_mod.pixel_grid(cfg, dev)
+        pk = sampling.pixel_states(SEED, pix[part], cfg.rng)
+        rep = lambda x: torch.cat([x] * spb)
+        ids = torch.arange(spb, dtype=torch.int64,
+                           device=dev).repeat_interleave(chunk)
+        keys = sampling.sample_keys(rep(pk), ids if spb > 1 else 0)
+        origins, directions = render_mod._camera_rays(camera, cfg, keys,
+                                                      rep(i[part]),
+                                                      rep(j[part]))
+        return itg.initial_state(origins, directions, keys)
+
+    def chunk_count(cfg):
+        chunk = render_mod.resolve_pixel_chunk(cfg)
+        return -(-cfg.num_pixels // chunk) if 0 < chunk < cfg.num_pixels else 1
+
+    def rays_of(s):
+        return (s.ox, s.oy, s.oz, s.dx, s.dy, s.dz)
+
+    results = {}
+    launches = dict.fromkeys(KERNELS, 0)
+
+    # ------------------------------------------------------ sphere path
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, max_depth=DEPTH,
                        rng="hash")
     scene, camera = scenes.get_scene("random", cfg.aspect_ratio)
     scene, camera = scene.to(dev), camera.to(dev)
 
-    phase("kernel vs plain version")
+    phase("A1 fused_hit vs plain version (book cover)")
     tables = fh.prep_fused_spheres(scene)
-    chunk = render_mod.resolve_pixel_chunk(cfg)
-    i, j, pix = render_mod.pixel_grid(cfg, dev)
-    keys = sampling.sample_keys(
-        sampling.pixel_states(SEED, pix[:chunk], cfg.rng), 0)
-    origins, directions = render_mod._camera_rays(camera, cfg, keys,
-                                                  i[:chunk], j[:chunk])
-    primary = initial_state(origins, directions, keys)
-    bounced = primary
+    s0 = primary(camera, cfg)
+    bounced = s0
     for depth_idx in range(3):
-        bounced = bounce(tables, bounced, depth_idx, cfg.t_min,
-                         interpret=True)
-    wavefronts = {"primary_chunk0": primary, "bounce3": bounced}
-    kernel_stats = {}
-    for name, s in wavefronts.items():
-        args = (tables, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive,
-                cfg.t_min)
+        bounced = itg.bounce(tables, bounced, depth_idx, cfg.t_min,
+                             interpret=True)
+    a1 = {}
+    for name, s in {"primary_chunk0": s0, "bounce3": bounced}.items():
+        args = (tables, *rays_of(s), s.alive, cfg.t_min)
         kern = fh.fused_hit(*args)
         plain = fh.fused_hit_plain(*args)
         torch.cuda.synchronize()
@@ -156,50 +292,20 @@ def main() -> None:
         st["ms"] = cuda_ms(lambda: fh.fused_hit(*args))
         st["plain_ms"] = cuda_ms(lambda: fh.fused_hit_plain(*args))
         st["rays"] = s.ox.shape[0]
-        kernel_stats[name] = st
+        a1[name] = st
         print(f"{name}: {json.dumps(st)}", flush=True)
+    results["fused_hit"] = (max(st["max_abs_err"] for st in a1.values()),
+                            a1["primary_chunk0"])
 
-    phase("1080p frame through render_linear")
-    fh.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img = render_linear(scene, camera, cfg, SEED)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = fh.launches
-    expected = -(-cfg.num_pixels // chunk) * DEPTH
-    if launches != expected:
-        raise AssertionError(f"fused_hit launched {launches} times in the "
-                             f"frame, expected {expected}")
-    if img.shape != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
-        raise AssertionError("frame is not a finite [1080, 1920, 3] image")
-    steady = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        render_linear(scene, camera, cfg, SEED)
-        torch.cuda.synchronize()
-        steady.append(time.perf_counter() - t0)
-    frame_s = statistics.median(steady)
-
-    plain_cfg = dataclasses.replace(cfg, intersector="fused_interpret")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = render_linear(scene, camera, plain_cfg, SEED)
-    torch.cuda.synchronize()
-    plain_frame_s = time.perf_counter() - t0
-    mismatch = ((img - ref).abs() > IMG_ATOL + IMG_RTOL * ref.abs())
-    frame = {
-        "launches": launches, "first_s": first_s, "steady_s": frame_s,
-        "msamples_per_s": cfg.num_pixels * cfg.spp / frame_s / 1e6,
-        "plain_frame_s": plain_frame_s,
-        "mismatch_frac": float(mismatch.float().mean()),
-        "bitwise_frac": float((img == ref).float().mean()),
-        "mean": float(img.mean()),
-    }
+    phase("book-cover 1080p frame through render_linear")
+    chunks = chunk_count(cfg)
+    img, frame = drive_frame(
+        fh, mi, render_linear, scene, camera, cfg,
+        {**dict.fromkeys(KERNELS, 0), "fused_hit": chunks * DEPTH})
+    frame.update(against_plain_frame(render_linear, scene, camera, cfg, img))
     print(f"frame: {json.dumps(frame)}", flush=True)
-    if frame["mismatch_frac"] > IMG_MISMATCH_MAX:
-        raise AssertionError(f"frame differs from the plain frame: {frame}")
+    for k, v in frame["launches"].items():
+        launches[k] += v
 
     phase("small frame on the card vs the CPU")
     small = RenderConfig(width=64, height=36, spp=2, max_depth=6, rng="hash")
@@ -211,17 +317,203 @@ def main() -> None:
     if float(bad.float().mean()) > IMG_MISMATCH_MAX:
         raise AssertionError("card render disagrees with the CPU render")
 
-    a = kernel_stats["primary_chunk0"]
+    # ------------------------------------------------- mesh-world path
+    cfg_t = RenderConfig(**TERRAIN, rng="hash")
+    world, camera = scenes.get_scene("terrain", cfg_t.aspect_ratio)
+    print(f"terrain: {world.mesh.num_triangles} triangles, BVH builder "
+          f"{mesh_mod.last_builder}", flush=True)
+    world, camera = world.to(dev), camera.to(dev)
+    wt = itg.prep_world(world)
+    mc = wt.mesh
+    print(f"terrain clusters: k = {mc.k}, {mc.tris_per_cluster} triangles "
+          f"each", flush=True)
+
+    phase("A4 mesh_first_cluster and A3 mesh_search vs plain versions "
+          "(terrain)")
+    t_min = cfg_t.t_min
+    # Chunk 0 (the top fifth of the frame) sees the ground sphere beyond
+    # the terrain; chunk 2 (the middle) sees the terrain.
+    s0 = primary(camera, cfg_t)
+    s0c2 = primary(camera, cfg_t, index=2)
+    s2 = itg.bounce_world(wt, itg.bounce_world(wt, s0c2, 0, t_min), 1, t_min)
+    a3, a4 = {}, {}
+    wavefronts = {"primary_chunk0": s0, "primary_chunk2": s0c2,
+                  "bounce2_chunk2": s2}
+    for name, s in wavefronts.items():
+        rays, alive = rays_of(s), s.alive
+        cap = fh.fused_hit(wt.spheres, *rays, alive, t_min)["t"]
+        n = rays[0].shape[0]
+        # A4, whole wavefront: bitwise.
+        c1 = mi.first_crossed_cluster(mc, *rays, t_min, alive, cap)
+        c1_p = mi.first_crossed_cluster(mc, *rays, t_min, alive, cap,
+                                        interpret=True)
+        if not torch.equal(c1, c1_p):
+            raise AssertionError(f"A4 differs from its plain version on "
+                                 f"{int((c1 != c1_p).sum())} lanes ({name})")
+        a4[name] = {
+            "rays": n, "live": int(alive.sum()), "bitwise": True,
+            "crossing_share": float((c1[alive] < mc.k).float().mean()),
+            "ms": cuda_ms(lambda: mi.first_crossed_cluster(
+                mc, *rays, t_min, alive, cap)),
+            "plain_ms": cuda_ms(lambda: mi.first_crossed_cluster(
+                mc, *rays, t_min, alive, cap, interpret=True), 3)}
+        print(f"A4 {name}: {json.dumps(a4[name])}", flush=True)
+
+        # A3 as the path runs it: sort by the crossing key, A3, unsort.
+        kern = mi.mesh_search(mc, *rays, t_min, alive=alive, t_cap=cap)
+        perm = mi.crossing_order(mc, *rays, t_min, alive, cap)
+        srays = tuple(x[perm] for x in rays)
+        salive, scap = alive[perm], cap[perm]
+        st = {"rays": n, "live": int(alive.sum()),
+              "kernel_ms_sorted": cuda_ms(lambda: mi.mesh_hits(
+                  mc, *srays, t_min, salive, scap)),
+              "kernel_ms_unsorted": cuda_ms(lambda: mi.mesh_hits(
+                  mc, *rays, t_min, alive, cap)),
+              "pipeline_ms": cuda_ms(lambda: mi.mesh_search(
+                  mc, *rays, t_min, alive=alive, t_cap=cap))}
+        if name.startswith("primary"):
+            # The ungated plain sweep over the whole wavefront, once.
+            plain, st["plain_s_full"] = wall_s(lambda: mi.mesh_search_plain(
+                mc, *rays, t_min, alive, cap))
+            st["full"] = compare_t_idx(fh.BIG, kern, plain, alive)
+        # Timing and bounce comparison on a strided subset of the sorted
+        # wavefront (the order the kernel sees; the plain sweep ignores it).
+        sub = torch.arange(0, n, max(n // SUBSET_RAYS, 1),
+                           device=dev)[:SUBSET_RAYS]
+        r_sub = tuple(x[sub] for x in srays)
+        al_sub, cap_sub = salive[sub], scap[sub]
+        kern_sub = mi.mesh_hits(mc, *r_sub, t_min, al_sub, cap_sub)
+        plain_sub = mi.mesh_search_plain(mc, *r_sub, t_min, al_sub, cap_sub)
+        st["subset"] = compare_t_idx(fh.BIG, kern_sub, plain_sub, al_sub)
+        st["subset_rays"] = int(sub.shape[0])
+        st["ms"] = cuda_ms(lambda: mi.mesh_hits(mc, *r_sub, t_min, al_sub,
+                                                cap_sub))
+        st["plain_ms"] = cuda_ms(lambda: mi.mesh_search_plain(
+            mc, *r_sub, t_min, al_sub, cap_sub), 3)
+        a3[name] = st
+        print(f"A3 {name}: {json.dumps(st)}", flush=True)
+    results["mesh_first_cluster"] = (0.0, a4["primary_chunk2"])
+    results["mesh_search"] = (
+        max(*(st["full"]["max_abs_err"] for st in a3.values() if "full" in st),
+            *(st["subset"]["max_abs_err"] for st in a3.values())),
+        a3["primary_chunk2"])
+
+    phase("terrain 1080p frame (BASELINE config 4) through render_linear")
+    chunks = chunk_count(cfg_t)
+    per = chunks * cfg_t.max_depth
+    _, frame = drive_frame(
+        fh, mi, render_linear, world, camera, cfg_t,
+        {"fused_hit": per, "fused_hit_shadow": 0, "mesh_first_cluster": per,
+         "mesh_search": per})
+    w, h = TERRAIN_PLAIN_WH
+    frame["vs_plain"] = against_plain_frame(
+        render_linear, world, camera,
+        dataclasses.replace(cfg_t, width=w, height=h))
+    print(f"terrain frame: {json.dumps(frame)}", flush=True)
+    for k, v in frame["launches"].items():
+        launches[k] += v
+    del world, wt, mc, s0, s0c2, s2
+
+    # ------------------------------------- mesh-world path with NEE
+    cfg_c = RenderConfig(**CORNELL, rng="hash")
+    world, camera = scenes.get_scene("cornell_mesh", cfg_c.aspect_ratio)
+    print(f"cornell_mesh: {world.mesh.num_triangles} triangles, "
+          f"{world.mesh.num_lights} emissive, BVH builder "
+          f"{mesh_mod.last_builder}", flush=True)
+    world, camera = world.to(dev), camera.to(dev)
+    wt = itg.prep_world(world)
+
+    phase("A2 fused_hit_shadow vs plain version (Cornell mesh shadow rays)")
+    t_min = cfg_c.t_min
+    s1 = itg.bounce_world(wt, primary(camera, cfg_c, cfg_c.samples_per_batch),
+                          0, t_min, nee=True)
+    hit = itg._world_hit_flat(wt, *rays_of(s1), s1.alive, t_min, False)
+    uni = sampling.stream_uniforms(s1.keys, sampling.STREAM_BOUNCE0 + 1,
+                                   sampling.UNIFORMS_PER_BOUNCE)
+    diffuse = s1.alive & (hit["t"] < fh.BIG) & (hit["mat"] == LAMBERTIAN)
+    ldx, ldy, ldz, cand, *_ = itg._nee_shadow_rays_world(
+        wt.lights, hit["px"], hit["py"], hit["pz"], hit["nx"], hit["ny"],
+        hit["nz"], diffuse, uni)
+    srays = (hit["px"], hit["py"], hit["pz"], ldx, ldy, ldz)
+    args = (wt.spheres, *srays, cand, t_min)
+    kern = fh.fused_hit(*args, shadow_only=True)
+    plain = fh.fused_hit_plain(*args, shadow_only=True)
+    a2 = compare_t_idx(fh.BIG, (kern["t"], kern["idx"]),
+                       (plain["t"], plain["idx"]), cand)
+    a2.update(rays=srays[0].shape[0], depth_idx=1,
+              ms=cuda_ms(lambda: fh.fused_hit(*args, shadow_only=True)),
+              plain_ms=cuda_ms(lambda: fh.fused_hit_plain(
+                  *args, shadow_only=True)))
+    print(f"A2 shadow wavefront: {json.dumps(a2)}", flush=True)
+    results["fused_hit_shadow"] = (a2["max_abs_err"], a2)
+    # The shadow ray's mesh search, capped by A2's unrefined t (one
+    # cluster: no sort).
+    k3 = mi.mesh_search(wt.mesh, *srays, t_min, alive=cand, t_cap=kern["t"])
+    p3 = mi.mesh_search_plain(wt.mesh, *srays, t_min, cand, kern["t"])
+    a3_sh = compare_t_idx(fh.BIG, k3, p3, cand)
+    a3_sh.update(
+        ms=cuda_ms(lambda: mi.mesh_search(wt.mesh, *srays, t_min, alive=cand,
+                                          t_cap=kern["t"])),
+        plain_ms=cuda_ms(lambda: mi.mesh_search_plain(
+            wt.mesh, *srays, t_min, cand, kern["t"]), 3))
+    print(f"A3 Cornell shadow wavefront: {json.dumps(a3_sh)}", flush=True)
+    results["mesh_search"] = (max(results["mesh_search"][0],
+                                  a3_sh["max_abs_err"]),
+                              results["mesh_search"][1])
+    del hit, uni, diffuse, ldx, ldy, ldz, cand, srays, args, kern, plain
+
+    phase("Cornell mesh 512x512 64 spp NEE frame (BASELINE config 2)")
+    chunks = chunk_count(cfg_c)
+    per = chunks * (cfg_c.spp // cfg_c.samples_per_batch) * cfg_c.max_depth
+    _, frame = drive_frame(
+        fh, mi, render_linear, world, camera, cfg_c,
+        {"fused_hit": per, "fused_hit_shadow": per, "mesh_first_cluster": 0,
+         "mesh_search": 2 * per})
+    frame["vs_plain"] = against_plain_frame(
+        render_linear, world, camera,
+        dataclasses.replace(cfg_c, spp=CORNELL_PLAIN_SPP))
+    print(f"cornell_mesh frame: {json.dumps(frame)}", flush=True)
+    for k, v in frame["launches"].items():
+        launches[k] += v
+
+    phase("sphere-scene NEE on the card vs the CPU")
+    nee_cfg = RenderConfig(width=64, height=64, spp=4, max_depth=10,
+                           nee=True, rr_start=2, rng="hash")
+    s_cpu, c_cpu = scenes.get_scene("cornell", nee_cfg.aspect_ratio)
+    reset_counts(fh, mi)
+    on_card = render_linear(s_cpu.to(dev), c_cpu.to(dev), nee_cfg, SEED)
+    counts = read_counts(fh, mi)
+    on_card = on_card.cpu()
+    on_cpu = render_linear(s_cpu, c_cpu, nee_cfg, SEED)
+    bad = float(((on_card - on_cpu).abs()
+                 > IMG_ATOL + IMG_RTOL * on_cpu.abs()).float().mean())
+    print(f"sphere NEE: launches {counts}, card vs cpu mismatch_frac {bad}")
+    if counts["fused_hit"] == 0 or counts["fused_hit_shadow"] == 0 or \
+            not bool(torch.isfinite(on_card).all()) or bad > IMG_MISMATCH_MAX:
+        raise AssertionError("sphere NEE on the card disagrees with the CPU")
+
+    sources = {
+        "fused_hit": ("qt_raytracer_tpu_torch/csrc/fused_hit.cu",
+                      "qt_raytracer_tpu/kernels/fused_hit.py:50"),
+        "fused_hit_shadow": ("qt_raytracer_tpu_torch/csrc/fused_hit.cu",
+                             "qt_raytracer_tpu/kernels/fused_hit.py:199"),
+        "mesh_first_cluster": ("qt_raytracer_tpu_torch/csrc/mesh_intersect.cu",
+                               "qt_raytracer_tpu/kernels/mesh_intersect.py:619"),
+        "mesh_search": ("qt_raytracer_tpu_torch/csrc/mesh_intersect.cu",
+                        "qt_raytracer_tpu/kernels/mesh_intersect.py:238"),
+    }
+    print(f"launches over the three paths' counted frames: "
+          f"{json.dumps(launches)}")
     print(json.dumps({"kernels": [{
-        "name": "fused_hit",
+        "name": name,
         "route": "cuda",
-        "source": "qt_raytracer_tpu_torch/csrc/fused_hit.cu",
-        "replaces": "qt_raytracer_tpu/kernels/fused_hit.py:50",
-        "launches": launches,
-        "max_abs_err": max(st["max_abs_err"] for st in kernel_stats.values()),
-        "ms": a["ms"],
-        "plain_ms": a["plain_ms"],
-    }]}))
+        "source": sources[name][0],
+        "replaces": sources[name][1],
+        "launches": launches[name],
+        "max_abs_err": results[name][0],
+        "ms": results[name][1]["ms"],
+        "plain_ms": results[name][1]["plain_ms"],
+    } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

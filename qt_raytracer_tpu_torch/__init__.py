@@ -9,18 +9,23 @@ reference: the same layout and names, held against it by the
 Public API:
     render(scene, camera, config, seed) -> uint8 image [H, W, 3]
     render_linear(...)                  -> f32 linear radiance sum [H, W, 3]
-    RenderConfig, make_camera, SceneBuilder, SphereScene
-    models.scenes — three_sphere, four_sphere_gpu, random, glossy_dof, cornell
+    RenderConfig, make_camera, SceneBuilder, SphereScene, World,
+    TriangleMesh, MeshBuilder, build_mesh
+    models.scenes — three_sphere, four_sphere_gpu, random, glossy_dof,
+    cornell, and the mesh worlds terrain, icosphere, cornell_mesh
 
-The render runs on the device of the scene's tensors: build a scene and its
-camera, move both with ``.to("cuda")``, and render.
+The render runs on the device of the scene's tensors: build a scene (a
+SphereScene or a World) and its camera, move both with ``.to("cuda")``, and
+render.
 """
 
+from .accel.mesh import MeshBuilder, TriangleMesh, build_mesh
 from .core.camera import Camera, make_camera
 from .core.config import RenderConfig
 from .core.render import render, render_linear
 from .core.scene import (DIELECTRIC, EMISSIVE, LAMBERTIAN, METAL,
                          SceneBuilder, SphereScene)
+from .core.world import World
 from .models import scenes
 
 __version__ = "0.1.0"
@@ -33,6 +38,10 @@ __all__ = [
     "render_linear",
     "SceneBuilder",
     "SphereScene",
+    "World",
+    "TriangleMesh",
+    "MeshBuilder",
+    "build_mesh",
     "LAMBERTIAN",
     "METAL",
     "DIELECTRIC",

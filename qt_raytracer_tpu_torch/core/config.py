@@ -31,9 +31,10 @@ _UNPORTED_INTERSECTORS = {
     "pallas": "ROADMAP Queue A item 7 (gradient integrator, kernel A5)",
     "pallas_interpret": "ROADMAP Queue A item 7 (gradient integrator, "
                         "kernel A5)",
-    "fused_diff": "ROADMAP Queue A item 7 (gradient integrator, kernel A2)",
-    "fused_diff_interpret": "ROADMAP Queue A item 7 (gradient integrator, "
-                            "kernel A2)",
+    "fused_diff": "ROADMAP Queue A item 7 (gradient integrator over the "
+                  "shadow-mode kernel A2)",
+    "fused_diff_interpret": "ROADMAP Queue A item 7 (gradient integrator "
+                            "over the shadow-mode kernel A2)",
 }
 
 
@@ -101,9 +102,6 @@ def require_ported(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             "rng='threefry' is not ported yet: ROADMAP Queue A item 6; "
             "use rng='hash'")
-    if cfg.nee:
-        raise NotImplementedError(
-            "nee=True is not ported yet: ROADMAP Queue A item 4 (kernel A2)")
     if cfg.edge_aware:
         raise NotImplementedError(
             "edge_aware=True is not ported yet: ROADMAP Queue A item 8")

@@ -1,11 +1,16 @@
 """Flat-SoA wavefront integrator, forward only (counterpart of
-``qt_raytracer_tpu.core.integrator_flat.trace_flat`` with diff=False,
-nee=False, compact=False).
+``qt_raytracer_tpu.core.integrator_flat``: ``trace_flat`` with diff=False
+and ``trace_flat_world``, each with compact=False).
 
-The ray state is carried as flat [N] component tensors, and each bounce makes
-one ``fused_hit`` call that returns the closest hit, its refined t, hit
-point, normal and the winner's material parameters. The estimator, the
-uniform slots and the tie-breaks are the JAX package's, line by line.
+The ray state is carried as flat [N] component tensors. For sphere scenes
+each bounce makes one ``fused_hit`` call (kernel A1) that returns the
+closest hit, its refined t, hit point, normal and the winner's material
+parameters. Mesh worlds add the clustered mesh search (kernels A3 and A4)
+capped by the sphere hit, merged into one id space. Next-event estimation
+casts one shadow ray per diffuse hit through the shadow-mode sphere sweep
+(kernel A2) and, in a world, the mesh search, and weighs it against the
+BSDF sample by the balance heuristic. The estimator, the uniform slots and
+the tie-breaks are the JAX package's, line by line.
 """
 
 from __future__ import annotations
@@ -17,10 +22,14 @@ import torch
 from . import sampling
 from .scene import DIELECTRIC, EMISSIVE, LAMBERTIAN, METAL, SphereScene
 from .vecmath import safe_sqrt
+from .world import World, WorldLights, face_param_table, world_lights
 from ..kernels.fused_hit import (BIG, TILE, FusedSpheres, fused_hit,
                                  prep_fused_spheres)
+from ..kernels.mesh_intersect import (MeshClusters, mesh_search,
+                                      prep_mesh_clusters)
 
 TWO_PI = 6.283185307179586
+INV_PI = 0.3183098861837907
 
 
 def _safe_rsqrt_len2(x, y, z):
@@ -112,6 +121,95 @@ def _scatter_flat(mat, ax, ay, az, fuzz, ior, ex, ey, ez,
     return (sdx, sdy, sdz, atx, aty, atz, ok, emx, emy, emz, is_lam)
 
 
+def _sphere_pdf_flat(lcx, lcy, lcz, lr, px, py, pz):
+    """Solid-angle cone pdf of a sphere light seen from p, on flat
+    components (integrator._sphere_solid_angle_pdf)."""
+    tox, toy, toz = lcx - px, lcy - py, lcz - pz
+    dist2 = tox * tox + toy * toy + toz * toz
+    outside = dist2 > lr * lr * 1.0001
+    sin2 = torch.clamp(lr * lr / torch.clamp_min(dist2, 1e-12), 0.0, 1.0)
+    cos_max = safe_sqrt(1.0 - sin2)
+    omc = sin2 / (1.0 + cos_max)
+    ok = outside & (omc > 1e-12)
+    den = torch.where(ok, torch.clamp_min(TWO_PI * omc, 1e-30), 1.0)
+    pdf = torch.where(ok, torch.reciprocal(den), 0.0)
+    return pdf, ok, cos_max, (tox, toy, toz)
+
+
+def _cone_sample(lcx, lcy, lcz, lr, px, py, pz, u5, u6):
+    """Direction toward a sphere light, uniform in its cone, with the
+    branchless ONB of Duff et al. 2017 (integrator._onb). Returns
+    (ldx, ldy, ldz, pdf, ok)."""
+    pdf, ok, cos_max, (tox, toy, toz) = _sphere_pdf_flat(
+        lcx, lcy, lcz, lr, px, py, pz)
+    _, winv = _safe_rsqrt_len2(tox, toy, toz)
+    wx, wy, wz = tox * winv, toy * winv, toz * winv
+    cos_s = 1.0 - u5 * (1.0 - cos_max)
+    sin_s = safe_sqrt(1.0 - cos_s * cos_s)
+    phi = TWO_PI * u6
+    sign = torch.where(wz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + wz)
+    b = wx * wy * a
+    t1x, t1y, t1z = 1.0 + sign * wx * wx * a, sign * b, -sign * wx
+    t2x, t2y, t2z = b, sign + wy * wy * a, -wy
+    sc, ss = sin_s * torch.cos(phi), sin_s * torch.sin(phi)
+    ldx = sc * t1x + ss * t2x + cos_s * wx
+    ldy = sc * t1y + ss * t2y + cos_s * wy
+    ldz = sc * t1z + ss * t2z + cos_s * wz
+    return ldx, ldy, ldz, pdf, ok
+
+
+def _mis_contrib(cand, lit, pdf_j, n_lights, cos_surf, tx, ty, tz,
+                 ax, ay, az, lex, ley, lez):
+    """One-sample MIS, balance heuristic: 1/pdf_nee and the weight combine
+    into one denominator (integrator._nee_mis)."""
+    pdf_nee = pdf_j / n_lights
+    denom = pdf_nee + cos_surf * INV_PI
+    den_f = torch.where(cand, torch.clamp_min(denom, 1e-30), 1.0)
+    factor = torch.where(cand, cos_surf * INV_PI / den_f, 0.0)
+    cx = tx * ax * factor * lex
+    cy = ty * ay * factor * ley
+    cz = tz * az * factor * lez
+    return (torch.where(lit, cx, 0.0), torch.where(lit, cy, 0.0),
+            torch.where(lit, cz, 0.0))
+
+
+def _nee_flat(tables: FusedSpheres, light_idx, px, py, pz, nx, ny, nz,
+              ax, ay, az, tx, ty, tz, diffuse, uni, t_min, interpret):
+    """_nee_mis on flat components (sphere lights; same estimator and
+    slots). The shadow ray counts when its closest hit is the light."""
+    u4, u5, u6 = uni[:, 4], uni[:, 5], uni[:, 6]
+    n_lights = light_idx.shape[0]
+    pick = torch.clamp((u4 * n_lights).to(torch.int32), 0, n_lights - 1)
+    light = light_idx[pick.long()]
+    lp = tables.params[light.long()]
+    lcx, lcy, lcz, lr = lp[:, 0], lp[:, 1], lp[:, 2], lp[:, 3]
+    ldx, ldy, ldz, pdf_j, ok = _cone_sample(lcx, lcy, lcz, lr, px, py, pz,
+                                            u5, u6)
+    cos_surf = nx * ldx + ny * ldy + nz * ldz
+    cand = diffuse & ok & (cos_surf > 0.0)
+
+    sh = fused_hit(tables, px, py, pz, ldx, ldy, ldz, cand, t_min,
+                   shadow_only=True, interpret=interpret)
+    lit = cand & (sh["t"] < BIG) & (sh["idx"] == light)
+    return _mis_contrib(cand, lit, pdf_j, n_lights, cos_surf, tx, ty, tz,
+                        ax, ay, az, lp[:, 10], lp[:, 11], lp[:, 12])
+
+
+def _emit_weight_flat(h, ox, oy, oz, prev_pdf, n_lights):
+    """Balance-heuristic weight of a BSDF-sampled emitter hit
+    (integrator._emitter_mis_weight, sphere lights only)."""
+    sgn = torch.where(h["ff"] > 0, 1.0, -1.0)
+    lcx = h["px"] - h["rw"] * sgn * h["nx"]
+    lcy = h["py"] - h["rw"] * sgn * h["ny"]
+    lcz = h["pz"] - h["rw"] * sgn * h["nz"]
+    pdf_sph, _, _, _ = _sphere_pdf_flat(lcx, lcy, lcz, h["rw"], ox, oy, oz)
+    pdf_nee = pdf_sph / n_lights
+    use = prev_pdf > 0.0
+    denom = torch.where(use, prev_pdf + pdf_nee, 1.0)
+    return torch.where(use, prev_pdf / denom, 1.0)
+
+
 class RayState(NamedTuple):
     """Per-ray carry of the bounce loop, flat [N_pad] tensors."""
 
@@ -127,14 +225,16 @@ class RayState(NamedTuple):
     rx: torch.Tensor   # radiance so far
     ry: torch.Tensor
     rz: torch.Tensor
-    alive: torch.Tensor  # bool
-    keys: torch.Tensor   # per-ray hash states (uint32 values in int64)
+    alive: torch.Tensor     # bool
+    prev_pdf: torch.Tensor  # pdf of the BSDF sample that made the ray
+    keys: torch.Tensor      # per-ray hash states (uint32 values in int64)
 
 
 def initial_state(origins: torch.Tensor, directions: torch.Tensor,
                   sample_keys: torch.Tensor) -> RayState:
     """Split [N,3] rays into flat components, padded with dead rays to a
-    multiple of TILE (directions (0, 0, 1)), as the JAX package pads."""
+    multiple of TILE (directions (0, 0, 1)), as the JAX package pads.
+    prev_pdf starts at -1: full weight for an emitter hit."""
     n = origins.shape[0]
     n_pad = (-n) % TILE
     padf = lambda x, v=0.0: torch.nn.functional.pad(x, (0, n_pad), value=v)
@@ -146,20 +246,20 @@ def initial_state(origins: torch.Tensor, directions: torch.Tensor,
     zero = torch.zeros_like(ox)
     one = torch.ones_like(ox)
     return RayState(ox, oy, oz, dx, dy, dz, one, one, one, zero, zero, zero,
-                    alive, keys)
+                    alive, zero - 1.0, keys)
 
 
-def bounce(tables: FusedSpheres, s: RayState, depth_idx: int, t_min: float,
-           rr_start: int = 0, interpret: bool = False) -> RayState:
-    """One bounce of every ray: hit, scatter, accumulate, continue."""
-    h = fused_hit(tables, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive,
-                  t_min, interpret=interpret)
+def _shade(s: RayState, h: dict, depth_idx: int, rr_start: int, emit_w,
+           nee_fn):
+    """The bounce after the hit query, shared by spheres and worlds:
+    scatter, sky and emission, NEE (nee_fn, or None), Russian roulette,
+    the continuing ray and its prev_pdf."""
     hit = h["t"] < BIG
     ff = h["ff"] > 0
 
     uni = sampling.stream_uniforms(s.keys, sampling.STREAM_BOUNCE0 + depth_idx,
                                    sampling.UNIFORMS_PER_BOUNCE)
-    (sdx, sdy, sdz, atx, aty, atz, ok, emx, emy, emz, _) = _scatter_flat(
+    (sdx, sdy, sdz, atx, aty, atz, ok, emx, emy, emz, is_lam) = _scatter_flat(
         h["mat"], h["ax"], h["ay"], h["az"], h["fuzz"], h["ior"],
         h["ex"], h["ey"], h["ez"], s.dx, s.dy, s.dz,
         h["nx"], h["ny"], h["nz"], ff, uni)
@@ -170,9 +270,14 @@ def bounce(tables: FusedSpheres, s: RayState, depth_idx: int, t_min: float,
     rx = s.rx + torch.where(miss, s.tx * skx, 0.0)
     ry = s.ry + torch.where(miss, s.ty * sky_, 0.0)
     rz = s.rz + torch.where(miss, s.tz * skz, 0.0)
-    rx = rx + torch.where(emit_hit, s.tx * emx, 0.0)
-    ry = ry + torch.where(emit_hit, s.ty * emy, 0.0)
-    rz = rz + torch.where(emit_hit, s.tz * emz, 0.0)
+    rx = rx + torch.where(emit_hit, s.tx * emx * emit_w, 0.0)
+    ry = ry + torch.where(emit_hit, s.ty * emy * emit_w, 0.0)
+    rz = rz + torch.where(emit_hit, s.tz * emz * emit_w, 0.0)
+
+    diffuse = s.alive & hit & is_lam
+    if nee_fn is not None:
+        nx_, ny_, nz_ = nee_fn(diffuse, uni)
+        rx, ry, rz = rx + nx_, ry + ny_, rz + nz_
 
     continues = s.alive & hit & ok
     tx = torch.where(continues, s.tx * atx, s.tx)
@@ -188,6 +293,15 @@ def bounce(tables: FusedSpheres, s: RayState, depth_idx: int, t_min: float,
         ty = torch.where(adj, ty / p_cont, ty)
         tz = torch.where(adj, tz / p_cont, tz)
         continues = adj
+    prev_pdf = s.prev_pdf
+    if nee_fn is not None:
+        # pdf of the bounce that made the continuing ray: cosine/pi for a
+        # diffuse bounce, -1 (full emitter weight) for a specular one.
+        _, sinv = _safe_rsqrt_len2(sdx, sdy, sdz)
+        cos_next = (h["nx"] * sdx + h["ny"] * sdy + h["nz"] * sdz) * sinv
+        pdf_next = torch.where(diffuse & continues,
+                               torch.clamp_min(cos_next, 0.0) * INV_PI, -1.0)
+        prev_pdf = torch.where(continues, pdf_next, prev_pdf)
     return RayState(
         torch.where(continues, h["px"], s.ox),
         torch.where(continues, h["py"], s.oy),
@@ -195,7 +309,37 @@ def bounce(tables: FusedSpheres, s: RayState, depth_idx: int, t_min: float,
         torch.where(continues, sdx, s.dx),
         torch.where(continues, sdy, s.dy),
         torch.where(continues, sdz, s.dz),
-        tx, ty, tz, rx, ry, rz, continues, s.keys)
+        tx, ty, tz, rx, ry, rz, continues, prev_pdf, s.keys)
+
+
+def bounce(tables: FusedSpheres, s: RayState, depth_idx: int, t_min: float,
+           rr_start: int = 0, interpret: bool = False,
+           light_idx: torch.Tensor | None = None) -> RayState:
+    """One bounce of every ray in a sphere scene: hit, scatter, accumulate,
+    continue. light_idx (the scene's emissive sphere ids) turns NEE on."""
+    h = fused_hit(tables, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive,
+                  t_min, interpret=interpret)
+    emit_w, nee_fn = 1.0, None
+    if light_idx is not None:
+        n_lights = light_idx.shape[0]
+        emit_w = _emit_weight_flat(h, s.ox, s.oy, s.oz, s.prev_pdf, n_lights)
+        nee_fn = lambda diffuse, uni: _nee_flat(
+            tables, light_idx, h["px"], h["py"], h["pz"], h["nx"], h["ny"],
+            h["nz"], h["ax"], h["ay"], h["az"], s.tx, s.ty, s.tz, diffuse,
+            uni, t_min, interpret)
+    return _shade(s, h, depth_idx, rr_start, emit_w, nee_fn)
+
+
+def _forward_only(tensors, what: str) -> None:
+    if any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{what} is forward-only: the kernels detach every hit quantity, "
+            "so gradients would be silently zero (the gradient integrator "
+            "is ROADMAP Queue A item 7)")
+
+
+def _scene_tensors(obj) -> list:
+    return [getattr(obj, f) for f in obj.__dataclass_fields__]
 
 
 @torch.no_grad()
@@ -215,19 +359,238 @@ def trace_flat(
     device. Forward only: raises if any scene or ray tensor requires grad."""
     if not isinstance(scene, SphereScene):
         raise TypeError("trace_flat handles SphereScene only")
-    if nee:
-        raise NotImplementedError(
-            "nee=True is not ported yet: ROADMAP Queue A item 4 (kernel A2)")
-    tensors = [getattr(scene, f) for f in scene.__dataclass_fields__]
-    if any(t.requires_grad for t in (*tensors, origins, directions)):
-        raise ValueError(
-            "trace_flat is forward-only: the fused kernel detaches every hit "
-            "quantity, so gradients would be silently zero (the gradient "
-            "integrator is ROADMAP Queue A item 7)")
+    _forward_only([*_scene_tensors(scene), origins, directions], "trace_flat")
     tables = prep_fused_spheres(scene)
+    lights = scene.light_idx if nee and scene.num_lights > 0 else None
     state = initial_state(origins, directions, sample_keys)
     for depth_idx in range(max_depth):
         state = bounce(tables, state, depth_idx, float(t_min), int(rr_start),
-                       interpret)
+                       interpret, lights)
+    n = origins.shape[0]
+    return torch.stack([state.rx, state.ry, state.rz], dim=-1)[:n]
+
+
+# ------------------------------------------------------------ mesh worlds
+class WorldTables(NamedTuple):
+    """Kernel-layout world data, built once per trace."""
+
+    spheres: FusedSpheres
+    mesh: MeshClusters
+    faces: torch.Tensor    # [F,16] face_param_table
+    lights: WorldLights
+    num_spheres: int
+
+
+def prep_world(world: World) -> WorldTables:
+    return WorldTables(prep_fused_spheres(world.spheres),
+                       prep_mesh_clusters(world.mesh),
+                       face_param_table(world.mesh).contiguous(),
+                       world_lights(world), world.spheres.num_spheres)
+
+
+def _world_hit_flat(wt: WorldTables, ox, oy, oz, dx, dy, dz, alive, t_min,
+                    interpret):
+    """Merged sphere + mesh closest hit on flat components (forward only):
+    the sphere hit from A1, the mesh hit capped by A1's refined t, merged
+    on a strict '<' into one id space (prim = num_spheres + triangle id),
+    with the winning face's row of face_param_table."""
+    ns = wt.num_spheres
+    h = fused_hit(wt.spheres, ox, oy, oz, dx, dy, dz, alive, t_min,
+                  interpret=interpret)
+    t_m, idx_m = mesh_search(wt.mesh, ox, oy, oz, dx, dy, dz, t_min,
+                             alive=alive, t_cap=h["t"], interpret=interpret)
+    mesh_hit = t_m < BIG
+    closer = mesh_hit & ((h["t"] >= BIG) | (t_m < h["t"]))
+
+    t = torch.where(closer, t_m, h["t"])
+    t_safe = torch.where(t < BIG, t, 1.0)
+    fp = wt.faces[idx_m.long()]                          # [N,16] gather
+    gnx, gny, gnz = fp[:, 0], fp[:, 1], fp[:, 2]
+    ff_m = dx * gnx + dy * gny + dz * gnz < 0.0
+    sgn_m = torch.where(ff_m, 1.0, -1.0)
+
+    w = lambda m_val, s_val: torch.where(closer, m_val, s_val)
+    return {
+        "t": t,
+        "prim": torch.where(closer, ns + idx_m,
+                            torch.where(h["t"] < BIG, h["idx"], 0)),
+        "mat": w(fp[:, 9].to(torch.int32), h["mat"]),
+        "ff": w(ff_m.to(torch.int32), h["ff"]),
+        "px": w(ox + t_safe * dx, h["px"]),
+        "py": w(oy + t_safe * dy, h["py"]),
+        "pz": w(oz + t_safe * dz, h["pz"]),
+        "nx": w(sgn_m * gnx, h["nx"]),
+        "ny": w(sgn_m * gny, h["ny"]),
+        "nz": w(sgn_m * gnz, h["nz"]),
+        "ax": w(fp[:, 4], h["ax"]), "ay": w(fp[:, 5], h["ay"]),
+        "az": w(fp[:, 6], h["az"]),
+        "fuzz": w(fp[:, 7], h["fuzz"]), "ior": w(fp[:, 8], h["ior"]),
+        "ex": w(fp[:, 10], h["ex"]), "ey": w(fp[:, 11], h["ey"]),
+        "ez": w(fp[:, 12], h["ez"]),
+        "rw": w(torch.zeros_like(t), h["rw"]),
+        "area": torch.where(closer, fp[:, 3], 0.0),
+    }
+
+
+def _tri_pdf_flat(wx, wy, wz, d2, nx, ny, nz, area):
+    """Area-to-solid-angle pdf of a triangle light on flat components."""
+    cos_l = torch.abs(nx * wx + ny * wy + nz * wz)
+    ok = (d2 > 1e-12) & (cos_l > 1e-7) & (area > 1e-20)
+    den = torch.where(ok, torch.clamp_min(cos_l * area, 1e-30), 1.0)
+    pdf = torch.where(ok, d2 / den, 0.0)
+    return pdf, ok
+
+
+def _nee_shadow_rays_world(lights: WorldLights, px, py, pz, nx, ny, nz,
+                           diffuse, uni):
+    """The NEE light sample of _nee_flat_world: one light picked uniformly
+    from the world table, a cone sample (sphere) or a uniform-area sample
+    (triangle). Returns (ldx, ldy, ldz, cand, pdf_j, cos_surf, row,
+    exp_prim), where cand marks the lanes that cast a shadow ray."""
+    u4, u5, u6 = uni[:, 4], uni[:, 5], uni[:, 6]
+    n_lights = lights.n_total
+    pick = torch.clamp((u4 * n_lights).to(torch.int32), 0,
+                       n_lights - 1).long()
+    row = lights.table[pick]                               # [N,16]
+    exp_prim = lights.expected_prim[pick]
+    is_tri = pick >= lights.n_sphere
+
+    # Sphere light: cone sample.
+    dsx, dsy, dsz, pdf_s, ok_s = _cone_sample(
+        row[:, 0], row[:, 1], row[:, 2], row[:, 3], px, py, pz, u5, u6)
+
+    # Triangle light: uniform-area sample.
+    v0x_, v0y_, v0z_ = row[:, 0], row[:, 1], row[:, 2]
+    e1x_, e1y_, e1z_ = row[:, 3], row[:, 4], row[:, 5]
+    e2x_, e2y_, e2z_ = row[:, 6], row[:, 7], row[:, 8]
+    flip = u5 + u6 > 1.0
+    bu = torch.where(flip, 1.0 - u5, u5)
+    bv = torch.where(flip, 1.0 - u6, u6)
+    plx = v0x_ + bu * e1x_ + bv * e2x_
+    ply = v0y_ + bu * e1y_ + bv * e2y_
+    plz = v0z_ + bu * e1z_ + bv * e2z_
+    wvx, wvy, wvz = plx - px, ply - py, plz - pz
+    d2 = wvx * wvx + wvy * wvy + wvz * wvz
+    _, winv_t = _safe_rsqrt_len2(wvx, wvy, wvz)
+    dtx, dty, dtz = wvx * winv_t, wvy * winv_t, wvz * winv_t
+    crx = e1y_ * e2z_ - e1z_ * e2y_
+    cry = e1z_ * e2x_ - e1x_ * e2z_
+    crz = e1x_ * e2y_ - e1y_ * e2x_
+    two_area = safe_sqrt(crx * crx + cry * cry + crz * crz)
+    area = 0.5 * two_area
+    has_area = two_area > 1e-20
+    inv2a = torch.where(has_area, torch.reciprocal(
+        torch.where(has_area, two_area, 1.0)), 0.0)
+    pdf_t, ok_t = _tri_pdf_flat(dtx, dty, dtz, d2, crx * inv2a, cry * inv2a,
+                                crz * inv2a, area)
+
+    ldx = torch.where(is_tri, dtx, dsx)
+    ldy = torch.where(is_tri, dty, dsy)
+    ldz = torch.where(is_tri, dtz, dsz)
+    pdf_j = torch.where(is_tri, pdf_t, pdf_s)
+    valid = torch.where(is_tri, ok_t, ok_s)
+    cos_surf = nx * ldx + ny * ldy + nz * ldz
+    cand = diffuse & valid & (cos_surf > 0.0)
+    return ldx, ldy, ldz, cand, pdf_j, cos_surf, row, exp_prim
+
+
+def _nee_flat_world(wt: WorldTables, px, py, pz, nx, ny, nz, ax, ay, az,
+                    tx, ty, tz, diffuse, uni, t_min, interpret):
+    """integrator._nee_mis on flat components: one-sample MIS over the
+    unified sphere + triangle light table. The shadow ray's closest world
+    hit (A2, then the mesh search capped by A2's unrefined t, merged as in
+    _world_hit_flat) must be exactly the chosen light."""
+    (ldx, ldy, ldz, cand, pdf_j, cos_surf, row,
+     exp_prim) = _nee_shadow_rays_world(wt.lights, px, py, pz, nx, ny, nz,
+                                        diffuse, uni)
+    sh = fused_hit(wt.spheres, px, py, pz, ldx, ldy, ldz, cand, t_min,
+                   shadow_only=True, interpret=interpret)
+    t_m, idx_m = mesh_search(wt.mesh, px, py, pz, ldx, ldy, ldz, t_min,
+                             alive=cand, t_cap=sh["t"], interpret=interpret)
+    mesh_w = (t_m < BIG) & ((sh["t"] >= BIG) | (t_m < sh["t"]))
+    has_win = mesh_w | (sh["t"] < BIG)
+    win_prim = torch.where(mesh_w, wt.num_spheres + idx_m, sh["idx"])
+    lit = cand & has_win & (win_prim == exp_prim)
+    return _mis_contrib(cand, lit, pdf_j, wt.lights.n_total, cos_surf,
+                        tx, ty, tz, ax, ay, az, row[:, 9], row[:, 10],
+                        row[:, 11])
+
+
+def _emit_weight_flat_world(h, ox, oy, oz, num_spheres, n_lights, prev_pdf):
+    """integrator._emitter_mis_weight on flat components (both families)."""
+    is_sphere = h["prim"] < num_spheres
+    sgn = torch.where(h["ff"] > 0, 1.0, -1.0)
+    lcx = h["px"] - h["rw"] * sgn * h["nx"]
+    lcy = h["py"] - h["rw"] * sgn * h["ny"]
+    lcz = h["pz"] - h["rw"] * sgn * h["nz"]
+    pdf_sph, _, _, _ = _sphere_pdf_flat(lcx, lcy, lcz, h["rw"], ox, oy, oz)
+
+    wvx, wvy, wvz = h["px"] - ox, h["py"] - oy, h["pz"] - oz
+    d2 = wvx * wvx + wvy * wvy + wvz * wvz
+    _, winv = _safe_rsqrt_len2(wvx, wvy, wvz)
+    pdf_tri, _ = _tri_pdf_flat(wvx * winv, wvy * winv, wvz * winv, d2,
+                               h["nx"], h["ny"], h["nz"], h["area"])
+    pdf_nee = torch.where(is_sphere, pdf_sph, pdf_tri) / n_lights
+    use = prev_pdf > 0.0
+    denom = torch.where(use, prev_pdf + pdf_nee, 1.0)
+    return torch.where(use, prev_pdf / denom, 1.0)
+
+
+def bounce_world(wt: WorldTables, s: RayState, depth_idx: int, t_min: float,
+                 nee: bool = False, rr_start: int = 0,
+                 interpret: bool = False) -> RayState:
+    """One bounce of every ray in a mesh world."""
+    h = _world_hit_flat(wt, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive,
+                        t_min, interpret)
+    emit_w, nee_fn = 1.0, None
+    if nee and wt.lights.n_total > 0:
+        emit_w = _emit_weight_flat_world(h, s.ox, s.oy, s.oz, wt.num_spheres,
+                                         wt.lights.n_total, s.prev_pdf)
+        nee_fn = lambda diffuse, uni: _nee_flat_world(
+            wt, h["px"], h["py"], h["pz"], h["nx"], h["ny"], h["nz"],
+            h["ax"], h["ay"], h["az"], s.tx, s.ty, s.tz, diffuse, uni,
+            t_min, interpret)
+    return _shade(s, h, depth_idx, rr_start, emit_w, nee_fn)
+
+
+@torch.no_grad()
+def trace_flat_world(
+    world: World,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    sample_keys: torch.Tensor,
+    max_depth: int,
+    t_min: float = 1.0e-3,
+    nee: bool = False,
+    rr_start: int = 0,
+    interpret: bool = False,
+    compact: bool = False,
+    mesh_kernel: str = "clustered",
+) -> torch.Tensor:
+    """Radiance [N,3] of rays in a mesh world (spheres + triangles), on the
+    world's device; the same estimator and uniform slots as trace_flat.
+    Forward only: raises if any world or ray tensor requires grad.
+
+    compact=True (the per-bounce alive-compaction sort) and
+    mesh_kernel="pairs"/"hybrid" (the pair-wavefront mesh search) are not
+    ported yet and raise."""
+    if not isinstance(world, World) or world.mesh is None:
+        raise TypeError("trace_flat_world handles a World with a mesh")
+    if compact:
+        raise NotImplementedError(
+            "compact=True is not ported yet: ROADMAP.md Queue B lists it "
+            "under the A3/A4 variants")
+    if mesh_kernel != "clustered":
+        raise NotImplementedError(
+            f"mesh_kernel={mesh_kernel!r} is not ported yet: ROADMAP.md "
+            "Queue A item 12 (kernels A7, A8)")
+    _forward_only([*_scene_tensors(world.spheres),
+                   *_scene_tensors(world.mesh), origins, directions],
+                  "trace_flat_world")
+    wt = prep_world(world)
+    state = initial_state(origins, directions, sample_keys)
+    for depth_idx in range(max_depth):
+        state = bounce_world(wt, state, depth_idx, float(t_min), bool(nee),
+                             int(rr_start), interpret)
     n = origins.shape[0]
     return torch.stack([state.rx, state.ry, state.rz], dim=-1)[:n]

@@ -1,10 +1,11 @@
 """Top-level render API (counterpart of ``qt_raytracer_tpu.core.render``):
 ``render(scene, camera, config, seed) -> image``.
 
-The render runs on the device of the scene's tensors; the camera must live
-there too. Pixel conventions match the reference (RayTracerFboItem.cpp:
-102-127): row 0 is the top of the image, v uses j = height-1-row,
-u = (i + jitter)/(width-1), v = (j + jitter)/(height-1). The JAX package's
+The render runs on the device of the scene's tensors (a SphereScene or a
+World); the camera must live there too. Pixel conventions match the
+reference (RayTracerFboItem.cpp:102-127): row 0 is the top of the image,
+v uses j = height-1-row, u = (i + jitter)/(width-1),
+v = (j + jitter)/(height-1). The JAX package's
 ``lax.map`` over pixel chunks and ``lax.scan`` over sample batches are Python
 loops here, with the same padding rule and summation order.
 """
@@ -16,7 +17,8 @@ import torch
 from . import camera as cam_mod
 from . import sampling, tonemap
 from .config import RenderConfig, require_ported
-from .integrator_flat import trace_flat
+from .integrator_flat import trace_flat, trace_flat_world
+from .world import World
 
 # Auto-chunk constants, as in the JAX package: chunks are multiples of the
 # 1024-ray kernel tile, ~414,720 rays (5 chunks at 1080p), and images under
@@ -42,11 +44,19 @@ def resolve_pixel_chunk(cfg: RenderConfig) -> int:
 
 
 def _trace_dispatch(scene, origins, directions, samp_keys, cfg: RenderConfig):
-    # "auto" and "fused" launch the kernel on CUDA tensors and take its plain
-    # version on CPU tensors; "fused_interpret" takes the plain version.
+    """A World with a mesh goes to trace_flat_world; a World without one
+    and a SphereScene go to trace_flat on their spheres. "auto" and "fused"
+    launch the kernels on CUDA tensors and take their plain versions on CPU
+    tensors; "fused_interpret" takes the plain versions."""
+    kw = dict(nee=cfg.nee, rr_start=cfg.rr_start,
+              interpret=cfg.intersector == "fused_interpret")
+    if isinstance(scene, World):
+        if scene.mesh is not None:
+            return trace_flat_world(scene, origins, directions, samp_keys,
+                                    cfg.max_depth, cfg.t_min, **kw)
+        scene = scene.spheres
     return trace_flat(scene, origins, directions, samp_keys, cfg.max_depth,
-                      cfg.t_min, nee=cfg.nee, rr_start=cfg.rr_start,
-                      interpret=cfg.intersector == "fused_interpret")
+                      cfg.t_min, **kw)
 
 
 def pixel_grid(cfg: RenderConfig, device=None):

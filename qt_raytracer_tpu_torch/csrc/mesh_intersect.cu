@@ -1,0 +1,301 @@
+// Clustered triangle-mesh search for Hopper (sm_90a): kernels A3 and A4.
+//
+// A3, qtrt_mesh_search, replaces
+// qt_raytracer_tpu/kernels/mesh_intersect.py::_mesh_kernel in its default
+// configuration (mt="vpu", visit="full", no exclude operand): per ray, the
+// closest triangle hit strictly below a per-lane cap, with ties going to the
+// lowest BVH-order triangle id. A4, qtrt_mesh_first_cluster, replaces
+// _c1_kernel with pair=False: per ray, the lowest id of a cluster whose
+// slacked, capped slab test passes (k when none), which keys the wavefront
+// sort that runs before A3. The plain PyTorch versions are
+// mesh_search_plain and first_crossed_cluster_plain in
+// qt_raytracer_tpu_torch/kernels/mesh_intersect.py.
+//
+// Layout (prep_mesh_clusters): triangles are BVH-ordered and packed into k
+// clusters of g consecutive triangles (g = 512 for multi-cluster meshes),
+// padded with degenerate triangles; tris is [9, p_stride] f32 (v0, e1, e2,
+// one component per row); boxes is [6, k_stride] f32 (lo xyz, hi xyz), the
+// epsilon-padded cluster AABBs.
+//
+// What bounds it on the H100. Moller-Trumbore is some 40 single-rounded
+// FP32 operations and 9 loads per ray-triangle pair. A ray visits the
+// clusters whose box its ray segment enters before its running hit; a warp
+// runs the union of its 32 lanes' visits, 512 triangles each. On the 1080p
+// terrain (99,458 triangles, 195 clusters) that is estimated at some 10
+// clusters, 5,000 pairs and 2e5 instructions per ray, so instruction issue
+// should bound it, as it bounds A1 (the visits are not counted). The 3.6 MB
+// of triangle planes stay in the 50 MB L2, and the lanes of a warp that
+// visit a cluster read the same triangle at once (one broadcast transaction
+// per load), so memory should not bound it. Measured on an H100 80GB HBM3
+// at 700 W: 8.0 ms for the 414,720 primary rays of the terrain frame's
+// middle chunk, 13.5 ms for its sorted bounce-2 wavefront (23.9 ms
+// unsorted), some 83% of that frame's device time.
+//
+// What the design does about it. One thread per ray keeps its running
+// (t_best, idx) in registers. Each block stages the cluster boxes in shared
+// memory (TILE_K boxes at a time, so any k fits) and each lane gates every
+// cluster on its own running cap: it skips a cluster whose slab entry lies
+// beyond t_best * 1.0001 + 1e-4 (clamped below 1e37), the TPU kernel's
+// gate (mesh_intersect.py:568-602) taken per lane instead of per 128-ray
+// group with a cap that lags one 32-cluster block. The slack and the
+// epsilon-padded boxes keep the gate conservative: a triangle that the ray
+// hits lies inside its cluster's box by the padding on every axis, so the
+// gate never drops a winner, and the result is the ungated sweep's. The
+// cost that remains is the union of the lanes' visits in a warp: the
+// crossing-key sort before A3 (its key from A4) groups rays by their first
+// crossed cluster so that neighbouring lanes visit the same clusters. No
+// tensor-core form applies: the accept test needs compares and a divide per
+// pair. Triangles are not staged in shared memory yet; tiling, occupancy
+// and staging are untuned.
+//
+// Numerics. Every add, multiply and divide is rounded on its own
+// (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn; no FMA contraction), with
+// the expression tree of the TPU kernel's visit_vpu (mesh_intersect.py:
+// 360-410): cross products as a1*b2 - a2*b1, dot products left to right. So
+// the kernel rounds as the plain PyTorch version does, op by op. In
+// ascending triangle order, the strict '<' update of the running minimum
+// is the TPU's per-row min-then-match followed by its strict 'better'. A
+// dead lane gets t = BIG and idx = 0 (the TPU leaves dead lanes unspecified;
+// every caller masks them).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float BIG = 3.0e38f;
+constexpr int BLOCK = 128;   // rays per block, one per thread
+constexpr int TILE_K = 256;  // cluster boxes per shared-memory tile (6 KB)
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+// Slab reciprocal of one direction component, as the TPU kernels take it:
+// 1 / (|d| < 1e-30 ? (d < 0 ? -1e-30 : 1e-30) : d). d = -0.0 takes +1e-30.
+__device__ __forceinline__ float slab_inv(float d) {
+  const float c = fabsf(d) < 1e-30f ? (d < 0.f ? -1e-30f : 1e-30f) : d;
+  return __fdiv_rn(1.f, c);
+}
+
+// The slacked gate cap: min(t * 1.0001 + 1e-4, 1e37).
+__device__ __forceinline__ float gate_cap(float t) {
+  return fminf(add(mul(t, 1.0001f), 1e-4f), 1e37f);
+}
+
+struct Ray {
+  float o[3], inv[3];
+};
+
+// Slab test of box j of the shared tile: true when exit > enter, with
+// enter = max(t_min, min(t0, t1) over the axes) and
+// exit = min(BIG, max(t0, t1) over the axes), in the TPU's axis order.
+__device__ __forceinline__ bool slab(float (*box)[TILE_K], int j,
+                                     const Ray& r, float t_min,
+                                     float& enter) {
+  float en = t_min, ex = BIG;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t0 = mul(sub(box[a][j], r.o[a]), r.inv[a]);
+    const float t1 = mul(sub(box[3 + a][j], r.o[a]), r.inv[a]);
+    en = fmaxf(en, fminf(t0, t1));
+    ex = fminf(ex, fmaxf(t0, t1));
+  }
+  enter = en;
+  return ex > en;
+}
+
+// Stage boxes [base, base + m) into the shared tile.
+__device__ __forceinline__ void stage_boxes(float (*tile)[TILE_K],
+                                            const float* __restrict__ boxes,
+                                            int k_stride, int base, int m) {
+  for (int j = threadIdx.x; j < m; j += BLOCK) {
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+      tile[r][j] = boxes[static_cast<size_t>(r) * k_stride + base + j];
+  }
+}
+
+__device__ __forceinline__ Ray load_ray(int i, const float* __restrict__ ox,
+                                        const float* __restrict__ oy,
+                                        const float* __restrict__ oz,
+                                        const float* __restrict__ dx,
+                                        const float* __restrict__ dy,
+                                        const float* __restrict__ dz,
+                                        float d[3]) {
+  Ray r;
+  r.o[0] = ox[i]; r.o[1] = oy[i]; r.o[2] = oz[i];
+  d[0] = dx[i]; d[1] = dy[i]; d[2] = dz[i];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) r.inv[a] = slab_inv(d[a]);
+  return r;
+}
+
+__global__ void __launch_bounds__(BLOCK) first_cluster_kernel(
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const bool* __restrict__ alive, const float* __restrict__ t_cap,
+    const float* __restrict__ boxes, int k, int k_stride, float t_min, int n,
+    int* __restrict__ out) {
+  __shared__ float tile[6][TILE_K];
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const bool live = i < n && alive[i];
+  const bool block_live = __syncthreads_or(live);
+
+  Ray r = {};
+  float d[3] = {0.f, 0.f, 1.f};
+  float cap = 0.f;
+  if (live) {
+    r = load_ray(i, ox, oy, oz, dx, dy, dz, d);
+    cap = gate_cap(t_cap[i]);
+  }
+  int c1 = k;
+  if (block_live) {
+    for (int base = 0; base < k; base += TILE_K) {
+      const int m = min(TILE_K, k - base);
+      __syncthreads();
+      stage_boxes(tile, boxes, k_stride, base, m);
+      __syncthreads();
+      if (!live || c1 < k) continue;
+      for (int j = 0; j < m; ++j) {
+        float enter;
+        if (slab(tile, j, r, t_min, enter) && enter <= cap) {
+          c1 = base + j;
+          break;
+        }
+      }
+    }
+  }
+  if (i < n) out[i] = c1;
+}
+
+__global__ void __launch_bounds__(BLOCK) mesh_search_kernel(
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const bool* __restrict__ alive, const float* __restrict__ t_cap,
+    const float* __restrict__ tris, int p_stride,
+    const float* __restrict__ boxes, int k, int k_stride, int g, float t_min,
+    int n, float* __restrict__ t_out, int* __restrict__ idx_out) {
+  __shared__ float tile[6][TILE_K];
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const bool live = i < n && alive[i];
+  const bool block_live = __syncthreads_or(live);
+
+  Ray r = {};
+  float d[3] = {0.f, 0.f, 1.f};
+  float cap0 = BIG;
+  if (live) {
+    r = load_ray(i, ox, oy, oz, dx, dy, dz, d);
+    cap0 = t_cap[i];
+  }
+  float t_best = cap0;
+  int best = 0;
+
+  const float* v0x = tris;
+  const float* v0y = tris + static_cast<size_t>(p_stride);
+  const float* v0z = tris + 2 * static_cast<size_t>(p_stride);
+  const float* e1x = tris + 3 * static_cast<size_t>(p_stride);
+  const float* e1y = tris + 4 * static_cast<size_t>(p_stride);
+  const float* e1z = tris + 5 * static_cast<size_t>(p_stride);
+  const float* e2x = tris + 6 * static_cast<size_t>(p_stride);
+  const float* e2y = tris + 7 * static_cast<size_t>(p_stride);
+  const float* e2z = tris + 8 * static_cast<size_t>(p_stride);
+
+  if (block_live) {
+    for (int base = 0; base < k; base += TILE_K) {
+      const int m = min(TILE_K, k - base);
+      __syncthreads();
+      stage_boxes(tile, boxes, k_stride, base, m);
+      __syncthreads();
+      if (!live) continue;
+      for (int j = 0; j < m; ++j) {
+        float enter;
+        if (!slab(tile, j, r, t_min, enter) || !(enter <= gate_cap(t_best)))
+          continue;
+        const int lo = (base + j) * g;
+        for (int p = lo; p < lo + g; ++p) {
+          const float v0[3] = {__ldg(v0x + p), __ldg(v0y + p), __ldg(v0z + p)};
+          const float e1[3] = {__ldg(e1x + p), __ldg(e1y + p), __ldg(e1z + p)};
+          const float e2[3] = {__ldg(e2x + p), __ldg(e2y + p), __ldg(e2z + p)};
+          // pv = d x e2, det = pv . e1
+          const float pv0 = sub(mul(d[1], e2[2]), mul(d[2], e2[1]));
+          const float pv1 = sub(mul(d[2], e2[0]), mul(d[0], e2[2]));
+          const float pv2 = sub(mul(d[0], e2[1]), mul(d[1], e2[0]));
+          const float det = add(add(mul(pv0, e1[0]), mul(pv1, e1[1])),
+                                mul(pv2, e1[2]));
+          if (!(fabsf(det) > 1e-12f)) continue;
+          const float inv_det = __fdiv_rn(1.f, det);
+          const float s0 = sub(r.o[0], v0[0]);
+          const float s1 = sub(r.o[1], v0[1]);
+          const float s2 = sub(r.o[2], v0[2]);
+          const float u = mul(add(add(mul(s0, pv0), mul(s1, pv1)),
+                                  mul(s2, pv2)), inv_det);
+          // qv = s x e1
+          const float qv0 = sub(mul(s1, e1[2]), mul(s2, e1[1]));
+          const float qv1 = sub(mul(s2, e1[0]), mul(s0, e1[2]));
+          const float qv2 = sub(mul(s0, e1[1]), mul(s1, e1[0]));
+          const float v = mul(add(add(mul(qv0, d[0]), mul(qv1, d[1])),
+                                  mul(qv2, d[2])), inv_det);
+          const float t = mul(add(add(mul(qv0, e2[0]), mul(qv1, e2[1])),
+                                  mul(qv2, e2[2])), inv_det);
+          if (u >= 0.f && v >= 0.f && add(u, v) <= 1.f && t >= t_min &&
+              t < t_best) {
+            t_best = t;
+            best = p;
+          }
+        }
+      }
+    }
+  }
+  if (i >= n) return;
+  // A mesh hit counts only when some triangle beat the lane's cap.
+  const bool won = live && t_best < cap0;
+  t_out[i] = won ? t_best : BIG;
+  idx_out[i] = won ? best : 0;
+}
+
+}  // namespace
+
+// Kernel A4. Ray operands: [n] f32 components, [n] bool alive, [n] f32
+// t_cap (BIG for no cap); boxes: [6, k_stride] f32; out: [n] i32, the first
+// passing cluster id or k (dead lanes: k). Launches on `stream`; returns the
+// cudaError_t of the launch (0 = success).
+extern "C" int qtrt_mesh_first_cluster(const float* ox, const float* oy,
+                                       const float* oz, const float* dx,
+                                       const float* dy, const float* dz,
+                                       const bool* alive, const float* t_cap,
+                                       const float* boxes, int k,
+                                       int k_stride, float t_min, int n,
+                                       int* out, void* stream) {
+  if (n <= 0 || k <= 0 || k_stride < k)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = n / BLOCK + (n % BLOCK != 0);
+  first_cluster_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      ox, oy, oz, dx, dy, dz, alive, t_cap, boxes, k, k_stride, t_min, n,
+      out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel A3. Ray operands as for A4; tris: [9, p_stride] f32 with
+// p_stride >= k * g; boxes: [6, k_stride] f32; g: triangles per cluster.
+// t_out: [n] f32 (BIG where no triangle beat the cap, and on dead lanes);
+// idx_out: [n] i32 (the winner's BVH-order id, else 0). Launches on
+// `stream`; returns the cudaError_t of the launch (0 = success).
+extern "C" int qtrt_mesh_search(const float* ox, const float* oy,
+                                const float* oz, const float* dx,
+                                const float* dy, const float* dz,
+                                const bool* alive, const float* t_cap,
+                                const float* tris, int p_stride,
+                                const float* boxes, int k, int k_stride,
+                                int g, float t_min, int n, float* t_out,
+                                int* idx_out, void* stream) {
+  if (n <= 0 || k <= 0 || g <= 0 || k_stride < k ||
+      static_cast<long long>(k) * g > p_stride)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = n / BLOCK + (n % BLOCK != 0);
+  mesh_search_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      ox, oy, oz, dx, dy, dz, alive, t_cap, tris, p_stride, boxes, k,
+      k_stride, g, t_min, n, t_out, idx_out);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,9 +1,12 @@
 """Fused closest-hit query: the CUDA kernel's wrapper and its plain version.
 
-Counterpart of ``qt_raytracer_tpu.kernels.fused_hit`` (full mode). Per ray:
-the closest sphere hit (the lowest sphere id wins a tie), the winner's 13
-material parameters, t refined with the stable root, the hit point, the
-front-face flag and the signed normal, as 19 flat [N] outputs.
+Counterpart of ``qt_raytracer_tpu.kernels.fused_hit``. Full mode (kernel
+A1), per ray: the closest sphere hit (the lowest sphere id wins a tie), the
+winner's 13 material parameters, t refined with the stable root, the hit
+point, the front-face flag and the signed normal, as 19 flat [N] outputs.
+Shadow mode (``shadow_only=True``, kernel A2): only ``t``, the unrefined
+sweep minimum, and ``idx``, the lowest winning id (0 on a miss); next-event
+estimation tests occlusion with it and caps the mesh search by that t.
 
 ``fused_hit`` launches ``csrc/fused_hit.cu`` for CUDA tensors and takes
 ``fused_hit_plain`` only for CPU tensors, or when asked for it with
@@ -46,9 +49,11 @@ FLOAT_DEFAULTS = (BIG, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0,
                   0.0, 0.0, 0.0, 0.0)
 INT_DEFAULTS = (0, 0, 0)
 
-# Kernel launches by fused_hit; a run resets it to 0 and reads it back to
-# show that its path went through the kernel.
+# Kernel launches by fused_hit, full mode (A1) and shadow mode (A2); a run
+# resets them to 0 and reads them back to show that its path went through
+# the kernels.
 launches = 0
+shadow_launches = 0
 
 
 class FusedSpheres(NamedTuple):
@@ -72,11 +77,8 @@ def fused_hit(tables: FusedSpheres, ox, oy, oz, dx, dy, dz, alive,
               t_min: float, *, interpret: bool = False,
               shadow_only: bool = False, exclude=None) -> dict:
     """Fused hit query on flat [N] f32 ray components and an [N] bool alive
-    mask. Returns a dict of the 19 [N] outputs named in NAMES."""
-    if shadow_only:
-        raise NotImplementedError(
-            "shadow_only (kernel A2) is not ported yet: ROADMAP Queue A "
-            "item 4")
+    mask. Returns a dict of the 19 [N] outputs named in NAMES, or with
+    shadow_only=True of ``t`` and ``idx`` alone."""
     if exclude is not None:
         raise NotImplementedError(
             "the per-lane exclude operand is not ported yet: ROADMAP Queue A "
@@ -85,9 +87,12 @@ def fused_hit(tables: FusedSpheres, ox, oy, oz, dx, dy, dz, alive,
     _check(tables, rays, alive)
     dev = ox.device
     if interpret or dev.type == "cpu":
-        return fused_hit_plain(tables, *rays, alive, t_min)
+        return fused_hit_plain(tables, *rays, alive, t_min,
+                               shadow_only=shadow_only)
     if dev.type != "cuda":
         raise ValueError(f"fused_hit runs on cpu or cuda tensors, got {dev}")
+    if shadow_only:
+        return _launch_shadow(tables, rays, alive, float(t_min))
     return _launch(tables, rays, alive, float(t_min))
 
 
@@ -139,6 +144,28 @@ def _launch(tables: FusedSpheres, rays, alive, t_min: float) -> dict:
     return _as_dict(fout, iout)
 
 
+def _launch_shadow(tables: FusedSpheres, rays, alive, t_min: float) -> dict:
+    global shadow_launches
+    lib = cuda_build.load_library()
+    dev = rays[0].device
+    n = rays[0].shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    if tables.spheres.data_ptr() % 16:
+        raise ValueError("kernel operands must be 16-byte aligned")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.qtrt_fused_hit_shadow(
+            *(x.data_ptr() for x in rays), alive.data_ptr(),
+            tables.spheres.data_ptr(), tables.spheres.shape[0], t_min, n,
+            t.data_ptr(), idx.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_hit shadow kernel launch failed: cudaError_t {err}")
+    shadow_launches += 1
+    return {"t": t, "idx": idx}
+
+
 def _as_dict(fout: torch.Tensor, iout: torch.Tensor) -> dict:
     out = dict(zip(FLOAT_NAMES, fout))
     out.update(zip(INT_NAMES, iout))
@@ -146,15 +173,26 @@ def _as_dict(fout: torch.Tensor, iout: torch.Tensor) -> dict:
 
 
 def fused_hit_plain(tables: FusedSpheres, ox, oy, oz, dx, dy, dz, alive,
-                    t_min: float, slice_rays: int = PLAIN_SLICE) -> dict:
+                    t_min: float, slice_rays: int = PLAIN_SLICE,
+                    shadow_only: bool = False) -> dict:
     """Plain PyTorch version of the kernel, in [slice_rays, S] blocks.
 
     Same formulas and association order as the kernel and as the TPU
     kernel: the expanded-form sweep, min-then-match for the lowest winning
-    id, the oc-form refinement.
+    id, the oc-form refinement (full mode only).
     """
     n = ox.shape[0]
     dev = ox.device
+    if shadow_only:
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        idx = torch.empty(n, dtype=torch.int32, device=dev)
+        for lo in range(0, n, slice_rays):
+            sl = slice(lo, min(n, lo + slice_rays))
+            rays = (ox[sl], oy[sl], oz[sl], dx[sl], dy[sl], dz[sl])
+            t_best, best, _ = _sweep(tables, *rays, float(t_min))
+            t[sl] = torch.where(alive[sl], t_best, BIG)
+            idx[sl] = torch.where(alive[sl], best, 0)
+        return {"t": t, "idx": idx}
     fout = torch.empty((len(FLOAT_NAMES), n), dtype=torch.float32, device=dev)
     iout = torch.empty((len(INT_NAMES), n), dtype=torch.int32, device=dev)
     for lo in range(0, n, slice_rays):
@@ -166,7 +204,8 @@ def fused_hit_plain(tables: FusedSpheres, ox, oy, oz, dx, dy, dz, alive,
     return _as_dict(fout, iout)
 
 
-def _plain_block(tables, ox, oy, oz, dx, dy, dz, alive, t_min):
+def _sweep(tables, ox, oy, oz, dx, dy, dz, t_min):
+    """Closest-hit sweep of one block: (t_best, lowest winning id, |d|^2)."""
     c_x, c_y, c_z, c2 = tables.spheres.unbind(1)                # [S]
     s = c_x.shape[0]
     o_x, o_y, o_z = ox[:, None], oy[:, None], oz[:, None]       # [m, 1]
@@ -195,11 +234,15 @@ def _plain_block(tables, ox, oy, oz, dx, dy, dz, alive, t_min):
     # Lowest matching id; a lane with no hit matches every row (all BIG), so
     # it reads sphere 0, as in JAX.
     idx = torch.where(tcand == t_best[:, None], rows, s).amin(dim=1)
+    return t_best, idx, a[:, 0]
+
+
+def _plain_block(tables, ox, oy, oz, dx, dy, dz, alive, t_min):
+    t_best, idx, a = _sweep(tables, ox, oy, oz, dx, dy, dz, t_min)
 
     # --- winner parameters ---
     p = tables.params[idx.long()]                                # [m, 16]
     cw_x, cw_y, cw_z, r_w = p[:, 0], p[:, 1], p[:, 2], p[:, 3]
-    a = a[:, 0]
 
     # --- refinement: well-conditioned oc form, stable roots ---
     hit = t_best < BIG

@@ -1,0 +1,417 @@
+"""Clustered triangle-mesh closest hit: the CUDA kernels' wrappers, their
+plain versions, and the wavefront sort around them (counterpart of
+``qt_raytracer_tpu.kernels.mesh_intersect`` in its default configuration).
+
+Triangles are BVH-ordered (spatially coherent) and packed into clusters of
+``cluster_rows_for(P) * 128`` consecutive triangles, each behind an
+epsilon-padded AABB (``prep_mesh_clusters``). Two kernels, both in
+``csrc/mesh_intersect.cu``:
+
+  - A4, ``first_crossed_cluster``: per ray, the lowest id of a cluster whose
+    slacked, capped slab test passes (k when none). It keys the sort.
+  - A3, ``mesh_hits``: per ray, the closest triangle hit strictly below a
+    per-lane cap ``t_cap``, ties to the lowest triangle id; (BIG, 0) where
+    no triangle beats the cap, and on dead lanes.
+
+``mesh_search`` is the pipeline of ``mesh_search_pallas``: for n >= 2048
+rays and more than one cluster, a stable sort of the wavefront by the
+crossing key ``c1 * 2^18 + (octant << 15 | morton)`` (dead rays keyed
+``1 << 30`` sort last), A3 on the sorted rays, and the inverse permutation.
+Each lane's result does not depend on its neighbours, so the sort changes
+only how much work a warp shares, never a live lane's result.
+
+Each wrapper launches its kernel for CUDA tensors and takes its plain
+version only for CPU tensors or with ``interpret=True``; on a CUDA tensor it
+launches the kernel or raises. Only the defaults are ported (``mt="vpu"``,
+``visit="full"``, ``sort_mode="crossing"``, sorting at every bounce, no
+exclude operand); the others raise NotImplementedError naming ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..accel.mesh import TriangleMesh
+from ..runtime import cuda_build
+from .fused_hit import BIG
+
+LANE = 128
+CLUSTER_ROWS = 4          # 128-triangle rows per cluster (multi-cluster)
+SORT_MIN_RAYS = 2048      # the sort runs from this many rays on
+PLAIN_SLICE_RAYS = 2048   # rays per block of the plain versions
+PLAIN_SLICE_TRIS = 4096   # triangles per block of the plain A3
+PLAIN_SLICE_CLUSTERS = 256
+
+# Kernel launches, A3 (mesh_hits) and A4 (first_crossed_cluster); a run
+# resets them to 0 and reads them back to show its path went through them.
+launches = 0
+first_cluster_launches = 0
+
+_LATER = "is not ported yet: ROADMAP.md Queue B lists it under A3/A4 variants"
+
+
+def num_clusters(num_tris: int) -> int:
+    """Cluster count of a mesh of num_tris triangles."""
+    return max(-(-num_tris // (CLUSTER_ROWS * LANE)), 1)
+
+
+def cluster_rows_for(num_tris: int) -> int:
+    """128-triangle rows per cluster: CLUSTER_ROWS for multi-cluster
+    meshes; a single-cluster mesh shrinks to ceil(P / 128) rows so it does
+    not sweep rows of padding."""
+    if num_tris > CLUSTER_ROWS * LANE:
+        return CLUSTER_ROWS
+    return max(-(-num_tris // LANE), 1)
+
+
+class MeshClusters(NamedTuple):
+    """Kernel-layout mesh data, built once per trace."""
+
+    tri_planes: torch.Tensor  # [9, P_pad] f32: v0 xyz, e1 xyz, e2 xyz
+    box_planes: torch.Tensor  # [6, K_pad] f32: lo xyz, hi xyz (pad BIG/-BIG)
+    k: int                    # clusters
+    tris_per_cluster: int
+    num_tris: int
+    root_lo: torch.Tensor     # [3] f32 BVH root box (sort keys)
+    root_hi: torch.Tensor     # [3] f32
+
+
+def prep_mesh_clusters(mesh: TriangleMesh) -> MeshClusters:
+    """Padded triangle planes and epsilon-padded cluster boxes, with the
+    JAX package's operation order (bit for bit)."""
+    p = mesh.num_triangles
+    g = cluster_rows_for(p) * LANE
+    k = num_clusters(p)
+    p_pad = k * g
+    k_pad = max(-(-k // LANE) * LANE, LANE)
+
+    def pad_tri(x, fill):
+        return torch.nn.functional.pad(x, (0, 0, 0, p_pad - p), value=fill)
+
+    # Degenerate padding triangles: far away, zero edges -> det == 0 -> miss.
+    v0 = pad_tri(mesh.v0, 1.0e9)
+    e1 = pad_tri(mesh.e1, 0.0)
+    e2 = pad_tri(mesh.e2, 0.0)
+
+    va = v0.reshape(k, g, 3)
+    vb = (v0 + e1).reshape(k, g, 3)
+    vc = (v0 + e2).reshape(k, g, 3)
+    lo = torch.minimum(torch.minimum(va.amin(1), vb.amin(1)), vc.amin(1))
+    hi = torch.maximum(torch.maximum(va.amax(1), vb.amax(1)), vc.amax(1))
+    # Pad the boxes by a scale taken from the real vertices: coplanar
+    # axis-aligned clusters are zero-thickness, which the strict slab test
+    # never passes.
+    span = (mesh.v0.amax(0) - mesh.v0.amin(0)).amax()
+    eps = 1e-5 * torch.clamp_min(span, 1e-3)
+    lo = lo - eps
+    hi = hi + eps
+    lo_p = torch.nn.functional.pad(lo, (0, 0, 0, k_pad - k), value=BIG)
+    hi_p = torch.nn.functional.pad(hi, (0, 0, 0, k_pad - k), value=-BIG)
+    tri_planes = torch.cat([v0.T, e1.T, e2.T]).contiguous()
+    box_planes = torch.cat([lo_p.T, hi_p.T]).contiguous()
+    return MeshClusters(tri_planes, box_planes, k, g, p,
+                        mesh.bvh_min[0].clone(), mesh.bvh_max[0].clone())
+
+
+def _part1by2(x):
+    """Spread the low 10 bits of x to every 3rd bit (Morton interleave)."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def sort_keys(ox, oy, oz, dx, dy, dz, alive, lo, hi):
+    """[N] i32 wavefront coherence key: direction octant, then the origin's
+    Morton cell in the scene box lo/hi (the BVH root box); dead rays get
+    1 << 30 and sort last."""
+    ext = torch.clamp_min(hi - lo, 1e-6)
+    cell = [torch.clamp(((c - lo[a]) / ext[a] * 32.0).to(torch.int32), 0, 31)
+            for a, c in enumerate((ox, oy, oz))]
+    morton = (_part1by2(cell[0]) << 2) | (_part1by2(cell[1]) << 1) \
+        | _part1by2(cell[2])
+    octant = ((dx < 0).to(torch.int32) * 4 + (dy < 0).to(torch.int32) * 2
+              + (dz < 0).to(torch.int32))
+    key = (octant << 15) | morton
+    if alive is not None:
+        key = torch.where(alive, key, 1 << 30)
+    return key
+
+
+def _check(mc: MeshClusters, rays, alive, t_cap) -> None:
+    n = rays[0].shape[0]
+    dev = rays[0].device
+    for x in (*rays, t_cap):
+        if x.dtype != torch.float32 or x.dim() != 1 or x.shape[0] != n:
+            raise ValueError("ray components and t_cap must be [N] float32 "
+                             "tensors of one length")
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError("ray components and t_cap must be contiguous and "
+                             "on one device")
+    if (alive.dtype != torch.bool or alive.shape != (n,) or alive.device != dev
+            or not alive.is_contiguous()):
+        raise ValueError("alive must be a contiguous [N] bool tensor on the "
+                         "rays' device")
+    for x, rows in ((mc.tri_planes, 9), (mc.box_planes, 6)):
+        if (x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != rows
+                or not x.is_contiguous() or x.device != dev):
+            raise ValueError("mesh tables must come from prep_mesh_clusters "
+                             "on the rays' device")
+    if mc.box_planes.shape[1] < mc.k or \
+            mc.tri_planes.shape[1] < mc.k * mc.tris_per_cluster:
+        raise ValueError("mesh tables are smaller than their cluster count")
+    if n == 0 or n >= 2 ** 31:
+        raise ValueError(f"the mesh kernels take 0 < N < 2^31 rays, got {n}")
+
+
+def _defaults(ox, alive, t_cap):
+    if alive is None:
+        alive = torch.ones(ox.shape[0], dtype=torch.bool, device=ox.device)
+    if t_cap is None:
+        t_cap = torch.full_like(ox, BIG)
+    return alive, t_cap
+
+
+def _route(dev: torch.device, interpret: bool) -> bool:
+    """True for the kernel, False for the plain version."""
+    if interpret or dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"the mesh kernels run on cpu or cuda tensors, "
+                         f"got {dev}")
+    return True
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# --------------------------------------------------------------- A4
+def first_crossed_cluster(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
+                          t_min: float, alive=None, t_cap=None, *,
+                          interpret: bool = False,
+                          pair: bool = False) -> torch.Tensor:
+    """[N] i32: the lowest id of a cluster whose slab test passes with an
+    entry at most min(t_cap * 1.0001 + 1e-4, 1e37); k when none and on dead
+    lanes."""
+    global first_cluster_launches
+    if pair:
+        raise NotImplementedError(f"first_crossed_cluster(pair=True) {_LATER}")
+    rays = (ox, oy, oz, dx, dy, dz)
+    alive, t_cap = _defaults(ox, alive, t_cap)
+    _check(mc, rays, alive, t_cap)
+    dev = ox.device
+    if not _route(dev, interpret):
+        return first_crossed_cluster_plain(mc, *rays, t_min, alive, t_cap)
+    lib = cuda_build.load_library()
+    n = ox.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.qtrt_mesh_first_cluster(
+            *(x.data_ptr() for x in rays), alive.data_ptr(),
+            t_cap.data_ptr(), mc.box_planes.data_ptr(), mc.k,
+            mc.box_planes.shape[1], float(t_min), n, out.data_ptr(),
+            _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"mesh first-cluster kernel launch failed: "
+                           f"cudaError_t {err}")
+    first_cluster_launches += 1
+    return out
+
+
+def _slab_inv(d):
+    return torch.reciprocal(torch.where(
+        torch.abs(d) < 1e-30, torch.where(d < 0, -1e-30, 1e-30), d))
+
+
+def _slab(box_planes, lo_c, hi_c, o, inv, t_min):
+    """(enter, exit) of rays [m] against boxes [lo_c, hi_c): [m, c] each,
+    with the TPU kernels' axis order."""
+    enter = exit_ = None
+    for a in range(3):
+        t0 = (box_planes[a, lo_c:hi_c] - o[a][:, None]) * inv[a][:, None]
+        t1 = (box_planes[3 + a, lo_c:hi_c] - o[a][:, None]) * inv[a][:, None]
+        near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        enter = torch.clamp_min(near, t_min) if a == 0 \
+            else torch.maximum(enter, near)
+        exit_ = torch.clamp_max(far, BIG) if a == 0 \
+            else torch.minimum(exit_, far)
+    return enter, exit_
+
+
+def first_crossed_cluster_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
+                                t_min: float, alive, t_cap,
+                                slice_rays: int = PLAIN_SLICE_RAYS
+                                ) -> torch.Tensor:
+    """Plain PyTorch version of A4, in [slice_rays, clusters] blocks."""
+    n, k = ox.shape[0], mc.k
+    out = torch.full((n,), k, dtype=torch.int32, device=ox.device)
+    cap_all = torch.clamp_max(t_cap * 1.0001 + 1e-4, 1e37)
+    for lo in range(0, n, slice_rays):
+        sl = slice(lo, min(n, lo + slice_rays))
+        o = (ox[sl], oy[sl], oz[sl])
+        inv = tuple(_slab_inv(d) for d in (dx[sl], dy[sl], dz[sl]))
+        c1 = out[sl]
+        for c0 in range(0, k, PLAIN_SLICE_CLUSTERS):
+            c_hi = min(k, c0 + PLAIN_SLICE_CLUSTERS)
+            enter, exit_ = _slab(mc.box_planes, c0, c_hi, o, inv, float(t_min))
+            mask = (exit_ > enter) & (enter <= cap_all[sl][:, None]) \
+                & alive[sl][:, None]
+            cid = torch.arange(c0, c_hi, dtype=torch.int32, device=ox.device)
+            c1 = torch.minimum(c1, torch.where(mask, cid, k).amin(dim=1))
+        out[sl] = c1
+    return out
+
+
+# --------------------------------------------------------------- A3
+def mesh_hits(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
+              alive=None, t_cap=None, *, interpret: bool = False):
+    """Kernel A3 on the rays as given (no sort): (t [N] f32, idx [N] i32),
+    the closest triangle hit strictly below t_cap (default BIG), ties to
+    the lowest BVH-order id; (BIG, 0) where none beats the cap and on dead
+    lanes."""
+    global launches
+    rays = (ox, oy, oz, dx, dy, dz)
+    alive, t_cap = _defaults(ox, alive, t_cap)
+    _check(mc, rays, alive, t_cap)
+    dev = ox.device
+    if not _route(dev, interpret):
+        return mesh_search_plain(mc, *rays, t_min, alive, t_cap)
+    lib = cuda_build.load_library()
+    n = ox.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.qtrt_mesh_search(
+            *(x.data_ptr() for x in rays), alive.data_ptr(),
+            t_cap.data_ptr(), mc.tri_planes.data_ptr(),
+            mc.tri_planes.shape[1], mc.box_planes.data_ptr(), mc.k,
+            mc.box_planes.shape[1], mc.tris_per_cluster, float(t_min), n,
+            t.data_ptr(), idx.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"mesh search kernel launch failed: "
+                           f"cudaError_t {err}")
+    launches += 1
+    return t, idx
+
+
+def mesh_search_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
+                      t_min: float, alive, t_cap,
+                      slice_rays: int = PLAIN_SLICE_RAYS,
+                      slice_tris: int = PLAIN_SLICE_TRIS):
+    """Plain PyTorch version of A3: the ungated sweep over every triangle,
+    in [slice_rays, slice_tris] blocks of live rays. Within a block the
+    minimum t, then the lowest id reaching it; across blocks, in ascending
+    order, a strict '<' update. The kernel's gate must not change this."""
+    n = ox.shape[0]
+    dev = ox.device
+    t_out = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    idx_out = torch.zeros(n, dtype=torch.int32, device=dev)
+    live = torch.nonzero(alive).squeeze(1)
+    p = mc.k * mc.tris_per_cluster
+    tp = mc.tri_planes
+    t_min = float(t_min)
+    for lo in range(0, live.shape[0], slice_rays):
+        ids = live[lo:lo + slice_rays]
+        o = tuple(c[ids][:, None] for c in (ox, oy, oz))          # [m, 1]
+        d = tuple(c[ids][:, None] for c in (dx, dy, dz))
+        cap = t_cap[ids]
+        t_best = cap.clone()
+        best = torch.zeros(ids.shape[0], dtype=torch.int32, device=dev)
+        for p0 in range(0, p, slice_tris):
+            p1 = min(p, p0 + slice_tris)
+            v0 = tuple(tp[a, p0:p1] for a in range(3))            # [T]
+            e1 = tuple(tp[3 + a, p0:p1] for a in range(3))
+            e2 = tuple(tp[6 + a, p0:p1] for a in range(3))
+            t, ok = _moller_trumbore(o, d, v0, e1, e2, t_min)
+            ok = ok & (t < t_best[:, None])
+            tcand = torch.where(ok, t, BIG)
+            tmin_c = tcand.amin(dim=1)
+            gid = torch.arange(p0, p1, dtype=torch.int32, device=dev)
+            idx_c = torch.where(tcand == tmin_c[:, None], gid, p).amin(dim=1)
+            better = tmin_c < t_best
+            t_best = torch.where(better, tmin_c, t_best)
+            best = torch.where(better, idx_c, best)
+        won = t_best < cap
+        t_out[ids] = torch.where(won, t_best, BIG)
+        idx_out[ids] = torch.where(won, best, 0)
+    return t_out, idx_out
+
+
+def _moller_trumbore(o, d, v0, e1, e2, t_min):
+    """(t, accept) of rays o, d ([m, 1] components) against triangles v0,
+    e1, e2 ([T] components): [m, T] each, with the expression tree of the
+    TPU kernel's visit_vpu."""
+
+    def cross(a, b):
+        return (a[1] * b[2] - a[2] * b[1],
+                a[2] * b[0] - a[0] * b[2],
+                a[0] * b[1] - a[1] * b[0])
+
+    def dot3(a, b):
+        return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+    pv = cross(d, e2)
+    det = dot3(pv, e1)
+    ok_det = torch.abs(det) > 1e-12
+    inv_det = torch.where(ok_det, 1.0, 0.0) / torch.where(ok_det, det, 1.0)
+    s = (o[0] - v0[0], o[1] - v0[1], o[2] - v0[2])
+    u = dot3(s, pv) * inv_det
+    qv = cross(s, e1)
+    v = dot3(qv, d) * inv_det
+    t = dot3(qv, e2) * inv_det
+    ok = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= t_min))
+    return t, ok
+
+
+# --------------------------------------------------------------- pipeline
+def crossing_order(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
+                   alive, t_cap, *, interpret: bool = False) -> torch.Tensor:
+    """The wavefront permutation mesh_search applies before A3: a stable
+    sort by c1 * 2^18 + sort_keys, with c1 from A4."""
+    rays = (ox, oy, oz, dx, dy, dz)
+    key = sort_keys(*rays, alive, mc.root_lo, mc.root_hi)
+    c1 = first_crossed_cluster(mc, *rays, t_min, alive, t_cap,
+                               interpret=interpret)
+    return torch.sort(c1 * (1 << 18) + key, stable=True).indices
+
+
+def mesh_search(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
+                alive=None, t_cap=None, *, sort: bool = True,
+                interpret: bool = False, mt: str = "vpu",
+                visit: str = "full", sort_mode: str = "crossing",
+                exclude=None):
+    """Closest hit over the mesh: (t [N] f32, BIG = miss; idx [N] i32, the
+    BVH-order triangle id), strictly below t_cap (default BIG). With
+    sort=True, n >= 2048 and more than one cluster, the wavefront is sorted
+    by the crossing key (A4) before A3 and the results are put back; live
+    lanes get the same result either way."""
+    if mt != "vpu":
+        raise NotImplementedError(f"mt={mt!r} {_LATER}")
+    if visit != "full":
+        raise NotImplementedError(f"visit={visit!r} {_LATER}")
+    if sort_mode != "crossing":
+        raise NotImplementedError(f"sort_mode={sort_mode!r} {_LATER}")
+    if exclude is not None:
+        raise NotImplementedError(
+            "the per-lane exclude operand is not ported yet: ROADMAP.md "
+            "Queue A item 8")
+    rays = (ox, oy, oz, dx, dy, dz)
+    alive, t_cap = _defaults(ox, alive, t_cap)
+    _check(mc, rays, alive, t_cap)
+    n = ox.shape[0]
+    if not (sort and n >= SORT_MIN_RAYS and mc.k > 1):
+        return mesh_hits(mc, *rays, t_min, alive, t_cap, interpret=interpret)
+    perm = crossing_order(mc, *rays, t_min, alive, t_cap, interpret=interpret)
+    g = lambda x: x[perm]
+    t_s, idx_s = mesh_hits(mc, *map(g, rays), t_min, g(alive), g(t_cap),
+                           interpret=interpret)
+    t = torch.empty_like(t_s)
+    idx = torch.empty_like(idx_s)
+    t[perm] = t_s
+    idx[perm] = idx_s
+    return t, idx

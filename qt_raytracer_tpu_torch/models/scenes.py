@@ -1,4 +1,4 @@
-"""Sphere scenes and their cameras (counterpart of
+"""Scenes and their cameras (counterpart of
 ``qt_raytracer_tpu.models.scenes``; the same constructions, so the same
 tensors bit for bit). Scenes are built on the CPU: move them with
 ``.to(device)``.
@@ -7,7 +7,9 @@ tensors bit for bit). Scenes are built on the CPU: move them with
   - four_sphere_gpu_scene: the scene the reference's GPU kernels hardcode.
   - random_scene: the book-cover scene (RayTracer.h:599-643).
   - glossy_dof_scene: BASELINE config 3.
-  - cornell_box_spheres: Cornell-style box of spheres (BASELINE config 2).
+  - cornell_box_spheres: Cornell-style box of spheres (BASELINE config 2').
+  - mesh worlds, from models/meshes.py: "terrain" (BASELINE config 4),
+    "icosphere" and "cornell_mesh" (the true Cornell box, config 2).
 """
 
 from __future__ import annotations
@@ -137,15 +139,32 @@ SCENES = {
     "cornell": (cornell_box_spheres, cornell_box_camera),
 }
 
+def _terrain():
+    from . import meshes
+    return meshes.terrain_world, meshes.terrain_camera
+
+
+def _icosphere():
+    from . import meshes
+    return meshes.icosphere_world, meshes.icosphere_camera
+
+
+def _cornell_mesh():
+    from . import meshes
+    return meshes.cornell_box_world, meshes.cornell_box_mesh_camera
+
+
+# Mesh worlds (triangles + BVH; BASELINE configs 2 and 4), built on demand.
 MESH_SCENES = ("terrain", "icosphere", "cornell_mesh")
 
 
 def get_scene(name: str, aspect_ratio: float, **kwargs):
-    """Look up (scene, camera) by name, both on the CPU."""
+    """Look up (scene, camera) by name, both on the CPU. A mesh scene
+    returns (World, Camera); a sphere scene (SphereScene, Camera)."""
     if name in MESH_SCENES:
-        raise NotImplementedError(
-            f"mesh scene {name!r} is not ported yet: ROADMAP Queue A item 5 "
-            "(mesh worlds, kernel A3)")
+        build, cam = {"terrain": _terrain, "icosphere": _icosphere,
+                      "cornell_mesh": _cornell_mesh}[name]()
+        return build(**kwargs), cam(aspect_ratio)
     if name not in SCENES:
         raise KeyError(
             f"unknown scene {name!r}; choices: "

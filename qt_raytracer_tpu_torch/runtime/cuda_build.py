@@ -1,11 +1,14 @@
 """Build the port's CUDA kernels on first use and load them with ctypes.
 
 ``csrc/*.cu`` have a plain C interface (no PyTorch headers), so ``nvcc``
-builds them in seconds. The library lands in ``qt_raytracer_tpu_torch/_build``
-(listed in .gitignore), named after a hash of the sources and flags, so an
-edited source or flag builds anew and an unchanged one is reused. Nothing is
-built at import. Every failure raises: a missing ``nvcc``, a failed build or
-a library that will not load leaves the caller nothing to carry on with.
+builds them in seconds: one ``nvcc -c`` per source, all started together,
+then one link into a shared library. The library lands in
+``qt_raytracer_tpu_torch/_build`` (listed in .gitignore), named after a hash
+of the sources and flags, so an edited source or flag builds anew and an
+unchanged one is reused. Nothing is built at import. Every failure raises: a
+missing ``nvcc``, a failed build or a library that will not load leaves the
+caller nothing to carry on with. ``build_log`` keeps what ptxas reported
+(registers, shared memory, spills) for the last build.
 """
 
 from __future__ import annotations
@@ -25,10 +28,12 @@ BUILD_DIR = _PKG_DIR / "_build"
 # Route (b) of the port's build recipe. No --use_fast_math: the kernels'
 # divides and square roots must stay IEEE-rounded.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lock = threading.Lock()
 _lib = None
+build_log = ""
 
 
 def find_nvcc() -> str:
@@ -56,29 +61,56 @@ def _sources() -> list[pathlib.Path]:
 
 def library_path() -> pathlib.Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libqtrt_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; raise on the first that fails.
+    Returns their output, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], None
+    for cmd, proc in zip(cmds, procs):
+        try:
+            text, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        logs.append(text)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, text)
+    if failed:
+        cmd, rc, text = failed
+        raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{text}")
+    return "".join(logs)
+
+
 def build() -> pathlib.Path:
     """Compile csrc/*.cu into the library unless it exists; return its path."""
+    global build_log
     out = library_path()
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    stem = out.with_suffix(f".{os.getpid()}")
+    objs = [stem.with_name(f"{stem.name}.{src.stem}.o") for src in _sources()]
+    tmp = stem.with_name(f"{stem.name}.tmp")
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(_sources(), objs)])
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp),
+                          *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    build_log = log
     return out
 
 
@@ -99,3 +131,16 @@ def _configure(lib: ctypes.CDLL) -> None:
     #                s, t_min, n, fout, iout, stream)
     lib.qtrt_fused_hit.restype = i
     lib.qtrt_fused_hit.argtypes = [p] * 9 + [i, f, i] + [p] * 3
+    # qtrt_fused_hit_shadow(ox, oy, oz, dx, dy, dz, alive, spheres,
+    #                       s, t_min, n, t_out, idx_out, stream)
+    lib.qtrt_fused_hit_shadow.restype = i
+    lib.qtrt_fused_hit_shadow.argtypes = [p] * 8 + [i, f, i] + [p] * 3
+    # qtrt_mesh_first_cluster(ox, oy, oz, dx, dy, dz, alive, t_cap, boxes,
+    #                         k, k_stride, t_min, n, out, stream)
+    lib.qtrt_mesh_first_cluster.restype = i
+    lib.qtrt_mesh_first_cluster.argtypes = [p] * 9 + [i, i, f, i] + [p] * 2
+    # qtrt_mesh_search(ox, oy, oz, dx, dy, dz, alive, t_cap, tris, p_stride,
+    #                  boxes, k, k_stride, g, t_min, n, t_out, idx_out, stream)
+    lib.qtrt_mesh_search.restype = i
+    lib.qtrt_mesh_search.argtypes = ([p] * 9 + [i, p, i, i, i, f, i]
+                                     + [p] * 3)

@@ -1,6 +1,6 @@
-"""Carry scene and camera state across from the JAX package.
+"""Carry scene, mesh, world and camera state across from the JAX package.
 
-Both take the fields of the JAX package's dataclasses as numpy arrays (for
+Each takes the fields of the JAX package's dataclasses as numpy arrays (for
 example ``{f.name: np.asarray(getattr(scene, f.name)) for f in
 dataclasses.fields(scene)}``), so the two packages compute on identical
 inputs. Nothing here imports JAX.
@@ -13,8 +13,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..accel.mesh import TriangleMesh
 from ..core.camera import Camera
 from ..core.scene import SphereScene
+from ..core.world import World
 
 
 def _from_arrays(cls, arrays: dict[str, np.ndarray], device):
@@ -35,3 +37,18 @@ def scene_from_arrays(arrays: dict[str, np.ndarray],
 def camera_from_arrays(arrays: dict[str, np.ndarray], device="cpu") -> Camera:
     """Camera from numpy arrays named after its fields."""
     return _from_arrays(Camera, arrays, device)
+
+
+def mesh_from_arrays(arrays: dict[str, np.ndarray],
+                     device="cpu") -> TriangleMesh:
+    """TriangleMesh from numpy arrays named after its fields."""
+    return _from_arrays(TriangleMesh, arrays, device)
+
+
+def world_from_arrays(spheres: dict[str, np.ndarray],
+                      mesh: dict[str, np.ndarray] | None,
+                      device="cpu") -> World:
+    """World from the numpy fields of its SphereScene and of its
+    TriangleMesh (None for a world without a mesh)."""
+    return World(scene_from_arrays(spheres, device),
+                 None if mesh is None else mesh_from_arrays(mesh, device))

@@ -1,18 +1,22 @@
-"""The CUDA fused-hit kernel on the card against its plain PyTorch version,
-at shapes the 1080p main path does not reach: ray counts that are not a
-multiple of the 256-thread block, sphere counts below, between and above the
-256-sphere shared-memory tile, blocks with no live ray; and a small render on
-the card against the same render on the CPU.
+"""The CUDA kernels on the card against their plain PyTorch versions, at
+shapes the main paths do not reach: ray counts that are not a multiple of
+the thread block, sphere counts below, between and above the 256-sphere
+shared-memory tile, blocks with no live ray, a multi-cluster terrain and the
+one-cluster Cornell mesh, finite per-lane caps that prune, the wavefront
+sort on and off; and small renders on the card against the same renders on
+the CPU.
 
 Needs a CUDA card (marker ``cuda``) and skips without one. This module
 imports no JAX, so it runs on a machine without it; ``tests/conftest.py``
 does import JAX, so run it there with
 ``python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py``.
 
-Tolerances: the kernel rounds op by op as the plain version does, so winner
-ids agree on every live lane and the refined t within rtol 1e-5, the other
-float outputs within atol 1e-5 + rtol 1e-5 (the limits of ``chip_smoke.py``);
-dead lanes hold the defaults exactly. Renders: at most 1% of channels beyond
+Tolerances: the kernels round op by op as the plain versions do. Full mode
+(A1): winner ids agree on every live lane and the refined t within rtol
+1e-5, the other float outputs within atol 1e-5 + rtol 1e-5 (the limits of
+``chip_smoke.py``); dead lanes hold the defaults exactly. Shadow mode (A2),
+the first crossed cluster (A4) and the mesh search (A3): bitwise on live
+lanes, BIG/0 (A4: k) on dead lanes. Renders: at most 1% of channels beyond
 2e-3 + 2e-3 |ref|, as in ``tests/test_torch_render.py``.
 """
 
@@ -22,6 +26,8 @@ import torch
 
 from qt_raytracer_tpu_torch import RenderConfig, SceneBuilder, render_linear, scenes
 from qt_raytracer_tpu_torch.kernels import fused_hit as fh
+from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
+from qt_raytracer_tpu_torch.models import meshes
 
 pytestmark = pytest.mark.cuda
 
@@ -130,5 +136,123 @@ def test_render_on_card_matches_cpu(card, name):
     assert fh.launches == 3 * cfg.spp * cfg.max_depth    # 3 chunks of 512
     assert got.device == card and bool(torch.isfinite(got).all())
     want = render_linear(scene, cam, cfg, 5)
+    bad = (got.cpu() - want).abs() > 2e-3 + 2e-3 * want.abs()
+    assert float(bad.float().mean()) <= 0.01
+
+
+@pytest.mark.parametrize("num_spheres", [4, 300])
+@pytest.mark.parametrize("n", [1, 255, 1000, 4097])
+def test_shadow_kernel_matches_plain_version(card, n, num_spheres):
+    tables = fh.prep_fused_spheres(_scene(num_spheres, seed=num_spheres).to(card))
+    rays, alive = _rays(n, seed=n + 7, device=card)
+    before = (fh.launches, fh.shadow_launches)
+    kern = fh.fused_hit(tables, *rays, alive, T_MIN, shadow_only=True)
+    assert (fh.launches, fh.shadow_launches) == (before[0], before[1] + 1)
+    plain = fh.fused_hit(tables, *rays, alive, T_MIN, shadow_only=True,
+                         interpret=True)
+    assert fh.shadow_launches == before[1] + 1
+    torch.cuda.synchronize()
+    assert sorted(kern) == ["idx", "t"]
+    alive = alive.cpu()
+    for k in ("t", "idx"):
+        a, b = kern[k].cpu(), plain[k].cpu()
+        assert torch.equal(a[alive], b[alive]), k
+    assert torch.all(kern["t"].cpu()[~alive] == fh.BIG)
+    assert torch.all(kern["idx"].cpu()[~alive] == 0)
+
+
+@pytest.fixture(scope="module")
+def mesh_worlds(card):
+    """A 9-cluster terrain and the one-cluster Cornell mesh, on the card."""
+    worlds = {"terrain48": meshes.terrain_world(48, 48),
+              "cornell_mesh": meshes.cornell_box_world()}
+    return {k: mi.prep_mesh_clusters(w.mesh.to(card)) for k, w in worlds.items()}
+
+
+def _mesh_rays(mc, n: int, seed: int, device):
+    """n rays from around the mesh's root box, 60% alive; half the lanes
+    capped at a distance inside the box, the rest at BIG."""
+    rng = np.random.default_rng(seed)
+    lo, hi = mc.root_lo.cpu().numpy(), mc.root_hi.cpu().numpy()
+    o = rng.uniform(lo - 0.5, hi + 0.5, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    alive = rng.random(n) < 0.6
+    cap = np.where(rng.random(n) < 0.5, rng.uniform(0.2, 2.0, n),
+                   fh.BIG).astype(np.float32)
+    comps = [torch.from_numpy(np.ascontiguousarray(x[:, k])).to(device)
+             for x in (o, d) for k in range(3)]
+    return (comps, torch.from_numpy(alive).to(device),
+            torch.from_numpy(cap).to(device))
+
+
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("n", [1, 255, 1000, 4097])
+@pytest.mark.parametrize("name", ["terrain48", "cornell_mesh"])
+def test_mesh_kernels_match_plain_versions(card, mesh_worlds, name, n, capped):
+    mc = mesh_worlds[name]
+    rays, alive, cap = _mesh_rays(mc, n, seed=n, device=card)
+    cap = cap if capped else None
+    before = (mi.first_cluster_launches, mi.launches)
+    c1 = mi.first_crossed_cluster(mc, *rays, T_MIN, alive, cap)
+    assert mi.first_cluster_launches == before[0] + 1
+    c1_plain = mi.first_crossed_cluster(mc, *rays, T_MIN, alive, cap,
+                                        interpret=True)
+    assert torch.equal(c1.cpu(), c1_plain.cpu())
+    assert torch.all(c1.cpu()[~alive.cpu()] == mc.k)
+
+    plain = mi.mesh_search(mc, *rays, T_MIN, alive=alive, t_cap=cap,
+                           interpret=True)
+    live = alive.cpu()
+    for sort in (False, True):
+        got = mi.mesh_search(mc, *rays, T_MIN, alive=alive, t_cap=cap,
+                             sort=sort)
+        for a, b in zip(got, plain):
+            assert torch.equal(a.cpu()[live], b.cpu()[live]), sort
+        assert torch.all(got[0].cpu()[~live] == fh.BIG)
+        assert torch.all(got[1].cpu()[~live] == 0)
+    sorted_run = n >= mi.SORT_MIN_RAYS and mc.k > 1
+    assert mi.launches == before[1] + 2
+    assert mi.first_cluster_launches == before[0] + 1 + sorted_run
+    if capped and n >= 1000:
+        # The finite caps prune hits that the uncapped search finds.
+        free = mi.mesh_search(mc, *rays, T_MIN, alive=alive, interpret=True)
+        assert bool(((free[0] < fh.BIG) & (plain[0] >= fh.BIG)).any())
+
+
+@pytest.mark.parametrize("name", ["terrain48", "cornell_mesh"])
+def test_mesh_kernels_all_dead(card, mesh_worlds, name):
+    mc = mesh_worlds[name]
+    rays, alive, cap = _mesh_rays(mc, 4097, seed=3, device=card)
+    dead = torch.zeros_like(alive)
+    t, idx = mi.mesh_search(mc, *rays, T_MIN, alive=dead, t_cap=cap)
+    assert torch.all(t.cpu() == fh.BIG) and torch.all(idx.cpu() == 0)
+    c1 = mi.first_crossed_cluster(mc, *rays, T_MIN, dead, cap)
+    assert torch.all(c1.cpu() == mc.k)
+
+
+@pytest.mark.parametrize("name", ["cornell_mesh_nee", "terrain48"])
+def test_world_render_on_card_matches_cpu(card, name):
+    if name == "terrain48":
+        world = meshes.terrain_world(48, 48)
+        cfg = RenderConfig(width=48, height=48, spp=2, max_depth=5,
+                           rng="hash", pixel_chunk=-1)
+        cam = meshes.terrain_camera(cfg.aspect_ratio)
+        # One chunk of 2,304 rays: the A4 sort runs at every bounce.
+        want_counts = (10, 0, 10, 10)
+    else:
+        world = meshes.cornell_box_world()
+        cfg = RenderConfig(width=32, height=32, spp=2, max_depth=5,
+                           nee=True, rng="hash", pixel_chunk=512)
+        cam = meshes.cornell_box_mesh_camera(cfg.aspect_ratio)
+        # 2 chunks x 2 samples x 5 bounces; two mesh searches per bounce,
+        # one cluster, so no sort.
+        want_counts = (20, 20, 0, 40)
+    fh.launches = fh.shadow_launches = 0
+    mi.launches = mi.first_cluster_launches = 0
+    got = render_linear(world.to(card), cam.to(card), cfg, 5)
+    assert (fh.launches, fh.shadow_launches, mi.first_cluster_launches,
+            mi.launches) == want_counts
+    assert got.device == card and bool(torch.isfinite(got).all())
+    want = render_linear(world, cam, cfg, 5)
     bad = (got.cpu() - want).abs() > 2e-3 + 2e-3 * want.abs()
     assert float(bad.float().mean()) <= 0.01

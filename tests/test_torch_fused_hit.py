@@ -179,8 +179,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     f = lambda n=8, dt=torch.float32: torch.zeros(n, dtype=dt)
     alive = torch.ones(8, dtype=torch.bool)
     rays = [f() for _ in range(5)] + [torch.ones(8)]
-    with pytest.raises(NotImplementedError, match="A2"):
-        tfh.fused_hit(tables, *rays, alive, T_MIN, shadow_only=True)
+    shadow = tfh.fused_hit(tables, *rays, alive, T_MIN, shadow_only=True)
+    assert sorted(shadow) == ["idx", "t"]
+    assert shadow["t"].dtype == torch.float32 and shadow["idx"].dtype == torch.int32
     with pytest.raises(NotImplementedError, match="exclude"):
         tfh.fused_hit(tables, *rays, alive, T_MIN,
                       exclude=torch.zeros(8, dtype=torch.int32))

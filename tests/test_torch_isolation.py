@@ -24,6 +24,10 @@ def test_import_loads_no_jax():
         "import qt_raytracer_tpu_torch.core.render\n"
         "import qt_raytracer_tpu_torch.utils.convert\n"
         "import qt_raytracer_tpu_torch.runtime.cuda_build\n"
+        "import qt_raytracer_tpu_torch.kernels.mesh_intersect\n"
+        "import qt_raytracer_tpu_torch.core.world\n"
+        "import qt_raytracer_tpu_torch.accel.mesh\n"
+        "import qt_raytracer_tpu_torch.models.meshes\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'qt_raytracer_tpu' or "
         "m.startswith('qt_raytracer_tpu.'))\n"
@@ -102,7 +106,7 @@ def test_library_is_named_after_sources_and_flags():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(nee=True), "item 4"),
+    (dict(intersector="fused_diff_interpret"), "item 7"),
     (dict(rng="threefry"), "item 6"),
     (dict(edge_aware=True), "item 8"),
     (dict(intersector="xla"), "item 7"),

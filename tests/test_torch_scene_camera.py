@@ -17,7 +17,10 @@ from qt_raytracer_tpu.models import scenes as jscenes
 from qt_raytracer_tpu_torch.core import camera as tcam
 from qt_raytracer_tpu_torch.core import config as tconfig
 from qt_raytracer_tpu_torch.core import render as trender
+from qt_raytracer_tpu_torch.core.integrator_flat import trace_flat_world
 from qt_raytracer_tpu_torch.core.intersect import packed_param_table as t_ptab
+from qt_raytracer_tpu_torch.core.world import World
+from qt_raytracer_tpu_torch.kernels.mesh_intersect import mesh_search, prep_mesh_clusters
 from qt_raytracer_tpu_torch.models import scenes as tscenes
 from qt_raytracer_tpu_torch.utils.convert import camera_from_arrays, scene_from_arrays
 
@@ -134,7 +137,21 @@ def test_pixel_grid_matches():
 
 
 def test_mesh_scene_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        tscenes.get_scene("terrain", 16 / 9)
+    # Mesh scenes are ported: a World and its camera. What of the mesh path
+    # is not ported yet (compaction, the pair-wavefront kernels, non-default
+    # mesh-kernel options) raises, naming ROADMAP.
+    world, cam = tscenes.get_scene("cornell_mesh", 16 / 9)
+    assert isinstance(world, World) and world.mesh is not None
+    assert world.mesh.num_triangles == 36 and world.mesh.num_lights == 2
+    rays = torch.zeros((4, 3)), torch.ones((4, 3))
+    keys = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trace_flat_world(world, *rays, keys, 1, compact=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trace_flat_world(world, *rays, keys, 1, mesh_kernel="pairs")
+    mc = prep_mesh_clusters(world.mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mesh_search(mc, *rays[0].T.contiguous(), *rays[1].T.contiguous(),
+                    1e-3, visit="rowgate")
     with pytest.raises(KeyError):
         tscenes.get_scene("nope", 16 / 9)
