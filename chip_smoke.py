@@ -15,13 +15,20 @@ counts set to 0 just before it and read just after:
     search once per chunk and bounce);
   - the mesh-world path with next-event estimation: the true Cornell box
     (BASELINE config 2), 512x512, 64 spp, depth 10 (fused hit, shadow-mode
-    fused hit and two mesh searches per chunk, sample batch and bounce).
+    fused hit and two mesh searches per chunk, sample batch and bounce);
+  - the gradient path, BASELINE config 5 with the pathwise estimator
+    (1920x1080, 2 spp, depth 4, NEE): three multi-view train steps on the
+    sphere Cornell box (4 views; albedo, emission and pose; shadow-mode
+    fused hit for selection and shadows) and three per-view train steps on
+    the true Cornell box (2 views; pose; sphere search and mesh search),
+    through ``diff.multiview``, with the steps' gradients held against the
+    plain versions' on the card and against the CPU.
 
 Each frame is checked for finite values and against the same frame with the
 plain versions (at a reduced size where the plain mesh search is too slow),
-and sphere-scene NEE on the card against the CPU. Every phase raises on
-failure, so the script exits non-zero; without CUDA it raises before
-printing any result.
+sphere-scene NEE on the card against the CPU, and the threefry RNG on the
+card against the CPU bit for bit. Every phase raises on failure, so the
+script exits non-zero; without CUDA it raises before printing any result.
 
 Output: the card's name and power limit (nvidia-smi), per-phase numbers, a
 ``{"kernels": [...]}`` line, and as the last line
@@ -53,7 +60,22 @@ IMG_ATOL = IMG_RTOL = 2e-3    # frame vs plain frame, per channel
 IMG_MISMATCH_MAX = 0.01
 TIMED_RUNS = 7
 KERNELS = ("fused_hit", "fused_hit_shadow", "mesh_first_cluster",
-           "mesh_search")
+           "mesh_search", "sphere_search")
+# BASELINE config 5 (benchmarks/run_baselines.py:196-386), pathwise.
+C5 = dict(width=1920, height=1080, spp=2, max_depth=4, rng="hash", nee=True,
+          samples_per_batch=1)
+C5_SPHERE_VIEWS = [(0.0, 0.0, 0.0), (0.5, 0.0, 0.0), (-0.5, 0.1, 0.0),
+                   (0.0, 0.3, -0.3)]
+C5_SPHERE_POSE_ERR = (0.1, -0.07, 0.08)
+C5_SPHERE_LR = {"scene/albedo": 0.03, "scene/emission": 0.6,
+                "camera/translate": 2.5e-2}
+C5_MESH_VIEWS = [(0.0, 0.0, 0.0), (0.4, 0.15, 0.0)]
+C5_MESH_POSE_ERR = (0.1, -0.07, 0.05)
+C5_STEPS = 3
+GRAD_PLAIN_WH = (1920, 1080)       # kernel vs plain gradients on the card
+GRAD_CPU_WH = (96, 54)             # card vs CPU gradients
+GRAD_RTOL_PLAIN = 1e-4   # x max|g|: atomic-add order of the gather backward
+GRAD_RTOL_CPU = 2e-3     # x max|g|: the render flip budget
 
 
 def phase(name):
@@ -169,15 +191,124 @@ def compare_t_idx(big, kern, plain, alive) -> dict:
     return stats
 
 
+def _sphere_search_module():
+    from qt_raytracer_tpu_torch.kernels import sphere_intersect
+    return sphere_intersect
+
+
 def reset_counts(fh, mi) -> None:
     fh.launches = fh.shadow_launches = 0
     mi.launches = mi.first_cluster_launches = 0
+    _sphere_search_module().launches = 0
 
 
 def read_counts(fh, mi) -> dict:
     return {"fused_hit": fh.launches, "fused_hit_shadow": fh.shadow_launches,
             "mesh_first_cluster": mi.first_cluster_launches,
-            "mesh_search": mi.launches}
+            "mesh_search": mi.launches,
+            "sphere_search": _sphere_search_module().launches}
+
+
+def with_dead_lanes(alive: torch.Tensor, seed: int) -> torch.Tensor:
+    """alive with about 10% dead lanes scattered through live 128-ray rows,
+    every 7th 128-ray row dead and one dead 256-ray thread block."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = alive.cpu() & (torch.rand(alive.shape[0], generator=g) >= 0.1)
+    rows = out[: out.shape[0] // 128 * 128].view(-1, 128)
+    rows[::7] = False
+    out[1024:1280] = False
+    return out.to(alive.device)
+
+
+def compare_search(si, scene, o, d, alive, t_min) -> dict:
+    """A5 against its plain version on one wavefront: bitwise (t, idx) on
+    live lanes, (BIG, 0) on dead lanes; CUDA-event ms of both on the
+    prepared table and flat ray components (the wrapper's prep and copies
+    left out)."""
+    kern = si.sphere_search(scene, o, d, t_min, alive=alive)
+    plain = si.sphere_search(scene, o, d, t_min, alive=alive, interpret=True)
+    torch.cuda.synchronize()
+    st = compare_t_idx(si.BIG, kern, plain, alive)
+    if not st["bitwise"]:
+        raise AssertionError(f"A5 is not bitwise equal to its plain version "
+                             f"on live lanes: {st}")
+    tables = si.prep_sphere_search(scene)
+    rays = [x[:, k].contiguous() for x in (o, d) for k in range(3)]
+    st.update(rays=o.shape[0], dead_lanes=int((~alive).sum()),
+              ms=cuda_ms(lambda: si.sphere_search_flat(
+                  tables, *rays, alive, t_min)),
+              plain_ms=cuda_ms(lambda: si.sphere_search_flat(
+                  tables, *rays, alive, t_min, interpret=True)))
+    return st
+
+
+def view_loss_and_grads(scene, camera, cfg, key, target, fields):
+    """L2 loss of one view and its gradients by leaf ("albedo", "emission"
+    of the spheres, "translate" of the camera), as a train step takes
+    them."""
+    from qt_raytracer_tpu_torch.diff import inverse as inv
+    from qt_raytracer_tpu_torch.core.world import World
+    spheres = scene.spheres if isinstance(scene, World) else scene
+    params = {f: (torch.zeros(3, device=target.device) if f == "translate"
+                  else getattr(spheres, f)).clone().requires_grad_(True)
+              for f in fields}
+    sp = dataclasses.replace(spheres, **{f: v for f, v in params.items()
+                                         if f != "translate"})
+    sc = dataclasses.replace(scene, spheres=sp) \
+        if isinstance(scene, World) else sp
+    cam = inv.translate_camera(camera, params["translate"]) \
+        if "translate" in params else camera
+    loss = inv.image_loss(sc, cam, inv.grad_capable_config(cfg), key, target)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(fields, grads))
+
+
+def compare_grads(a, b, rtol: float, what: str) -> dict:
+    """Loss and gradients a against b (both (loss, {name: grad})), each
+    within rtol x max|b|."""
+    (la, ga), (lb, gb) = a, b
+    out = {"loss": [float(la), float(lb)]}
+    pairs = [("loss", la, lb)] + [(k, ga[k], gb[k]) for k in gb]
+    for k, x, y in pairs:
+        x, y = x.detach().cpu().double(), y.detach().cpu().double()
+        scale = float(y.abs().max())
+        err = float((x - y).abs().max())
+        out[k] = {"max_abs_err": err, "max_abs": scale}
+        if not (bool(torch.isfinite(x).all()) and err <= rtol * scale):
+            raise AssertionError(f"{what}: {k} differs: {out}")
+    return out
+
+
+def train_steps(step_fn, state, targets, key, fh, mi, errs) -> tuple:
+    """C5_STEPS steps: per step the seconds, the loss, the errors, peak
+    memory and the launches; every trainable group's gradient must be
+    finite and nonzero."""
+    from qt_raytracer_tpu_torch.diff.inverse import leaves
+    log, launches = [], None
+    for k in range(C5_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fh, mi)
+        (state, loss), sec = wall_s(lambda: step_fn(state, targets, key))
+        counts = read_counts(fh, mi)
+        launches = counts if launches is None else \
+            {n: launches[n] + c for n, c in counts.items()}
+        grads = {p: t.grad for p, t in leaves(state.params)}
+        with torch.no_grad():
+            err = errs(state)
+        entry = {"step": k + 1, "s": sec, "loss": float(loss), **err,
+                 "max_memory_allocated_gib":
+                     torch.cuda.max_memory_allocated() / 2 ** 30,
+                 "launches": counts,
+                 "grad_max_abs": {p: float(g.abs().max())
+                                  for p, g in grads.items()}}
+        print(f"step {json.dumps(entry)}", flush=True)
+        if not (torch.isfinite(loss) and all(
+                bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+                for g in grads.values())):
+            raise AssertionError(f"step {k + 1}: loss or gradients not "
+                                 f"finite and nonzero: {entry}")
+        log.append(entry)
+    return state, log, launches
 
 
 def drive_frame(fh, mi, render_linear, scene, camera, cfg, expected: dict,
@@ -297,6 +428,16 @@ def main() -> None:
     results["fused_hit"] = (max(st["max_abs_err"] for st in a1.values()),
                             a1["primary_chunk0"])
 
+    phase("A5 sphere_search vs plain version (book cover)")
+    si = _sphere_search_module()
+    o0 = torch.stack([s0.ox, s0.oy, s0.oz], dim=1)
+    d0 = torch.stack([s0.dx, s0.dy, s0.dz], dim=1)
+    a5 = {"primary_chunk0": compare_search(
+        si, scene, o0, d0, with_dead_lanes(s0.alive, 1), cfg.t_min)}
+    print(f"A5 primary_chunk0: {json.dumps(a5['primary_chunk0'])}",
+          flush=True)
+    del o0, d0
+
     phase("book-cover 1080p frame through render_linear")
     chunks = chunk_count(cfg)
     img, frame = drive_frame(
@@ -404,7 +545,7 @@ def main() -> None:
     _, frame = drive_frame(
         fh, mi, render_linear, world, camera, cfg_t,
         {"fused_hit": per, "fused_hit_shadow": 0, "mesh_first_cluster": per,
-         "mesh_search": per})
+         "mesh_search": per, "sphere_search": 0})
     w, h = TERRAIN_PLAIN_WH
     frame["vs_plain"] = against_plain_frame(
         render_linear, world, camera,
@@ -468,7 +609,7 @@ def main() -> None:
     _, frame = drive_frame(
         fh, mi, render_linear, world, camera, cfg_c,
         {"fused_hit": per, "fused_hit_shadow": per, "mesh_first_cluster": 0,
-         "mesh_search": 2 * per})
+         "mesh_search": 2 * per, "sphere_search": 0})
     frame["vs_plain"] = against_plain_frame(
         render_linear, world, camera,
         dataclasses.replace(cfg_c, spp=CORNELL_PLAIN_SPP))
@@ -492,6 +633,161 @@ def main() -> None:
             not bool(torch.isfinite(on_card).all()) or bad > IMG_MISMATCH_MAX:
         raise AssertionError("sphere NEE on the card disagrees with the CPU")
 
+    phase("threefry on the card vs the CPU")
+    n_pix = cfg.num_pixels
+    pix = torch.arange(n_pix, dtype=torch.int64)
+    tf = []
+    for dev_ in (dev, torch.device("cpu")):
+        key = sampling.fold_in(sampling.prng_key(7, dev_), 3)
+        pk = sampling.pixel_states(key, pix.to(dev_), "threefry")
+        sk = sampling.sample_keys(pk, 1)
+        sk_ids = sampling.sample_keys(pk, pix.to(dev_) % 5)
+        tf.append([key, pk, sk, sk_ids,
+                   sampling.stream_uniforms(sk, sampling.STREAM_BOUNCE0, 8),
+                   sampling.hash_pixel_states(key, pix.to(dev_))])
+    for a, b in zip(*tf):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("threefry differs between the card and the "
+                                 "CPU")
+    print(f"threefry: fold_in, pixel_states, sample_keys, stream_uniforms "
+          f"and hash states from a folded key bitwise equal over "
+          f"{n_pix} pixels", flush=True)
+    del tf
+
+    # ----------------------------- gradient path: BASELINE config 5
+    from qt_raytracer_tpu_torch.diff import inverse as inv
+    from qt_raytracer_tpu_torch.diff import multiview as mv
+    from qt_raytracer_tpu_torch.models import meshes
+    train_launches = dict.fromkeys(KERNELS, 0)
+
+    phase("A5 sphere_search vs plain version (config-5 NEE shadow rays)")
+    cfg5 = RenderConfig(**C5)
+    sph = scenes.cornell_box_spheres().to(dev)
+    cam5 = scenes.cornell_box_camera(cfg5.aspect_ratio).to(dev)
+    sh0 = primary(cam5, cfg5)
+    tab5 = fh.prep_fused_spheres(sph)
+    hit = fh.fused_hit(tab5, *rays_of(sh0), sh0.alive, cfg5.t_min)
+    uni = sampling.stream_uniforms(sh0.keys, sampling.STREAM_BOUNCE0,
+                                   sampling.UNIFORMS_PER_BOUNCE)
+    lp = tab5.params[sph.light_idx.long()[0]]
+    ldx, ldy, ldz, _, ok = itg._cone_sample(
+        lp[0], lp[1], lp[2], lp[3], hit["px"], hit["py"], hit["pz"],
+        uni[:, 5], uni[:, 6])
+    cos_s = hit["nx"] * ldx + hit["ny"] * ldy + hit["nz"] * ldz
+    cand = sh0.alive & (hit["t"] < fh.BIG) & (hit["mat"] == LAMBERTIAN) \
+        & ok & (cos_s > 0.0)
+    a5["c5_shadow_chunk0"] = compare_search(
+        si, sph, torch.stack([hit["px"], hit["py"], hit["pz"]], dim=1),
+        torch.stack([ldx, ldy, ldz], dim=1), cand, cfg5.t_min)
+    print(f"A5 c5_shadow_chunk0: {json.dumps(a5['c5_shadow_chunk0'])}",
+          flush=True)
+    results["sphere_search"] = (max(st["max_abs_err"] for st in a5.values()),
+                                a5["primary_chunk0"])
+    del sh0, hit, uni, ldx, ldy, ldz, ok, cos_s, cand
+
+    phase("config 5, sphere Cornell box, 1920x1080, 4 views: 3 train steps")
+    true_cams = mv.orbit_cameras(cam5, C5_SPHERE_VIEWS)
+    key7 = sampling.prng_key(7, dev)
+    targets, tgt_s = wall_s(lambda: torch.stack([
+        inv.mean_image(sph, c, cfg5, sampling.fold_in(key7, v))
+        for v, c in enumerate(true_cams)]))
+    albedo = sph.albedo.clone()
+    albedo[6] = torch.tensor([0.2, 0.6, 0.8], device=dev)
+    emission = sph.emission.clone()
+    emission[5] = 8.0
+    wrong = dataclasses.replace(sph, albedo=albedo, emission=emission)
+    pose_err = torch.tensor(C5_SPHERE_POSE_ERR, device=dev)
+    start = tuple(inv.translate_camera(c, pose_err) for c in true_cams)
+    init, step, rebuild, _ = mv.make_multiview_train_step(
+        wrong, start, cfg5, inv.adam(C5_SPHERE_LR),
+        trainable=("albedo", "emission"), train_camera="pose")
+
+    def sphere_errs(st):
+        rec = rebuild(st.params["scene"])
+        tr = st.params["camera"]["translate"].detach()
+        return {"albedo_err": float((rec.albedo[6] - sph.albedo[6]).abs()
+                                    .max()),
+                "emission_err": float((rec.emission[5] - sph.emission[5])
+                                      .abs().max()),
+                "pose_err": float((tr + pose_err).abs().max())}
+
+    with torch.no_grad():
+        print(f"targets: 4 views in {tgt_s:.3f} s; start "
+              f"{json.dumps(sphere_errs(init()))}", flush=True)
+    _, c5s, counts = train_steps(step, init(), targets, key7, fh, mi,
+                                 sphere_errs)
+    if counts["fused_hit_shadow"] == 0 or counts["fused_hit"] != 0 or \
+            counts["sphere_search"] != 0:
+        raise AssertionError(f"sphere train step launches {counts}: want "
+                             f"A2 only")
+    for k, v in counts.items():
+        train_launches[k] += v
+    del targets
+
+    phase("config 5, true Cornell box (mesh), 1920x1080, 2 views: 3 "
+          "per-view train steps")
+    world = meshes.cornell_box_world().to(dev)
+    camw = meshes.cornell_box_mesh_camera(cfg5.aspect_ratio).to(dev)
+    true_w = mv.orbit_cameras(camw, C5_MESH_VIEWS)
+    key11 = sampling.prng_key(11, dev)
+    targets, tgt_s = wall_s(lambda: torch.stack([
+        inv.mean_image(world, c, cfg5, sampling.fold_in(key11, v))
+        for v, c in enumerate(true_w)]))
+    pose_w = torch.tensor(C5_MESH_POSE_ERR, device=dev)
+    start = tuple(inv.translate_camera(c, pose_w) for c in true_w)
+    init, step, _, _ = mv.make_multiview_train_step_perview(
+        world, start, cfg5, inv.adam(2.5e-2), trainable=(),
+        train_camera="pose")
+
+    def mesh_errs(st):
+        tr = st.params["camera"]["translate"].detach()
+        return {"pose_err": float((tr + pose_w).abs().max())}
+
+    print(f"targets: 2 views in {tgt_s:.3f} s; start "
+          f"{json.dumps(mesh_errs(init()))}", flush=True)
+    _, c5m, counts = train_steps(step, init(), targets, key11, fh, mi,
+                                 mesh_errs)
+    if counts["sphere_search"] == 0 or counts["mesh_search"] == 0 or \
+            counts["fused_hit"] != 0 or counts["fused_hit_shadow"] != 0:
+        raise AssertionError(f"mesh train step launches {counts}: want A5 "
+                             f"and A3 only")
+    for k, v in counts.items():
+        train_launches[k] += v
+    del targets
+
+    phase("config-5 gradients: kernels vs plain versions on the card, and "
+          "the card vs the CPU")
+    grad_cmp = {}
+    cases = {"sphere": (sph, cam5, ("albedo", "emission", "translate"),
+                        key7),
+             "mesh": (world, camw, ("translate",), key11)}
+    for name, (sc, cm, fields, key) in cases.items():
+        w, h = GRAD_PLAIN_WH
+        cfg_g = dataclasses.replace(cfg5, width=w, height=h)
+        with torch.no_grad():
+            tgt = inv.mean_image(sc, cm, cfg_g, key) * 0.9
+        kern, kern_s = wall_s(lambda: view_loss_and_grads(
+            sc, cm, cfg_g, key, tgt, fields))
+        plain_cfg = dataclasses.replace(cfg_g, intersector="fused_interpret")
+        plain, plain_s = wall_s(lambda: view_loss_and_grads(
+            sc, cm, plain_cfg, key, tgt, fields))
+        st = {"size": [w, h], "kernel_s": kern_s, "plain_s": plain_s,
+              "vs_plain": compare_grads(kern, plain, GRAD_RTOL_PLAIN,
+                                        f"{name} kernel vs plain")}
+        w, h = GRAD_CPU_WH
+        cfg_c = dataclasses.replace(cfg5, width=w, height=h)
+        cpu_sc, cpu_cm = sc.to("cpu"), cm.to("cpu")
+        with torch.no_grad():
+            tgt = inv.mean_image(cpu_sc, cpu_cm, cfg_c, 5) * 0.9
+        on_card = view_loss_and_grads(sc, cm, cfg_c, key, tgt.to(dev),
+                                      fields)
+        on_cpu = view_loss_and_grads(cpu_sc, cpu_cm, cfg_c, key.cpu(), tgt,
+                                     fields)
+        st["card_vs_cpu"] = compare_grads(on_card, on_cpu, GRAD_RTOL_CPU,
+                                          f"{name} card vs CPU")
+        grad_cmp[name] = st
+        print(f"gradients {name}: {json.dumps(st)}", flush=True)
+
     sources = {
         "fused_hit": ("qt_raytracer_tpu_torch/csrc/fused_hit.cu",
                       "qt_raytracer_tpu/kernels/fused_hit.py:50"),
@@ -501,9 +797,14 @@ def main() -> None:
                                "qt_raytracer_tpu/kernels/mesh_intersect.py:619"),
         "mesh_search": ("qt_raytracer_tpu_torch/csrc/mesh_intersect.cu",
                         "qt_raytracer_tpu/kernels/mesh_intersect.py:238"),
+        "sphere_search": ("qt_raytracer_tpu_torch/csrc/fused_hit.cu",
+                          "qt_raytracer_tpu/kernels/sphere_intersect.py:47"),
     }
-    print(f"launches over the three paths' counted frames: "
-          f"{json.dumps(launches)}")
+    print(f"launches over the three forward paths' counted frames: "
+          f"{json.dumps(launches)}; over the six train steps: "
+          f"{json.dumps(train_launches)}")
+    for k, v in train_launches.items():
+        launches[k] += v
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -21,20 +21,17 @@ MAX_SPP = 1000
 MIN_DEPTH = 1
 MAX_DEPTH = 100
 
-# Intersector values of the JAX package. "auto" and "fused" run the CUDA
-# kernel on CUDA tensors and its plain PyTorch version on CPU tensors;
-# "fused_interpret" runs the plain version on any device (the counterpart of
-# Pallas interpret mode).
-_PORTED_INTERSECTORS = ("auto", "fused", "fused_interpret")
+# Intersector values of the JAX package. Each runs the CUDA kernels on CUDA
+# tensors and their plain PyTorch versions on CPU tensors; the "*_interpret"
+# values run the plain versions on any device (the counterpart of Pallas
+# interpret mode). "auto" is "fused". "fused" is the forward-only flat path;
+# "fused_diff" the gradient-capable flat path on sphere scenes (mesh worlds
+# take "pallas" under it); "pallas" the [N,3] gradient integrator.
+_PORTED_INTERSECTORS = ("auto", "fused", "fused_interpret", "fused_diff",
+                        "fused_diff_interpret", "pallas", "pallas_interpret")
 _UNPORTED_INTERSECTORS = {
-    "xla": "ROADMAP Queue A item 7 (gradient integrator)",
-    "pallas": "ROADMAP Queue A item 7 (gradient integrator, kernel A5)",
-    "pallas_interpret": "ROADMAP Queue A item 7 (gradient integrator, "
-                        "kernel A5)",
-    "fused_diff": "ROADMAP Queue A item 7 (gradient integrator over the "
-                  "shadow-mode kernel A2)",
-    "fused_diff_interpret": "ROADMAP Queue A item 7 (gradient integrator "
-                            "over the shadow-mode kernel A2)",
+    "xla": "ROADMAP Queue A item 13 (the XLA [N,S] search and "
+           "accel/traverse.py)",
 }
 
 
@@ -98,10 +95,6 @@ def require_ported(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             f"intersector {cfg.intersector!r} is not ported yet: "
             f"{_UNPORTED_INTERSECTORS[cfg.intersector]}")
-    if cfg.rng != "hash":
-        raise NotImplementedError(
-            "rng='threefry' is not ported yet: ROADMAP Queue A item 6; "
-            "use rng='hash'")
     if cfg.edge_aware:
         raise NotImplementedError(
             "edge_aware=True is not ported yet: ROADMAP Queue A item 8")

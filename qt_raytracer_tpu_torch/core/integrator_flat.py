@@ -1,6 +1,6 @@
-"""Flat-SoA wavefront integrator, forward only (counterpart of
-``qt_raytracer_tpu.core.integrator_flat``: ``trace_flat`` with diff=False
-and ``trace_flat_world``, each with compact=False).
+"""Flat-SoA wavefront integrator (counterpart of
+``qt_raytracer_tpu.core.integrator_flat``: ``trace_flat`` and
+``trace_flat_world``, each with compact=False).
 
 The ray state is carried as flat [N] component tensors. For sphere scenes
 each bounce makes one ``fused_hit`` call (kernel A1) that returns the
@@ -11,6 +11,12 @@ casts one shadow ray per diffuse hit through the shadow-mode sphere sweep
 (kernel A2) and, in a world, the mesh search, and weighs it against the
 BSDF sample by the balance heuristic. The estimator, the uniform slots and
 the tie-breaks are the JAX package's, line by line.
+
+``trace_flat(diff=True)`` is the gradient-capable sphere path: the
+shadow-mode kernel (A2) only selects the winner, and ``_rederive_hits_flat``
+re-derives t, the hit point, the normal and the material parameters from
+the scene tensors, so autograd reaches them. The other paths are forward
+only: a render of tensors that require grad runs, and its backward raises.
 """
 
 from __future__ import annotations
@@ -21,8 +27,9 @@ import torch
 
 from . import sampling
 from .scene import DIELECTRIC, EMISSIVE, LAMBERTIAN, METAL, SphereScene
-from .vecmath import safe_sqrt
-from .world import World, WorldLights, face_param_table, world_lights
+from .vecmath import gather_rows, safe_sqrt
+from .world import (World, WorldLights, face_param_table, tensors_of,
+                    world_lights)
 from ..kernels.fused_hit import (BIG, TILE, FusedSpheres, fused_hit,
                                  prep_fused_spheres)
 from ..kernels.mesh_intersect import (MeshClusters, mesh_search,
@@ -182,7 +189,7 @@ def _nee_flat(tables: FusedSpheres, light_idx, px, py, pz, nx, ny, nz,
     n_lights = light_idx.shape[0]
     pick = torch.clamp((u4 * n_lights).to(torch.int32), 0, n_lights - 1)
     light = light_idx[pick.long()]
-    lp = tables.params[light.long()]
+    lp = gather_rows(tables.params, light)
     lcx, lcy, lcz, lr = lp[:, 0], lp[:, 1], lp[:, 2], lp[:, 3]
     ldx, ldy, ldz, pdf_j, ok = _cone_sample(lcx, lcy, lcz, lr, px, py, pz,
                                             u5, u6)
@@ -241,7 +248,8 @@ def initial_state(origins: torch.Tensor, directions: torch.Tensor,
     ox, oy, oz = (padf(origins[:, k]) for k in range(3))
     dx, dy, dz = padf(directions[:, 0]), padf(directions[:, 1]), \
         padf(directions[:, 2], 1.0)
-    keys = torch.nn.functional.pad(sample_keys, (0, n_pad))
+    keys = torch.cat([sample_keys, sample_keys.new_zeros(
+        (n_pad, *sample_keys.shape[1:]))])   # [N] hash or [N,2] threefry
     alive = padf(origins[:, 0] * 0.0 + 1.0) > 0.5
     zero = torch.zeros_like(ox)
     one = torch.ones_like(ox)
@@ -312,13 +320,66 @@ def _shade(s: RayState, h: dict, depth_idx: int, rr_start: int, emit_w,
         tx, ty, tz, rx, ry, rz, continues, prev_pdf, s.keys)
 
 
+def _rederive_hits_flat(params, ox, oy, oz, dx, dy, dz, t_sel, idx, t_min):
+    """Differentiable re-derivation of the selected winners on flat
+    components: intersect_spheres' refinement (Citardauq roots, the same
+    guards) on the winners' rows of packed_param_table, params [S,16].
+    Selection (idx, hit) is detached; the values are differentiable
+    functions of the scene tensors. Returns fused_hit's full-mode dict."""
+    p = gather_rows(params, idx)                             # [N,16]
+    cxs, cys, czs, r = p[:, 0], p[:, 1], p[:, 2], p[:, 3]
+    ocx, ocy, ocz = ox - cxs, oy - cys, oz - czs
+    a1 = dx * dx + dy * dy + dz * dz
+    half_b = ocx * dx + ocy * dy + ocz * dz
+    c1 = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+    disc = half_b * half_b - a1 * c1
+    sqrtd = safe_sqrt(disc)
+    sq_signed = torch.where(half_b >= 0.0, sqrtd, -sqrtd)
+    q1 = -half_b - sq_signed
+    q1_safe = torch.where(q1 == 0.0, 1.0, q1)
+    root_a = q1 / a1
+    root_b = torch.where(q1 == 0.0, 0.0, c1 / q1_safe)
+    near = torch.where(half_b >= 0.0, root_a, root_b)
+    far = torch.where(half_b >= 0.0, root_b, root_a)
+    near_ok = near >= t_min
+    t_fine = torch.where(near_ok, near, far)
+    fine_ok = (disc >= 0.0) & (near_ok | (far >= t_min))
+
+    hit = t_sel < BIG                                      # detached decision
+    t = torch.where(hit & fine_ok, t_fine, t_sel)
+    t_safe = torch.where(hit, t, 1.0)
+    px, py, pz = ox + t_safe * dx, oy + t_safe * dy, oz + t_safe * dz
+    r_safe = torch.where(r == 0.0, 1.0, r)
+    owx, owy, owz = (px - cxs) / r_safe, (py - cys) / r_safe, \
+        (pz - czs) / r_safe
+    ff = dx * owx + dy * owy + dz * owz < 0.0
+    sgn = torch.where(ff, 1.0, -1.0)
+    return {
+        "t": t, "idx": idx, "mat": p[:, 9].to(torch.int32),
+        "ff": ff.to(torch.int32), "px": px, "py": py, "pz": pz,
+        "nx": sgn * owx, "ny": sgn * owy, "nz": sgn * owz,
+        "ax": p[:, 4], "ay": p[:, 5], "az": p[:, 6],
+        "fuzz": p[:, 7], "ior": p[:, 8],
+        "ex": p[:, 10], "ey": p[:, 11], "ez": p[:, 12], "rw": r,
+    }
+
+
 def bounce(tables: FusedSpheres, s: RayState, depth_idx: int, t_min: float,
            rr_start: int = 0, interpret: bool = False,
-           light_idx: torch.Tensor | None = None) -> RayState:
+           light_idx: torch.Tensor | None = None,
+           diff: bool = False) -> RayState:
     """One bounce of every ray in a sphere scene: hit, scatter, accumulate,
-    continue. light_idx (the scene's emissive sphere ids) turns NEE on."""
-    h = fused_hit(tables, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive,
-                  t_min, interpret=interpret)
+    continue. light_idx (the scene's emissive sphere ids) turns NEE on.
+    diff=True selects with the shadow-mode kernel and re-derives the hit
+    differentiably from tables.params."""
+    if diff:
+        sel = fused_hit(tables, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive,
+                        t_min, shadow_only=True, interpret=interpret)
+        h = _rederive_hits_flat(tables.params, s.ox, s.oy, s.oz, s.dx, s.dy,
+                                s.dz, sel["t"], sel["idx"], t_min)
+    else:
+        h = fused_hit(tables, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive,
+                      t_min, interpret=interpret)
     emit_w, nee_fn = 1.0, None
     if light_idx is not None:
         n_lights = light_idx.shape[0]
@@ -330,19 +391,37 @@ def bounce(tables: FusedSpheres, s: RayState, depth_idx: int, t_min: float,
     return _shade(s, h, depth_idx, rr_start, emit_w, nee_fn)
 
 
-def _forward_only(tensors, what: str) -> None:
-    if any(t.requires_grad for t in tensors):
+class _ForwardOnly(torch.autograd.Function):
+    """A forward-only trace inside autograd: the render of tensors that
+    require grad runs (with every hit quantity detached by the kernels), and
+    differentiating it raises instead of returning silently zero
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, what, run, *inputs):
+        ctx.what = what
+        return run()
+
+    @staticmethod
+    def backward(ctx, grad):
         raise ValueError(
-            f"{what} is forward-only: the kernels detach every hit quantity, "
-            "so gradients would be silently zero (the gradient integrator "
-            "is ROADMAP Queue A item 7)")
+            f"{ctx.what} is forward-only: its kernels detach every hit "
+            "quantity, so gradients would be silently zero. Render gradients "
+            "with grad_capable_config(cfg) (intersector 'fused_diff', or "
+            "'pallas' for mesh worlds); diff.inverse.make_train_step does "
+            "this itself.")
 
 
-def _scene_tensors(obj) -> list:
-    return [getattr(obj, f) for f in obj.__dataclass_fields__]
+def _forward_only(what: str, run, scene, *tensors) -> torch.Tensor:
+    """run() under no_grad, or through _ForwardOnly when a tensor of the
+    scene or World, or one of tensors, requires grad."""
+    inputs = [t for t in (*tensors, *tensors_of(scene)) if t.requires_grad]
+    if torch.is_grad_enabled() and inputs:
+        return _ForwardOnly.apply(what, run, *inputs)
+    with torch.no_grad():
+        return run()
 
 
-@torch.no_grad()
 def trace_flat(
     scene: SphereScene,
     origins: torch.Tensor,
@@ -353,21 +432,33 @@ def trace_flat(
     nee: bool = False,
     rr_start: int = 0,
     interpret: bool = False,
+    diff: bool = False,
 ) -> torch.Tensor:
-    """Radiance [N,3] of rays origins/directions [N,3] with per-ray hash
-    states sample_keys [N], traced for max_depth bounces on the scene's
-    device. Forward only: raises if any scene or ray tensor requires grad."""
+    """Radiance [N,3] of rays origins/directions [N,3] with per-ray RNG
+    states sample_keys ([N] hash or [N,2] threefry), traced for max_depth
+    bounces on the scene's device.
+
+    diff=False: the full-mode kernel (A1) computes every hit quantity,
+    detached; forward only (differentiating raises). diff=True: the
+    shadow-mode kernel (A2) selects and every differentiable quantity is
+    re-derived from the scene tensors (the 'fused_diff' intersector)."""
     if not isinstance(scene, SphereScene):
         raise TypeError("trace_flat handles SphereScene only")
-    _forward_only([*_scene_tensors(scene), origins, directions], "trace_flat")
-    tables = prep_fused_spheres(scene)
-    lights = scene.light_idx if nee and scene.num_lights > 0 else None
-    state = initial_state(origins, directions, sample_keys)
-    for depth_idx in range(max_depth):
-        state = bounce(tables, state, depth_idx, float(t_min), int(rr_start),
-                       interpret, lights)
-    n = origins.shape[0]
-    return torch.stack([state.rx, state.ry, state.rz], dim=-1)[:n]
+
+    def run():
+        tables = prep_fused_spheres(scene)
+        lights = scene.light_idx if nee and scene.num_lights > 0 else None
+        state = initial_state(origins, directions, sample_keys)
+        for depth_idx in range(max_depth):
+            state = bounce(tables, state, depth_idx, float(t_min),
+                           int(rr_start), interpret, lights, diff)
+        n = origins.shape[0]
+        return torch.stack([state.rx, state.ry, state.rz], dim=-1)[:n]
+
+    if diff:
+        return run()
+    return _forward_only("trace_flat (intersector 'fused')", run, scene,
+                         origins, directions)
 
 
 # ------------------------------------------------------------ mesh worlds
@@ -404,7 +495,7 @@ def _world_hit_flat(wt: WorldTables, ox, oy, oz, dx, dy, dz, alive, t_min,
 
     t = torch.where(closer, t_m, h["t"])
     t_safe = torch.where(t < BIG, t, 1.0)
-    fp = wt.faces[idx_m.long()]                          # [N,16] gather
+    fp = gather_rows(wt.faces, idx_m)                    # [N,16] gather
     gnx, gny, gnz = fp[:, 0], fp[:, 1], fp[:, 2]
     ff_m = dx * gnx + dy * gny + dz * gnz < 0.0
     sgn_m = torch.where(ff_m, 1.0, -1.0)
@@ -553,7 +644,6 @@ def bounce_world(wt: WorldTables, s: RayState, depth_idx: int, t_min: float,
     return _shade(s, h, depth_idx, rr_start, emit_w, nee_fn)
 
 
-@torch.no_grad()
 def trace_flat_world(
     world: World,
     origins: torch.Tensor,
@@ -569,7 +659,8 @@ def trace_flat_world(
 ) -> torch.Tensor:
     """Radiance [N,3] of rays in a mesh world (spheres + triangles), on the
     world's device; the same estimator and uniform slots as trace_flat.
-    Forward only: raises if any world or ray tensor requires grad.
+    Forward only: differentiating it raises (mesh-world gradients take
+    integrator.trace with the 'pallas' intersector).
 
     compact=True (the per-bounce alive-compaction sort) and
     mesh_kernel="pairs"/"hybrid" (the pair-wavefront mesh search) are not
@@ -584,13 +675,15 @@ def trace_flat_world(
         raise NotImplementedError(
             f"mesh_kernel={mesh_kernel!r} is not ported yet: ROADMAP.md "
             "Queue A item 12 (kernels A7, A8)")
-    _forward_only([*_scene_tensors(world.spheres),
-                   *_scene_tensors(world.mesh), origins, directions],
-                  "trace_flat_world")
-    wt = prep_world(world)
-    state = initial_state(origins, directions, sample_keys)
-    for depth_idx in range(max_depth):
-        state = bounce_world(wt, state, depth_idx, float(t_min), bool(nee),
-                             int(rr_start), interpret)
-    n = origins.shape[0]
-    return torch.stack([state.rx, state.ry, state.rz], dim=-1)[:n]
+
+    def run():
+        wt = prep_world(world)
+        state = initial_state(origins, directions, sample_keys)
+        for depth_idx in range(max_depth):
+            state = bounce_world(wt, state, depth_idx, float(t_min),
+                                 bool(nee), int(rr_start), interpret)
+        n = origins.shape[0]
+        return torch.stack([state.rx, state.ry, state.rz], dim=-1)[:n]
+
+    return _forward_only("trace_flat_world", run, world, origins,
+                         directions)

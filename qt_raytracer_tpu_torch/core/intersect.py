@@ -1,12 +1,44 @@
-"""Packed sphere parameter table (``packed_param_table`` of
-``qt_raytracer_tpu.core.intersect``; the rest of that module is ported with
-the gradient integrator, ROADMAP Queue A item 7)."""
+"""Ray-sphere intersection of the gradient integrator (counterpart of
+``qt_raytracer_tpu.core.intersect``).
+
+The closest-hit search (kernel A5, ``kernels.sphere_intersect``) is
+detached: it picks the winner. Every differentiable quantity is re-derived
+here from the winner's row of ``packed_param_table(scene)`` with the
+well-conditioned oc form and stable (Citardauq) roots, so autograd reaches
+the scene tensors through the refinement alone.
+"""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
+from . import vecmath as vm
 from .scene import SphereScene
+
+# +inf stand-in, f32-exact (the kernels' BIG).
+BIG = float(np.float32(3.0e38))
+
+
+class Hits(NamedTuple):
+    """SoA hit record batch (HitRecord, RayTracer.h:208-219), with the
+    winning primitive's material parameters riding along."""
+
+    t: torch.Tensor           # [N] hit distance (BIG when miss)
+    prim_idx: torch.Tensor    # [N] i32 nearest primitive (0 if miss)
+    hit: torch.Tensor         # [N] bool
+    point: torch.Tensor       # [N,3] hit point
+    normal: torch.Tensor      # [N,3] forward-facing normal
+    front_face: torch.Tensor  # [N] bool
+    mat_type: torch.Tensor    # [N] i32 material tag of the winner
+    albedo: torch.Tensor      # [N,3]
+    fuzz: torch.Tensor        # [N]
+    ior: torch.Tensor         # [N]
+    emission: torch.Tensor    # [N,3]
+    radius: torch.Tensor      # [N] winner sphere radius (0 for triangles)
+    area: torch.Tensor        # [N] winner face area (0 for spheres)
 
 
 def packed_param_table(scene: SphereScene) -> torch.Tensor:
@@ -22,3 +54,90 @@ def packed_param_table(scene: SphereScene) -> torch.Tensor:
         scene.emission,                                 # 10,11,12
         torch.zeros((s, 3), dtype=torch.float32, device=scene.device),
     ], dim=1)
+
+
+def sphere_hit_ts(scene: SphereScene, origins, directions, t_min,
+                  t_max=BIG) -> torch.Tensor:
+    """Per-(ray, sphere) nearest valid root, [N, S]; BIG where no valid hit
+    (Sphere::hit root selection, RayTracer.h:289-305). The [N, S] form of
+    the search, kept as an independent reference for kernel A5's plain
+    version."""
+    o, d = origins, directions
+    c, r = scene.center, scene.radius
+    a = vm.length_squared(d)[:, None]
+    half_b = vm.dot(o, d)[:, None] - d @ c.T
+    cterm = (vm.length_squared(o)[:, None] - 2.0 * (o @ c.T)
+             + (vm.length_squared(c) - r * r)[None, :])
+    disc = half_b * half_b - a * cterm
+    sqrtd = vm.safe_sqrt(disc)
+    inv_a = 1.0 / a
+    root_near = (-half_b - sqrtd) * inv_a
+    root_far = (-half_b + sqrtd) * inv_a
+    in_range = lambda t: (t >= t_min) & (t <= t_max)
+    near_ok = in_range(root_near)
+    root = torch.where(near_ok, root_near, root_far)
+    valid = (disc >= 0.0) & (near_ok | in_range(root_far)) \
+        & scene.active[None, :]
+    return torch.where(valid, root, BIG)
+
+
+def intersect_spheres(scene: SphereScene, origins, directions, t_min,
+                      t_max=BIG, backend: str = "pallas", alive=None,
+                      exclude=None) -> Hits:
+    """Closest hit over all spheres (HitableList::hit, RayTracer.h:339-353).
+
+    backend: "pallas" (kernel A5 on CUDA tensors, its plain version on CPU
+    tensors) or "pallas_interpret" (the plain version on any device). The
+    search is detached; t, point and normal are re-derived differentiably.
+    Ties resolve to the lowest sphere index."""
+    if backend not in ("pallas", "pallas_interpret"):
+        raise NotImplementedError(
+            f"intersect_spheres backend {backend!r} is not ported yet: "
+            "ROADMAP Queue A item 13 (the XLA [N, S] search)")
+    from ..kernels.sphere_intersect import sphere_search
+
+    t_coarse, prim_idx = sphere_search(
+        scene, origins, directions, float(t_min),
+        interpret=backend == "pallas_interpret", alive=alive, exclude=exclude)
+    hit = t_coarse < BIG
+
+    params = vm.gather_rows(packed_param_table(scene), prim_idx)  # [N,16]
+    c_sel = params[:, 0:3]
+    r_sel = params[:, 3]
+
+    # Refinement in the well-conditioned oc = o - c form (Sphere::hit,
+    # RayTracer.h:289-305) with the stable roots: q carries the
+    # non-cancelling sum, the other root is c1/q.
+    oc = origins - c_sel
+    a1 = vm.length_squared(directions)
+    half_b1 = vm.dot(oc, directions)
+    c1 = vm.length_squared(oc) - r_sel * r_sel
+    disc1 = half_b1 * half_b1 - a1 * c1
+    sqrtd1 = vm.safe_sqrt(disc1)
+    sq_signed = torch.where(half_b1 >= 0.0, sqrtd1, -sqrtd1)
+    q1 = -half_b1 - sq_signed
+    q1_safe = torch.where(q1 == 0.0, 1.0, q1)
+    root_a = q1 / a1
+    root_b = torch.where(q1 == 0.0, 0.0, c1 / q1_safe)
+    near1 = torch.where(half_b1 >= 0.0, root_a, root_b)
+    far1 = torch.where(half_b1 >= 0.0, root_b, root_a)
+    near_ok1 = (near1 >= t_min) & (near1 <= t_max)
+    t_fine = torch.where(near_ok1, near1, far1)
+    fine_ok = (disc1 >= 0.0) & (near_ok1 | ((far1 >= t_min)
+                                            & (far1 <= t_max)))
+    t = torch.where(hit & fine_ok, t_fine, t_coarse)
+
+    # Miss lanes carry t = BIG; o + BIG*d overflows, and inf in the untaken
+    # branch of a where turns the backward pass into NaN (inf * 0). The
+    # geometry of a miss lane is masked anyway: use t = 1 there.
+    t_safe = torch.where(hit, t, 1.0)
+    point = origins + t_safe[:, None] * directions
+    outward = (point - c_sel) / torch.where(r_sel == 0.0, 1.0, r_sel)[:, None]
+    front_face = vm.dot(directions, outward) < 0.0
+    normal = torch.where(front_face[:, None], outward, -outward)
+    return Hits(t=t, prim_idx=prim_idx, hit=hit, point=point, normal=normal,
+                front_face=front_face,
+                mat_type=params[:, 9].to(torch.int32),
+                albedo=params[:, 4:7], fuzz=params[:, 7], ior=params[:, 8],
+                emission=params[:, 10:13], radius=r_sel,
+                area=torch.zeros_like(t))

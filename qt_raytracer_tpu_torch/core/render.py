@@ -1,24 +1,35 @@
 """Top-level render API (counterpart of ``qt_raytracer_tpu.core.render``):
-``render(scene, camera, config, seed) -> image``.
+``render(scene, camera, config, key) -> image``.
 
 The render runs on the device of the scene's tensors (a SphereScene or a
-World); the camera must live there too. Pixel conventions match the
-reference (RayTracerFboItem.cpp:102-127): row 0 is the top of the image,
-v uses j = height-1-row, u = (i + jitter)/(width-1),
-v = (j + jitter)/(height-1). The JAX package's
-``lax.map`` over pixel chunks and ``lax.scan`` over sample batches are Python
-loops here, with the same padding rule and summation order.
+World); the camera must live there too. ``key`` is an int seed (the key
+words [0, seed]) or a [2] tensor of key words. Pixel conventions match the
+reference (RayTracerFboItem.cpp:102-127): row 0 is the top of the image, v
+uses j = height-1-row, u = (i + jitter)/(width-1),
+v = (j + jitter)/(height-1). The JAX package's ``lax.map`` over pixel chunks
+and ``lax.scan`` over sample batches are Python loops here, with the same
+padding rule and summation order.
+
+A render of tensors that require grad runs with autograd on, each (chunk,
+sample batch) under ``torch.utils.checkpoint`` (the counterpart of the JAX
+package's ``jax.checkpoint``): the backward recomputes one batch at a time
+instead of keeping every batch's per-bounce tensors. The recompute is exact,
+because the RNG is counter-based and the kernels are deterministic. Other
+renders run under ``torch.no_grad``.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import camera as cam_mod
 from . import sampling, tonemap
 from .config import RenderConfig, require_ported
+from .integrator import trace
 from .integrator_flat import trace_flat, trace_flat_world
-from .world import World
+from .scene import SphereScene
+from .world import World, tensors_of
 
 # Auto-chunk constants, as in the JAX package: chunks are multiples of the
 # 1024-ray kernel tile, ~414,720 rays (5 chunks at 1080p), and images under
@@ -26,6 +37,13 @@ from .world import World
 _CHUNK_TILE = 1024
 _CHUNK_TARGET = 414720
 _CHUNK_MIN_RAYS = 262144
+
+
+def resolve_intersector(cfg: RenderConfig) -> str:
+    """cfg.intersector with "auto" mapped to "fused": the flat path, whose
+    kernels run on CUDA tensors and whose plain versions run on CPU
+    tensors."""
+    return "fused" if cfg.intersector == "auto" else cfg.intersector
 
 
 def resolve_pixel_chunk(cfg: RenderConfig) -> int:
@@ -44,19 +62,29 @@ def resolve_pixel_chunk(cfg: RenderConfig) -> int:
 
 
 def _trace_dispatch(scene, origins, directions, samp_keys, cfg: RenderConfig):
-    """A World with a mesh goes to trace_flat_world; a World without one
-    and a SphereScene go to trace_flat on their spheres. "auto" and "fused"
-    launch the kernels on CUDA tensors and take their plain versions on CPU
-    tensors; "fused_interpret" takes the plain versions."""
-    kw = dict(nee=cfg.nee, rr_start=cfg.rr_start,
-              interpret=cfg.intersector == "fused_interpret")
-    if isinstance(scene, World):
-        if scene.mesh is not None:
-            return trace_flat_world(scene, origins, directions, samp_keys,
-                                    cfg.max_depth, cfg.t_min, **kw)
+    """Route as the JAX package does. A World without a mesh renders its
+    spheres. "fused*" on a SphereScene takes trace_flat (diff=True for
+    "fused_diff*"); "fused"/"fused_interpret" on a mesh world take
+    trace_flat_world; "fused_diff*" on a mesh world and "pallas*" anywhere
+    take the [N,3] integrator trace with "pallas[_interpret]"."""
+    backend = resolve_intersector(cfg)
+    kw = dict(nee=cfg.nee, rr_start=cfg.rr_start)
+    if isinstance(scene, World) and scene.mesh is None:
         scene = scene.spheres
-    return trace_flat(scene, origins, directions, samp_keys, cfg.max_depth,
-                      cfg.t_min, **kw)
+    if backend.startswith("fused"):
+        interpret = backend.endswith("interpret")
+        diff = backend.startswith("fused_diff")
+        if isinstance(scene, SphereScene):
+            return trace_flat(scene, origins, directions, samp_keys,
+                              cfg.max_depth, cfg.t_min, interpret=interpret,
+                              diff=diff, **kw)
+        if not diff:
+            return trace_flat_world(scene, origins, directions, samp_keys,
+                                    cfg.max_depth, cfg.t_min,
+                                    interpret=interpret, **kw)
+        backend = "pallas_interpret" if interpret else "pallas"
+    return trace(scene, origins, directions, samp_keys, cfg.max_depth,
+                 cfg.t_min, intersector=backend, **kw)
 
 
 def pixel_grid(cfg: RenderConfig, device=None):
@@ -107,50 +135,89 @@ def _merged_batch_radiance(scene, camera, cfg: RenderConfig, pix_keys, i, j,
     return acc
 
 
-@torch.no_grad()
-def render_linear(scene, camera, cfg: RenderConfig, seed: int) -> torch.Tensor:
-    """Sum of spp linear radiance samples, [H, W, 3] f32 (row 0 = top), on
-    the scene's device. Divide by cfg.spp (or use tonemap.resolve) for the
-    mean image."""
-    require_ported(cfg)
+def _check_devices(scene, camera) -> torch.device:
     dev = scene.device
     if camera.device != dev:
         raise ValueError(f"scene is on {dev} but camera is on {camera.device}")
-    i, j, pixel_index = pixel_grid(cfg, dev)
-    pix_keys = sampling.pixel_states(seed, pixel_index, cfg.rng)
+    return dev
 
-    spb = cfg.samples_per_batch
-    num_batches = cfg.spp // spb
 
-    def render_chunk(pk, ic, jc):
-        accum = torch.zeros((ic.shape[0], 3), dtype=torch.float32, device=dev)
-        for b in range(num_batches):
+def needs_grad(scene, camera) -> bool:
+    """True when autograd is on and a scene or camera tensor requires
+    grad."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors_of(scene) + tensors_of(camera))
+
+
+def render_linear(scene, camera, cfg: RenderConfig, key) -> torch.Tensor:
+    """Sum of spp linear radiance samples, [H, W, 3] f32 (row 0 = top), on
+    the scene's device. Divide by cfg.spp (or use tonemap.resolve) for the
+    mean image. Differentiable when a scene or camera tensor requires grad
+    (with a grad-capable intersector, see diff.inverse.grad_capable_config)."""
+    require_ported(cfg)
+    dev = _check_devices(scene, camera)
+    grad = needs_grad(scene, camera)
+    with torch.set_grad_enabled(grad):
+        i, j, pixel_index = pixel_grid(cfg, dev)
+        pix_keys = sampling.pixel_states(key, pixel_index, cfg.rng)
+        spb = cfg.samples_per_batch
+        num_batches = cfg.spp // spb
+
+        def one_batch(pk, ic, jc, b):
             if spb == 1:
-                out = _sample_radiance(scene, camera, cfg, pk, ic, jc, b)
-            else:
-                out = _merged_batch_radiance(scene, camera, cfg, pk, ic, jc,
-                                             b, spb)
-            accum = accum + out
-        return accum
+                return _sample_radiance(scene, camera, cfg, pk, ic, jc, b)
+            return _merged_batch_radiance(scene, camera, cfg, pk, ic, jc, b,
+                                          spb)
 
-    n = cfg.num_pixels
-    chunk = resolve_pixel_chunk(cfg)
-    if chunk <= 0 or chunk >= n:
-        accum = render_chunk(pix_keys, i, j)
-    else:
-        # Pad to a whole number of chunks by replaying the first pixels
-        # (their keys are real; the results are sliced off).
-        n_pad = (-n) % chunk
-        pad = lambda x: torch.cat([x, x[:n_pad]]) if n_pad else x
-        pk, ip, jp = pad(pix_keys), pad(i), pad(j)
-        accum = torch.cat([
-            render_chunk(pk[lo:lo + chunk], ip[lo:lo + chunk],
-                         jp[lo:lo + chunk])
-            for lo in range(0, n + n_pad, chunk)])[:n]
-    return accum.reshape(cfg.height, cfg.width, 3)
+        def render_chunk(pk, ic, jc):
+            accum = torch.zeros((ic.shape[0], 3), dtype=torch.float32,
+                                device=dev)
+            for b in range(num_batches):
+                if grad:
+                    out = checkpoint(one_batch, pk, ic, jc, b,
+                                     use_reentrant=False,
+                                     preserve_rng_state=False)
+                else:
+                    out = one_batch(pk, ic, jc, b)
+                accum = accum + out
+            return accum
+
+        n = cfg.num_pixels
+        chunk = resolve_pixel_chunk(cfg)
+        if chunk <= 0 or chunk >= n:
+            accum = render_chunk(pix_keys, i, j)
+        else:
+            # Pad to a whole number of chunks by replaying the first pixels
+            # (their keys are real; the results are sliced off).
+            n_pad = (-n) % chunk
+            pad = lambda x: torch.cat([x, x[:n_pad]]) if n_pad else x
+            pk, ip, jp = pad(pix_keys), pad(i), pad(j)
+            accum = torch.cat([
+                render_chunk(pk[lo:lo + chunk], ip[lo:lo + chunk],
+                             jp[lo:lo + chunk])
+                for lo in range(0, n + n_pad, chunk)])[:n]
+        return accum.reshape(cfg.height, cfg.width, 3)
 
 
-def render(scene, camera, cfg: RenderConfig, seed: int) -> torch.Tensor:
+def render(scene, camera, cfg: RenderConfig, key) -> torch.Tensor:
     """Full batch render -> uint8 image [H, W, 3] (gamma-2, quantized)."""
-    accum = render_linear(scene, camera, cfg, seed)
+    accum = render_linear(scene, camera, cfg, key)
     return tonemap.to_uint8(accum, cfg.spp, cfg.quantizer)
+
+
+def render_sample_batch(scene, camera, cfg: RenderConfig, key,
+                        start_sample: int, num_samples: int) -> torch.Tensor:
+    """Linear radiance sum [H, W, 3] of samples [start, start + num), one
+    wavefront per sample over the whole image (the progressive building
+    block; no chunking, as in the JAX package)."""
+    require_ported(cfg)
+    dev = _check_devices(scene, camera)
+    with torch.set_grad_enabled(needs_grad(scene, camera)):
+        i, j, pixel_index = pixel_grid(cfg, dev)
+        pix_keys = sampling.pixel_states(key, pixel_index, cfg.rng)
+        accum = torch.zeros((cfg.num_pixels, 3), dtype=torch.float32,
+                            device=dev)
+        for k in range(num_samples):
+            accum = accum + _sample_radiance(scene, camera, cfg, pix_keys, i,
+                                             j, int(start_sample) + k)
+        return accum.reshape(cfg.height, cfg.width, 3)

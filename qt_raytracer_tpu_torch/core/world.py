@@ -1,5 +1,5 @@
 """World = spheres + optional triangle mesh (counterpart of
-``qt_raytracer_tpu.core.world``, forward path).
+``qt_raytracer_tpu.core.world``).
 
 Both primitive families share one id space: ids below num_spheres are
 spheres, id num_spheres + j is triangle j of the (BVH-ordered) mesh. The
@@ -7,8 +7,11 @@ offset keeps next-event estimation's shadow test ("the first hit IS the
 chosen light") right when meshes occlude. The world light table (emissive
 spheres, then emissive faces) drives NEE/MIS.
 
-``intersect_world`` and ``_tri_t_diff`` serve the [N,3] gradient integrator
-and are ported with it (ROADMAP Queue A item 7).
+``intersect_world`` is the merged closest hit of the [N,3] gradient
+integrator: the sphere search (kernel A5), then the mesh search (A3, with A4
+and the crossing sort on multi-cluster meshes) capped by the sphere winner,
+both detached; the winning triangle's t is re-derived differentiably
+(``_tri_t_diff``) and its face row supplies the rest.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..accel.mesh import TriangleMesh
+from . import vecmath as vm
+from .intersect import BIG, Hits, intersect_spheres
 from .scene import SphereScene
 
 
@@ -56,6 +61,14 @@ class WorldLights(NamedTuple):
     expected_prim: torch.Tensor  # [L] i32
     n_sphere: int
     n_total: int
+
+
+def tensors_of(obj) -> list:
+    """Every tensor field of a SphereScene, TriangleMesh, Camera or World."""
+    if isinstance(obj, World):
+        return tensors_of(obj.spheres) + (
+            [] if obj.mesh is None else tensors_of(obj.mesh))
+    return [getattr(obj, f.name) for f in dataclasses.fields(obj)]
 
 
 def world_lights(world: World) -> WorldLights:
@@ -109,3 +122,82 @@ def face_param_table(mesh: TriangleMesh) -> torch.Tensor:
         mesh.emission,                                 # 10,11,12
         torch.zeros((f, 3), dtype=torch.float32, device=mesh.device),
     ], dim=1)
+
+
+def _tri_t_diff(mesh: TriangleMesh, tri_idx, o, d, t_min, t_max):
+    """Differentiable Moller-Trumbore t of per-lane selected triangles (the
+    gradient path for mesh geometry; the search itself is detached)."""
+    v0, e1, e2 = (vm.gather_rows(x, tri_idx)
+                  for x in (mesh.v0, mesh.e1, mesh.e2))
+    p = vm.cross(d, e2)
+    det = torch.sum(p * e1, dim=-1)
+    ok = torch.abs(det) > 1e-12
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+    q = vm.cross(o - v0, e1)
+    t = torch.sum(q * e2, dim=-1) * inv_det
+    return t, ok & (t >= t_min) & (t <= t_max)
+
+
+def intersect_world(world: World, origins, directions, t_min,
+                    backend: str = "pallas", alive=None,
+                    exclude=None) -> Hits:
+    """Closest hit over every primitive family, merged into one Hits with
+    one id space (triangle j is prim num_spheres + j), on a strict '<'.
+
+    backend: "pallas" (the kernels on CUDA tensors, their plain versions on
+    CPU tensors) or "pallas_interpret" (the plain versions)."""
+    if exclude is not None:
+        raise NotImplementedError(
+            "the per-lane exclude operand is not ported yet: ROADMAP Queue A "
+            "item 8")
+    hs = intersect_spheres(world.spheres, origins, directions, t_min,
+                           backend=backend, alive=alive)
+    mesh = world.mesh
+    if mesh is None:
+        return hs
+    from ..kernels.mesh_intersect import mesh_search, prep_mesh_clusters
+
+    # The sphere winner caps the mesh search: clusters beyond it prune, and
+    # lanes whose winner is a sphere come back as a mesh miss.
+    with torch.no_grad():
+        comps = [x[:, k].contiguous() for x in (origins, directions)
+                 for k in range(3)]
+        n = origins.shape[0]
+        live = alive if alive is not None else \
+            torch.ones(n, dtype=torch.bool, device=origins.device)
+        t_m, idx_m = mesh_search(
+            prep_mesh_clusters(mesh), *comps, float(t_min),
+            alive=live.contiguous(),
+            t_cap=torch.where(hs.hit, hs.t, BIG).contiguous(),
+            interpret=backend == "pallas_interpret")
+    tri_hit = t_m < BIG
+    t_d, ok_d = _tri_t_diff(mesh, idx_m, origins, directions, t_min, BIG)
+    t_tri = torch.where(tri_hit & ok_d, t_d, t_m)
+
+    closer = tri_hit & (~hs.hit | (t_tri < hs.t))
+    t = torch.where(closer, t_tri, hs.t)
+    hit = hs.hit | tri_hit
+    prim_idx = torch.where(closer, world.spheres.num_spheres + idx_m,
+                           hs.prim_idx)
+    t_safe = torch.where(hit, t, 1.0)
+    point_m = origins + t_safe[:, None] * directions
+    fp = vm.gather_rows(face_param_table(mesh), idx_m)        # [N,16]
+    gn = fp[:, 0:3]
+    ff_m = vm.dot(directions, gn) < 0.0
+    normal_m = torch.where(ff_m[:, None], gn, -gn)
+
+    sel3 = lambda m_val, s_val: torch.where(closer[:, None], m_val, s_val)
+    sel1 = lambda m_val, s_val: torch.where(closer, m_val, s_val)
+    return Hits(
+        t=t, prim_idx=prim_idx, hit=hit,
+        point=sel3(point_m, hs.point),
+        normal=sel3(normal_m, hs.normal),
+        front_face=sel1(ff_m, hs.front_face),
+        mat_type=sel1(fp[:, 9].to(torch.int32), hs.mat_type),
+        albedo=sel3(fp[:, 4:7], hs.albedo),
+        fuzz=sel1(fp[:, 7], hs.fuzz),
+        ior=sel1(fp[:, 8], hs.ior),
+        emission=sel3(fp[:, 10:13], hs.emission),
+        radius=sel1(torch.zeros_like(t), hs.radius),
+        area=sel1(fp[:, 3], torch.zeros_like(t)),
+    )

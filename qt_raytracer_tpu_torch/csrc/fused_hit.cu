@@ -13,6 +13,17 @@
 // search as its cap. The plain PyTorch version of both modes is
 // fused_hit_plain in qt_raytracer_tpu_torch/kernels/fused_hit.py.
 //
+// Kernel A5 (qtrt_sphere_search) replaces
+// qt_raytracer_tpu/kernels/sphere_intersect.py::_search_kernel_monolithic,
+// the sphere search of the gradient integrator: the same sweep as A2 over
+// the TPU kernel's table, padded to a multiple of 64 slots (padding at
+// center 1e9 with |c|^2 - r^2 = BIG, ids at or above the scene's sphere
+// count read back as 0), emitting (t, idx) with the same miss and dead-lane
+// values. Its plain version is sphere_search_plain in
+// qt_raytracer_tpu_torch/kernels/sphere_intersect.py. The TPU skips whole
+// dead 128-ray rows and searches dead lanes of live rows; this kernel gates
+// each lane, so every dead lane reads (BIG, 0).
+//
 // What bounds it on the H100. The sweep costs about 25 FLOPs per ray-sphere
 // pair, and one IEEE square root. At the main path's 414,720 rays x 512
 // spheres that is about 5.3 GFLOP per launch, against about 100 B of ray I/O
@@ -72,16 +83,19 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az,
   return add(add(mul(ax, bx), mul(ay, by)), mul(az, bz));
 }
 
-// SHADOW: stop after the sweep and write only rows F_T and I_IDX (the
-// outputs are then [1, n] each, and params is not read).
+// The body of every kernel in this file. SHADOW: stop after the sweep and
+// write only rows F_T and I_IDX (the outputs are then [1, n] each, and
+// params is not read); a winner id at or above num_ids (a padding slot of
+// the sphere-search table) is written as 0. Every thread of the block must
+// call it: it synchronises the block.
 template <bool SHADOW>
-__global__ void __launch_bounds__(BLOCK) fused_hit_kernel(
+__device__ __forceinline__ void fused_hit_body(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const bool* __restrict__ alive, const float4* __restrict__ spheres,
-    const float4* __restrict__ params, int s, float t_min, int n,
-    float* __restrict__ fout, int* __restrict__ iout) {
+    const float4* __restrict__ params, int s, int num_ids, float t_min,
+    int n, float* __restrict__ fout, int* __restrict__ iout) {
   __shared__ float4 tile[TILE_S];
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool live = i < n && alive[i];
@@ -137,7 +151,7 @@ __global__ void __launch_bounds__(BLOCK) fused_hit_kernel(
     // Unrefined t_best and the lowest winning id (0 on a miss); a dead lane
     // gets BIG/0, the TPU kernel's dead-row values.
     f[0] = live ? t_best : BIG;
-    g[0] = live ? best : 0;
+    g[0] = (live && best < num_ids) ? best : 0;
     return;
   }
   const size_t row = static_cast<size_t>(n);
@@ -211,6 +225,32 @@ __global__ void __launch_bounds__(BLOCK) fused_hit_kernel(
   g[I_FF * row] = ff ? 1 : 0;
 }
 
+// A1 (SHADOW = false) and A2 (SHADOW = true).
+template <bool SHADOW>
+__global__ void __launch_bounds__(BLOCK) fused_hit_kernel(
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const bool* __restrict__ alive, const float4* __restrict__ spheres,
+    const float4* __restrict__ params, int s, float t_min, int n,
+    float* __restrict__ fout, int* __restrict__ iout) {
+  fused_hit_body<SHADOW>(ox, oy, oz, dx, dy, dz, alive, spheres, params, s,
+                         s, t_min, n, fout, iout);
+}
+
+// A5: the sweep over a table padded to a multiple of 64 slots (padding ids
+// read back as 0), emitting (t, idx) as A2 does.
+__global__ void __launch_bounds__(BLOCK) sphere_search_kernel(
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const bool* __restrict__ alive, const float4* __restrict__ spheres,
+    int s_pad, int num_spheres, float t_min, int n, float* __restrict__ t_out,
+    int* __restrict__ idx_out) {
+  fused_hit_body<true>(ox, oy, oz, dx, dy, dz, alive, spheres, nullptr,
+                       s_pad, num_spheres, t_min, n, t_out, idx_out);
+}
+
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
@@ -250,5 +290,26 @@ extern "C" int qtrt_fused_hit_shadow(const float* ox, const float* oy,
           ox, oy, oz, dx, dy, dz, alive,
           reinterpret_cast<const float4*>(spheres), nullptr, s, t_min, n,
           t_out, idx_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Sphere search (kernel A5). spheres: [s_pad, 4] f32 rows from
+// prep_sphere_search (inactive slots biased by +BIG, padding slots at
+// center 1e9 with |c|^2 - r^2 = BIG); t_out: [n] f32 (unrefined sweep
+// minimum, BIG on a miss or a dead lane); idx_out: [n] i32 (lowest winning
+// id below num_spheres, 0 on a miss or a dead lane). Returns the
+// cudaError_t of the launch.
+extern "C" int qtrt_sphere_search(const float* ox, const float* oy,
+                                  const float* oz, const float* dx,
+                                  const float* dy, const float* dz,
+                                  const bool* alive, const float* spheres,
+                                  int s_pad, int num_spheres, float t_min,
+                                  int n, float* t_out, int* idx_out,
+                                  void* stream) {
+  if (n <= 0 || s_pad <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = n / BLOCK + (n % BLOCK != 0);
+  sphere_search_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      ox, oy, oz, dx, dy, dz, alive, reinterpret_cast<const float4*>(spheres),
+      s_pad, num_spheres, t_min, n, t_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,251 @@
+"""Differentiable and inverse rendering (counterpart of
+``qt_raytracer_tpu.diff.inverse``).
+
+The renderer is differentiable with respect to material albedo, emitter
+radiance, scene geometry and camera parameters, so a scene can be recovered
+from images by gradient descent.
+
+Gradient estimator: detached-decision pathwise gradients. Every sampling
+decision (which bounce branch, reflect or refract, which primitive wins the
+closest hit) is a function of the counter-based uniforms and is held fixed;
+derivatives flow through the continuous transport factors (attenuations,
+normals, hit points, camera rays). This matches finite differences of the
+same fixed-key render for interior pixels. Silhouette (edge-aware)
+gradients are not ported yet (ROADMAP Queue A item 8).
+
+Parameters are a nested dict of leaf tensors, {"scene": {field: tensor},
+"camera": {"translate": [3]}}; optax's Adam becomes ``torch.optim.Adam``
+with one parameter group per leaf (optax.multi_transform's labels become
+per-group learning rates, see ``adam``). A TrainState holds the parameters,
+the optimizer and the step count.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from ..core import sampling
+from ..core.camera import Camera
+from ..core.config import RenderConfig
+from ..core.render import render_linear, resolve_intersector
+
+# Scene fields exposed to the optimizer by default.
+DEFAULT_TRAINABLE = ("albedo", "emission")
+
+
+def grad_capable_config(cfg: RenderConfig) -> RenderConfig:
+    """Pin a differentiable intersector: the plain fused flat path is
+    forward-only (differentiating it raises), so gradient renders take
+    "fused_diff" (the shadow-mode kernel selects, PyTorch re-derives; mesh
+    worlds go on to the [N,3] integrator with "pallas")."""
+    resolved = resolve_intersector(cfg)
+    if resolved in ("fused", "fused_interpret"):
+        pinned = "fused_diff" if resolved == "fused" else "fused_diff_interpret"
+        return dataclasses.replace(cfg, intersector=pinned)
+    return cfg
+
+
+def split_scene(scene, trainable=DEFAULT_TRAINABLE):
+    """Partition a scene into (params dict, rebuild closure)."""
+    params = {name: getattr(scene, name) for name in trainable}
+
+    def rebuild(p):
+        return dataclasses.replace(scene, **p)
+
+    return params, rebuild
+
+
+def refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (a render sharded over devices) is not ported yet: "
+            "ROADMAP Queue A item 11")
+
+
+def mean_image(scene, camera, cfg: RenderConfig, key, mesh=None):
+    """Per-sample mean linear radiance image [H, W, 3]: the differentiable
+    target."""
+    refuse_mesh(mesh)
+    return render_linear(scene, camera, cfg, key) / cfg.spp
+
+
+def image_loss(scene, camera, cfg: RenderConfig, key, target, mesh=None):
+    """L2 loss in linear radiance space against a target image [H,W,3]."""
+    img = mean_image(scene, camera, cfg, key, mesh)
+    return torch.mean((img - target) ** 2)
+
+
+def dual_image_loss(scene, camera, cfg: RenderConfig, key, target,
+                    mesh=None):
+    """Dual-buffer debiased image loss: two fixed half-spp renders A and B
+    on the disjoint key branches fold_in(key, 101) and fold_in(key, 202),
+    and mean((rA - t) * (rB - t)). Same compute and expectation as the L2,
+    but its gradient never pairs a render's speckle with that same render's
+    sensitivity, so the fixed-key noise-fit floor of the L2 vanishes."""
+    half = dataclasses.replace(cfg, spp=max(cfg.spp // 2, 1))
+    words = sampling.key_words(key, target.device)
+    ra = mean_image(scene, camera, half, sampling.fold_in(words, 101), mesh)
+    rb = mean_image(scene, camera, half, sampling.fold_in(words, 202), mesh)
+    return torch.mean((ra - target) * (rb - target))
+
+
+class TrainState(NamedTuple):
+    params: Any                    # nested dict of leaf tensors
+    opt_state: torch.optim.Optimizer
+    step: int
+
+
+def leaves(params: dict, prefix: str = ""):
+    """(path, tensor) of every leaf of a nested params dict, depth first,
+    paths joined with '/' (e.g. "scene/albedo")."""
+    for name, value in params.items():
+        path = f"{prefix}{name}"
+        if isinstance(value, dict):
+            yield from leaves(value, path + "/")
+        else:
+            yield path, value
+
+
+def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """optax.adam as a factory params -> torch.optim.Adam, one parameter
+    group per leaf. lr is a float, or a dict of learning rates by leaf path
+    ("scene/albedo": 0.03, ...), the counterpart of optax.multi_transform
+    with one optax.adam per label."""
+    def make(params: dict) -> torch.optim.Optimizer:
+        groups = [{"params": [p], "name": path,
+                   "lr": lr[path] if isinstance(lr, dict) else lr}
+                  for path, p in leaves(params)]
+        return torch.optim.Adam(groups, betas=(b1, b2), eps=eps)
+    return make
+
+
+def _fresh_params(params: dict) -> dict:
+    return {k: _fresh_params(v) if isinstance(v, dict)
+            else v.detach().clone().requires_grad_(True)
+            for k, v in params.items()}
+
+
+def new_state(params: dict, optimizer) -> TrainState:
+    """A TrainState at step 0 on fresh leaf copies of params."""
+    params = _fresh_params(params)
+    return TrainState(params, optimizer(params), 0)
+
+
+def save_train_state(path, state: TrainState) -> None:
+    """Checkpoint the whole optimization state (params, optimizer moments
+    and step) with torch.save, so a resumed run continues exactly."""
+    torch.save({"params": dict(leaves(state.params)),
+                "opt_state": state.opt_state.state_dict(),
+                "step": int(state.step)}, path)
+
+
+def load_train_state(path, template: TrainState) -> TrainState:
+    """Restore a TrainState saved by save_train_state into ``template``
+    (e.g. a fresh ``init_state()``), whose parameter tree and optimizer
+    must match the saved run."""
+    saved = torch.load(path, weights_only=True)
+    with torch.no_grad():
+        for p, t in leaves(template.params):
+            t.copy_(saved["params"][p])
+    template.opt_state.load_state_dict(saved["opt_state"])
+    return TrainState(template.params, template.opt_state, saved["step"])
+
+
+def translate_camera(camera: Camera, t: torch.Tensor) -> Camera:
+    """Rigid world-space translation of a thin-lens camera (the pose class
+    of BASELINE config 5): origin and lower_left_corner move together, the
+    basis is unchanged."""
+    return dataclasses.replace(camera, origin=camera.origin + t,
+                               lower_left_corner=camera.lower_left_corner + t)
+
+
+def clamp_physical(params: dict) -> None:
+    """Keep physical ranges after a step: albedo in [0, 1], emission >= 0."""
+    with torch.no_grad():
+        sc = params["scene"]
+        if "albedo" in sc:
+            sc["albedo"].clamp_(0.0, 1.0)
+        if "emission" in sc:
+            sc["emission"].clamp_min_(0.0)
+
+
+def apply_update(state: TrainState, grads: dict) -> TrainState:
+    """One optimizer step with the given gradients by leaf path, then the
+    physical clamps."""
+    for path, p in leaves(state.params):
+        p.grad = grads[path]
+    state.opt_state.step()
+    clamp_physical(state.params)
+    return TrainState(state.params, state.opt_state, state.step + 1)
+
+
+def value_and_grad(loss_fn, params: dict, *args):
+    """(loss, {leaf path: gradient}) of loss_fn(params, *args); a leaf that
+    the loss does not reach gets a zero gradient, as in JAX."""
+    named = dict(leaves(params))
+    loss = loss_fn(params, *args)
+    grads = torch.autograd.grad(loss, list(named.values()),
+                                allow_unused=True)
+    return loss.detach(), {
+        path: torch.zeros_like(p) if g is None else g
+        for (path, p), g in zip(named.items(), grads)}
+
+
+def step_setup(cfg: RenderConfig, mesh, edge_aware: bool, loss: str):
+    """(cfg with a grad-capable intersector, the loss function) of a train
+    step; mesh= and an unknown loss raise."""
+    refuse_mesh(mesh)
+    if loss not in ("l2", "dual"):
+        raise ValueError(f"loss is 'l2' or 'dual', got {loss!r}")
+    cfg = grad_capable_config(cfg)
+    if edge_aware and not cfg.edge_aware:
+        cfg = dataclasses.replace(cfg, edge_aware=True)
+    return cfg, image_loss if loss == "l2" else dual_image_loss
+
+
+def make_train_step(scene, camera, cfg: RenderConfig, optimizer,
+                    trainable=DEFAULT_TRAINABLE, train_camera=False,
+                    mesh=None, edge_aware: bool = False, loss: str = "l2"):
+    """Build (init_state, step_fn, rebuild_scene, rebuild_camera) for
+    inverse rendering.
+
+    optimizer: a factory params -> torch.optim.Optimizer, such as
+    ``adam(lr)``. train_camera: False, "pose" (a gauge-free [3] world-space
+    translation of the whole camera) or True (every camera field). loss:
+    "l2" or "dual" (dual_image_loss). step_fn(state, target, key) ->
+    (state, loss) takes one step on the trainable fields and clamps albedo
+    to [0, 1] and emission to >= 0. mesh= (sharding) and edge_aware=True
+    are not ported yet and raise."""
+    cfg, loss_impl = step_setup(cfg, mesh, edge_aware, loss)
+    scene_params, rebuild_scene = split_scene(scene, trainable)
+    params = {"scene": scene_params}
+    if train_camera == "pose":
+        params["camera"] = {"translate": torch.zeros(
+            3, dtype=torch.float32, device=camera.device)}
+    elif train_camera:
+        params["camera"] = {f.name: getattr(camera, f.name)
+                            for f in dataclasses.fields(camera)}
+
+    def rebuild_camera(p):
+        cp = p.get("camera")
+        if cp is None:
+            return camera
+        if "translate" in cp:
+            return translate_camera(camera, cp["translate"])
+        return Camera(**cp)
+
+    def loss_fn(p, target, key):
+        return loss_impl(rebuild_scene(p["scene"]), rebuild_camera(p), cfg,
+                         key, target)
+
+    def init_state() -> TrainState:
+        return new_state(params, optimizer)
+
+    def step_fn(state: TrainState, target, key):
+        value, grads = value_and_grad(loss_fn, state.params, target, key)
+        return apply_update(state, grads), value
+
+    return init_state, step_fn, rebuild_scene, rebuild_camera

@@ -65,20 +65,25 @@ class FusedSpheres(NamedTuple):
 
 def prep_fused_spheres(scene: SphereScene) -> FusedSpheres:
     """Sweep rows and parameter table (prep_fused_spheres in JAX; the
-    kernel takes any S, so the rows are not padded)."""
-    c = scene.center
-    c2r2 = (vm.length_squared(c) - scene.radius * scene.radius
-            + torch.where(scene.active, 0.0, BIG))
-    spheres = torch.cat([c, c2r2[:, None]], dim=1).contiguous()
+    kernel takes any S, so the rows are not padded). The sweep rows are
+    detached; the parameter table keeps the scene's autograd graph, for
+    the re-derivation of the gradient path."""
+    with torch.no_grad():
+        c = scene.center
+        c2r2 = (vm.length_squared(c) - scene.radius * scene.radius
+                + torch.where(scene.active, 0.0, BIG))
+        spheres = torch.cat([c, c2r2[:, None]], dim=1).contiguous()
     return FusedSpheres(spheres, packed_param_table(scene).contiguous())
 
 
+@torch.no_grad()
 def fused_hit(tables: FusedSpheres, ox, oy, oz, dx, dy, dz, alive,
               t_min: float, *, interpret: bool = False,
               shadow_only: bool = False, exclude=None) -> dict:
     """Fused hit query on flat [N] f32 ray components and an [N] bool alive
     mask. Returns a dict of the 19 [N] outputs named in NAMES, or with
-    shadow_only=True of ``t`` and ``idx`` alone."""
+    shadow_only=True of ``t`` and ``idx`` alone; every output is detached
+    (the gradient path re-derives what it differentiates)."""
     if exclude is not None:
         raise NotImplementedError(
             "the per-lane exclude operand is not ported yet: ROADMAP Queue A "
@@ -189,7 +194,7 @@ def fused_hit_plain(tables: FusedSpheres, ox, oy, oz, dx, dy, dz, alive,
         for lo in range(0, n, slice_rays):
             sl = slice(lo, min(n, lo + slice_rays))
             rays = (ox[sl], oy[sl], oz[sl], dx[sl], dy[sl], dz[sl])
-            t_best, best, _ = _sweep(tables, *rays, float(t_min))
+            t_best, best, _ = _sweep(tables.spheres, *rays, float(t_min))
             t[sl] = torch.where(alive[sl], t_best, BIG)
             idx[sl] = torch.where(alive[sl], best, 0)
         return {"t": t, "idx": idx}
@@ -204,9 +209,10 @@ def fused_hit_plain(tables: FusedSpheres, ox, oy, oz, dx, dy, dz, alive,
     return _as_dict(fout, iout)
 
 
-def _sweep(tables, ox, oy, oz, dx, dy, dz, t_min):
-    """Closest-hit sweep of one block: (t_best, lowest winning id, |d|^2)."""
-    c_x, c_y, c_z, c2 = tables.spheres.unbind(1)                # [S]
+def _sweep(spheres, ox, oy, oz, dx, dy, dz, t_min):
+    """Closest-hit sweep of one block over the [S, 4] sweep rows: (t_best,
+    lowest winning id, |d|^2)."""
+    c_x, c_y, c_z, c2 = spheres.unbind(1)                       # [S]
     s = c_x.shape[0]
     o_x, o_y, o_z = ox[:, None], oy[:, None], oz[:, None]       # [m, 1]
     d_x, d_y, d_z = dx[:, None], dy[:, None], dz[:, None]
@@ -238,7 +244,7 @@ def _sweep(tables, ox, oy, oz, dx, dy, dz, t_min):
 
 
 def _plain_block(tables, ox, oy, oz, dx, dy, dz, alive, t_min):
-    t_best, idx, a = _sweep(tables, ox, oy, oz, dx, dy, dz, t_min)
+    t_best, idx, a = _sweep(tables.spheres, ox, oy, oz, dx, dy, dz, t_min)
 
     # --- winner parameters ---
     p = tables.params[idx.long()]                                # [m, 16]

@@ -380,6 +380,7 @@ def crossing_order(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     return torch.sort(c1 * (1 << 18) + key, stable=True).indices
 
 
+@torch.no_grad()
 def mesh_search(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
                 alive=None, t_cap=None, *, sort: bool = True,
                 interpret: bool = False, mt: str = "vpu",
@@ -389,7 +390,7 @@ def mesh_search(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     BVH-order triangle id), strictly below t_cap (default BIG). With
     sort=True, n >= 2048 and more than one cluster, the wavefront is sorted
     by the crossing key (A4) before A3 and the results are put back; live
-    lanes get the same result either way."""
+    lanes get the same result either way. Both outputs are detached."""
     if mt != "vpu":
         raise NotImplementedError(f"mt={mt!r} {_LATER}")
     if visit != "full":

@@ -135,6 +135,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     #                       s, t_min, n, t_out, idx_out, stream)
     lib.qtrt_fused_hit_shadow.restype = i
     lib.qtrt_fused_hit_shadow.argtypes = [p] * 8 + [i, f, i] + [p] * 3
+    # qtrt_sphere_search(ox, oy, oz, dx, dy, dz, alive, spheres, s_pad,
+    #                    num_spheres, t_min, n, t_out, idx_out, stream)
+    lib.qtrt_sphere_search.restype = i
+    lib.qtrt_sphere_search.argtypes = [p] * 8 + [i, i, f, i] + [p] * 3
     # qtrt_mesh_first_cluster(ox, oy, oz, dx, dy, dz, alive, t_cap, boxes,
     #                         k, k_stride, t_min, n, out, stream)
     lib.qtrt_mesh_first_cluster.restype = i

@@ -1,9 +1,10 @@
-"""Carry scene, mesh, world and camera state across from the JAX package.
+"""Carry scene, mesh, world, camera, key and training state across from
+the JAX package.
 
-Each takes the fields of the JAX package's dataclasses as numpy arrays (for
-example ``{f.name: np.asarray(getattr(scene, f.name)) for f in
-dataclasses.fields(scene)}``), so the two packages compute on identical
-inputs. Nothing here imports JAX.
+Each takes the JAX package's values as numpy arrays (for example
+``{f.name: np.asarray(getattr(scene, f.name)) for f in
+dataclasses.fields(scene)}``, or ``np.asarray(jax.random.key_data(key))``),
+so the two packages compute on identical inputs. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from ..accel.mesh import TriangleMesh
 from ..core.camera import Camera
 from ..core.scene import SphereScene
 from ..core.world import World
+from ..diff.inverse import TrainState, leaves
 
 
 def _from_arrays(cls, arrays: dict[str, np.ndarray], device):
@@ -52,3 +54,41 @@ def world_from_arrays(spheres: dict[str, np.ndarray],
     TriangleMesh (None for a world without a mesh)."""
     return World(scene_from_arrays(spheres, device),
                  None if mesh is None else mesh_from_arrays(mesh, device))
+
+
+def key_from_words(words) -> torch.Tensor:
+    """A PRNG key ([2] int64 tensor of uint32 words) from the key data of a
+    JAX threefry key."""
+    w = np.asarray(words).astype(np.uint64).reshape(-1)
+    if w.shape != (2,) or int(w.max()) > 0xFFFFFFFF:
+        raise ValueError(f"a key is two uint32 words, got {words!r}")
+    return torch.from_numpy(w.astype(np.int64))
+
+
+def _nested_tensors(tree: dict, device) -> dict:
+    return {k: _nested_tensors(v, device) if isinstance(v, dict)
+            else torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+            for k, v in tree.items()}
+
+
+def train_state_from_arrays(params: dict, mu: dict, nu: dict, count: int,
+                            step: int, optimizer, device="cpu") -> TrainState:
+    """The port's TrainState from a JAX one: params, and optax Adam's first
+    and second moments mu and nu, as nested dicts of numpy arrays shaped
+    like the port's params ({"scene": {...}, "camera": {...}}); count, the
+    Adam step count; step, the TrainState step. optimizer: the factory the
+    port's train step was built with (``diff.inverse.adam``); its Adam state
+    is set to the moments and count, so one step of either package from
+    this state takes the same update."""
+    p = _nested_tensors(params, device)
+    for _, t in leaves(p):
+        t.requires_grad_(True)
+    opt = optimizer(p)
+    m, v = dict(leaves(_nested_tensors(mu, device))), \
+        dict(leaves(_nested_tensors(nu, device)))
+    for path, t in leaves(p):
+        if m[path].shape != t.shape or v[path].shape != t.shape:
+            raise ValueError(f"moments of {path} do not match its shape")
+        opt.state[t] = {"step": torch.tensor(float(count)),
+                        "exp_avg": m[path], "exp_avg_sq": v[path]}
+    return TrainState(p, opt, int(step))

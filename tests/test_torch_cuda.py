@@ -16,8 +16,10 @@ Tolerances: the kernels round op by op as the plain versions do. Full mode
 1e-5, the other float outputs within atol 1e-5 + rtol 1e-5 (the limits of
 ``chip_smoke.py``); dead lanes hold the defaults exactly. Shadow mode (A2),
 the first crossed cluster (A4) and the mesh search (A3): bitwise on live
-lanes, BIG/0 (A4: k) on dead lanes. Renders: at most 1% of channels beyond
-2e-3 + 2e-3 |ref|, as in ``tests/test_torch_render.py``.
+lanes, BIG/0 (A4: k) on dead lanes; the sphere search (A5) likewise.
+Renders: at most 1% of channels beyond 2e-3 + 2e-3 |ref|, as in
+``tests/test_torch_render.py``; render gradients within 2e-3 of the
+largest entry, the flip budget of a few rays.
 """
 
 import numpy as np
@@ -256,3 +258,85 @@ def test_world_render_on_card_matches_cpu(card, name):
     want = render_linear(world, cam, cfg, 5)
     bad = (got.cpu() - want).abs() > 2e-3 + 2e-3 * want.abs()
     assert float(bad.float().mean()) <= 0.01
+
+
+# ------------------------------------------- sphere search (A5), gradients
+@pytest.mark.parametrize("num_spheres", [4, 64, 300, 1023])
+@pytest.mark.parametrize("n", [1, 255, 1000, 4097])
+def test_sphere_search_kernel_matches_plain_version(card, n, num_spheres):
+    # 1023 spheres pad to 1,024 slots, the largest table of the monolithic
+    # sweep; 4 and 300 leave padding slots.
+    from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
+    scene = _scene(num_spheres, seed=num_spheres + 1).to(card)
+    comps, alive = _rays(n, seed=n + 11, device=card)
+    o = torch.stack(comps[:3], dim=1)
+    d = torch.stack(comps[3:], dim=1)
+    before = si.launches
+    kern = si.sphere_search(scene, o, d, T_MIN, alive=alive)
+    assert si.launches == before + 1
+    plain = si.sphere_search(scene, o, d, T_MIN, alive=alive, interpret=True)
+    assert si.launches == before + 1        # the plain version counts nothing
+    torch.cuda.synchronize()
+    alive = alive.cpu()
+    for a, b in zip(kern, plain):
+        assert torch.equal(a.cpu()[alive], b.cpu()[alive])
+    assert torch.all(kern[0].cpu()[~alive] == si.BIG)
+    assert torch.all(kern[1].cpu()[~alive] == 0)
+    assert bool((kern[1] < num_spheres).all())
+
+
+@pytest.mark.parametrize("name,intersector", [
+    ("cornell", "fused_diff"), ("cornell", "pallas"),
+    ("cornell_mesh", "pallas")])
+def test_gradients_on_card_match_cpu(card, name, intersector):
+    # Loss and scene/camera gradients of a small NEE render on the card
+    # against the same render on the CPU (plain versions): within 2e-3
+    # relative of the largest entry, the flip budget of a few rays.
+    import dataclasses
+    from qt_raytracer_tpu_torch.core import sampling
+    from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
+    cfg = RenderConfig(width=24, height=16, spp=2, max_depth=4, rng="hash",
+                       nee=True, intersector=intersector)
+    scene, cam = scenes.get_scene(name, cfg.aspect_ratio)
+
+    def grads(device):
+        sc, c = scene.to(device), cam.to(device)
+        spheres = sc.spheres if name == "cornell_mesh" else sc
+        alb = spheres.albedo.clone().requires_grad_(True)
+        tr = torch.zeros(3, device=device, requires_grad=True)
+        spheres = dataclasses.replace(spheres, albedo=alb)
+        sc = dataclasses.replace(sc, spheres=spheres) \
+            if name == "cornell_mesh" else spheres
+        c = dataclasses.replace(c, origin=c.origin + tr,
+                                lower_left_corner=c.lower_left_corner + tr)
+        img = render_linear(sc, c, cfg, sampling.prng_key(3))
+        loss = (img ** 2).mean()
+        return [x.cpu() for x in (loss, *torch.autograd.grad(loss,
+                                                             [alb, tr]))]
+
+    si.launches = fh.shadow_launches = 0
+    on_card = grads(card)
+    counts = (si.launches, fh.shadow_launches)
+    assert counts[0] > 0 if intersector == "pallas" else counts[1] > 0
+    on_cpu = grads("cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert bool(torch.isfinite(a).all())
+        assert torch.allclose(a, b, rtol=2e-3,
+                              atol=2e-3 * float(b.abs().max()))
+
+
+def test_gather_rows_backward_on_card_is_exact(card):
+    # vecmath.gather_rows sums each row's gradients with index_add_ (atomic
+    # adds on the card). With integer-valued gradients every partial sum is
+    # exact in float32, so any order gives the exact per-row sums.
+    from qt_raytracer_tpu_torch.core.vecmath import gather_rows
+    rng = np.random.default_rng(3)
+    n, rows = 414720, 9
+    idx = torch.tensor(np.minimum(rng.geometric(0.3, n) - 1, rows - 1))
+    g = torch.tensor(rng.integers(-8, 9, (n, 16)).astype(np.float32))
+    table = torch.zeros((rows, 16), device=card, requires_grad=True)
+    out = gather_rows(table, idx.to(card))
+    got, = torch.autograd.grad(out, table, g.to(card))
+    want = torch.zeros((rows, 16), dtype=torch.float64).index_add_(
+        0, idx, g.double())
+    assert torch.equal(got.cpu().double(), want)

@@ -28,6 +28,10 @@ def test_import_loads_no_jax():
         "import qt_raytracer_tpu_torch.core.world\n"
         "import qt_raytracer_tpu_torch.accel.mesh\n"
         "import qt_raytracer_tpu_torch.models.meshes\n"
+        "import qt_raytracer_tpu_torch.core.integrator\n"
+        "import qt_raytracer_tpu_torch.kernels.sphere_intersect\n"
+        "import qt_raytracer_tpu_torch.diff.inverse\n"
+        "import qt_raytracer_tpu_torch.diff.multiview\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'qt_raytracer_tpu' or "
         "m.startswith('qt_raytracer_tpu.'))\n"
@@ -105,17 +109,63 @@ def test_library_is_named_after_sources_and_flags():
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(intersector="fused_diff_interpret"), "item 7"),
-    (dict(rng="threefry"), "item 6"),
-    (dict(edge_aware=True), "item 8"),
-    (dict(intersector="xla"), "item 7"),
-    (dict(intersector="pallas"), "item 7"),
-    (dict(intersector="fused_diff"), "item 7"),
-])
-def test_unported_features_raise(kw, item):
-    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1,
-                       **{"rng": "hash", **kw})
+def _raises_edge_aware():
+    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1, rng="hash",
+                       edge_aware=True)
     scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio)
+    render_linear(scene, cam, cfg, 0)
+
+
+def _raises_xla():
+    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1, rng="hash",
+                       intersector="xla")
+    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio)
+    render_linear(scene, cam, cfg, 0)
+
+
+def _rays4():
+    return torch.zeros((4, 3)), torch.ones((4, 3))
+
+
+def _raises_a5_exclude():
+    from qt_raytracer_tpu_torch.kernels.sphere_intersect import sphere_search
+    sphere_search(scenes.three_sphere_scene(), *_rays4(), 1e-3,
+                  exclude=torch.full((4,), -1, dtype=torch.int32))
+
+
+def _raises_a5_clustered():
+    from qt_raytracer_tpu_torch import SceneBuilder
+    from qt_raytracer_tpu_torch.kernels.sphere_intersect import sphere_search
+    b = SceneBuilder()
+    for k in range(1024):
+        b.lambertian((float(k), 0.0, 0.0), 0.1, (0.5, 0.5, 0.5))
+    sphere_search(b.build(pad_to=None), *_rays4(), 1e-3)
+
+
+def _raises_sharded_mesh():
+    from qt_raytracer_tpu_torch.diff.inverse import adam, make_train_step
+    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1, rng="hash")
+    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio)
+    make_train_step(scene, cam, cfg, adam(1e-2), mesh="sp,px")
+
+
+def _raises_exclude_prim0():
+    from qt_raytracer_tpu_torch.core.integrator import trace
+    trace(scenes.three_sphere_scene(), *_rays4(),
+          torch.zeros(4, dtype=torch.int64), 1,
+          exclude_prim0=torch.full((4,), -1, dtype=torch.int32))
+
+
+# Each case names a feature that is still not ported, and the ROADMAP item
+# that brings it.
+@pytest.mark.parametrize("run,item", [
+    (_raises_edge_aware, "item 8"),
+    (_raises_xla, "item 13"),
+    (_raises_a5_exclude, "item 8"),
+    (_raises_a5_clustered, "item 12"),
+    (_raises_sharded_mesh, "item 11"),
+    (_raises_exclude_prim0, "item 8"),
+])
+def test_unported_features_raise(run, item):
     with pytest.raises(NotImplementedError, match=item):
-        render_linear(scene, cam, cfg, 0)
+        run()

@@ -161,8 +161,12 @@ def test_image_invariant_to_chunking_and_sample_batches():
 
 
 def test_trace_flat_is_forward_only():
+    # A forward trace of tensors that require grad runs; differentiating it
+    # raises instead of returning silently zero gradients.
     _, (ts, _) = _both("three_sphere", 1.0)
     o = torch.zeros((4, 3), requires_grad=True)
     d = torch.ones((4, 3))
+    out = t_trace_flat(ts, o, d, torch.zeros(4, dtype=torch.int64), 2)
+    assert out.shape == (4, 3) and out.requires_grad
     with pytest.raises(ValueError, match="forward-only"):
-        t_trace_flat(ts, o, d, torch.zeros(4, dtype=torch.int64), 2)
+        out.sum().backward()

@@ -101,5 +101,5 @@ def test_random_in_unit_disk_matches():
 def test_seed_out_of_range_raises():
     with pytest.raises(ValueError):
         tsam.hash_pixel_states(2 ** 32, torch.arange(4))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tsam.pixel_states(0, torch.arange(4), "threefry")
+    with pytest.raises(ValueError, match="unknown rng"):
+        tsam.pixel_states(0, torch.arange(4), "xorshift")

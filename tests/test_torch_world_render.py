@@ -149,13 +149,17 @@ def test_trace_flat_world_is_forward_only():
     o = torch.zeros((4, 3), requires_grad=True)
     d = torch.ones((4, 3))
     keys = torch.zeros(4, dtype=torch.int64)
+    # A forward trace of tensors that require grad runs; differentiating it
+    # raises instead of returning silently zero gradients.
     with pytest.raises(ValueError, match="forward-only"):
-        t_trace_world(tw, o, d, keys, 2)
+        t_trace_world(tw, o, d, keys, 2).sum().backward()
     grad_mesh = dataclasses.replace(
         tw, mesh=dataclasses.replace(tw.mesh,
                                      v0=tw.mesh.v0.clone().requires_grad_()))
+    out = t_trace_world(grad_mesh, o.detach(), d, keys, 2)
+    assert out.requires_grad and bool(torch.isfinite(out).all())
     with pytest.raises(ValueError, match="forward-only"):
-        t_trace_world(grad_mesh, o.detach(), d, keys, 2)
+        out.sum().backward()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_trace_world(tw, o.detach(), d, keys, 2, compact=True)
     with pytest.raises(TypeError):
