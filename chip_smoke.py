@@ -16,19 +16,31 @@ counts set to 0 just before it and read just after:
   - the mesh-world path with next-event estimation: the true Cornell box
     (BASELINE config 2), 512x512, 64 spp, depth 10 (fused hit, shadow-mode
     fused hit and two mesh searches per chunk, sample batch and bounce);
-  - the gradient path, BASELINE config 5 with the pathwise estimator
-    (1920x1080, 2 spp, depth 4, NEE): three multi-view train steps on the
-    sphere Cornell box (4 views; albedo, emission and pose; shadow-mode
-    fused hit for selection and shadows) and three per-view train steps on
-    the true Cornell box (2 views; pose; sphere search and mesh search),
-    through ``diff.multiview``, with the steps' gradients held against the
-    plain versions' on the card and against the CPU.
+  - a sphere scene of 1,061 random spheres in 1,152 slots, 1920x1080, 1
+    spp, depth 10, through the [N,3] integrator (``intersector="pallas"``):
+    the cluster-culled sphere search once per chunk and bounce;
+  - the gradient path, BASELINE config 5 (1920x1080, 2 spp, depth 4, NEE)
+    through ``diff.multiview``: multi-view train steps on the sphere
+    Cornell box (4 views; albedo, emission and pose) and per-view train
+    steps on the true Cornell box (2 views; pose), one step of each with
+    the pathwise estimator and three with the edge-aware one
+    (``edge_aware=True``: the boundary term of ``diff.edge``, whose
+    background re-trace runs the kernels' exclude operands), with a
+    view-step's gradients held against the plain versions' on the card and
+    against the CPU.
 
 Each frame is checked for finite values and against the same frame with the
 plain versions (at a reduced size where the plain mesh search is too slow),
 sphere-scene NEE on the card against the CPU, and the threefry RNG on the
 card against the CPU bit for bit. Every phase raises on failure, so the
 script exits non-zero; without CUDA it raises before printing any result.
+
+Beside its time and its plain version's, each kernel gets its bound: the
+least time the card could take for the same work, the larger of its FP32
+operations over 67 TFLOP/s and its bytes (inputs once, outputs once) over
+3.35 TB/s, both counted from this run's inputs (live lanes, chunks and
+clusters that the gates open). No single PyTorch call computes any of these
+functions, so ``library_ms`` is null throughout.
 
 Output: the card's name and power limit (nvidia-smi), per-phase numbers, a
 ``{"kernels": [...]}`` line, and as the last line
@@ -44,6 +56,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 WIDTH, HEIGHT, DEPTH, SEED = 1920, 1080, 10, 0   # book-cover frame
@@ -60,8 +73,17 @@ IMG_ATOL = IMG_RTOL = 2e-3    # frame vs plain frame, per channel
 IMG_MISMATCH_MAX = 0.01
 TIMED_RUNS = 7
 KERNELS = ("fused_hit", "fused_hit_shadow", "mesh_first_cluster",
-           "mesh_search", "sphere_search")
-# BASELINE config 5 (benchmarks/run_baselines.py:196-386), pathwise.
+           "mesh_search", "sphere_search", "sphere_search_clustered",
+           "fused_hit[exclude]", "sphere_search[exclude]",
+           "mesh_search[exclude]")
+PEAK_FP32 = 67e12          # FLOP/s outside the tensor cores (H100 SXM)
+PEAK_BYTES = 3.35e12       # bytes/s of HBM3
+SWEEP_FLOPS = 25           # per (ray, sphere) pair of a sphere sweep
+REFINE_FLOPS = 100         # per ray: A1's refinement and geometry
+SLAB_FLOPS = 20            # per (ray, box) slab test
+MT_FLOPS = 45              # per (ray, triangle) Moller-Trumbore and accept
+A6_SPHERES = 1061          # the clustered scene: 1,152 slots, 18 chunks
+# BASELINE config 5 (benchmarks/run_baselines.py:196-386).
 C5 = dict(width=1920, height=1080, spp=2, max_depth=4, rng="hash", nee=True,
           samples_per_batch=1)
 C5_SPHERE_VIEWS = [(0.0, 0.0, 0.0), (0.5, 0.0, 0.0), (-0.5, 0.1, 0.0),
@@ -71,8 +93,10 @@ C5_SPHERE_LR = {"scene/albedo": 0.03, "scene/emission": 0.6,
                 "camera/translate": 2.5e-2}
 C5_MESH_VIEWS = [(0.0, 0.0, 0.0), (0.4, 0.15, 0.0)]
 C5_MESH_POSE_ERR = (0.1, -0.07, 0.05)
-C5_STEPS = 3
-GRAD_PLAIN_WH = (1920, 1080)       # kernel vs plain gradients on the card
+C5_STEPS = 3               # edge-aware steps per scene
+C5_PATHWISE_STEPS = 1      # pathwise steps per scene
+GRAD_PLAIN_WH = {"edge_aware": (1920, 1080),  # kernel vs plain gradients
+                 "pathwise": (960, 540)}      # on the card
 GRAD_CPU_WH = (96, 54)             # card vs CPU gradients
 GRAD_RTOL_PLAIN = 1e-4   # x max|g|: atomic-add order of the gather backward
 GRAD_RTOL_CPU = 2e-3     # x max|g|: the render flip budget
@@ -197,16 +221,42 @@ def _sphere_search_module():
 
 
 def reset_counts(fh, mi) -> None:
+    si = _sphere_search_module()
     fh.launches = fh.shadow_launches = 0
-    mi.launches = mi.first_cluster_launches = 0
-    _sphere_search_module().launches = 0
+    fh.exclude_launches = fh.shadow_exclude_launches = 0
+    mi.launches = mi.first_cluster_launches = mi.exclude_launches = 0
+    si.launches = si.clustered_launches = si.exclude_launches = 0
 
 
 def read_counts(fh, mi) -> dict:
+    si = _sphere_search_module()
     return {"fused_hit": fh.launches, "fused_hit_shadow": fh.shadow_launches,
             "mesh_first_cluster": mi.first_cluster_launches,
-            "mesh_search": mi.launches,
-            "sphere_search": _sphere_search_module().launches}
+            "mesh_search": mi.launches, "sphere_search": si.launches,
+            "sphere_search_clustered": si.clustered_launches,
+            "fused_hit[exclude]": fh.exclude_launches,
+            "sphere_search[exclude]": si.exclude_launches,
+            "mesh_search[exclude]": mi.exclude_launches}
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of operations over
+    the FP32 peak and bytes over the HBM rate."""
+    ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def sweep_bound(n: int, live: int, slots: int, out_words: int,
+                full: bool = False, exclude: bool = False) -> dict:
+    """Bound of a sphere sweep (A1, A2, A5): 25 operations per (live ray,
+    slot), A1's refinement per live ray; rays in (6 floats and a flag, the
+    exclude id where given), the table once, out_words per ray out."""
+    flops = live * (slots * SWEEP_FLOPS + (REFINE_FLOPS if full else 0))
+    nbytes = n * (25 + 4 * exclude + 4 * out_words) \
+        + slots * 16 * (5 if full else 1)
+    return bound(flops, nbytes)
 
 
 def with_dead_lanes(alive: torch.Tensor, seed: int) -> torch.Tensor:
@@ -220,13 +270,14 @@ def with_dead_lanes(alive: torch.Tensor, seed: int) -> torch.Tensor:
     return out.to(alive.device)
 
 
-def compare_search(si, scene, o, d, alive, t_min) -> dict:
+def compare_search(si, scene, o, d, alive, t_min, exclude=None) -> dict:
     """A5 against its plain version on one wavefront: bitwise (t, idx) on
     live lanes, (BIG, 0) on dead lanes; CUDA-event ms of both on the
     prepared table and flat ray components (the wrapper's prep and copies
     left out)."""
-    kern = si.sphere_search(scene, o, d, t_min, alive=alive)
-    plain = si.sphere_search(scene, o, d, t_min, alive=alive, interpret=True)
+    kw = dict(alive=alive, exclude=exclude)
+    kern = si.sphere_search(scene, o, d, t_min, **kw)
+    plain = si.sphere_search(scene, o, d, t_min, interpret=True, **kw)
     torch.cuda.synchronize()
     st = compare_t_idx(si.BIG, kern, plain, alive)
     if not st["bitwise"]:
@@ -236,10 +287,30 @@ def compare_search(si, scene, o, d, alive, t_min) -> dict:
     rays = [x[:, k].contiguous() for x in (o, d) for k in range(3)]
     st.update(rays=o.shape[0], dead_lanes=int((~alive).sum()),
               ms=cuda_ms(lambda: si.sphere_search_flat(
-                  tables, *rays, alive, t_min)),
+                  tables, *rays, alive, t_min, exclude=exclude)),
               plain_ms=cuda_ms(lambda: si.sphere_search_flat(
-                  tables, *rays, alive, t_min, interpret=True)))
+                  tables, *rays, alive, t_min, interpret=True,
+                  exclude=exclude)),
+              **sweep_bound(o.shape[0], st["live"], tables.spheres.shape[0],
+                            2, exclude=exclude is not None))
     return st
+
+
+def own_winner(idx, t, alive, big) -> torch.Tensor:
+    """Each live hitting lane's own winner as its exclude id, -1 elsewhere:
+    the exclude operand that shows every ray its second hit."""
+    return torch.where(alive & (t < big), idx, -1).to(torch.int32)
+
+
+def check_excluded(kern_t, kern_idx, excl, alive, big, what: str) -> dict:
+    """No lane's excluded id wins; some lane shows a second hit."""
+    named = alive & (excl >= 0)
+    if bool((named & (kern_t < big) & (kern_idx == excl)).any()):
+        raise AssertionError(f"{what}: an excluded id won")
+    second = int((named & (kern_t < big)).sum())
+    if second == 0:
+        raise AssertionError(f"{what}: no second hit behind any winner")
+    return {"excluded_lanes": int(named.sum()), "second_hits": second}
 
 
 def view_loss_and_grads(scene, camera, cfg, key, target, fields):
@@ -279,13 +350,15 @@ def compare_grads(a, b, rtol: float, what: str) -> dict:
     return out
 
 
-def train_steps(step_fn, state, targets, key, fh, mi, errs) -> tuple:
-    """C5_STEPS steps: per step the seconds, the loss, the errors, peak
-    memory and the launches; every trainable group's gradient must be
-    finite and nonzero."""
+def train_steps(step_fn, state, targets, key, fh, mi, errs, steps,
+                per_step: dict) -> tuple:
+    """`steps` train steps: per step the seconds, the loss, the errors,
+    peak memory and the launches, which must be per_step for every kernel;
+    every trainable group's gradient must be finite and nonzero. Returns
+    (state, log, launches summed, the first step's gradients)."""
     from qt_raytracer_tpu_torch.diff.inverse import leaves
-    log, launches = [], None
-    for k in range(C5_STEPS):
+    log, launches, first_grads = [], None, None
+    for k in range(steps):
         torch.cuda.reset_peak_memory_stats()
         reset_counts(fh, mi)
         (state, loss), sec = wall_s(lambda: step_fn(state, targets, key))
@@ -293,6 +366,12 @@ def train_steps(step_fn, state, targets, key, fh, mi, errs) -> tuple:
         launches = counts if launches is None else \
             {n: launches[n] + c for n, c in counts.items()}
         grads = {p: t.grad for p, t in leaves(state.params)}
+        if first_grads is None:
+            first_grads = {p: g.clone() for p, g in grads.items()}
+        want = {**dict.fromkeys(KERNELS, 0), **per_step}
+        if counts != want:
+            raise AssertionError(f"step {k + 1} launched {counts}, expected "
+                                 f"{want}")
         with torch.no_grad():
             err = errs(state)
         entry = {"step": k + 1, "s": sec, "loss": float(loss), **err,
@@ -308,7 +387,19 @@ def train_steps(step_fn, state, targets, key, fh, mi, errs) -> tuple:
             raise AssertionError(f"step {k + 1}: loss or gradients not "
                                  f"finite and nonzero: {entry}")
         log.append(entry)
-    return state, log, launches
+    return state, log, launches, first_grads
+
+
+def pose_gradient_differs(edge: dict, pathwise: dict, what: str) -> float:
+    """|g_edge - g_pathwise| / |g_pathwise| of the pose gradient of the
+    same first step (same state, same key): the boundary term is live when
+    it is well away from 0."""
+    a, b = edge["camera/translate"], pathwise["camera/translate"]
+    rel = float((a - b).norm() / b.norm())
+    if not rel > 0.05:
+        raise AssertionError(f"{what}: the edge-aware pose gradient equals "
+                             f"the pathwise one (relative change {rel})")
+    return rel
 
 
 def drive_frame(fh, mi, render_linear, scene, camera, cfg, expected: dict,
@@ -318,6 +409,7 @@ def drive_frame(fh, mi, render_linear, scene, camera, cfg, expected: dict,
     reset_counts(fh, mi)
     img, first_s = wall_s(lambda: render_linear(scene, camera, cfg, SEED))
     counts = read_counts(fh, mi)
+    expected = {**dict.fromkeys(KERNELS, 0), **expected}
     if counts != expected:
         raise AssertionError(f"kernel launches {counts}, expected {expected}")
     if img.shape != (cfg.height, cfg.width, 3) or \
@@ -333,11 +425,12 @@ def drive_frame(fh, mi, render_linear, scene, camera, cfg, expected: dict,
                  "mean": float(img.mean())}
 
 
-def against_plain_frame(render_linear, scene, camera, cfg, img=None) -> dict:
+def against_plain_frame(render_linear, scene, camera, cfg, img=None,
+                        plain: str = "fused_interpret") -> dict:
     """The kernel frame against the plain-version frame of cfg."""
     if img is None:
         img = render_linear(scene, camera, cfg, SEED)
-    plain_cfg = dataclasses.replace(cfg, intersector="fused_interpret")
+    plain_cfg = dataclasses.replace(cfg, intersector=plain)
     ref, plain_s = wall_s(lambda: render_linear(scene, camera, plain_cfg,
                                                 SEED))
     mismatch = (img - ref).abs() > IMG_ATOL + IMG_RTOL * ref.abs()
@@ -403,7 +496,8 @@ def main() -> None:
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, max_depth=DEPTH,
                        rng="hash")
     scene, camera = scenes.get_scene("random", cfg.aspect_ratio)
-    scene, camera = scene.to(dev), camera.to(dev)
+    if scene.device != dev or camera.device != dev:
+        raise AssertionError("get_scene did not build on the card")
 
     phase("A1 fused_hit vs plain version (book cover)")
     tables = fh.prep_fused_spheres(scene)
@@ -423,10 +517,56 @@ def main() -> None:
         st["ms"] = cuda_ms(lambda: fh.fused_hit(*args))
         st["plain_ms"] = cuda_ms(lambda: fh.fused_hit_plain(*args))
         st["rays"] = s.ox.shape[0]
+        st.update(sweep_bound(st["rays"], st["live"],
+                              tables.spheres.shape[0], 19, full=True))
         a1[name] = st
         print(f"{name}: {json.dumps(st)}", flush=True)
     results["fused_hit"] = (max(st["max_abs_err"] for st in a1.values()),
                             a1["primary_chunk0"])
+
+    phase("A1 and A2 with the exclude operand vs plain versions (book "
+          "cover, each ray excluding its own winner)")
+    args = (tables, *rays_of(s0), s0.alive, cfg.t_min)
+    first = fh.fused_hit(*args)
+    excl = own_winner(first["idx"], first["t"], s0.alive, fh.BIG)
+    kern = fh.fused_hit(*args, exclude=excl)
+    plain = fh.fused_hit_plain(*args, exclude=excl)
+    torch.cuda.synchronize()
+    a1x = compare_hits(fh, kern, plain, s0.alive)
+    if not a1x["bitwise"]:
+        raise AssertionError(f"A1 with exclude is not bitwise equal to its "
+                             f"plain version: {a1x}")
+    a1x.update(check_excluded(kern["t"], kern["idx"], excl, s0.alive, fh.BIG,
+                              "A1"))
+    a1x.update(rays=s0.ox.shape[0],
+               ms=cuda_ms(lambda: fh.fused_hit(*args, exclude=excl)),
+               no_exclude_ms=cuda_ms(lambda: fh.fused_hit(*args)),
+               plain_ms=cuda_ms(lambda: fh.fused_hit_plain(*args,
+                                                           exclude=excl)),
+               **sweep_bound(s0.ox.shape[0], a1x["live"],
+                             tables.spheres.shape[0], 19, full=True,
+                             exclude=True))
+    print(f"A1 exclude: {json.dumps(a1x)}", flush=True)
+    results["fused_hit[exclude]"] = (a1x["max_abs_err"], a1x)
+    kern = fh.fused_hit(*args, shadow_only=True, exclude=excl)
+    plain = fh.fused_hit_plain(*args, shadow_only=True, exclude=excl)
+    a2x = compare_t_idx(fh.BIG, (kern["t"], kern["idx"]),
+                        (plain["t"], plain["idx"]), s0.alive)
+    if not a2x["bitwise"]:
+        raise AssertionError(f"A2 with exclude is not bitwise equal to its "
+                             f"plain version: {a2x}")
+    a2x.update(check_excluded(kern["t"], kern["idx"], excl, s0.alive, fh.BIG,
+                              "A2"))
+    a2x.update(ms=cuda_ms(lambda: fh.fused_hit(*args, shadow_only=True,
+                                               exclude=excl)),
+               no_exclude_ms=cuda_ms(lambda: fh.fused_hit(
+                   *args, shadow_only=True)),
+               plain_ms=cuda_ms(lambda: fh.fused_hit_plain(
+                   *args, shadow_only=True, exclude=excl)),
+               **sweep_bound(s0.ox.shape[0], a2x["live"],
+                             tables.spheres.shape[0], 2, exclude=True))
+    print(f"A2 exclude: {json.dumps(a2x)}", flush=True)
+    del first, excl, kern, plain
 
     phase("A5 sphere_search vs plain version (book cover)")
     si = _sphere_search_module()
@@ -450,7 +590,8 @@ def main() -> None:
 
     phase("small frame on the card vs the CPU")
     small = RenderConfig(width=64, height=36, spp=2, max_depth=6, rng="hash")
-    s_cpu, c_cpu = scenes.get_scene("random", small.aspect_ratio)
+    s_cpu, c_cpu = scenes.get_scene("random", small.aspect_ratio,
+                                    device="cpu")
     on_card = render_linear(s_cpu.to(dev), c_cpu.to(dev), small, SEED).cpu()
     on_cpu = render_linear(s_cpu, c_cpu, small, SEED)
     bad = ((on_card - on_cpu).abs() > IMG_ATOL + IMG_RTOL * on_cpu.abs())
@@ -463,7 +604,6 @@ def main() -> None:
     world, camera = scenes.get_scene("terrain", cfg_t.aspect_ratio)
     print(f"terrain: {world.mesh.num_triangles} triangles, BVH builder "
           f"{mesh_mod.last_builder}", flush=True)
-    world, camera = world.to(dev), camera.to(dev)
     wt = itg.prep_world(world)
     mc = wt.mesh
     print(f"terrain clusters: k = {mc.k}, {mc.tris_per_cluster} triangles "
@@ -491,7 +631,10 @@ def main() -> None:
         if not torch.equal(c1, c1_p):
             raise AssertionError(f"A4 differs from its plain version on "
                                  f"{int((c1 != c1_p).sum())} lanes ({name})")
+        tested = torch.where(c1 < mc.k, c1 + 1, mc.k)[alive].sum()
         a4[name] = {
+            **bound(float(tested) * SLAB_FLOPS,
+                    n * 33 + mc.box_planes.numel() * 4),
             "rays": n, "live": int(alive.sum()), "bitwise": True,
             "crossing_share": float((c1[alive] < mc.k).float().mean()),
             "ms": cuda_ms(lambda: mi.first_crossed_cluster(
@@ -531,6 +674,54 @@ def main() -> None:
                                                 cap_sub))
         st["plain_ms"] = cuda_ms(lambda: mi.mesh_search_plain(
             mc, *r_sub, t_min, al_sub, cap_sub), 3)
+        # The work the gate lets through on the subset: its bound.
+        tg, ig, visits = mi.mesh_search_gated_plain(mc, *r_sub, t_min, al_sub,
+                                                    cap_sub)
+        if not (torch.equal(tg, plain_sub[0]) and torch.equal(ig,
+                                                              plain_sub[1])):
+            raise AssertionError("the gated plain sweep differs from the "
+                                 "ungated one")
+        live_sub = int(al_sub.sum())
+        st["visits_per_live_ray"] = visits / max(live_sub, 1)
+        st["pairs_per_live_ray"] = st["visits_per_live_ray"] \
+            * mc.tris_per_cluster
+        st.update(bound(
+            visits * mc.tris_per_cluster * MT_FLOPS
+            + live_sub * mc.k * SLAB_FLOPS,
+            st["subset_rays"] * 37 + mc.tri_planes.numel() * 4
+            + mc.box_planes.numel() * 4))
+        if name == "primary_chunk2":
+            # The exclude operand on the sorted route: every ray excludes
+            # its own winner; the subset's lanes against the plain version.
+            excl = own_winner(kern[1], kern[0], alive, fh.BIG)
+            kx = mi.mesh_search(mc, *rays, t_min, alive=alive, t_cap=cap,
+                                exclude=excl)
+            px = mi.mesh_search_plain(mc, *(x[sub] for x in rays), t_min,
+                                      alive[sub], cap[sub], exclude=excl[sub])
+            sx = compare_t_idx(fh.BIG, (kx[0][sub], kx[1][sub]), px,
+                               alive[sub])
+            if not sx["bitwise"]:
+                raise AssertionError(f"A3 with exclude is not bitwise equal "
+                                     f"to its plain version: {sx}")
+            sx.update(check_excluded(kx[0], kx[1], excl, alive, fh.BIG, "A3"))
+            sexcl = excl[perm]
+            sx.update(
+                rays=n, subset_rays=int(sub.shape[0]),
+                kernel_ms_sorted=cuda_ms(lambda: mi.mesh_hits(
+                    mc, *srays, t_min, salive, scap, exclude=sexcl)),
+                kernel_ms_sorted_no_exclude=st["kernel_ms_sorted"],
+                pipeline_ms=cuda_ms(lambda: mi.mesh_search(
+                    mc, *rays, t_min, alive=alive, t_cap=cap, exclude=excl)),
+                ms=cuda_ms(lambda: mi.mesh_hits(
+                    mc, *r_sub, t_min, al_sub, cap_sub, exclude=sexcl[sub])),
+                plain_ms=cuda_ms(lambda: mi.mesh_search_plain(
+                    mc, *r_sub, t_min, al_sub, cap_sub,
+                    exclude=sexcl[sub]), 3))
+            # The second hit lies behind the first: at least as much work.
+            sx.update({k: st[k] for k in ("bound_ms", "bound_by")})
+            print(f"A3 exclude {name}: {json.dumps(sx)}", flush=True)
+            results["mesh_search[exclude]"] = (sx["max_abs_err"], sx)
+            del excl, kx, px, sexcl
         a3[name] = st
         print(f"A3 {name}: {json.dumps(st)}", flush=True)
     results["mesh_first_cluster"] = (0.0, a4["primary_chunk2"])
@@ -544,8 +735,7 @@ def main() -> None:
     per = chunks * cfg_t.max_depth
     _, frame = drive_frame(
         fh, mi, render_linear, world, camera, cfg_t,
-        {"fused_hit": per, "fused_hit_shadow": 0, "mesh_first_cluster": per,
-         "mesh_search": per, "sphere_search": 0})
+        {"fused_hit": per, "mesh_first_cluster": per, "mesh_search": per})
     w, h = TERRAIN_PLAIN_WH
     frame["vs_plain"] = against_plain_frame(
         render_linear, world, camera,
@@ -561,7 +751,6 @@ def main() -> None:
     print(f"cornell_mesh: {world.mesh.num_triangles} triangles, "
           f"{world.mesh.num_lights} emissive, BVH builder "
           f"{mesh_mod.last_builder}", flush=True)
-    world, camera = world.to(dev), camera.to(dev)
     wt = itg.prep_world(world)
 
     phase("A2 fused_hit_shadow vs plain version (Cornell mesh shadow rays)")
@@ -584,7 +773,9 @@ def main() -> None:
     a2.update(rays=srays[0].shape[0], depth_idx=1,
               ms=cuda_ms(lambda: fh.fused_hit(*args, shadow_only=True)),
               plain_ms=cuda_ms(lambda: fh.fused_hit_plain(
-                  *args, shadow_only=True)))
+                  *args, shadow_only=True)),
+              **sweep_bound(srays[0].shape[0], a2["live"],
+                            wt.spheres.spheres.shape[0], 2))
     print(f"A2 shadow wavefront: {json.dumps(a2)}", flush=True)
     results["fused_hit_shadow"] = (a2["max_abs_err"], a2)
     # The shadow ray's mesh search, capped by A2's unrefined t (one
@@ -608,8 +799,7 @@ def main() -> None:
     per = chunks * (cfg_c.spp // cfg_c.samples_per_batch) * cfg_c.max_depth
     _, frame = drive_frame(
         fh, mi, render_linear, world, camera, cfg_c,
-        {"fused_hit": per, "fused_hit_shadow": per, "mesh_first_cluster": 0,
-         "mesh_search": 2 * per, "sphere_search": 0})
+        {"fused_hit": per, "fused_hit_shadow": per, "mesh_search": 2 * per})
     frame["vs_plain"] = against_plain_frame(
         render_linear, world, camera,
         dataclasses.replace(cfg_c, spp=CORNELL_PLAIN_SPP))
@@ -620,7 +810,8 @@ def main() -> None:
     phase("sphere-scene NEE on the card vs the CPU")
     nee_cfg = RenderConfig(width=64, height=64, spp=4, max_depth=10,
                            nee=True, rr_start=2, rng="hash")
-    s_cpu, c_cpu = scenes.get_scene("cornell", nee_cfg.aspect_ratio)
+    s_cpu, c_cpu = scenes.get_scene("cornell", nee_cfg.aspect_ratio,
+                                    device="cpu")
     reset_counts(fh, mi)
     on_card = render_linear(s_cpu.to(dev), c_cpu.to(dev), nee_cfg, SEED)
     counts = read_counts(fh, mi)
@@ -632,6 +823,96 @@ def main() -> None:
     if counts["fused_hit"] == 0 or counts["fused_hit_shadow"] == 0 or \
             not bool(torch.isfinite(on_card).all()) or bad > IMG_MISMATCH_MAX:
         raise AssertionError("sphere NEE on the card disagrees with the CPU")
+
+    # -------------------------- clustered sphere search (A6) and its frame
+    from qt_raytracer_tpu_torch import SceneBuilder, make_camera
+    from qt_raytracer_tpu_torch.core.intersect import intersect_spheres
+    phase(f"A6 sphere_search_clustered vs plain version ({A6_SPHERES} "
+          f"spheres)")
+    cfg6 = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, max_depth=DEPTH,
+                        rng="hash", intersector="pallas")
+    rng = np.random.default_rng(9)
+    b = SceneBuilder()
+    for _ in range(A6_SPHERES):
+        b.lambertian(rng.uniform(-10, 10, 3), rng.uniform(0.05, 0.4),
+                     0.2 + 0.7 * rng.random(3))
+    many = b.build(pad_to=128)
+    cam6 = make_camera(lookfrom=(0.0, 6.0, 34.0), lookat=(0.0, 0.0, 0.0),
+                       vfov=40.0, aspect_ratio=cfg6.aspect_ratio)
+    tab6 = si.prep_sphere_search(many)
+    mono6 = si.prep_sphere_search(many, min_chunks=10 ** 6)
+    if tab6.boxes is None or mono6.boxes is not None:
+        raise AssertionError("the clustered table was not built")
+    print(f"clustered scene: {many.num_spheres} slots, {tab6.num_chunks} "
+          f"chunks of {si.CHUNK_S}", flush=True)
+    s6 = primary(cam6, cfg6, index=2)
+    o6 = torch.stack([s6.ox, s6.oy, s6.oz], dim=1)
+    d6 = torch.stack([s6.dx, s6.dy, s6.dz], dim=1)
+    # A bounced wavefront: from the primary hits into the hemisphere.
+    h6 = intersect_spheres(many, o6, d6, cfg6.t_min, alive=s6.alive)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rnd = torch.randn(o6.shape, generator=gen, device=dev)
+    d6b = h6.normal + rnd / rnd.norm(dim=1, keepdim=True)
+    a6 = {}
+    for name, (oo, dd, al) in {
+            "primary_chunk2": (o6, d6, with_dead_lanes(s6.alive, 6)),
+            "bounce1_chunk2": (h6.point, d6b, h6.hit & s6.alive)}.items():
+        rays = [x[:, k].contiguous() for x in (oo, dd) for k in range(3)]
+        al = al.contiguous()
+        run = lambda tab, **kw: si.sphere_search_flat(tab, *rays, al,
+                                                      cfg6.t_min, **kw)
+        before = si.clustered_launches
+        kern, plain, mono = run(tab6), run(tab6, interpret=True), run(mono6)
+        if si.clustered_launches != before + 1:
+            raise AssertionError("the clustered table did not take A6")
+        torch.cuda.synchronize()
+        st = compare_t_idx(si.BIG, kern, plain, al)
+        if not st["bitwise"] or not (
+                torch.equal(kern[0][al], mono[0][al])
+                and torch.equal(kern[1][al], mono[1][al])):
+            raise AssertionError(f"A6 is not bitwise equal to its plain "
+                                 f"version and to A5 on live lanes: {st}")
+        # The work the gate opens: (live lane, slot of an opened chunk).
+        pairs, opened, rows_live = 0, 0, 0
+        for lo in range(0, al.shape[0], 65536):
+            part = slice(lo, lo + 65536)
+            gate = si.chunk_gate(tab6, *(x[part] for x in rays), al[part],
+                                 cfg6.t_min)
+            live_row = al[part].reshape(-1, si.ROW).sum(dim=1)
+            pairs += int((gate.sum(dim=1) * live_row).sum()) * si.CHUNK_S
+            opened += int(gate.sum())
+            rows_live += int((live_row > 0).sum())
+        n6 = al.shape[0]
+        st.update(
+            rays=n6, dead_lanes=int((~al).sum()),
+            open_chunks_per_live_row=opened / max(rows_live, 1),
+            ms=cuda_ms(lambda: run(tab6)),
+            plain_ms=cuda_ms(lambda: run(tab6, interpret=True), 3),
+            a5_ms=cuda_ms(lambda: run(mono6)),
+            a5_plain_ms=cuda_ms(lambda: run(mono6, interpret=True), 3),
+            a5_bound_ms=sweep_bound(n6, st["live"], tab6.spheres.shape[0],
+                                    2)["bound_ms"],
+            **bound(pairs * SWEEP_FLOPS
+                    + st["live"] * tab6.num_chunks * SLAB_FLOPS,
+                    n6 * 33 + tab6.spheres.numel() * 4
+                    + tab6.boxes.numel() * 4))
+        a6[name] = st
+        print(f"A6 {name}: {json.dumps(st)}", flush=True)
+    results["sphere_search_clustered"] = (
+        max(st["max_abs_err"] for st in a6.values()), a6["primary_chunk2"])
+    del s6, o6, d6, h6, rnd, d6b, kern, plain, mono
+
+    phase("clustered-scene 1080p frame through render_linear "
+          "(intersector 'pallas')")
+    img, frame = drive_frame(
+        fh, mi, render_linear, many, cam6, cfg6,
+        {"sphere_search_clustered": chunk_count(cfg6) * DEPTH})
+    frame.update(against_plain_frame(render_linear, many, cam6, cfg6, img,
+                                     plain="pallas_interpret"))
+    print(f"clustered frame: {json.dumps(frame)}", flush=True)
+    for k, v in frame["launches"].items():
+        launches[k] += v
+    del img, many, tab6, mono6
 
     phase("threefry on the card vs the CPU")
     n_pix = cfg.num_pixels
@@ -676,16 +957,32 @@ def main() -> None:
     cos_s = hit["nx"] * ldx + hit["ny"] * ldy + hit["nz"] * ldz
     cand = sh0.alive & (hit["t"] < fh.BIG) & (hit["mat"] == LAMBERTIAN) \
         & ok & (cos_s > 0.0)
-    a5["c5_shadow_chunk0"] = compare_search(
-        si, sph, torch.stack([hit["px"], hit["py"], hit["pz"]], dim=1),
-        torch.stack([ldx, ldy, ldz], dim=1), cand, cfg5.t_min)
+    o5 = torch.stack([hit["px"], hit["py"], hit["pz"]], dim=1)
+    d5 = torch.stack([ldx, ldy, ldz], dim=1)
+    a5["c5_shadow_chunk0"] = compare_search(si, sph, o5, d5, cand, cfg5.t_min)
     print(f"A5 c5_shadow_chunk0: {json.dumps(a5['c5_shadow_chunk0'])}",
           flush=True)
     results["sphere_search"] = (max(st["max_abs_err"] for st in a5.values()),
                                 a5["primary_chunk0"])
+    # The exclude operand: every shadow ray excludes its own blocker (or
+    # the light it reaches), so the search shows what lies behind it.
+    t5, i5 = si.sphere_search(sph, o5, d5, cfg5.t_min, alive=cand)
+    excl = own_winner(i5, t5, cand, si.BIG)
+    a5x = compare_search(si, sph, o5, d5, cand, cfg5.t_min, exclude=excl)
+    kx = si.sphere_search(sph, o5, d5, cfg5.t_min, alive=cand, exclude=excl)
+    a5x.update(check_excluded(kx[0], kx[1], excl, cand, si.BIG, "A5"))
+    a5x["no_exclude_ms"] = a5["c5_shadow_chunk0"]["ms"]
+    print(f"A5 exclude c5_shadow_chunk0: {json.dumps(a5x)}", flush=True)
+    results["sphere_search[exclude]"] = (a5x["max_abs_err"], a5x)
+    del o5, d5, t5, i5, excl, kx
     del sh0, hit, uni, ldx, ldy, ldz, ok, cos_s, cand
 
-    phase("config 5, sphere Cornell box, 1920x1080, 4 views: 3 train steps")
+    # (chunk, sample) evaluations per view-step: forward and recompute.
+    evals = chunk_count(cfg5) * cfg5.spp * 2
+    bounces = cfg5.max_depth
+
+    phase("config 5, sphere Cornell box, 1920x1080, 4 views: 1 pathwise and "
+          "3 edge-aware train steps")
     true_cams = mv.orbit_cameras(cam5, C5_SPHERE_VIEWS)
     key7 = sampling.prng_key(7, dev)
     targets, tgt_s = wall_s(lambda: torch.stack([
@@ -698,9 +995,13 @@ def main() -> None:
     wrong = dataclasses.replace(sph, albedo=albedo, emission=emission)
     pose_err = torch.tensor(C5_SPHERE_POSE_ERR, device=dev)
     start = tuple(inv.translate_camera(c, pose_err) for c in true_cams)
-    init, step, rebuild, _ = mv.make_multiview_train_step(
+    make = lambda edge: mv.make_multiview_train_step(
         wrong, start, cfg5, inv.adam(C5_SPHERE_LR),
-        trainable=("albedo", "emission"), train_camera="pose")
+        trainable=("albedo", "emission"), train_camera="pose",
+        edge_aware=edge)
+    init, step, rebuild, _ = make(False)
+    _, step_edge, _, _ = make(True)
+    views = len(true_cams)
 
     def sphere_errs(st):
         rec = rebuild(st.params["scene"])
@@ -714,18 +1015,32 @@ def main() -> None:
     with torch.no_grad():
         print(f"targets: 4 views in {tgt_s:.3f} s; start "
               f"{json.dumps(sphere_errs(init()))}", flush=True)
-    _, c5s, counts = train_steps(step, init(), targets, key7, fh, mi,
-                                 sphere_errs)
-    if counts["fused_hit_shadow"] == 0 or counts["fused_hit"] != 0 or \
-            counts["sphere_search"] != 0:
-        raise AssertionError(f"sphere train step launches {counts}: want "
-                             f"A2 only")
+    # Pathwise: per evaluation A2 selects and A2 shadows at every bounce.
+    _, c5s, counts, g_path = train_steps(
+        step, init(), targets, key7, fh, mi, sphere_errs, C5_PATHWISE_STEPS,
+        {"fused_hit_shadow": views * evals * 2 * bounces})
     for k, v in counts.items():
         train_launches[k] += v
+    # Edge-aware, per evaluation: the pathwise trace (2 A2 per bounce), A1
+    # for the bounce-0 winner, the background re-trace (A1 and an A2 shadow
+    # per bounce, the first A1 with the exclude operand) and one A5 for
+    # the first vertex's shadow ray.
+    print("edge-aware:", flush=True)
+    _, c5s_edge, counts, g_edge = train_steps(
+        step_edge, init(), targets, key7, fh, mi, sphere_errs, C5_STEPS,
+        {"fused_hit": views * evals * (1 + bounces),
+         "fused_hit[exclude]": views * evals,
+         "fused_hit_shadow": views * evals * 3 * bounces,
+         "sphere_search": views * evals})
+    for k, v in counts.items():
+        train_launches[k] += v
+    rel = pose_gradient_differs(g_edge, g_path, "sphere Cornell box")
+    print(f"pose gradient, edge-aware against pathwise on the same key: "
+          f"relative change {rel}", flush=True)
     del targets
 
-    phase("config 5, true Cornell box (mesh), 1920x1080, 2 views: 3 "
-          "per-view train steps")
+    phase("config 5, true Cornell box (mesh), 1920x1080, 2 views: 1 pathwise "
+          "and 3 edge-aware per-view train steps")
     world = meshes.cornell_box_world().to(dev)
     camw = meshes.cornell_box_mesh_camera(cfg5.aspect_ratio).to(dev)
     true_w = mv.orbit_cameras(camw, C5_MESH_VIEWS)
@@ -735,9 +1050,12 @@ def main() -> None:
         for v, c in enumerate(true_w)]))
     pose_w = torch.tensor(C5_MESH_POSE_ERR, device=dev)
     start = tuple(inv.translate_camera(c, pose_w) for c in true_w)
-    init, step, _, _ = mv.make_multiview_train_step_perview(
+    make = lambda edge: mv.make_multiview_train_step_perview(
         world, start, cfg5, inv.adam(2.5e-2), trainable=(),
-        train_camera="pose")
+        train_camera="pose", edge_aware=edge)
+    init, step, _, _ = make(False)
+    _, step_edge, _, _ = make(True)
+    views = len(true_w)
 
     def mesh_errs(st):
         tr = st.params["camera"]["translate"].detach()
@@ -745,48 +1063,66 @@ def main() -> None:
 
     print(f"targets: 2 views in {tgt_s:.3f} s; start "
           f"{json.dumps(mesh_errs(init()))}", flush=True)
-    _, c5m, counts = train_steps(step, init(), targets, key11, fh, mi,
-                                 mesh_errs)
-    if counts["sphere_search"] == 0 or counts["mesh_search"] == 0 or \
-            counts["fused_hit"] != 0 or counts["fused_hit_shadow"] != 0:
-        raise AssertionError(f"mesh train step launches {counts}: want A5 "
-                             f"and A3 only")
+    # Pathwise: per evaluation a world hit and a shadow ray's world hit at
+    # every bounce, each A5 then A3 (one cluster: no A4).
+    per = views * evals * 2 * bounces
+    _, c5m, counts, g_path = train_steps(
+        step, init(), targets, key11, fh, mi, mesh_errs, C5_PATHWISE_STEPS,
+        {"sphere_search": per, "mesh_search": per})
     for k, v in counts.items():
         train_launches[k] += v
+    # Edge-aware, per evaluation: two such traces (the background one with
+    # the exclude operands at bounce 0), the bounce-0 winner and the first
+    # vertex's shadow ray: 4 * bounces + 2 world hits.
+    print("edge-aware:", flush=True)
+    per = views * evals * (4 * bounces + 2)
+    _, c5m_edge, counts, g_edge = train_steps(
+        step_edge, init(), targets, key11, fh, mi, mesh_errs, C5_STEPS,
+        {"sphere_search": per, "mesh_search": per,
+         "sphere_search[exclude]": views * evals,
+         "mesh_search[exclude]": views * evals})
+    for k, v in counts.items():
+        train_launches[k] += v
+    rel = pose_gradient_differs(g_edge, g_path, "true Cornell box")
+    print(f"pose gradient, edge-aware against pathwise on the same key: "
+          f"relative change {rel}", flush=True)
     del targets
 
-    phase("config-5 gradients: kernels vs plain versions on the card, and "
-          "the card vs the CPU")
+    phase("config-5 gradients, pathwise and edge-aware: kernels vs plain "
+          "versions on the card, and the card vs the CPU")
     grad_cmp = {}
     cases = {"sphere": (sph, cam5, ("albedo", "emission", "translate"),
                         key7),
              "mesh": (world, camw, ("translate",), key11)}
-    for name, (sc, cm, fields, key) in cases.items():
-        w, h = GRAD_PLAIN_WH
-        cfg_g = dataclasses.replace(cfg5, width=w, height=h)
-        with torch.no_grad():
-            tgt = inv.mean_image(sc, cm, cfg_g, key) * 0.9
-        kern, kern_s = wall_s(lambda: view_loss_and_grads(
-            sc, cm, cfg_g, key, tgt, fields))
-        plain_cfg = dataclasses.replace(cfg_g, intersector="fused_interpret")
-        plain, plain_s = wall_s(lambda: view_loss_and_grads(
-            sc, cm, plain_cfg, key, tgt, fields))
-        st = {"size": [w, h], "kernel_s": kern_s, "plain_s": plain_s,
-              "vs_plain": compare_grads(kern, plain, GRAD_RTOL_PLAIN,
-                                        f"{name} kernel vs plain")}
-        w, h = GRAD_CPU_WH
-        cfg_c = dataclasses.replace(cfg5, width=w, height=h)
+    for scene_name, (sc, cm, fields, key) in cases.items():
         cpu_sc, cpu_cm = sc.to("cpu"), cm.to("cpu")
-        with torch.no_grad():
-            tgt = inv.mean_image(cpu_sc, cpu_cm, cfg_c, 5) * 0.9
-        on_card = view_loss_and_grads(sc, cm, cfg_c, key, tgt.to(dev),
-                                      fields)
-        on_cpu = view_loss_and_grads(cpu_sc, cpu_cm, cfg_c, key.cpu(), tgt,
-                                     fields)
-        st["card_vs_cpu"] = compare_grads(on_card, on_cpu, GRAD_RTOL_CPU,
-                                          f"{name} card vs CPU")
-        grad_cmp[name] = st
-        print(f"gradients {name}: {json.dumps(st)}", flush=True)
+        for est, (w, h) in GRAD_PLAIN_WH.items():
+            cfg_e = dataclasses.replace(cfg5, edge_aware=est == "edge_aware")
+            cfg_g = dataclasses.replace(cfg_e, width=w, height=h)
+            with torch.no_grad():
+                tgt = inv.mean_image(sc, cm, cfg_g, key) * 0.9
+            kern, kern_s = wall_s(lambda: view_loss_and_grads(
+                sc, cm, cfg_g, key, tgt, fields))
+            plain_cfg = dataclasses.replace(cfg_g,
+                                            intersector="fused_interpret")
+            plain, plain_s = wall_s(lambda: view_loss_and_grads(
+                sc, cm, plain_cfg, key, tgt, fields))
+            name = f"{scene_name} {est}"
+            st = {"size": [w, h], "kernel_s": kern_s, "plain_s": plain_s,
+                  "vs_plain": compare_grads(kern, plain, GRAD_RTOL_PLAIN,
+                                            f"{name} kernel vs plain")}
+            w, h = GRAD_CPU_WH
+            cfg_c = dataclasses.replace(cfg_e, width=w, height=h)
+            with torch.no_grad():
+                tgt = inv.mean_image(cpu_sc, cpu_cm, cfg_c, 5) * 0.9
+            on_card = view_loss_and_grads(sc, cm, cfg_c, key, tgt.to(dev),
+                                          fields)
+            on_cpu = view_loss_and_grads(cpu_sc, cpu_cm, cfg_c, key.cpu(),
+                                         tgt, fields)
+            st["card_vs_cpu"] = compare_grads(on_card, on_cpu, GRAD_RTOL_CPU,
+                                              f"{name} card vs CPU")
+            grad_cmp[name] = st
+            print(f"gradients {name}: {json.dumps(st)}", flush=True)
 
     sources = {
         "fused_hit": ("qt_raytracer_tpu_torch/csrc/fused_hit.cu",
@@ -799,12 +1135,23 @@ def main() -> None:
                         "qt_raytracer_tpu/kernels/mesh_intersect.py:238"),
         "sphere_search": ("qt_raytracer_tpu_torch/csrc/fused_hit.cu",
                           "qt_raytracer_tpu/kernels/sphere_intersect.py:47"),
+        "sphere_search_clustered": (
+            "qt_raytracer_tpu_torch/csrc/fused_hit.cu",
+            "qt_raytracer_tpu/kernels/sphere_intersect.py:108"),
     }
-    print(f"launches over the three forward paths' counted frames: "
-          f"{json.dumps(launches)}; over the six train steps: "
+    # The exclude variants are template instances of their kernels.
+    for name in KERNELS:
+        if name.endswith("[exclude]"):
+            sources[name] = sources[name[:-len("[exclude]")]]
+    print(f"launches over the four forward paths' counted frames: "
+          f"{json.dumps(launches)}; over the eight train steps: "
           f"{json.dumps(train_launches)}")
     for k, v in train_launches.items():
         launches[k] += v
+    missing = [name for name in KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the paths: "
+                             f"{missing}")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -814,7 +1161,11 @@ def main() -> None:
         "max_abs_err": results[name][0],
         "ms": results[name][1]["ms"],
         "plain_ms": results[name][1]["plain_ms"],
+        "bound_ms": results[name][1]["bound_ms"],
+        "bound_by": results[name][1]["bound_by"],
+        "library_ms": None,
     } for name in KERNELS]}))
+
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

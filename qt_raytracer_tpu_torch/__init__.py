@@ -14,9 +14,10 @@ Public API:
     models.scenes — three_sphere, four_sphere_gpu, random, glossy_dof,
     cornell, and the mesh worlds terrain, icosphere, cornell_mesh
 
-The render runs on the device of the scene's tensors: build a scene (a
-SphereScene or a World) and its camera, move both with ``.to("cuda")``, and
-render.
+Every constructor (``scenes.get_scene``, ``SceneBuilder.build``,
+``make_camera``, ``build_mesh``, the converters of ``utils.convert``) builds
+on the CUDA card and raises when there is none; ``device="cpu"`` asks for the
+CPU, as the tests do. The render runs on the device of the scene's tensors.
 """
 
 from .accel.mesh import MeshBuilder, TriangleMesh, build_mesh

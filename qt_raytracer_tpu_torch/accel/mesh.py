@@ -4,9 +4,9 @@
 Triangles are expanded to per-triangle SoA (v0, e1, e2, unit geometric
 normal), reordered into BVH leaf order, and carry one material row per face
 (the sphere parameter model: tag, albedo, fuzz, ior, emission). The build
-runs on the host in numpy float64 and freezes to float32 tensors on the CPU,
-exactly as the JAX package freezes to jnp arrays, so one input gives the same
-tensors bit for bit. Move a mesh with ``.to(device)``.
+runs on the host in numpy float64 and freezes to float32 tensors, exactly as
+the JAX package freezes to jnp arrays, so one input gives the same tensors bit
+for bit; they land on the CUDA card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core.scene import EMISSIVE, tensors_to
+from ..runtime.device import resolve_device
 
 # The builder the last build_mesh call ran: "native" (C++ SAH) or "numpy"
 # (median split). "auto" takes native when the library builds and loads; the
@@ -76,14 +77,17 @@ def _per_face(x, f: int, width: int | None) -> np.ndarray:
 def build_mesh(vertices: np.ndarray, faces: np.ndarray,
                mat_type=0, albedo=(0.8, 0.8, 0.8), fuzz=0.0,
                ior=1.5, emission=(0.0, 0.0, 0.0),
-               max_leaf: int = 4, builder: str = "auto") -> TriangleMesh:
-    """Host-side mesh freeze: expand triangles, build the BVH, reorder.
+               max_leaf: int = 4, builder: str = "auto",
+               device=None) -> TriangleMesh:
+    """Host-side mesh freeze: expand triangles, build the BVH, reorder, and
+    put the tensors on ``device`` (None: the CUDA card, which must be there).
 
     Material fields are scalars/single RGB rows (every face) or per-face
     arrays ([F] / [F,3]). builder: "native" (C++ SAH, raises if the library
     is unavailable), "numpy" (median split) or "auto" (native, else numpy).
     """
     global last_builder
+    dev = resolve_device(device)
     if builder not in ("auto", "native", "numpy"):
         raise ValueError(f"unknown BVH builder {builder!r}")
     vertices = np.asarray(vertices, np.float64)
@@ -128,8 +132,9 @@ def build_mesh(vertices: np.ndarray, faces: np.ndarray,
     em = _per_face(emission, f, 3)[order]
     lights = np.nonzero(mt == EMISSIVE)[0].astype(np.int32)
 
-    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32))
-    i32 = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int32))
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+    i32 = lambda x: torch.from_numpy(
+        np.ascontiguousarray(x, np.int32)).to(dev)
     return TriangleMesh(
         v0=f32(v0), e1=f32(e1), e2=f32(e2), geom_normal=f32(n),
         bvh_min=f32(bvh.bbox_min), bvh_max=f32(bvh.bbox_max),
@@ -196,7 +201,8 @@ class MeshBuilder:
             faces += [[q[0], q[1], q[2]], [q[0], q[2], q[3]]]
         return self.add_triangles(corners, np.array(faces), **mat)
 
-    def build(self, max_leaf: int = 4, builder: str = "auto") -> TriangleMesh:
+    def build(self, max_leaf: int = 4, builder: str = "auto",
+              device=None) -> TriangleMesh:
         if not self._faces:
             raise ValueError("mesh has no triangles")
         verts = np.concatenate(self._verts)
@@ -215,4 +221,5 @@ class MeshBuilder:
             verts, faces,
             mat_type=expand(0, None).astype(np.int32),
             albedo=expand(1, 3), fuzz=expand(2, None), ior=expand(3, None),
-            emission=expand(4, 3), max_leaf=max_leaf, builder=builder)
+            emission=expand(4, 3), max_leaf=max_leaf, builder=builder,
+            device=device)

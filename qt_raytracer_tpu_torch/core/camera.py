@@ -12,6 +12,7 @@ import torch
 
 from . import sampling, vecmath as vm
 from .scene import tensors_to
+from ..runtime.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,8 +43,13 @@ def make_camera(
     aperture: float = 0.0,
     focus_dist: float = 1.0,
     dtype=torch.float32,
+    device=None,
 ) -> Camera:
-    """Build a Camera on the CPU exactly as RayTracer.h:545-561 does."""
+    """Build a Camera exactly as RayTracer.h:545-561 does: the arithmetic
+    runs on the CPU (so the fields are the same bits wherever they end up),
+    and the result moves to ``device`` (None: the CUDA card, which must be
+    there)."""
+    dev = resolve_device(device)
     f = lambda x: torch.as_tensor(x, dtype=dtype)
     lookfrom, lookat, vup = f(lookfrom), f(lookat), f(vup)
     vfov, aspect_ratio = f(vfov), f(aspect_ratio)
@@ -65,7 +71,7 @@ def make_camera(
 
     return Camera(origin=origin, lower_left_corner=lower_left_corner,
                   horizontal=horizontal, vertical=vertical, u=u, v=v, w=w,
-                  lens_radius=aperture / 2.0)
+                  lens_radius=aperture / 2.0).to(dev)
 
 
 def get_rays(camera: Camera, s: torch.Tensor, t: torch.Tensor,

@@ -5,6 +5,12 @@ fields, defaults and clamps, so one configuration describes the same frame in
 both packages. The config accepts every value the JAX package accepts;
 ``require_ported`` is where the renderer refuses a value whose port has not
 landed yet, naming the ROADMAP item that brings it.
+
+Three fields are the port's own: ``edge_kernel_px``, ``edge_kernel_order``
+and ``edge_shadow``. The JAX package reads them from the environment
+(``QTRT_EDGE_KERNEL_PX``, ``QTRT_EDGE_KERNEL_ORDER``, ``QTRT_EDGE_SHADOW``)
+while it traces ``diff/edge.py``; here they are explicit, validated options
+with the same defaults and meaning.
 """
 
 from __future__ import annotations
@@ -56,7 +62,13 @@ class RenderConfig:
     nee: bool = False
     intersector: str = "auto"
     pixel_chunk: int = 0
+    # Edge-aware (silhouette and first-vertex shadow-edge) gradients,
+    # ``diff.edge``: a primal-zero boundary term on gradient renders, one
+    # sample per batch.
     edge_aware: bool = False
+    edge_kernel_px: float = 1.0   # one-sided kernel width W, in pixels
+    edge_kernel_order: int = 1    # 1: triangular weight; 2: 2 w_{W/2} - w_W
+    edge_shadow: bool = True      # the NEE shadow-edge term (needs nee)
 
     def __post_init__(self):
         object.__setattr__(self, "width", _clamp(self.width, MIN_DIM, MAX_WIDTH))
@@ -72,7 +84,16 @@ class RenderConfig:
             raise ValueError(f"unknown rng {self.rng!r}")
         if self.pixel_chunk < -1:
             raise ValueError(f"pixel_chunk must be >= -1, got {self.pixel_chunk}")
+        if not float(self.edge_kernel_px) > 0.0:
+            raise ValueError(f"edge_kernel_px must be > 0, got "
+                             f"{self.edge_kernel_px}")
+        if self.edge_kernel_order not in (1, 2):
+            raise ValueError(f"edge_kernel_order must be 1 or 2, got "
+                             f"{self.edge_kernel_order}")
         if self.edge_aware and self.samples_per_batch != 1:
+            # The boundary term needs per-sample pixel coordinates, so an
+            # edge-aware render traces one sample per batch (clamped, as
+            # every panel input is).
             object.__setattr__(self, "samples_per_batch", 1)
         if self.spp % self.samples_per_batch != 0:
             spb = self.samples_per_batch
@@ -95,9 +116,6 @@ def require_ported(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             f"intersector {cfg.intersector!r} is not ported yet: "
             f"{_UNPORTED_INTERSECTORS[cfg.intersector]}")
-    if cfg.edge_aware:
-        raise NotImplementedError(
-            "edge_aware=True is not ported yet: ROADMAP Queue A item 8")
 
 
 def _clamp(x: int, lo: int, hi: int) -> int:

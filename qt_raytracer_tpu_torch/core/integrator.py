@@ -73,16 +73,29 @@ def _sphere_solid_angle_pdf(center, radius, from_point):
     return pdf, ok, cos_max, to_l, dist2
 
 
-def _nee_direction(lights: WorldLights, p, u4, u5, u6):
-    """The NEE candidate direction and pdf from points p for the slot
-    uniforms. Returns (ldir unit, pdf_j, valid, row, exp_prim, is_tri)."""
+def pick_light(lights: WorldLights, u4):
+    """The light each lane's slot-4 uniform picks: (its row of the light
+    table [N,16], the prim id its shadow ray must hit first, is it a
+    triangle)."""
     n_lights = lights.n_total
     pick = torch.clamp((u4 * n_lights).to(torch.int32), 0,
                        n_lights - 1).long()
     row = vm.gather_rows(lights.table, pick)               # [N,16]
-    exp_prim = lights.expected_prim[pick]
-    is_tri = pick >= lights.n_sphere
+    return row, lights.expected_prim[pick], pick >= lights.n_sphere
 
+
+def _nee_direction(lights: WorldLights, p, u4, u5, u6):
+    """The NEE candidate direction and pdf from points p for the slot
+    uniforms. Returns (ldir unit, pdf_j, valid, row, exp_prim, is_tri)."""
+    row, exp_prim, is_tri = pick_light(lights, u4)
+    ldir, pdf_j, valid = light_direction(row, is_tri, p, u5, u6)
+    return ldir, pdf_j, valid, row, exp_prim, is_tri
+
+
+def light_direction(row, is_tri, p, u5, u6):
+    """The sample of the picked lights (rows of the light table) from
+    points p: (ldir unit, its solid-angle pdf, valid). No gather in here,
+    so it is differentiable in p and row in forward mode too."""
     # Sphere light: cone sample.
     lc, lr = row[:, 0:3], row[:, 3]
     pdf_sph, ok_sph, cos_max, _, _ = _sphere_solid_angle_pdf(lc, lr, p)
@@ -115,7 +128,7 @@ def _nee_direction(lights: WorldLights, p, u4, u5, u6):
     ldir = torch.where(is_tri[:, None], dir_tri, dir_sph)
     pdf_j = torch.where(is_tri, pdf_tri, pdf_sph)
     valid = torch.where(is_tri, ok_tri, ok_sph)
-    return ldir, pdf_j, valid, row, exp_prim, is_tri
+    return ldir, pdf_j, valid
 
 
 def _nee_mis(world: World, lights: WorldLights, hits, throughput,
@@ -184,11 +197,11 @@ def trace(scene, origins: torch.Tensor, directions: torch.Tensor,
     "pallas_interpret" (plain versions). nee: MIS next-event estimation
     over every light (off when the world has none). rr_start: Russian
     roulette from this bounce on (0 = off; slot 7), unbiased.
-    exclude_prim0 (the edge-aware background re-trace) is not ported yet."""
-    if exclude_prim0 is not None:
-        raise NotImplementedError(
-            "trace(exclude_prim0=...) needs the exclude operand, not ported "
-            "yet: ROADMAP Queue A item 8")
+    exclude_prim0: optional [N] integer unified prim id left out of the
+    bounce-0 intersection only (-1 for none): the background radiance of
+    the edge-aware estimator (``diff.edge``), "what this primary ray would
+    see if its winner were absent"; later bounces and every NEE shadow ray
+    see the whole scene."""
     world = as_world(scene)
     lights = world_lights(world)
     do_nee = bool(nee) and lights.n_total > 0
@@ -202,8 +215,10 @@ def trace(scene, origins: torch.Tensor, directions: torch.Tensor,
         prev_pdf=zero3[:, 0] - 1.0)
 
     for depth_idx in range(max_depth):
-        hits = intersect_world(world, state.origin, state.direction, t_min,
-                               backend=intersector, alive=state.alive)
+        hits = intersect_world(
+            world, state.origin, state.direction, t_min, backend=intersector,
+            alive=state.alive,
+            exclude=exclude_prim0 if depth_idx == 0 else None)
         uniforms = sampling.stream_uniforms(
             sample_keys, sampling.STREAM_BOUNCE0 + depth_idx,
             sampling.UNIFORMS_PER_BOUNCE)

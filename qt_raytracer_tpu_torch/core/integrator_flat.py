@@ -367,19 +367,22 @@ def _rederive_hits_flat(params, ox, oy, oz, dx, dy, dz, t_sel, idx, t_min):
 def bounce(tables: FusedSpheres, s: RayState, depth_idx: int, t_min: float,
            rr_start: int = 0, interpret: bool = False,
            light_idx: torch.Tensor | None = None,
-           diff: bool = False) -> RayState:
+           diff: bool = False, exclude=None) -> RayState:
     """One bounce of every ray in a sphere scene: hit, scatter, accumulate,
     continue. light_idx (the scene's emissive sphere ids) turns NEE on.
     diff=True selects with the shadow-mode kernel and re-derives the hit
-    differentiably from tables.params."""
+    differentiably from tables.params. exclude: optional [N_pad] i32 sphere
+    id left out of this bounce's hit query (-1 for none); the NEE shadow
+    rays see the whole scene."""
     if diff:
         sel = fused_hit(tables, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive,
-                        t_min, shadow_only=True, interpret=interpret)
+                        t_min, shadow_only=True, interpret=interpret,
+                        exclude=exclude)
         h = _rederive_hits_flat(tables.params, s.ox, s.oy, s.oz, s.dx, s.dy,
                                 s.dz, sel["t"], sel["idx"], t_min)
     else:
         h = fused_hit(tables, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive,
-                      t_min, interpret=interpret)
+                      t_min, interpret=interpret, exclude=exclude)
     emit_w, nee_fn = 1.0, None
     if light_idx is not None:
         n_lights = light_idx.shape[0]
@@ -433,10 +436,18 @@ def trace_flat(
     rr_start: int = 0,
     interpret: bool = False,
     diff: bool = False,
+    compact: bool = False,
+    exclude_prim0=None,
 ) -> torch.Tensor:
     """Radiance [N,3] of rays origins/directions [N,3] with per-ray RNG
     states sample_keys ([N] hash or [N,2] threefry), traced for max_depth
     bounces on the scene's device.
+
+    exclude_prim0: optional [N] integer sphere id left out of the bounce-0
+    hit query only (-1 for none), the background re-trace of the edge-aware
+    estimator (``diff.edge``); it raises ValueError with compact=True, whose
+    lane permutation would detach the exclusion from its ray. compact=True
+    itself (the per-bounce alive-compaction sort) is not ported yet.
 
     diff=False: the full-mode kernel (A1) computes every hit quantity,
     detached; forward only (differentiating raises). diff=True: the
@@ -444,14 +455,28 @@ def trace_flat(
     re-derived from the scene tensors (the 'fused_diff' intersector)."""
     if not isinstance(scene, SphereScene):
         raise TypeError("trace_flat handles SphereScene only")
+    if exclude_prim0 is not None and compact:
+        raise ValueError("exclude_prim0 is incompatible with compact (lane "
+                         "permutation would detach the exclusion)")
+    if compact:
+        raise NotImplementedError(
+            "compact=True is not ported yet: ROADMAP.md Queue B lists it "
+            "under the A3/A4 variants")
 
     def run():
         tables = prep_fused_spheres(scene)
         lights = scene.light_idx if nee and scene.num_lights > 0 else None
         state = initial_state(origins, directions, sample_keys)
+        excl0 = None
+        if exclude_prim0 is not None:
+            # Padding lanes are dead; -1 excludes nothing.
+            excl0 = torch.nn.functional.pad(
+                exclude_prim0.detach().to(torch.int32),
+                (0, state.ox.shape[0] - origins.shape[0]), value=-1)
         for depth_idx in range(max_depth):
             state = bounce(tables, state, depth_idx, float(t_min),
-                           int(rr_start), interpret, lights, diff)
+                           int(rr_start), interpret, lights, diff,
+                           excl0 if depth_idx == 0 else None)
         n = origins.shape[0]
         return torch.stack([state.rx, state.ry, state.rz], dim=-1)[:n]
 

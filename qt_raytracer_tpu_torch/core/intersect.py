@@ -1,11 +1,12 @@
 """Ray-sphere intersection of the gradient integrator (counterpart of
 ``qt_raytracer_tpu.core.intersect``).
 
-The closest-hit search (kernel A5, ``kernels.sphere_intersect``) is
-detached: it picks the winner. Every differentiable quantity is re-derived
-here from the winner's row of ``packed_param_table(scene)`` with the
-well-conditioned oc form and stable (Citardauq) roots, so autograd reaches
-the scene tensors through the refinement alone.
+The closest-hit search (kernel A5, or A6 from 1,024 slots on, both in
+``kernels.sphere_intersect``) is detached: it picks the winner. Every
+differentiable quantity is re-derived here from the winner's row of
+``packed_param_table(scene)`` with the well-conditioned oc form and stable
+(Citardauq) roots, so autograd reaches the scene tensors through the
+refinement alone.
 """
 
 from __future__ import annotations
@@ -89,7 +90,9 @@ def intersect_spheres(scene: SphereScene, origins, directions, t_min,
     backend: "pallas" (kernel A5 on CUDA tensors, its plain version on CPU
     tensors) or "pallas_interpret" (the plain version on any device). The
     search is detached; t, point and normal are re-derived differentiably.
-    Ties resolve to the lowest sphere index."""
+    Ties resolve to the lowest sphere index. exclude: optional [N] integer
+    sphere id left out of each lane's search (-1 for none; scenes below
+    1,024 slots only: the clustered sweep raises ValueError)."""
     if backend not in ("pallas", "pallas_interpret"):
         raise NotImplementedError(
             f"intersect_spheres backend {backend!r} is not ported yet: "

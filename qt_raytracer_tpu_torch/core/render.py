@@ -111,7 +111,14 @@ def _camera_rays(camera, cfg: RenderConfig, samp_keys, i, j):
 
 def _sample_radiance(scene, camera, cfg: RenderConfig, pix_keys, i, j,
                      sample_idx: int):
-    """Trace one sample for every pixel; returns [N,3] linear radiance."""
+    """Trace one sample for every pixel; returns [N,3] linear radiance.
+    With cfg.edge_aware, the same radiance plus the primal-zero boundary
+    term of ``diff.edge``."""
+    if cfg.edge_aware:
+        from ..diff.edge import sample_radiance_edge_aware
+
+        return sample_radiance_edge_aware(scene, camera, cfg, pix_keys,
+                                          i, j, sample_idx)
     samp_keys = sampling.sample_keys(pix_keys, sample_idx)
     origins, directions = _camera_rays(camera, cfg, samp_keys, i, j)
     return _trace_dispatch(scene, origins, directions, samp_keys, cfg)

@@ -2,6 +2,8 @@
 
 Spheres are parallel tensors and materials are per-sphere parameters chosen
 by an integer tag. A scene lives on one device; the render runs there.
+``SceneBuilder.build`` freezes onto the CUDA card unless the caller names
+another device (``runtime.device.resolve_device``).
 
 Material tags:
     0 = Lambertian  (albedo)                RayTracer.h:473-488
@@ -16,6 +18,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..runtime.device import resolve_device
 
 LAMBERTIAN = 0
 METAL = 1
@@ -107,13 +111,15 @@ class SceneBuilder:
         return self.add_sphere(center, radius, EMISSIVE, emission=emission)
 
     def build(self, pad_to: int | None = 128, dtype=torch.float32,
-              spatial_sort: bool | None = None) -> SphereScene:
-        """Freeze to SoA on the CPU (move it with ``.to(device)``).
+              spatial_sort: bool | None = None, device=None) -> SphereScene:
+        """Freeze to SoA on ``device`` (None: the CUDA card, which must be
+        there; the tests pass "cpu").
 
         pad_to: round S up to a multiple; padded slots are inactive, parked
         at 1e9 and never hit. spatial_sort: Morton-order the spheres; default
         on for scenes with >= 64 spheres, as in the JAX package.
         """
+        dev = resolve_device(device)
         n = len(self._rows)
         if n == 0:
             raise ValueError("scene has no primitives")
@@ -145,10 +151,11 @@ class SceneBuilder:
             active[i] = True
         center[n:] = 1.0e9
         lights = np.nonzero(mat_type == EMISSIVE)[0].astype(np.int32)
-        f = lambda x: torch.from_numpy(x).to(dtype)
+        f = lambda x: torch.from_numpy(x).to(dtype).to(dev)
+        raw = lambda x: torch.from_numpy(x).to(dev)
         return SphereScene(
             center=f(center), radius=f(radius),
-            mat_type=torch.from_numpy(mat_type), albedo=f(albedo),
+            mat_type=raw(mat_type), albedo=f(albedo),
             fuzz=f(fuzz), ior=f(ior), emission=f(emission),
-            active=torch.from_numpy(active), light_idx=torch.from_numpy(lights),
+            active=raw(active), light_idx=raw(lights),
         )

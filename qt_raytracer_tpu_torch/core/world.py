@@ -8,9 +8,9 @@ chosen light") right when meshes occlude. The world light table (emissive
 spheres, then emissive faces) drives NEE/MIS.
 
 ``intersect_world`` is the merged closest hit of the [N,3] gradient
-integrator: the sphere search (kernel A5), then the mesh search (A3, with A4
-and the crossing sort on multi-cluster meshes) capped by the sphere winner,
-both detached; the winning triangle's t is re-derived differentiably
+integrator: the sphere search (kernel A5, or A6 from 1,024 slots on), then
+the mesh search (A3, with A4 and the crossing sort on multi-cluster meshes)
+capped by the sphere winner, both detached; the winning triangle's t is re-derived differentiably
 (``_tri_t_diff``) and its face row supplies the rest.
 """
 
@@ -145,13 +145,20 @@ def intersect_world(world: World, origins, directions, t_min,
     one id space (triangle j is prim num_spheres + j), on a strict '<'.
 
     backend: "pallas" (the kernels on CUDA tensors, their plain versions on
-    CPU tensors) or "pallas_interpret" (the plain versions)."""
+    CPU tensors) or "pallas_interpret" (the plain versions).
+
+    exclude: optional [N] integer unified prim id to leave out of each
+    lane's search (-1 for none): an id below num_spheres excludes that
+    sphere, an id from num_spheres on excludes triangle id - num_spheres
+    from the mesh search (the edge-aware background re-trace)."""
+    ns = world.spheres.num_spheres
+    excl_s = excl_m = None
     if exclude is not None:
-        raise NotImplementedError(
-            "the per-lane exclude operand is not ported yet: ROADMAP Queue A "
-            "item 8")
+        exclude = exclude.detach().to(torch.int32)
+        excl_s = torch.where((exclude >= 0) & (exclude < ns), exclude, -1)
+        excl_m = torch.where(exclude >= ns, exclude - ns, -1)
     hs = intersect_spheres(world.spheres, origins, directions, t_min,
-                           backend=backend, alive=alive)
+                           backend=backend, alive=alive, exclude=excl_s)
     mesh = world.mesh
     if mesh is None:
         return hs
@@ -169,7 +176,7 @@ def intersect_world(world: World, origins, directions, t_min,
             prep_mesh_clusters(mesh), *comps, float(t_min),
             alive=live.contiguous(),
             t_cap=torch.where(hs.hit, hs.t, BIG).contiguous(),
-            interpret=backend == "pallas_interpret")
+            interpret=backend == "pallas_interpret", exclude=excl_m)
     tri_hit = t_m < BIG
     t_d, ok_d = _tri_t_diff(mesh, idx_m, origins, directions, t_min, BIG)
     t_tri = torch.where(tri_hit & ok_d, t_d, t_m)

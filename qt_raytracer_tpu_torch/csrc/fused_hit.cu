@@ -1,8 +1,8 @@
 // Fused closest-hit query for sphere scenes, for Hopper (sm_90a).
 //
-// Replaces qt_raytracer_tpu/kernels/fused_hit.py::_fused_kernel without an
-// exclude operand, in both of its modes (kernels A1 and A2 of ROADMAP
-// Queue B). Full mode (A1, qtrt_fused_hit): per ray, sweep every sphere and
+// Replaces qt_raytracer_tpu/kernels/fused_hit.py::_fused_kernel in both of
+// its modes (kernels A1 and A2 of ROADMAP Queue B), with and without the
+// per-lane exclude operand. Full mode (A1, qtrt_fused_hit): per ray, sweep every sphere and
 // keep the closest valid root (the lowest sphere id wins a tie), read the
 // winner's 13 parameters, refine t with the stable root of the
 // well-conditioned oc form, and emit the hit point, the front-face flag and
@@ -23,6 +23,30 @@
 // qt_raytracer_tpu_torch/kernels/sphere_intersect.py. The TPU skips whole
 // dead 128-ray rows and searches dead lanes of live rows; this kernel gates
 // each lane, so every dead lane reads (BIG, 0).
+//
+// The exclude operand (A1, A2, A5; the edge-aware background re-trace of
+// diff/edge.py): an optional [n] i32 array, one sphere id per lane in the
+// sweep's own numbering, -1 for none. The excluded sphere is masked out of
+// the candidates before the minimum, so the lowest-id tie rule holds among
+// the rest; a lane whose only hit was its excluded sphere is a miss. It is a
+// second template flag, so without the operand the instruction stream is
+// the one measured before.
+//
+// Kernel A6 (qtrt_sphere_search_clustered) replaces
+// sphere_intersect.py::_search_kernel, the cluster-culled sweep the TPU
+// takes from 16 chunks of 64 Morton-ordered spheres (1,024 slots) on. A
+// block of 128 threads is one TPU ray row. Per chunk, every live lane
+// slab-tests the chunk's AABB with the TPU kernel's arithmetic, and the
+// chunk is swept by the whole row when any live lane's test passes
+// (__syncthreads_or): the gate has the TPU's granularity, so the result is
+// the TPU kernel's lane for lane. Only then do 64 threads stage the chunk's
+// float4 rows in shared memory. The running (t_best, idx) starts at
+// (BIG, 0) and updates on a strict '<' in ascending slot order, which is
+// the TPU's per-chunk min-then-match followed by its strict 'better'. It
+// takes no exclude operand, as on the TPU. Its plain version is
+// sphere_search_clustered_plain. Bound: arithmetic again, 25 FLOPs per
+// (live ray, slot of an opened chunk); the gate itself costs 6 loads and
+// some 20 FLOPs per (ray, chunk).
 //
 // What bounds it on the H100. The sweep costs about 25 FLOPs per ray-sphere
 // pair, and one IEEE square root. At the main path's 414,720 rays x 512
@@ -88,18 +112,24 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az,
 // params is not read); a winner id at or above num_ids (a padding slot of
 // the sphere-search table) is written as 0. Every thread of the block must
 // call it: it synchronises the block.
-template <bool SHADOW>
+template <bool SHADOW, bool EXCL>
 __device__ __forceinline__ void fused_hit_body(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
-    const bool* __restrict__ alive, const float4* __restrict__ spheres,
-    const float4* __restrict__ params, int s, int num_ids, float t_min,
-    int n, float* __restrict__ fout, int* __restrict__ iout) {
+    const bool* __restrict__ alive, const int* __restrict__ excl,
+    const float4* __restrict__ spheres, const float4* __restrict__ params,
+    int s, int num_ids, float t_min, int n, float* __restrict__ fout,
+    int* __restrict__ iout) {
   __shared__ float4 tile[TILE_S];
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool live = i < n && alive[i];
   const bool block_live = __syncthreads_or(live);
+  // The lane's excluded sphere id (-1: none); read only when EXCL.
+  int ex = -1;
+  if constexpr (EXCL) {
+    if (live) ex = excl[i];
+  }
 
   float o_x = 0.f, o_y = 0.f, o_z = 0.f, d_x = 0.f, d_y = 0.f, d_z = 1.f;
   if (live) {
@@ -135,7 +165,9 @@ __device__ __forceinline__ void fused_hit_body(
         const bool near_ok = near >= t_min && near <= BIG;
         const bool far_ok = far >= t_min && far <= BIG;
         const float root = near_ok ? near : far;
-        const float cand = (disc >= 0.f && (near_ok || far_ok)) ? root : BIG;
+        bool valid = disc >= 0.f && (near_ok || far_ok);
+        if constexpr (EXCL) valid = valid && (base + k) != ex;
+        const float cand = valid ? root : BIG;
         if (cand < t_best) {
           t_best = cand;
           best = base + k;
@@ -225,75 +257,194 @@ __device__ __forceinline__ void fused_hit_body(
   g[I_FF * row] = ff ? 1 : 0;
 }
 
-// A1 (SHADOW = false) and A2 (SHADOW = true).
-template <bool SHADOW>
+// A1 (SHADOW = false) and A2 (SHADOW = true), each with (EXCL = true) or
+// without the exclude operand.
+template <bool SHADOW, bool EXCL>
 __global__ void __launch_bounds__(BLOCK) fused_hit_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
-    const bool* __restrict__ alive, const float4* __restrict__ spheres,
-    const float4* __restrict__ params, int s, float t_min, int n,
-    float* __restrict__ fout, int* __restrict__ iout) {
-  fused_hit_body<SHADOW>(ox, oy, oz, dx, dy, dz, alive, spheres, params, s,
-                         s, t_min, n, fout, iout);
+    const bool* __restrict__ alive, const int* __restrict__ excl,
+    const float4* __restrict__ spheres, const float4* __restrict__ params,
+    int s, float t_min, int n, float* __restrict__ fout,
+    int* __restrict__ iout) {
+  fused_hit_body<SHADOW, EXCL>(ox, oy, oz, dx, dy, dz, alive, excl, spheres,
+                               params, s, s, t_min, n, fout, iout);
 }
 
 // A5: the sweep over a table padded to a multiple of 64 slots (padding ids
 // read back as 0), emitting (t, idx) as A2 does.
+template <bool EXCL>
 __global__ void __launch_bounds__(BLOCK) sphere_search_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
-    const bool* __restrict__ alive, const float4* __restrict__ spheres,
-    int s_pad, int num_spheres, float t_min, int n, float* __restrict__ t_out,
+    const bool* __restrict__ alive, const int* __restrict__ excl,
+    const float4* __restrict__ spheres, int s_pad, int num_spheres,
+    float t_min, int n, float* __restrict__ t_out,
     int* __restrict__ idx_out) {
-  fused_hit_body<true>(ox, oy, oz, dx, dy, dz, alive, spheres, nullptr,
-                       s_pad, num_spheres, t_min, n, t_out, idx_out);
+  fused_hit_body<true, EXCL>(ox, oy, oz, dx, dy, dz, alive, excl, spheres,
+                             nullptr, s_pad, num_spheres, t_min, n, t_out,
+                             idx_out);
+}
+
+// ------------------------------------------------------------------ A6
+constexpr int ROW = 128;    // rays per block: one TPU ray row, the gate's unit
+constexpr int CHUNK_S = 64;  // spheres per Morton chunk
+
+// Slab reciprocal of one direction component, as the TPU kernel takes it:
+// 1 / (|d| < 1e-30 ? (d < 0 ? -1e-30 : 1e-30) : d).
+__device__ __forceinline__ float slab_inv(float d) {
+  const float c = fabsf(d) < 1e-30f ? (d < 0.f ? -1e-30f : 1e-30f) : d;
+  return __fdiv_rn(1.f, c);
+}
+
+__global__ void __launch_bounds__(ROW) sphere_search_clustered_kernel(
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const bool* __restrict__ alive, const float4* __restrict__ spheres,
+    const float* __restrict__ boxes, int num_chunks, int k_stride,
+    int num_spheres, float t_min, int n, float* __restrict__ t_out,
+    int* __restrict__ idx_out) {
+  __shared__ float4 tile[CHUNK_S];
+  const int i = blockIdx.x * ROW + threadIdx.x;
+  const bool live = i < n && alive[i];
+  if (!__syncthreads_or(live)) {
+    // Dead row: no search, the miss values.
+    if (i < n) {
+      t_out[i] = BIG;
+      idx_out[i] = 0;
+    }
+    return;
+  }
+
+  float o_x = 0.f, o_y = 0.f, o_z = 0.f, d_x = 0.f, d_y = 0.f, d_z = 1.f;
+  if (live) {
+    o_x = ox[i]; o_y = oy[i]; o_z = oz[i];
+    d_x = dx[i]; d_y = dy[i]; d_z = dz[i];
+  }
+  const float a = dot3(d_x, d_y, d_z, d_x, d_y, d_z);
+  const float o_dot_d = dot3(o_x, o_y, o_z, d_x, d_y, d_z);
+  const float o2 = dot3(o_x, o_y, o_z, o_x, o_y, o_z);
+  const float inv_a = __fdiv_rn(1.f, a);
+  const float ix = slab_inv(d_x), iy = slab_inv(d_y), iz = slab_inv(d_z);
+
+  const float* lo_x = boxes;
+  const float* lo_y = boxes + k_stride;
+  const float* lo_z = boxes + 2 * k_stride;
+  const float* hi_x = boxes + 3 * k_stride;
+  const float* hi_y = boxes + 4 * k_stride;
+  const float* hi_z = boxes + 5 * k_stride;
+
+  float t_best = BIG;
+  int best = 0;
+  for (int ck = 0; ck < num_chunks; ++ck) {
+    // Cluster AABB gate: enter clamped at t_min, exit > enter strict.
+    const float t0x = mul(sub(__ldg(lo_x + ck), o_x), ix);
+    const float t1x = mul(sub(__ldg(hi_x + ck), o_x), ix);
+    const float t0y = mul(sub(__ldg(lo_y + ck), o_y), iy);
+    const float t1y = mul(sub(__ldg(hi_y + ck), o_y), iy);
+    const float t0z = mul(sub(__ldg(lo_z + ck), o_z), iz);
+    const float t1z = mul(sub(__ldg(hi_z + ck), o_z), iz);
+    const float enter =
+        fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+              fmaxf(fminf(t0z, t1z), t_min));
+    const float exit_ =
+        fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+    // The barrier of the vote also keeps the tile of the chunk before from
+    // being overwritten while a lane still sweeps it.
+    if (!__syncthreads_or(live && exit_ > enter)) continue;
+    const int base = ck * CHUNK_S;
+    if (threadIdx.x < CHUNK_S) tile[threadIdx.x] = spheres[base + threadIdx.x];
+    __syncthreads();
+    if (!live) continue;
+#pragma unroll 4
+    for (int k = 0; k < CHUNK_S; ++k) {
+      const float4 c = tile[k];
+      const float d_dot_c = dot3(c.x, c.y, c.z, d_x, d_y, d_z);
+      const float o_dot_c = dot3(c.x, c.y, c.z, o_x, o_y, o_z);
+      const float half_b = sub(o_dot_d, d_dot_c);
+      const float cterm = add(sub(o2, mul(2.f, o_dot_c)), c.w);
+      const float disc = sub(mul(half_b, half_b), mul(a, cterm));
+      const float sq = __fsqrt_rn(fmaxf(disc, 0.f));
+      const float near = mul(sub(-half_b, sq), inv_a);
+      const float far = mul(add(-half_b, sq), inv_a);
+      const bool near_ok = near >= t_min && near <= BIG;
+      const bool far_ok = far >= t_min && far <= BIG;
+      const float root = near_ok ? near : far;
+      const float cand = (disc >= 0.f && (near_ok || far_ok)) ? root : BIG;
+      if (cand < t_best) {
+        t_best = cand;
+        best = base + k;
+      }
+    }
+  }
+  if (i >= n) return;
+  t_out[i] = live ? t_best : BIG;
+  idx_out[i] = (live && best < num_spheres) ? best : 0;
 }
 
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// spheres: [s, 4] f32 rows (cx, cy, cz, |c|^2 - r^2 + BIG*inactive);
-// params: [s, 16] f32 rows of packed_param_table; fout: [16, n] f32;
-// iout: [3, n] i32. All pointers are device pointers, 16-byte aligned.
+// excl: [n] i32 excluded sphere id per lane (-1: none), or null for no
+// exclude operand; spheres: [s, 4] f32 rows (cx, cy, cz,
+// |c|^2 - r^2 + BIG*inactive); params: [s, 16] f32 rows of
+// packed_param_table; fout: [16, n] f32; iout: [3, n] i32. All pointers are
+// device pointers; spheres, params, fout and iout 16-byte aligned.
 extern "C" int qtrt_fused_hit(const float* ox, const float* oy,
                               const float* oz, const float* dx,
                               const float* dy, const float* dz,
-                              const bool* alive, const float* spheres,
-                              const float* params, int s, float t_min, int n,
-                              float* fout, int* iout, void* stream) {
+                              const bool* alive, const int* excl,
+                              const float* spheres, const float* params,
+                              int s, float t_min, int n, float* fout,
+                              int* iout, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = n / BLOCK + (n % BLOCK != 0);
-  fused_hit_kernel<false>
-      <<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-          ox, oy, oz, dx, dy, dz, alive,
-          reinterpret_cast<const float4*>(spheres),
-          reinterpret_cast<const float4*>(params), s, t_min, n, fout, iout);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const float4* sp = reinterpret_cast<const float4*>(spheres);
+  const float4* pa = reinterpret_cast<const float4*>(params);
+  if (excl != nullptr) {
+    fused_hit_kernel<false, true><<<grid, BLOCK, 0, st>>>(
+        ox, oy, oz, dx, dy, dz, alive, excl, sp, pa, s, t_min, n, fout, iout);
+  } else {
+    fused_hit_kernel<false, false><<<grid, BLOCK, 0, st>>>(
+        ox, oy, oz, dx, dy, dz, alive, nullptr, sp, pa, s, t_min, n, fout,
+        iout);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shadow mode (kernel A2). Same ray and sphere operands as qtrt_fused_hit,
-// no parameter table; t_out: [n] f32 (unrefined sweep minimum, BIG on a miss
+// Shadow mode (kernel A2). Same ray, exclude and sphere operands as
+// qtrt_fused_hit, no parameter table; t_out: [n] f32 (unrefined sweep minimum, BIG on a miss
 // or a dead lane); idx_out: [n] i32 (lowest winning id, 0 on a miss or a
 // dead lane). Returns the cudaError_t of the launch.
 extern "C" int qtrt_fused_hit_shadow(const float* ox, const float* oy,
                                      const float* oz, const float* dx,
                                      const float* dy, const float* dz,
-                                     const bool* alive, const float* spheres,
-                                     int s, float t_min, int n, float* t_out,
-                                     int* idx_out, void* stream) {
+                                     const bool* alive, const int* excl,
+                                     const float* spheres, int s, float t_min,
+                                     int n, float* t_out, int* idx_out,
+                                     void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = n / BLOCK + (n % BLOCK != 0);
-  fused_hit_kernel<true>
-      <<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-          ox, oy, oz, dx, dy, dz, alive,
-          reinterpret_cast<const float4*>(spheres), nullptr, s, t_min, n,
-          t_out, idx_out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const float4* sp = reinterpret_cast<const float4*>(spheres);
+  if (excl != nullptr) {
+    fused_hit_kernel<true, true><<<grid, BLOCK, 0, st>>>(
+        ox, oy, oz, dx, dy, dz, alive, excl, sp, nullptr, s, t_min, n, t_out,
+        idx_out);
+  } else {
+    fused_hit_kernel<true, false><<<grid, BLOCK, 0, st>>>(
+        ox, oy, oz, dx, dy, dz, alive, nullptr, sp, nullptr, s, t_min, n,
+        t_out, idx_out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Sphere search (kernel A5). spheres: [s_pad, 4] f32 rows from
+// Sphere search (kernel A5). excl: [n] i32 excluded slot id per lane (-1:
+// none) or null; spheres: [s_pad, 4] f32 rows from
 // prep_sphere_search (inactive slots biased by +BIG, padding slots at
 // center 1e9 with |c|^2 - r^2 = BIG); t_out: [n] f32 (unrefined sweep
 // minimum, BIG on a miss or a dead lane); idx_out: [n] i32 (lowest winning
@@ -302,14 +453,42 @@ extern "C" int qtrt_fused_hit_shadow(const float* ox, const float* oy,
 extern "C" int qtrt_sphere_search(const float* ox, const float* oy,
                                   const float* oz, const float* dx,
                                   const float* dy, const float* dz,
-                                  const bool* alive, const float* spheres,
-                                  int s_pad, int num_spheres, float t_min,
-                                  int n, float* t_out, int* idx_out,
-                                  void* stream) {
+                                  const bool* alive, const int* excl,
+                                  const float* spheres, int s_pad,
+                                  int num_spheres, float t_min, int n,
+                                  float* t_out, int* idx_out, void* stream) {
   if (n <= 0 || s_pad <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = n / BLOCK + (n % BLOCK != 0);
-  sphere_search_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto st = static_cast<cudaStream_t>(stream);
+  const float4* sp = reinterpret_cast<const float4*>(spheres);
+  if (excl != nullptr) {
+    sphere_search_kernel<true><<<grid, BLOCK, 0, st>>>(
+        ox, oy, oz, dx, dy, dz, alive, excl, sp, s_pad, num_spheres, t_min, n,
+        t_out, idx_out);
+  } else {
+    sphere_search_kernel<false><<<grid, BLOCK, 0, st>>>(
+        ox, oy, oz, dx, dy, dz, alive, nullptr, sp, s_pad, num_spheres, t_min,
+        n, t_out, idx_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Cluster-culled sphere search (kernel A6). spheres: [num_chunks * 64, 4]
+// f32 rows from prep_sphere_search; boxes: [6, k_stride] f32 (lo xyz, hi
+// xyz of each chunk's AABB over center +- radius of its active spheres;
+// BIG/-BIG where a chunk has none), k_stride >= num_chunks. Outputs as A5.
+// Returns the cudaError_t of the launch.
+extern "C" int qtrt_sphere_search_clustered(
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, const bool* alive, const float* spheres,
+    const float* boxes, int num_chunks, int k_stride, int num_spheres,
+    float t_min, int n, float* t_out, int* idx_out, void* stream) {
+  if (n <= 0 || num_chunks <= 0 || k_stride < num_chunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = n / ROW + (n % ROW != 0);
+  sphere_search_clustered_kernel<<<grid, ROW, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
       ox, oy, oz, dx, dy, dz, alive, reinterpret_cast<const float4*>(spheres),
-      s_pad, num_spheres, t_min, n, t_out, idx_out);
+      boxes, num_chunks, k_stride, num_spheres, t_min, n, t_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

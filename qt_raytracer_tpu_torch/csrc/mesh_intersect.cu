@@ -2,9 +2,13 @@
 //
 // A3, qtrt_mesh_search, replaces
 // qt_raytracer_tpu/kernels/mesh_intersect.py::_mesh_kernel in its default
-// configuration (mt="vpu", visit="full", no exclude operand): per ray, the
-// closest triangle hit strictly below a per-lane cap, with ties going to the
-// lowest BVH-order triangle id. A4, qtrt_mesh_first_cluster, replaces
+// configuration (mt="vpu", visit="full"), with and without the per-lane
+// exclude operand: per ray, the closest triangle hit strictly below a
+// per-lane cap, with ties going to the lowest BVH-order triangle id; a
+// lane's excluded triangle (a BVH-order id, -1 for none; the edge-aware
+// background re-trace of diff/edge.py) fails the accept test of every
+// visit, as on the TPU (mesh_intersect.py:345-346). The operand is a
+// template flag, so without it the instruction stream is unchanged. A4, qtrt_mesh_first_cluster, replaces
 // _c1_kernel with pair=False: per ray, the lowest id of a cluster whose
 // slacked, capped slab test passes (k when none), which keys the wavefront
 // sort that runs before A3. The plain PyTorch versions are
@@ -169,12 +173,13 @@ __global__ void __launch_bounds__(BLOCK) first_cluster_kernel(
   if (i < n) out[i] = c1;
 }
 
+template <bool EXCL>
 __global__ void __launch_bounds__(BLOCK) mesh_search_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const bool* __restrict__ alive, const float* __restrict__ t_cap,
-    const float* __restrict__ tris, int p_stride,
+    const int* __restrict__ excl, const float* __restrict__ tris, int p_stride,
     const float* __restrict__ boxes, int k, int k_stride, int g, float t_min,
     int n, float* __restrict__ t_out, int* __restrict__ idx_out) {
   __shared__ float tile[6][TILE_K];
@@ -185,9 +190,11 @@ __global__ void __launch_bounds__(BLOCK) mesh_search_kernel(
   Ray r = {};
   float d[3] = {0.f, 0.f, 1.f};
   float cap0 = BIG;
+  int ex = -1;  // the lane's excluded triangle id; read only when EXCL
   if (live) {
     r = load_ray(i, ox, oy, oz, dx, dy, dz, d);
     cap0 = t_cap[i];
+    if constexpr (EXCL) ex = excl[i];
   }
   float t_best = cap0;
   int best = 0;
@@ -239,8 +246,10 @@ __global__ void __launch_bounds__(BLOCK) mesh_search_kernel(
                                   mul(qv2, d[2])), inv_det);
           const float t = mul(add(add(mul(qv0, e2[0]), mul(qv1, e2[1])),
                                   mul(qv2, e2[2])), inv_det);
-          if (u >= 0.f && v >= 0.f && add(u, v) <= 1.f && t >= t_min &&
-              t < t_best) {
+          bool ok = u >= 0.f && v >= 0.f && add(u, v) <= 1.f &&
+                    t >= t_min && t < t_best;
+          if constexpr (EXCL) ok = ok && p != ex;
+          if (ok) {
             t_best = t;
             best = p;
           }
@@ -277,8 +286,9 @@ extern "C" int qtrt_mesh_first_cluster(const float* ox, const float* oy,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel A3. Ray operands as for A4; tris: [9, p_stride] f32 with
-// p_stride >= k * g; boxes: [6, k_stride] f32; g: triangles per cluster.
+// Kernel A3. Ray operands as for A4; excl: [n] i32 excluded BVH-order
+// triangle id per lane (-1: none), or null for no exclude operand; tris:
+// [9, p_stride] f32 with p_stride >= k * g; boxes: [6, k_stride] f32; g: triangles per cluster.
 // t_out: [n] f32 (BIG where no triangle beat the cap, and on dead lanes);
 // idx_out: [n] i32 (the winner's BVH-order id, else 0). Launches on
 // `stream`; returns the cudaError_t of the launch (0 = success).
@@ -286,7 +296,8 @@ extern "C" int qtrt_mesh_search(const float* ox, const float* oy,
                                 const float* oz, const float* dx,
                                 const float* dy, const float* dz,
                                 const bool* alive, const float* t_cap,
-                                const float* tris, int p_stride,
+                                const int* excl, const float* tris,
+                                int p_stride,
                                 const float* boxes, int k, int k_stride,
                                 int g, float t_min, int n, float* t_out,
                                 int* idx_out, void* stream) {
@@ -294,8 +305,15 @@ extern "C" int qtrt_mesh_search(const float* ox, const float* oy,
       static_cast<long long>(k) * g > p_stride)
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid = n / BLOCK + (n % BLOCK != 0);
-  mesh_search_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, alive, t_cap, tris, p_stride, boxes, k,
-      k_stride, g, t_min, n, t_out, idx_out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (excl != nullptr) {
+    mesh_search_kernel<true><<<grid, BLOCK, 0, st>>>(
+        ox, oy, oz, dx, dy, dz, alive, t_cap, excl, tris, p_stride, boxes, k,
+        k_stride, g, t_min, n, t_out, idx_out);
+  } else {
+    mesh_search_kernel<false><<<grid, BLOCK, 0, st>>>(
+        ox, oy, oz, dx, dy, dz, alive, t_cap, nullptr, tris, p_stride, boxes,
+        k, k_stride, g, t_min, n, t_out, idx_out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,8 +10,9 @@ decision (which bounce branch, reflect or refract, which primitive wins the
 closest hit) is a function of the counter-based uniforms and is held fixed;
 derivatives flow through the continuous transport factors (attenuations,
 normals, hit points, camera rays). This matches finite differences of the
-same fixed-key render for interior pixels. Silhouette (edge-aware)
-gradients are not ported yet (ROADMAP Queue A item 8).
+same fixed-key render for interior pixels. ``edge_aware=True`` adds the
+boundary term that the fixed decisions drop: the silhouette and
+first-vertex shadow-edge estimator of ``diff.edge``.
 
 Parameters are a nested dict of leaf tensors, {"scene": {field: tensor},
 "camera": {"translate": [3]}}; optax's Adam becomes ``torch.optim.Adam``
@@ -145,8 +146,10 @@ def save_train_state(path, state: TrainState) -> None:
 def load_train_state(path, template: TrainState) -> TrainState:
     """Restore a TrainState saved by save_train_state into ``template``
     (e.g. a fresh ``init_state()``), whose parameter tree and optimizer
-    must match the saved run."""
-    saved = torch.load(path, weights_only=True)
+    must match the saved run. The state loads onto the template's device."""
+    devs = [t.device for _, t in leaves(template.params)]
+    saved = torch.load(path, weights_only=True,
+                       map_location=devs[0] if devs else None)
     with torch.no_grad():
         for p, t in leaves(template.params):
             t.copy_(saved["params"][p])
@@ -217,8 +220,10 @@ def make_train_step(scene, camera, cfg: RenderConfig, optimizer,
     translation of the whole camera) or True (every camera field). loss:
     "l2" or "dual" (dual_image_loss). step_fn(state, target, key) ->
     (state, loss) takes one step on the trainable fields and clamps albedo
-    to [0, 1] and emission to >= 0. mesh= (sharding) and edge_aware=True
-    are not ported yet and raise."""
+    to [0, 1] and emission to >= 0. edge_aware=True renders with
+    cfg.edge_aware (``diff.edge``; its kernel width, order and shadow term
+    are cfg.edge_kernel_px, cfg.edge_kernel_order and cfg.edge_shadow).
+    mesh= (sharding) is not ported yet and raises."""
     cfg, loss_impl = step_setup(cfg, mesh, edge_aware, loss)
     scene_params, rebuild_scene = split_scene(scene, trainable)
     params = {"scene": scene_params}

@@ -7,6 +7,10 @@ point, the front-face flag and the signed normal, as 19 flat [N] outputs.
 Shadow mode (``shadow_only=True``, kernel A2): only ``t``, the unrefined
 sweep minimum, and ``idx``, the lowest winning id (0 on a miss); next-event
 estimation tests occlusion with it and caps the mesh search by that t.
+Both modes take an optional per-lane ``exclude`` operand ([N] sphere ids, -1
+for none): that sphere is masked out of the lane's sweep before the minimum
+(the edge-aware background re-trace of ``diff.edge``), so a lane whose only
+hit was its excluded sphere is a miss.
 
 ``fused_hit`` launches ``csrc/fused_hit.cu`` for CUDA tensors and takes
 ``fused_hit_plain`` only for CPU tensors, or when asked for it with
@@ -54,6 +58,9 @@ INT_DEFAULTS = (0, 0, 0)
 # the kernels.
 launches = 0
 shadow_launches = 0
+# Of those, the launches with an exclude operand (the kernels' EXCL variants).
+exclude_launches = 0
+shadow_exclude_launches = 0
 
 
 class FusedSpheres(NamedTuple):
@@ -83,22 +90,38 @@ def fused_hit(tables: FusedSpheres, ox, oy, oz, dx, dy, dz, alive,
     """Fused hit query on flat [N] f32 ray components and an [N] bool alive
     mask. Returns a dict of the 19 [N] outputs named in NAMES, or with
     shadow_only=True of ``t`` and ``idx`` alone; every output is detached
-    (the gradient path re-derives what it differentiates)."""
-    if exclude is not None:
-        raise NotImplementedError(
-            "the per-lane exclude operand is not ported yet: ROADMAP Queue A "
-            "item 8")
+    (the gradient path re-derives what it differentiates). exclude: optional
+    [N] integer tensor, the sphere id each lane leaves out of its sweep (-1
+    for none)."""
     rays = (ox, oy, oz, dx, dy, dz)
     _check(tables, rays, alive)
+    exclude = check_exclude(exclude, ox)
     dev = ox.device
     if interpret or dev.type == "cpu":
         return fused_hit_plain(tables, *rays, alive, t_min,
-                               shadow_only=shadow_only)
+                               shadow_only=shadow_only, exclude=exclude)
     if dev.type != "cuda":
         raise ValueError(f"fused_hit runs on cpu or cuda tensors, got {dev}")
     if shadow_only:
-        return _launch_shadow(tables, rays, alive, float(t_min))
-    return _launch(tables, rays, alive, float(t_min))
+        return _launch_shadow(tables, rays, alive, float(t_min), exclude)
+    return _launch(tables, rays, alive, float(t_min), exclude)
+
+
+def check_exclude(exclude, like: torch.Tensor):
+    """The exclude operand as the kernels take it: None, or a contiguous [N]
+    int32 tensor on the rays' device."""
+    if exclude is None:
+        return None
+    if exclude.dtype.is_floating_point or exclude.dtype == torch.bool or \
+            exclude.shape != like.shape or exclude.device != like.device:
+        raise ValueError("exclude must be an [N] integer tensor on the rays' "
+                         "device")
+    return exclude.detach().to(torch.int32).contiguous()
+
+
+def excl_ptr(exclude):
+    """The operand's device pointer, None (a null pointer) without one."""
+    return None if exclude is None else exclude.data_ptr()
 
 
 def _check(tables: FusedSpheres, rays, alive) -> None:
@@ -126,8 +149,9 @@ def _check(tables: FusedSpheres, rays, alive) -> None:
                          f"spheres, got N={n}, S={s}")
 
 
-def _launch(tables: FusedSpheres, rays, alive, t_min: float) -> dict:
-    global launches
+def _launch(tables: FusedSpheres, rays, alive, t_min: float,
+            exclude=None) -> dict:
+    global launches, exclude_launches
     lib = cuda_build.load_library()
     dev = rays[0].device
     n = rays[0].shape[0]
@@ -140,17 +164,20 @@ def _launch(tables: FusedSpheres, rays, alive, t_min: float) -> dict:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.qtrt_fused_hit(
             *(x.data_ptr() for x in rays), alive.data_ptr(),
-            tables.spheres.data_ptr(), tables.params.data_ptr(),
+            excl_ptr(exclude), tables.spheres.data_ptr(),
+            tables.params.data_ptr(),
             tables.spheres.shape[0], t_min, n,
             fout.data_ptr(), iout.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_hit kernel launch failed: cudaError_t {err}")
     launches += 1
+    exclude_launches += exclude is not None
     return _as_dict(fout, iout)
 
 
-def _launch_shadow(tables: FusedSpheres, rays, alive, t_min: float) -> dict:
-    global shadow_launches
+def _launch_shadow(tables: FusedSpheres, rays, alive, t_min: float,
+                   exclude=None) -> dict:
+    global shadow_launches, shadow_exclude_launches
     lib = cuda_build.load_library()
     dev = rays[0].device
     n = rays[0].shape[0]
@@ -162,12 +189,14 @@ def _launch_shadow(tables: FusedSpheres, rays, alive, t_min: float) -> dict:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.qtrt_fused_hit_shadow(
             *(x.data_ptr() for x in rays), alive.data_ptr(),
-            tables.spheres.data_ptr(), tables.spheres.shape[0], t_min, n,
+            excl_ptr(exclude), tables.spheres.data_ptr(),
+            tables.spheres.shape[0], t_min, n,
             t.data_ptr(), idx.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"fused_hit shadow kernel launch failed: cudaError_t {err}")
     shadow_launches += 1
+    shadow_exclude_launches += exclude is not None
     return {"t": t, "idx": idx}
 
 
@@ -179,22 +208,25 @@ def _as_dict(fout: torch.Tensor, iout: torch.Tensor) -> dict:
 
 def fused_hit_plain(tables: FusedSpheres, ox, oy, oz, dx, dy, dz, alive,
                     t_min: float, slice_rays: int = PLAIN_SLICE,
-                    shadow_only: bool = False) -> dict:
+                    shadow_only: bool = False, exclude=None) -> dict:
     """Plain PyTorch version of the kernel, in [slice_rays, S] blocks.
 
     Same formulas and association order as the kernel and as the TPU
     kernel: the expanded-form sweep, min-then-match for the lowest winning
-    id, the oc-form refinement (full mode only).
+    id, the oc-form refinement (full mode only). exclude ([N] i32 or None)
+    masks each lane's excluded sphere out of the candidates before the min.
     """
     n = ox.shape[0]
     dev = ox.device
+    ex = lambda sl: None if exclude is None else exclude[sl]
     if shadow_only:
         t = torch.empty(n, dtype=torch.float32, device=dev)
         idx = torch.empty(n, dtype=torch.int32, device=dev)
         for lo in range(0, n, slice_rays):
             sl = slice(lo, min(n, lo + slice_rays))
             rays = (ox[sl], oy[sl], oz[sl], dx[sl], dy[sl], dz[sl])
-            t_best, best, _ = _sweep(tables.spheres, *rays, float(t_min))
+            t_best, best, _ = _sweep(tables.spheres, *rays, float(t_min),
+                                     ex(sl))
             t[sl] = torch.where(alive[sl], t_best, BIG)
             idx[sl] = torch.where(alive[sl], best, 0)
         return {"t": t, "idx": idx}
@@ -203,17 +235,17 @@ def fused_hit_plain(tables: FusedSpheres, ox, oy, oz, dx, dy, dz, alive,
     for lo in range(0, n, slice_rays):
         sl = slice(lo, min(n, lo + slice_rays))
         f, i = _plain_block(tables, ox[sl], oy[sl], oz[sl], dx[sl], dy[sl],
-                            dz[sl], alive[sl], float(t_min))
+                            dz[sl], alive[sl], float(t_min), ex(sl))
         fout[:, sl] = f
         iout[:, sl] = i
     return _as_dict(fout, iout)
 
 
-def _sweep(spheres, ox, oy, oz, dx, dy, dz, t_min):
-    """Closest-hit sweep of one block over the [S, 4] sweep rows: (t_best,
-    lowest winning id, |d|^2)."""
+def sweep_candidates(spheres, ox, oy, oz, dx, dy, dz, t_min):
+    """Per-(ray, slot) candidate roots of one block over the [S, 4] sweep
+    rows, BIG where the slot gives no valid root: ([m, S] candidates,
+    |d|^2 [m])."""
     c_x, c_y, c_z, c2 = spheres.unbind(1)                       # [S]
-    s = c_x.shape[0]
     o_x, o_y, o_z = ox[:, None], oy[:, None], oz[:, None]       # [m, 1]
     d_x, d_y, d_z = dx[:, None], dy[:, None], dz[:, None]
 
@@ -234,17 +266,36 @@ def _sweep(spheres, ox, oy, oz, dx, dy, dz, t_min):
     far_ok = (far >= t_min) & (far <= BIG)
     root = torch.where(near_ok, near, far)
     valid = (disc >= 0.0) & (near_ok | far_ok)
-    tcand = torch.where(valid, root, BIG)
-    t_best = tcand.amin(dim=1)                                   # [m]
-    rows = torch.arange(s, dtype=torch.int32, device=ox.device)
-    # Lowest matching id; a lane with no hit matches every row (all BIG), so
-    # it reads sphere 0, as in JAX.
+    return torch.where(valid, root, BIG), a[:, 0]
+
+
+def min_then_match(tcand):
+    """(minimum [m], lowest slot id reaching it [m] i32) of [m, S]
+    candidates; a lane with no hit matches every slot (all BIG), so it
+    reads slot 0, as in JAX."""
+    s = tcand.shape[1]
+    t_best = tcand.amin(dim=1)
+    rows = torch.arange(s, dtype=torch.int32, device=tcand.device)
     idx = torch.where(tcand == t_best[:, None], rows, s).amin(dim=1)
-    return t_best, idx, a[:, 0]
+    return t_best, idx
 
 
-def _plain_block(tables, ox, oy, oz, dx, dy, dz, alive, t_min):
-    t_best, idx, a = _sweep(tables.spheres, ox, oy, oz, dx, dy, dz, t_min)
+def _sweep(spheres, ox, oy, oz, dx, dy, dz, t_min, exclude=None):
+    """Closest-hit sweep of one block over the [S, 4] sweep rows: (t_best,
+    lowest winning id, |d|^2). exclude: [m] i32 slot ids masked out of the
+    candidates before the minimum (-1: none), or None."""
+    tcand, a = sweep_candidates(spheres, ox, oy, oz, dx, dy, dz, t_min)
+    if exclude is not None:
+        rows = torch.arange(tcand.shape[1], dtype=torch.int32,
+                            device=ox.device)
+        tcand = torch.where(rows[None, :] != exclude[:, None], tcand, BIG)
+    t_best, idx = min_then_match(tcand)
+    return t_best, idx, a
+
+
+def _plain_block(tables, ox, oy, oz, dx, dy, dz, alive, t_min, exclude=None):
+    t_best, idx, a = _sweep(tables.spheres, ox, oy, oz, dx, dy, dz, t_min,
+                            exclude)
 
     # --- winner parameters ---
     p = tables.params[idx.long()]                                # [m, 16]

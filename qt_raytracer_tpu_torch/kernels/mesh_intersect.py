@@ -11,20 +11,24 @@ epsilon-padded AABB (``prep_mesh_clusters``). Two kernels, both in
     slacked, capped slab test passes (k when none). It keys the sort.
   - A3, ``mesh_hits``: per ray, the closest triangle hit strictly below a
     per-lane cap ``t_cap``, ties to the lowest triangle id; (BIG, 0) where
-    no triangle beats the cap, and on dead lanes.
+    no triangle beats the cap, and on dead lanes. An optional per-lane
+    ``exclude`` operand names one BVH-order triangle id that the lane never
+    accepts (-1 for none): the edge-aware background re-trace.
 
 ``mesh_search`` is the pipeline of ``mesh_search_pallas``: for n >= 2048
 rays and more than one cluster, a stable sort of the wavefront by the
 crossing key ``c1 * 2^18 + (octant << 15 | morton)`` (dead rays keyed
 ``1 << 30`` sort last), A3 on the sorted rays, and the inverse permutation.
 Each lane's result does not depend on its neighbours, so the sort changes
-only how much work a warp shares, never a live lane's result.
+only how much work a warp shares, never a live lane's result. Every per-ray
+operand (alive, the cap, the exclude id) rides through the sort with its
+ray.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for CPU tensors or with ``interpret=True``; on a CUDA tensor it
 launches the kernel or raises. Only the defaults are ported (``mt="vpu"``,
-``visit="full"``, ``sort_mode="crossing"``, sorting at every bounce, no
-exclude operand); the others raise NotImplementedError naming ROADMAP.md.
+``visit="full"``, ``sort_mode="crossing"``, sorting at every bounce); the
+others raise NotImplementedError naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch
 
 from ..accel.mesh import TriangleMesh
 from ..runtime import cuda_build
-from .fused_hit import BIG
+from .fused_hit import BIG, check_exclude, excl_ptr
 
 LANE = 128
 CLUSTER_ROWS = 4          # 128-triangle rows per cluster (multi-cluster)
@@ -48,6 +52,7 @@ PLAIN_SLICE_CLUSTERS = 256
 # resets them to 0 and reads them back to show its path went through them.
 launches = 0
 first_cluster_launches = 0
+exclude_launches = 0   # the A3 launches that had an exclude operand
 
 _LATER = "is not ported yet: ROADMAP.md Queue B lists it under A3/A4 variants"
 
@@ -223,7 +228,9 @@ def first_crossed_cluster(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
     return out
 
 
-def _slab_inv(d):
+def slab_inv(d):
+    """Slab reciprocal of a direction component, as the TPU kernels take it:
+    1 / (|d| < 1e-30 ? (d < 0 ? -1e-30 : 1e-30) : d)."""
     return torch.reciprocal(torch.where(
         torch.abs(d) < 1e-30, torch.where(d < 0, -1e-30, 1e-30), d))
 
@@ -254,7 +261,7 @@ def first_crossed_cluster_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
     for lo in range(0, n, slice_rays):
         sl = slice(lo, min(n, lo + slice_rays))
         o = (ox[sl], oy[sl], oz[sl])
-        inv = tuple(_slab_inv(d) for d in (dx[sl], dy[sl], dz[sl]))
+        inv = tuple(slab_inv(d) for d in (dx[sl], dy[sl], dz[sl]))
         c1 = out[sl]
         for c0 in range(0, k, PLAIN_SLICE_CLUSTERS):
             c_hi = min(k, c0 + PLAIN_SLICE_CLUSTERS)
@@ -269,18 +276,22 @@ def first_crossed_cluster_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
 
 # --------------------------------------------------------------- A3
 def mesh_hits(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
-              alive=None, t_cap=None, *, interpret: bool = False):
+              alive=None, t_cap=None, *, interpret: bool = False,
+              exclude=None):
     """Kernel A3 on the rays as given (no sort): (t [N] f32, idx [N] i32),
     the closest triangle hit strictly below t_cap (default BIG), ties to
     the lowest BVH-order id; (BIG, 0) where none beats the cap and on dead
-    lanes."""
-    global launches
+    lanes. exclude: optional [N] integer BVH-order triangle id the lane
+    never accepts (-1 for none)."""
+    global launches, exclude_launches
     rays = (ox, oy, oz, dx, dy, dz)
     alive, t_cap = _defaults(ox, alive, t_cap)
     _check(mc, rays, alive, t_cap)
+    exclude = check_exclude(exclude, ox)
     dev = ox.device
     if not _route(dev, interpret):
-        return mesh_search_plain(mc, *rays, t_min, alive, t_cap)
+        return mesh_search_plain(mc, *rays, t_min, alive, t_cap,
+                                 exclude=exclude)
     lib = cuda_build.load_library()
     n = ox.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=dev)
@@ -288,7 +299,7 @@ def mesh_hits(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     with torch.cuda.device(dev):
         err = lib.qtrt_mesh_search(
             *(x.data_ptr() for x in rays), alive.data_ptr(),
-            t_cap.data_ptr(), mc.tri_planes.data_ptr(),
+            t_cap.data_ptr(), excl_ptr(exclude), mc.tri_planes.data_ptr(),
             mc.tri_planes.shape[1], mc.box_planes.data_ptr(), mc.k,
             mc.box_planes.shape[1], mc.tris_per_cluster, float(t_min), n,
             t.data_ptr(), idx.data_ptr(), _stream(dev))
@@ -296,17 +307,71 @@ def mesh_hits(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
         raise RuntimeError(f"mesh search kernel launch failed: "
                            f"cudaError_t {err}")
     launches += 1
+    exclude_launches += exclude is not None
     return t, idx
+
+
+def mesh_search_gated_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
+                            t_min: float, alive, t_cap):
+    """The kernel's gated sweep in plain PyTorch, cluster by cluster, with a
+    count of its work: (t, idx, visits), where visits is the number of
+    (ray, cluster) pairs that pass the kernel's per-lane gate (the slab test
+    with an entry at most min(t_best * 1.0001 + 1e-4, 1e37) of the lane's
+    running hit), each of which costs one Moller-Trumbore row of
+    tris_per_cluster triangles. (t, idx) equal mesh_search_plain's: the
+    gate never drops a winner. A measuring aid; no path runs it."""
+    n = ox.shape[0]
+    dev = ox.device
+    live = torch.nonzero(alive).squeeze(1)
+    o = tuple(c[live] for c in (ox, oy, oz))
+    d = tuple(c[live] for c in (dx, dy, dz))
+    inv = tuple(slab_inv(c) for c in d)
+    cap = t_cap[live]
+    t_best = cap.clone()
+    best = torch.zeros(live.shape[0], dtype=torch.int32, device=dev)
+    g = mc.tris_per_cluster
+    tp = mc.tri_planes
+    visits = 0
+    for j in range(mc.k):
+        enter, exit_ = _slab(mc.box_planes, j, j + 1, o, inv, float(t_min))
+        gate = torch.clamp_max(t_best * 1.0001 + 1e-4, 1e37)
+        ids = torch.nonzero((exit_[:, 0] > enter[:, 0])
+                            & (enter[:, 0] <= gate)).squeeze(1)
+        visits += int(ids.shape[0])
+        if not ids.shape[0]:
+            continue
+        sl = slice(j * g, (j + 1) * g)
+        t, ok = _moller_trumbore(
+            tuple(c[ids][:, None] for c in o),
+            tuple(c[ids][:, None] for c in d),
+            tuple(tp[a, sl] for a in range(3)),
+            tuple(tp[3 + a, sl] for a in range(3)),
+            tuple(tp[6 + a, sl] for a in range(3)), float(t_min))
+        tcand = torch.where(ok & (t < t_best[ids][:, None]), t, BIG)
+        tmin_c = tcand.amin(dim=1)
+        gid = torch.arange(j * g, (j + 1) * g, dtype=torch.int32, device=dev)
+        idx_c = torch.where(tcand == tmin_c[:, None], gid,
+                            mc.k * g).amin(dim=1)
+        better = tmin_c < t_best[ids]
+        t_best[ids] = torch.where(better, tmin_c, t_best[ids])
+        best[ids] = torch.where(better, idx_c, best[ids])
+    won = t_best < cap
+    t_out = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    idx_out = torch.zeros(n, dtype=torch.int32, device=dev)
+    t_out[live] = torch.where(won, t_best, BIG)
+    idx_out[live] = torch.where(won, best, 0)
+    return t_out, idx_out, visits
 
 
 def mesh_search_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
                       t_min: float, alive, t_cap,
                       slice_rays: int = PLAIN_SLICE_RAYS,
-                      slice_tris: int = PLAIN_SLICE_TRIS):
+                      slice_tris: int = PLAIN_SLICE_TRIS, exclude=None):
     """Plain PyTorch version of A3: the ungated sweep over every triangle,
     in [slice_rays, slice_tris] blocks of live rays. Within a block the
     minimum t, then the lowest id reaching it; across blocks, in ascending
-    order, a strict '<' update. The kernel's gate must not change this."""
+    order, a strict '<' update. The kernel's gate must not change this.
+    exclude ([N] i32 or None): the triangle id each lane never accepts."""
     n = ox.shape[0]
     dev = ox.device
     t_out = torch.full((n,), BIG, dtype=torch.float32, device=dev)
@@ -320,6 +385,7 @@ def mesh_search_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
         o = tuple(c[ids][:, None] for c in (ox, oy, oz))          # [m, 1]
         d = tuple(c[ids][:, None] for c in (dx, dy, dz))
         cap = t_cap[ids]
+        ex = None if exclude is None else exclude[ids][:, None]
         t_best = cap.clone()
         best = torch.zeros(ids.shape[0], dtype=torch.int32, device=dev)
         for p0 in range(0, p, slice_tris):
@@ -329,9 +395,11 @@ def mesh_search_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
             e2 = tuple(tp[6 + a, p0:p1] for a in range(3))
             t, ok = _moller_trumbore(o, d, v0, e1, e2, t_min)
             ok = ok & (t < t_best[:, None])
+            gid = torch.arange(p0, p1, dtype=torch.int32, device=dev)
+            if ex is not None:
+                ok = ok & (gid[None, :] != ex)
             tcand = torch.where(ok, t, BIG)
             tmin_c = tcand.amin(dim=1)
-            gid = torch.arange(p0, p1, dtype=torch.int32, device=dev)
             idx_c = torch.where(tcand == tmin_c[:, None], gid, p).amin(dim=1)
             better = tmin_c < t_best
             t_best = torch.where(better, tmin_c, t_best)
@@ -390,27 +458,29 @@ def mesh_search(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     BVH-order triangle id), strictly below t_cap (default BIG). With
     sort=True, n >= 2048 and more than one cluster, the wavefront is sorted
     by the crossing key (A4) before A3 and the results are put back; live
-    lanes get the same result either way. Both outputs are detached."""
+    lanes get the same result either way. Both outputs are detached.
+    exclude: optional [N] integer BVH-order triangle id that the lane never
+    accepts (-1 for none); it is sorted with its ray."""
     if mt != "vpu":
         raise NotImplementedError(f"mt={mt!r} {_LATER}")
     if visit != "full":
         raise NotImplementedError(f"visit={visit!r} {_LATER}")
     if sort_mode != "crossing":
         raise NotImplementedError(f"sort_mode={sort_mode!r} {_LATER}")
-    if exclude is not None:
-        raise NotImplementedError(
-            "the per-lane exclude operand is not ported yet: ROADMAP.md "
-            "Queue A item 8")
     rays = (ox, oy, oz, dx, dy, dz)
     alive, t_cap = _defaults(ox, alive, t_cap)
     _check(mc, rays, alive, t_cap)
+    exclude = check_exclude(exclude, ox)
     n = ox.shape[0]
     if not (sort and n >= SORT_MIN_RAYS and mc.k > 1):
-        return mesh_hits(mc, *rays, t_min, alive, t_cap, interpret=interpret)
+        return mesh_hits(mc, *rays, t_min, alive, t_cap, interpret=interpret,
+                         exclude=exclude)
     perm = crossing_order(mc, *rays, t_min, alive, t_cap, interpret=interpret)
     g = lambda x: x[perm]
+    # The exclude id belongs to its ray: it takes the same permutation.
     t_s, idx_s = mesh_hits(mc, *map(g, rays), t_min, g(alive), g(t_cap),
-                           interpret=interpret)
+                           interpret=interpret,
+                           exclude=None if exclude is None else g(exclude))
     t = torch.empty_like(t_s)
     idx = torch.empty_like(idx_s)
     t[perm] = t_s

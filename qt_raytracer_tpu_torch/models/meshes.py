@@ -1,7 +1,7 @@
 """Procedural mesh generators and mesh worlds (counterpart of
 ``qt_raytracer_tpu.models.meshes``; the same constructions, so the same
-tensors bit for bit for the same BVH builder). Worlds are built on the CPU:
-move them with ``.to(device)``.
+tensors bit for bit for the same BVH builder). Every world and camera
+function takes ``device``: None is the CUDA card (and raises without one).
 
   - terrain_world: BASELINE config 4, a sine-displaced 224x224 grid (99,458
     triangles) over a ground sphere, with metal and glass hero spheres.
@@ -82,43 +82,46 @@ def icosphere(subdiv: int = 3, radius: float = 1.0, center=(0.0, 0.0, 0.0)):
 
 
 def terrain_world(nx: int = 224, nz: int = 224, seed: int = 0,
-                  builder: str = "auto") -> World:
+                  builder: str = "auto", device=None) -> World:
     """~100k-tri terrain over a ground sphere with metal + glass heroes."""
     verts, faces = terrain_grid(nx, nz, seed=seed)
     mesh = build_mesh(verts, faces, mat_type=LAMBERTIAN,
-                      albedo=(0.45, 0.55, 0.35), builder=builder)
+                      albedo=(0.45, 0.55, 0.35), builder=builder, device=device)
     b = SceneBuilder()
     b.lambertian((0.0, -1001.0, 0.0), 1000.0, (0.5, 0.5, 0.5))
     b.metal((-2.0, 1.6, -2.0), 0.8, (0.8, 0.75, 0.65), 0.05)
     b.dielectric((2.2, 1.4, 1.0), 0.7, 1.5)
-    return World(spheres=b.build(pad_to=128), mesh=mesh)
+    return World(spheres=b.build(pad_to=128, device=device), mesh=mesh)
 
 
-def terrain_camera(aspect_ratio: float):
+def terrain_camera(aspect_ratio: float, device=None):
     return make_camera(
         lookfrom=(6.5, 4.2, 7.5), lookat=(0.0, 0.2, 0.0), vup=(0, 1, 0),
-        vfov=35.0, aspect_ratio=aspect_ratio, aperture=0.0, focus_dist=10.0)
+        vfov=35.0, aspect_ratio=aspect_ratio, aperture=0.0, focus_dist=10.0,
+        device=device)
 
 
-def icosphere_world(subdiv: int = 3, builder: str = "auto") -> World:
+def icosphere_world(subdiv: int = 3, builder: str = "auto",
+                    device=None) -> World:
     """Small mesh smoke scene: icosphere over ground."""
     verts, faces = icosphere(subdiv, radius=1.0, center=(0.0, 1.0, 0.0))
     mesh = build_mesh(verts, faces, mat_type=LAMBERTIAN,
-                      albedo=(0.75, 0.3, 0.25), builder=builder)
+                      albedo=(0.75, 0.3, 0.25), builder=builder, device=device)
     b = SceneBuilder()
     b.lambertian((0.0, -1000.0, 0.0), 1000.0, (0.5, 0.5, 0.5))
     b.metal((2.2, 1.0, -0.5), 1.0, (0.7, 0.7, 0.8), 0.0)
-    return World(spheres=b.build(pad_to=128), mesh=mesh)
+    return World(spheres=b.build(pad_to=128, device=device), mesh=mesh)
 
 
-def icosphere_camera(aspect_ratio: float):
+def icosphere_camera(aspect_ratio: float, device=None):
     return make_camera(
         lookfrom=(0.0, 2.2, 7.0), lookat=(0.0, 1.0, 0.0), vup=(0, 1, 0),
-        vfov=30.0, aspect_ratio=aspect_ratio, aperture=0.0, focus_dist=7.0)
+        vfov=30.0, aspect_ratio=aspect_ratio, aperture=0.0, focus_dist=7.0,
+        device=device)
 
 
 def cornell_box_world(light_emission=(15.0, 15.0, 15.0),
-                      builder: str = "auto") -> World:
+                      builder: str = "auto", device=None) -> World:
     """The true Cornell box (BASELINE config 2), one TriangleMesh: quad walls
     with per-face materials, an emissive ceiling quad (the area light) and
     two rotated boxes; a small metal sphere sits on the short box.
@@ -139,14 +142,15 @@ def cornell_box_world(light_emission=(15.0, 15.0, 15.0),
               albedo=white)
     m.add_box((0.40, 0.3, 0.35), (0.6, 0.6, 0.6), rotate_y=-15.0,
               albedo=white)
-    mesh = m.build(builder=builder)
+    mesh = m.build(builder=builder, device=device)
 
     b = SceneBuilder()
     b.metal((0.40, 0.78, 0.35), 0.18, (0.8, 0.85, 0.88), 0.0)
-    return World(spheres=b.build(pad_to=128), mesh=mesh)
+    return World(spheres=b.build(pad_to=128, device=device), mesh=mesh)
 
 
-def cornell_box_mesh_camera(aspect_ratio: float):
+def cornell_box_mesh_camera(aspect_ratio: float, device=None):
     return make_camera(
         lookfrom=(0.0, 1.0, 3.6), lookat=(0.0, 1.0, 0.0), vup=(0, 1, 0),
-        vfov=38.0, aspect_ratio=aspect_ratio, aperture=0.0, focus_dist=3.6)
+        vfov=38.0, aspect_ratio=aspect_ratio, aperture=0.0, focus_dist=3.6,
+        device=device)

@@ -1,7 +1,7 @@
 """Scenes and their cameras (counterpart of
 ``qt_raytracer_tpu.models.scenes``; the same constructions, so the same
-tensors bit for bit). Scenes are built on the CPU: move them with
-``.to(device)``.
+tensors bit for bit). Every scene and camera function takes ``device``: None
+is the CUDA card (and raises without one); the tests pass ``"cpu"``.
 
   - three_sphere_scene: BASELINE config 1 (3 spheres + ground, diffuse).
   - four_sphere_gpu_scene: the scene the reference's GPU kernels hardcode.
@@ -20,41 +20,43 @@ from ..core.camera import Camera, make_camera
 from ..core.scene import SceneBuilder, SphereScene
 
 
-def three_sphere_scene(pad_to: int | None = 128) -> SphereScene:
+def three_sphere_scene(pad_to: int | None = 128, device=None) -> SphereScene:
     """Three diffuse spheres + ground."""
     b = SceneBuilder()
     b.lambertian((0.0, -1000.0, 0.0), 1000.0, (0.5, 0.5, 0.5))
     b.lambertian((0.0, 1.0, 0.0), 1.0, (0.7, 0.3, 0.3))
     b.lambertian((-2.5, 1.0, 0.0), 1.0, (0.3, 0.7, 0.3))
     b.lambertian((2.5, 1.0, 0.0), 1.0, (0.3, 0.3, 0.7))
-    return b.build(pad_to=pad_to)
+    return b.build(pad_to=pad_to, device=device)
 
 
-def three_sphere_camera(aspect_ratio: float) -> Camera:
+def three_sphere_camera(aspect_ratio: float, device=None) -> Camera:
     return make_camera(
         lookfrom=(0.0, 2.0, 8.0), lookat=(0.0, 1.0, 0.0), vup=(0.0, 1.0, 0.0),
         vfov=30.0, aspect_ratio=aspect_ratio, aperture=0.0, focus_dist=8.0,
-    )
+        device=device)
 
 
-def four_sphere_gpu_scene(pad_to: int | None = 128) -> SphereScene:
+def four_sphere_gpu_scene(pad_to: int | None = 128,
+                          device=None) -> SphereScene:
     """The 4-sphere scene of GpuPathTracer.cpp:217-240."""
     b = SceneBuilder()
     b.lambertian((0.0, -100.5, -1.0), 100.5, (0.8, 0.8, 0.8))
     b.lambertian((0.0, 0.0, -1.0), 0.5, (0.9, 0.35, 0.3))
     b.lambertian((1.05, -0.05, -1.2), 0.45, (0.3, 0.6, 0.9))
     b.lambertian((-1.1, -0.1, -0.8), 0.4, (0.9, 0.8, 0.3))
-    return b.build(pad_to=pad_to)
+    return b.build(pad_to=pad_to, device=device)
 
 
-def four_sphere_gpu_camera(aspect_ratio: float) -> Camera:
+def four_sphere_gpu_camera(aspect_ratio: float, device=None) -> Camera:
     return make_camera(
         lookfrom=(0.0, 0.3, 1.2), lookat=(0.0, 0.0, -1.0), vup=(0.0, 1.0, 0.0),
         vfov=55.0, aspect_ratio=aspect_ratio, aperture=0.0, focus_dist=1.0,
-    )
+        device=device)
 
 
-def random_scene(seed: int = 0, pad_to: int | None = 128) -> SphereScene:
+def random_scene(seed: int = 0, pad_to: int | None = 128,
+                 device=None) -> SphereScene:
     """Book-cover scene (RayTracer.h:599-643), 484 spheres from a seeded
     numpy Generator."""
     rng = np.random.default_rng(seed)
@@ -80,18 +82,18 @@ def random_scene(seed: int = 0, pad_to: int | None = 128) -> SphereScene:
     b.dielectric((0.0, 1.0, 0.0), 1.0, 1.5)
     b.lambertian((-4.0, 1.0, 0.0), 1.0, (0.4, 0.2, 0.1))
     b.metal((4.0, 1.0, 0.0), 1.0, (0.7, 0.6, 0.5), 0.0)
-    return b.build(pad_to=pad_to)
+    return b.build(pad_to=pad_to, device=device)
 
 
-def random_scene_camera(aspect_ratio: float) -> Camera:
+def random_scene_camera(aspect_ratio: float, device=None) -> Camera:
     """The CPU RenderWorker camera (RayTracerFboItem.cpp:49-56)."""
     return make_camera(
         lookfrom=(13.0, 2.0, 3.0), lookat=(0.0, 0.0, 0.0), vup=(0.0, 1.0, 0.0),
         vfov=20.0, aspect_ratio=aspect_ratio, aperture=0.1, focus_dist=10.0,
-    )
+        device=device)
 
 
-def glossy_dof_scene(pad_to: int | None = 128) -> SphereScene:
+def glossy_dof_scene(pad_to: int | None = 128, device=None) -> SphereScene:
     """BASELINE config 3: glossy metal + dielectric + depth of field."""
     b = SceneBuilder()
     b.lambertian((0.0, -1000.0, 0.0), 1000.0, (0.5, 0.5, 0.5))
@@ -99,17 +101,17 @@ def glossy_dof_scene(pad_to: int | None = 128) -> SphereScene:
     b.metal((-2.2, 1.0, -1.0), 1.0, (0.8, 0.6, 0.2), 0.15)
     b.metal((2.2, 1.0, 1.0), 1.0, (0.7, 0.7, 0.8), 0.0)
     b.lambertian((0.8, 0.4, 2.0), 0.4, (0.2, 0.4, 0.8))
-    return b.build(pad_to=pad_to)
+    return b.build(pad_to=pad_to, device=device)
 
 
-def glossy_dof_camera(aspect_ratio: float) -> Camera:
+def glossy_dof_camera(aspect_ratio: float, device=None) -> Camera:
     return make_camera(
         lookfrom=(6.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0), vup=(0.0, 1.0, 0.0),
         vfov=25.0, aspect_ratio=aspect_ratio, aperture=0.4, focus_dist=8.5,
-    )
+        device=device)
 
 
-def cornell_box_spheres(pad_to: int | None = 128) -> SphereScene:
+def cornell_box_spheres(pad_to: int | None = 128, device=None) -> SphereScene:
     """Cornell-style enclosure of huge spheres + an emissive sphere light."""
     R = 1000.0
     b = SceneBuilder()
@@ -121,14 +123,14 @@ def cornell_box_spheres(pad_to: int | None = 128) -> SphereScene:
     b.emissive((0.0, 2.2, 0.0), 0.4, (15.0, 15.0, 15.0))         # light
     b.lambertian((-0.7, 0.5, -0.5), 0.5, (0.73, 0.73, 0.73))
     b.metal((0.8, 0.45, 0.3), 0.45, (0.8, 0.85, 0.88), 0.0)
-    return b.build(pad_to=pad_to)
+    return b.build(pad_to=pad_to, device=device)
 
 
-def cornell_box_camera(aspect_ratio: float) -> Camera:
+def cornell_box_camera(aspect_ratio: float, device=None) -> Camera:
     return make_camera(
         lookfrom=(0.0, 1.0, 4.5), lookat=(0.0, 1.0, 0.0), vup=(0.0, 1.0, 0.0),
         vfov=40.0, aspect_ratio=aspect_ratio, aperture=0.0, focus_dist=4.5,
-    )
+        device=device)
 
 
 SCENES = {
@@ -158,16 +160,18 @@ def _cornell_mesh():
 MESH_SCENES = ("terrain", "icosphere", "cornell_mesh")
 
 
-def get_scene(name: str, aspect_ratio: float, **kwargs):
-    """Look up (scene, camera) by name, both on the CPU. A mesh scene
-    returns (World, Camera); a sphere scene (SphereScene, Camera)."""
+def get_scene(name: str, aspect_ratio: float, device=None, **kwargs):
+    """Look up (scene, camera) by name, both on ``device`` (None: the CUDA
+    card, which must be there). A mesh scene returns (World, Camera); a
+    sphere scene (SphereScene, Camera)."""
     if name in MESH_SCENES:
         build, cam = {"terrain": _terrain, "icosphere": _icosphere,
                       "cornell_mesh": _cornell_mesh}[name]()
-        return build(**kwargs), cam(aspect_ratio)
+        return (build(device=device, **kwargs),
+                cam(aspect_ratio, device=device))
     if name not in SCENES:
         raise KeyError(
             f"unknown scene {name!r}; choices: "
             f"{sorted(SCENES) + sorted(MESH_SCENES)}")
     build, cam = SCENES[name]
-    return build(**kwargs), cam(aspect_ratio)
+    return build(device=device, **kwargs), cam(aspect_ratio, device=device)

@@ -127,24 +127,32 @@ def load_library() -> ctypes.CDLL:
 
 def _configure(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # qtrt_fused_hit(ox, oy, oz, dx, dy, dz, alive, spheres, params,
+    # excl is a device pointer, or None (a null pointer) for no operand.
+    # qtrt_fused_hit(ox, oy, oz, dx, dy, dz, alive, excl, spheres, params,
     #                s, t_min, n, fout, iout, stream)
     lib.qtrt_fused_hit.restype = i
-    lib.qtrt_fused_hit.argtypes = [p] * 9 + [i, f, i] + [p] * 3
-    # qtrt_fused_hit_shadow(ox, oy, oz, dx, dy, dz, alive, spheres,
+    lib.qtrt_fused_hit.argtypes = [p] * 10 + [i, f, i] + [p] * 3
+    # qtrt_fused_hit_shadow(ox, oy, oz, dx, dy, dz, alive, excl, spheres,
     #                       s, t_min, n, t_out, idx_out, stream)
     lib.qtrt_fused_hit_shadow.restype = i
-    lib.qtrt_fused_hit_shadow.argtypes = [p] * 8 + [i, f, i] + [p] * 3
-    # qtrt_sphere_search(ox, oy, oz, dx, dy, dz, alive, spheres, s_pad,
+    lib.qtrt_fused_hit_shadow.argtypes = [p] * 9 + [i, f, i] + [p] * 3
+    # qtrt_sphere_search(ox, oy, oz, dx, dy, dz, alive, excl, spheres, s_pad,
     #                    num_spheres, t_min, n, t_out, idx_out, stream)
     lib.qtrt_sphere_search.restype = i
-    lib.qtrt_sphere_search.argtypes = [p] * 8 + [i, i, f, i] + [p] * 3
+    lib.qtrt_sphere_search.argtypes = [p] * 9 + [i, i, f, i] + [p] * 3
+    # qtrt_sphere_search_clustered(ox, oy, oz, dx, dy, dz, alive, spheres,
+    #                              boxes, num_chunks, k_stride, num_spheres,
+    #                              t_min, n, t_out, idx_out, stream)
+    lib.qtrt_sphere_search_clustered.restype = i
+    lib.qtrt_sphere_search_clustered.argtypes = ([p] * 9 + [i, i, i, f, i]
+                                                 + [p] * 3)
     # qtrt_mesh_first_cluster(ox, oy, oz, dx, dy, dz, alive, t_cap, boxes,
     #                         k, k_stride, t_min, n, out, stream)
     lib.qtrt_mesh_first_cluster.restype = i
     lib.qtrt_mesh_first_cluster.argtypes = [p] * 9 + [i, i, f, i] + [p] * 2
-    # qtrt_mesh_search(ox, oy, oz, dx, dy, dz, alive, t_cap, tris, p_stride,
-    #                  boxes, k, k_stride, g, t_min, n, t_out, idx_out, stream)
+    # qtrt_mesh_search(ox, oy, oz, dx, dy, dz, alive, t_cap, excl, tris,
+    #                  p_stride, boxes, k, k_stride, g, t_min, n, t_out,
+    #                  idx_out, stream)
     lib.qtrt_mesh_search.restype = i
-    lib.qtrt_mesh_search.argtypes = ([p] * 9 + [i, p, i, i, i, f, i]
+    lib.qtrt_mesh_search.argtypes = ([p] * 10 + [i, p, i, i, i, f, i]
                                      + [p] * 3)

@@ -5,6 +5,8 @@ Each takes the JAX package's values as numpy arrays (for example
 ``{f.name: np.asarray(getattr(scene, f.name)) for f in
 dataclasses.fields(scene)}``, or ``np.asarray(jax.random.key_data(key))``),
 so the two packages compute on identical inputs. Nothing here imports JAX.
+Each takes ``device``: None is the CUDA card (and raises without one); the
+tests pass ``"cpu"``.
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ from ..core.camera import Camera
 from ..core.scene import SphereScene
 from ..core.world import World
 from ..diff.inverse import TrainState, leaves
+from ..runtime.device import resolve_device
 
 
 def _from_arrays(cls, arrays: dict[str, np.ndarray], device):
+    device = resolve_device(device)
     names = [f.name for f in dataclasses.fields(cls)]
     missing = sorted(set(names) - set(arrays))
     if missing:
@@ -31,25 +35,25 @@ def _from_arrays(cls, arrays: dict[str, np.ndarray], device):
 
 
 def scene_from_arrays(arrays: dict[str, np.ndarray],
-                      device="cpu") -> SphereScene:
+                      device=None) -> SphereScene:
     """SphereScene from numpy arrays named after its fields."""
     return _from_arrays(SphereScene, arrays, device)
 
 
-def camera_from_arrays(arrays: dict[str, np.ndarray], device="cpu") -> Camera:
+def camera_from_arrays(arrays: dict[str, np.ndarray], device=None) -> Camera:
     """Camera from numpy arrays named after its fields."""
     return _from_arrays(Camera, arrays, device)
 
 
 def mesh_from_arrays(arrays: dict[str, np.ndarray],
-                     device="cpu") -> TriangleMesh:
+                     device=None) -> TriangleMesh:
     """TriangleMesh from numpy arrays named after its fields."""
     return _from_arrays(TriangleMesh, arrays, device)
 
 
 def world_from_arrays(spheres: dict[str, np.ndarray],
                       mesh: dict[str, np.ndarray] | None,
-                      device="cpu") -> World:
+                      device=None) -> World:
     """World from the numpy fields of its SphereScene and of its
     TriangleMesh (None for a world without a mesh)."""
     return World(scene_from_arrays(spheres, device),
@@ -72,7 +76,7 @@ def _nested_tensors(tree: dict, device) -> dict:
 
 
 def train_state_from_arrays(params: dict, mu: dict, nu: dict, count: int,
-                            step: int, optimizer, device="cpu") -> TrainState:
+                            step: int, optimizer, device=None) -> TrainState:
     """The port's TrainState from a JAX one: params, and optax Adam's first
     and second moments mu and nu, as nested dicts of numpy arrays shaped
     like the port's params ({"scene": {...}, "camera": {...}}); count, the
@@ -80,6 +84,7 @@ def train_state_from_arrays(params: dict, mu: dict, nu: dict, count: int,
     port's train step was built with (``diff.inverse.adam``); its Adam state
     is set to the moments and count, so one step of either package from
     this state takes the same update."""
+    device = resolve_device(device)
     p = _nested_tensors(params, device)
     for _, t in leaves(p):
         t.requires_grad_(True)
@@ -89,6 +94,6 @@ def train_state_from_arrays(params: dict, mu: dict, nu: dict, count: int,
     for path, t in leaves(p):
         if m[path].shape != t.shape or v[path].shape != t.shape:
             raise ValueError(f"moments of {path} do not match its shape")
-        opt.state[t] = {"step": torch.tensor(float(count)),
+        opt.state[t] = {"step": torch.tensor(float(count)),  # Adam keeps it on the host
                         "exp_avg": m[path], "exp_avg_sq": v[path]}
     return TrainState(p, opt, int(step))

@@ -16,7 +16,9 @@ Tolerances: the kernels round op by op as the plain versions do. Full mode
 1e-5, the other float outputs within atol 1e-5 + rtol 1e-5 (the limits of
 ``chip_smoke.py``); dead lanes hold the defaults exactly. Shadow mode (A2),
 the first crossed cluster (A4) and the mesh search (A3): bitwise on live
-lanes, BIG/0 (A4: k) on dead lanes; the sphere search (A5) likewise.
+lanes, BIG/0 (A4: k) on dead lanes; the sphere search (A5) and the
+cluster-culled sphere search (A6) likewise. The exclude operand of A1, A2,
+A3 and A5 is held the same way, each ray excluding its own winner.
 Renders: at most 1% of channels beyond 2e-3 + 2e-3 |ref|, as in
 ``tests/test_torch_render.py``; render gradients within 2e-3 of the
 largest entry, the flip budget of a few rays.
@@ -45,7 +47,8 @@ def card():
 
 def _scene(num_spheres: int, seed: int):
     """Ground plus num_spheres - 1 random spheres of every material, unpadded
-    (S = num_spheres) so the kernel sees S as given."""
+    (S = num_spheres) so the kernel sees S as given. Built on the CPU; the
+    tests move a copy to the card and keep the CPU one to compare with."""
     rng = np.random.default_rng(seed)
     b = SceneBuilder()
     b.lambertian((0.0, -1000.0, 0.0), 1000.0, (0.5, 0.5, 0.5))
@@ -59,7 +62,7 @@ def _scene(num_spheres: int, seed: int):
             b.metal(c, r, rng.random(3), rng.random())
         else:
             b.dielectric(c, r, 1.5)
-    return b.build(pad_to=None)
+    return b.build(pad_to=None, device="cpu")
 
 
 def _rays(n: int, seed: int, device):
@@ -132,7 +135,7 @@ def test_wrapper_refuses_mixed_devices(card):
 def test_render_on_card_matches_cpu(card, name):
     cfg = RenderConfig(width=48, height=32, spp=2, max_depth=5, rng="hash",
                        pixel_chunk=512)
-    scene, cam = scenes.get_scene(name, cfg.aspect_ratio)
+    scene, cam = scenes.get_scene(name, cfg.aspect_ratio, device="cpu")
     fh.launches = 0
     got = render_linear(scene.to(card), cam.to(card), cfg, 5)
     assert fh.launches == 3 * cfg.spp * cfg.max_depth    # 3 chunks of 512
@@ -166,8 +169,8 @@ def test_shadow_kernel_matches_plain_version(card, n, num_spheres):
 @pytest.fixture(scope="module")
 def mesh_worlds(card):
     """A 9-cluster terrain and the one-cluster Cornell mesh, on the card."""
-    worlds = {"terrain48": meshes.terrain_world(48, 48),
-              "cornell_mesh": meshes.cornell_box_world()}
+    worlds = {"terrain48": meshes.terrain_world(48, 48, device="cpu"),
+              "cornell_mesh": meshes.cornell_box_world(device="cpu")}
     return {k: mi.prep_mesh_clusters(w.mesh.to(card)) for k, w in worlds.items()}
 
 
@@ -235,17 +238,18 @@ def test_mesh_kernels_all_dead(card, mesh_worlds, name):
 @pytest.mark.parametrize("name", ["cornell_mesh_nee", "terrain48"])
 def test_world_render_on_card_matches_cpu(card, name):
     if name == "terrain48":
-        world = meshes.terrain_world(48, 48)
+        world = meshes.terrain_world(48, 48, device="cpu")
         cfg = RenderConfig(width=48, height=48, spp=2, max_depth=5,
                            rng="hash", pixel_chunk=-1)
-        cam = meshes.terrain_camera(cfg.aspect_ratio)
+        cam = meshes.terrain_camera(cfg.aspect_ratio, device="cpu")
         # One chunk of 2,304 rays: the A4 sort runs at every bounce.
         want_counts = (10, 0, 10, 10)
     else:
-        world = meshes.cornell_box_world()
+        world = meshes.cornell_box_world(device="cpu")
         cfg = RenderConfig(width=32, height=32, spp=2, max_depth=5,
                            nee=True, rng="hash", pixel_chunk=512)
-        cam = meshes.cornell_box_mesh_camera(cfg.aspect_ratio)
+        cam = meshes.cornell_box_mesh_camera(cfg.aspect_ratio,
+                                             device="cpu")
         # 2 chunks x 2 samples x 5 bounces; two mesh searches per bounce,
         # one cluster, so no sort.
         want_counts = (20, 20, 0, 40)
@@ -261,11 +265,11 @@ def test_world_render_on_card_matches_cpu(card, name):
 
 
 # ------------------------------------------- sphere search (A5), gradients
-@pytest.mark.parametrize("num_spheres", [4, 64, 300, 1023])
+@pytest.mark.parametrize("num_spheres", [4, 64, 300, 960])
 @pytest.mark.parametrize("n", [1, 255, 1000, 4097])
 def test_sphere_search_kernel_matches_plain_version(card, n, num_spheres):
-    # 1023 spheres pad to 1,024 slots, the largest table of the monolithic
-    # sweep; 4 and 300 leave padding slots.
+    # 960 spheres are 15 chunks, the largest table of the monolithic sweep
+    # (16 chunks take the clustered one); 4 and 300 leave padding slots.
     from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
     scene = _scene(num_spheres, seed=num_spheres + 1).to(card)
     comps, alive = _rays(n, seed=n + 11, device=card)
@@ -297,7 +301,7 @@ def test_gradients_on_card_match_cpu(card, name, intersector):
     from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
     cfg = RenderConfig(width=24, height=16, spp=2, max_depth=4, rng="hash",
                        nee=True, intersector=intersector)
-    scene, cam = scenes.get_scene(name, cfg.aspect_ratio)
+    scene, cam = scenes.get_scene(name, cfg.aspect_ratio, device="cpu")
 
     def grads(device):
         sc, c = scene.to(device), cam.to(device)
@@ -340,3 +344,169 @@ def test_gather_rows_backward_on_card_is_exact(card):
     want = torch.zeros((rows, 16), dtype=torch.float64).index_add_(
         0, idx, g.double())
     assert torch.equal(got.cpu().double(), want)
+
+
+# ------------------------- exclude operands (A1, A2, A3, A5) and A6
+def _own_winner(idx, t, alive):
+    """Each live hitting lane's own winner as its exclude id; -1 on every
+    third lane and where there is no hit."""
+    excl = torch.where(alive & (t < fh.BIG), idx, -1).to(torch.int32)
+    excl[::3] = -1
+    return excl
+
+
+@pytest.mark.parametrize("num_spheres", [4, 300, 640])
+@pytest.mark.parametrize("n", [1, 255, 1000, 4097])
+def test_fused_hit_exclude_matches_plain_version(card, n, num_spheres):
+    tables = fh.prep_fused_spheres(
+        _scene(num_spheres, seed=num_spheres).to(card))
+    rays, alive = _rays(n, seed=n + 3, device=card)
+    first = fh.fused_hit(tables, *rays, alive, T_MIN, shadow_only=True)
+    excl = _own_winner(first["idx"], first["t"], alive)
+    before = (fh.launches, fh.shadow_launches)
+    kern = fh.fused_hit(tables, *rays, alive, T_MIN, exclude=excl)
+    plain = fh.fused_hit(tables, *rays, alive, T_MIN, exclude=excl,
+                         interpret=True)
+    shadow = fh.fused_hit(tables, *rays, alive, T_MIN, exclude=excl,
+                          shadow_only=True)
+    shadow_plain = fh.fused_hit(tables, *rays, alive, T_MIN, exclude=excl,
+                                shadow_only=True, interpret=True)
+    assert (fh.launches, fh.shadow_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    torch.cuda.synchronize()
+    _assert_hits_agree(kern, plain, alive)
+    live = alive.cpu()
+    for k in ("t", "idx"):
+        assert torch.equal(shadow[k].cpu()[live], shadow_plain[k].cpu()[live])
+    named = (alive & (excl >= 0)).cpu()
+    hit = (shadow["t"] < fh.BIG).cpu()
+    assert not bool((named & hit & (shadow["idx"] == excl).cpu()).any())
+    assert not bool((named & (kern["t"] < fh.BIG).cpu()
+                     & (kern["idx"] == excl).cpu()).any())
+    # A lane that names no sphere keeps the result without the operand.
+    free = (alive & (excl < 0)).cpu()
+    assert torch.equal(shadow["t"].cpu()[free], first["t"].cpu()[free])
+
+
+@pytest.mark.parametrize("num_spheres", [4, 300, 960])
+@pytest.mark.parametrize("n", [1, 255, 1000, 4097])
+def test_sphere_search_exclude_matches_plain_version(card, n, num_spheres):
+    from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
+    scene = _scene(num_spheres, seed=num_spheres + 1).to(card)
+    comps, alive = _rays(n, seed=n + 13, device=card)
+    o = torch.stack(comps[:3], dim=1)
+    d = torch.stack(comps[3:], dim=1)
+    t0, i0 = si.sphere_search(scene, o, d, T_MIN, alive=alive)
+    excl = _own_winner(i0, t0, alive)
+    before = si.launches
+    kern = si.sphere_search(scene, o, d, T_MIN, alive=alive, exclude=excl)
+    assert si.launches == before + 1
+    plain = si.sphere_search(scene, o, d, T_MIN, alive=alive, exclude=excl,
+                             interpret=True)
+    torch.cuda.synchronize()
+    live = alive.cpu()
+    for a, b in zip(kern, plain):
+        assert torch.equal(a.cpu()[live], b.cpu()[live])
+    assert torch.all(kern[0].cpu()[~live] == si.BIG)
+    assert torch.all(kern[1].cpu()[~live] == 0)
+    named = alive & (excl >= 0) & (kern[0] < si.BIG)
+    assert not bool((named & (kern[1] == excl)).any())
+
+
+@pytest.mark.parametrize("n", [1, 255, 1000, 4097])
+@pytest.mark.parametrize("name", ["terrain48", "cornell_mesh"])
+def test_mesh_search_exclude_matches_plain_version(card, mesh_worlds, name,
+                                                   n):
+    mc = mesh_worlds[name]
+    rays, alive, cap = _mesh_rays(mc, n, seed=n + 5, device=card)
+    t0, i0 = mi.mesh_search(mc, *rays, T_MIN, alive=alive, t_cap=cap)
+    excl = _own_winner(i0, t0, alive)
+    plain = mi.mesh_search(mc, *rays, T_MIN, alive=alive, t_cap=cap,
+                           exclude=excl, interpret=True)
+    live = alive.cpu()
+    for sort in (False, True):
+        got = mi.mesh_search(mc, *rays, T_MIN, alive=alive, t_cap=cap,
+                             exclude=excl, sort=sort)
+        for a, b in zip(got, plain):
+            assert torch.equal(a.cpu()[live], b.cpu()[live]), sort
+        named = alive & (excl >= 0) & (got[0] < fh.BIG)
+        assert not bool((named & (got[1] == excl)).any())
+        free = (alive & (excl < 0)).cpu()
+        assert torch.equal(got[0].cpu()[free], t0.cpu()[free])
+
+
+def _many_spheres(num_spheres: int, seed: int):
+    """Random small Lambertian spheres in a 20-unit cube, Morton-ordered at
+    build, with one emitter; on the CPU."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    for _ in range(num_spheres - 1):
+        b.lambertian(rng.uniform(-10, 10, 3), rng.uniform(0.05, 0.4),
+                     rng.random(3))
+    b.emissive((0.0, 14.0, 0.0), 3.0, (6.0, 6.0, 6.0))
+    return b.build(pad_to=128, device="cpu")
+
+
+@pytest.mark.parametrize("num_spheres", [1024, 1062])
+@pytest.mark.parametrize("n", [1, 255, 1000, 4097])
+def test_clustered_sphere_search_matches_plain_version(card, n, num_spheres):
+    from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
+    scene = _many_spheres(num_spheres, seed=num_spheres).to(card)
+    rng = np.random.default_rng(n)
+    # Half the rows coherent (one pinhole, a narrow cone), half random.
+    o = rng.uniform(-12, 12, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    half = n // 2
+    o[:half] = (5.0, 5.0, 14.0)
+    d[:half] = (0.0, 0.0, -1.0) + rng.uniform(-0.1, 0.1, (half, 3))
+    alive = rng.random(n) >= 0.1
+    if n >= 512:
+        alive[256:384] = False
+    o, d, alive = (torch.from_numpy(x).to(card) for x in (o, d, alive))
+    before = (si.launches, si.clustered_launches)
+    kern = si.sphere_search(scene, o, d, T_MIN, alive=alive)
+    assert (si.launches, si.clustered_launches) == (before[0], before[1] + 1)
+    plain = si.sphere_search(scene, o, d, T_MIN, alive=alive, interpret=True)
+    mono = si.sphere_search(scene, o, d, T_MIN, alive=alive,
+                            min_chunks=10 ** 6)
+    assert (si.launches, si.clustered_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    torch.cuda.synchronize()
+    live = alive.cpu()
+    for a, b, c in zip(kern, plain, mono):
+        assert torch.equal(a.cpu()[live], b.cpu()[live])
+        assert torch.equal(a.cpu()[live], c.cpu()[live])
+    assert torch.all(kern[0].cpu()[~live] == si.BIG)
+    assert torch.all(kern[1].cpu()[~live] == 0)
+    with pytest.raises(ValueError, match="clustered"):
+        si.sphere_search(scene, o, d, T_MIN, alive=alive,
+                         exclude=torch.full((n,), -1, dtype=torch.int32,
+                                            device=card))
+
+
+@pytest.mark.parametrize("name,intersector", [("cornell", "fused_diff"),
+                                              ("cornell_mesh", "pallas")])
+def test_edge_aware_gradients_on_card_match_cpu(card, name, intersector):
+    # Loss and camera-pose gradient of a small edge-aware NEE render on the
+    # card (the kernels with their exclude operands) against the CPU (the
+    # plain versions): within 2e-3 of the largest entry.
+    import dataclasses
+    from qt_raytracer_tpu_torch.core import sampling
+    cfg = RenderConfig(width=24, height=16, spp=2, max_depth=3, rng="hash",
+                       nee=True, intersector=intersector, edge_aware=True)
+    scene, cam = scenes.get_scene(name, cfg.aspect_ratio, device="cpu")
+
+    def grads(device):
+        sc, c = scene.to(device), cam.to(device)
+        tr = torch.zeros(3, device=device, requires_grad=True)
+        c = dataclasses.replace(c, origin=c.origin + tr,
+                                lower_left_corner=c.lower_left_corner + tr)
+        img = render_linear(sc, c, cfg, sampling.prng_key(3))
+        loss = ((img - 0.3) ** 2).mean()
+        return [x.cpu() for x in (loss, *torch.autograd.grad(loss, [tr]))]
+
+    on_card, on_cpu = grads(card), grads("cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert bool(torch.isfinite(a).all())
+        assert torch.allclose(a, b, rtol=2e-3,
+                              atol=2e-3 * float(b.abs().max()))

@@ -74,7 +74,7 @@ def case():
         T_MIN, interpret=True)
     want = {k: np.asarray(v) for k, v in want.items()}
 
-    scene = scene_from_arrays(_arrays(js))
+    scene = scene_from_arrays(_arrays(js), device="cpu")
     tables = tfh.prep_fused_spheres(scene)
     comps = [torch.from_numpy(np.ascontiguousarray(x[:, k]))
              for x in (o, d) for k in range(3)]
@@ -163,7 +163,8 @@ def test_fully_dead_rows_hold_defaults(case):
 
 def test_plain_slices_do_not_change_results(case):
     js, _ = jscenes.get_scene("random", 1920 / 1080)
-    tables = tfh.prep_fused_spheres(scene_from_arrays(_arrays(js)))
+    tables = tfh.prep_fused_spheres(scene_from_arrays(_arrays(js),
+                                                      device="cpu"))
     comps = [torch.from_numpy(np.ascontiguousarray(x[:, k]))
              for x in (case["o"], case["d"]) for k in range(3)]
     small = tfh.fused_hit_plain(tables, *comps,
@@ -175,16 +176,21 @@ def test_plain_slices_do_not_change_results(case):
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     tables = tfh.prep_fused_spheres(scene_from_arrays(
-        _arrays(jscenes.three_sphere_scene())))
+        _arrays(jscenes.three_sphere_scene()), device="cpu"))
     f = lambda n=8, dt=torch.float32: torch.zeros(n, dtype=dt)
     alive = torch.ones(8, dtype=torch.bool)
     rays = [f() for _ in range(5)] + [torch.ones(8)]
     shadow = tfh.fused_hit(tables, *rays, alive, T_MIN, shadow_only=True)
     assert sorted(shadow) == ["idx", "t"]
     assert shadow["t"].dtype == torch.float32 and shadow["idx"].dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="exclude"):
-        tfh.fused_hit(tables, *rays, alive, T_MIN,
-                      exclude=torch.zeros(8, dtype=torch.int32))
+    # The exclude operand is an [N] integer tensor on the rays' device.
+    none = torch.full((8,), -1, dtype=torch.int32)
+    same = tfh.fused_hit(tables, *rays, alive, T_MIN, shadow_only=True,
+                         exclude=none)
+    assert torch.equal(same["t"], shadow["t"])
+    for bad in (none[:7], none.float(), none.bool()):
+        with pytest.raises(ValueError, match="exclude"):
+            tfh.fused_hit(tables, *rays, alive, T_MIN, exclude=bad)
     with pytest.raises(ValueError):
         tfh.fused_hit(tables, *rays[:5], f(dt=torch.float64), alive, T_MIN)
     with pytest.raises(ValueError):

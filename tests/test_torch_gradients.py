@@ -65,11 +65,12 @@ def _both(name, aspect):
     if name == "cornell_mesh":
         js = jmeshes.cornell_box_world(builder="numpy")
         jc = jmeshes.cornell_box_mesh_camera(aspect)
-        ts = world_from_arrays(_arrays(js.spheres), _arrays(js.mesh))
+        ts = world_from_arrays(_arrays(js.spheres), _arrays(js.mesh),
+                               device="cpu")
     else:
         js, jc = jscenes.get_scene(name, aspect)
-        ts = scene_from_arrays(_arrays(js))
-    return (js, jc), (ts, camera_from_arrays(_arrays(jc)))
+        ts = scene_from_arrays(_arrays(js), device="cpu")
+    return (js, jc), (ts, camera_from_arrays(_arrays(jc), device="cpu"))
 
 
 def _mismatch(got, want):
@@ -257,10 +258,11 @@ def test_camera_origin_gradient_matches_fd():
     cfg = TConfig(width=12, height=8, spp=2, max_depth=3, rng="hash",
                   intersector="pallas")
     scene = SceneBuilder().lambertian((0.0, 0.0, -5.0), 3.0,
-                                      (0.6, 0.4, 0.3)).build(pad_to=None)
+                                      (0.6, 0.4, 0.3)).build(pad_to=None,
+                                                             device="cpu")
     cam = make_camera((0, 0, 0), (0, 0, -5.0), vfov=20.0,
                       aspect_ratio=cfg.aspect_ratio, aperture=0.0,
-                      focus_dist=5.0)
+                      focus_dist=5.0, device="cpu")
     with torch.no_grad():
         target = mean_image(scene, cam, cfg, 9)
 

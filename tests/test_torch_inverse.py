@@ -77,7 +77,8 @@ def _carry(jstate, lrs):
     """The port's TrainState from a JAX TrainState."""
     mu, nu, count = _adam_arrays(jstate.opt_state)
     return train_state_from_arrays(_np_tree(jstate.params), mu, nu, count,
-                                   int(jstate.step), tinv.adam(lrs))
+                                   int(jstate.step), tinv.adam(lrs),
+                                           device="cpu")
 
 
 def _assert_params_close(tstate, jstate):
@@ -86,6 +87,20 @@ def _assert_params_close(tstate, jstate):
         np.testing.assert_allclose(got.detach().numpy(), want[path],
                                    rtol=TOL, atol=TOL, err_msg=path)
     assert tstate.step == int(jstate.step)
+
+
+def _assert_first_moments_close(tstate, jstate):
+    """Adam's first moment after one step from zero moments is 0.1 g: the
+    step's gradients, within 2e-3 |ref| + 2e-3 max|ref| of the JAX ones
+    (the standard of tests/test_torch_gradients.py)."""
+    mu, _, _ = _adam_arrays(jstate.opt_state)
+    want = dict(tinv.leaves(mu))
+    for path, p in tinv.leaves(tstate.params):
+        got = tstate.opt_state.state[p]["exp_avg"].numpy()
+        scale = np.abs(want[path]).max()
+        assert scale > 0, path
+        np.testing.assert_allclose(got, want[path], rtol=2e-3,
+                                   atol=2e-3 * scale, err_msg=path)
 
 
 def _key(k):
@@ -110,7 +125,8 @@ def test_train_step_matches_jax(loss):
         wrong, jc, JConfig(**cfg), optax.adam(5e-2), trainable=("albedo",),
         loss=loss)
     t_init, t_step, t_rebuild, _ = tinv.make_train_step(
-        scene_from_arrays(_arrays(wrong)), camera_from_arrays(_arrays(jc)),
+        scene_from_arrays(_arrays(wrong), device="cpu"),
+        camera_from_arrays(_arrays(jc), device="cpu"),
         TConfig(**cfg), tinv.adam(5e-2), trainable=("albedo",), loss=loss)
     js, ts = j_init(), t_init()
     assert ts.step == 0
@@ -128,7 +144,8 @@ def test_mid_run_state_carried_across_takes_the_same_step():
     j_init, j_step, _, _ = jinv.make_train_step(
         wrong, jc, JConfig(**cfg), optax.adam(5e-2), trainable=("albedo",))
     _, t_step, _, _ = tinv.make_train_step(
-        scene_from_arrays(_arrays(wrong)), camera_from_arrays(_arrays(jc)),
+        scene_from_arrays(_arrays(wrong), device="cpu"),
+        camera_from_arrays(_arrays(jc), device="cpu"),
         TConfig(**cfg), tinv.adam(5e-2), trainable=("albedo",))
     js = j_init()
     for it in range(3):
@@ -146,7 +163,8 @@ def test_train_state_checkpoint_roundtrip(tmp_path):
     # Straight through 4 steps == 2 steps, save, load, 2 more: exactly.
     cfg, wrong, jc, target = _three_sphere_case()
     init, step, _, _ = tinv.make_train_step(
-        scene_from_arrays(_arrays(wrong)), camera_from_arrays(_arrays(jc)),
+        scene_from_arrays(_arrays(wrong), device="cpu"),
+        camera_from_arrays(_arrays(jc), device="cpu"),
         TConfig(**cfg), tinv.adam(5e-2), trainable=("albedo", "emission"),
         train_camera="pose")
     tgt = torch.tensor(target)
@@ -180,6 +198,16 @@ def _lit_scene_arrays():
 
 
 def test_multiview_steps_match_jax_and_each_other():
+    _multiview_steps_match_jax_and_each_other(edge_aware=False, iters=2)
+
+
+def test_edge_aware_multiview_steps_match_jax_and_each_other():
+    # One edge-aware step of both multi-view step functions: the loss, the
+    # updated parameters and the gradients (Adam's first moments).
+    _multiview_steps_match_jax_and_each_other(edge_aware=True, iters=1)
+
+
+def _multiview_steps_match_jax_and_each_other(edge_aware, iters):
     from qt_raytracer_tpu.core.camera import make_camera
     cfg = dict(width=12, height=8, spp=2, max_depth=3, rng="hash", nee=True,
                intersector="fused_interpret")
@@ -204,16 +232,18 @@ def test_multiview_steps_match_jax_and_each_other():
         {"scene": {"albedo": "scene", "emission": "emission"},
          "camera": {"translate": "camera"}})
     j_init, j_step, _, _ = jmv.make_multiview_train_step(
-        wrong, jcams, JConfig(**cfg), opt)
-    tscene = scene_from_arrays(_arrays(wrong))
-    tcams = tmv.orbit_cameras(camera_from_arrays(_arrays(base)), offsets)
+        wrong, jcams, JConfig(**cfg), opt, edge_aware=edge_aware)
+    tscene = scene_from_arrays(_arrays(wrong), device="cpu")
+    tcams = tmv.orbit_cameras(camera_from_arrays(_arrays(base),
+                                                 device="cpu"), offsets)
     steps = {
-        make: make(tscene, tcams, TConfig(**cfg), tinv.adam(lrs))[1]
+        make: make(tscene, tcams, TConfig(**cfg), tinv.adam(lrs),
+                   edge_aware=edge_aware)[1]
         for make in (tmv.make_multiview_train_step,
                      tmv.make_multiview_train_step_perview)}
     js = j_init()
     ts = {make: _carry(js, lrs) for make in steps}
-    for it in range(2):
+    for it in range(iters):
         k = jax.random.fold_in(KEY, it)
         js, jl = j_step(js, jnp.asarray(targets), k)
         losses = []
@@ -221,6 +251,8 @@ def test_multiview_steps_match_jax_and_each_other():
             ts[make], tl = step(ts[make], torch.tensor(targets), _key(k))
             np.testing.assert_allclose(float(tl), float(jl), rtol=TOL)
             _assert_params_close(ts[make], js)
+            if it == 0:
+                _assert_first_moments_close(ts[make], js)
             losses.append(float(tl))
         np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
     a, b = (dict(tinv.leaves(s.params)) for s in ts.values())
@@ -233,10 +265,10 @@ def test_multiview_steps_match_jax_and_each_other():
 def test_render_targets_is_the_mean_image():
     cfg = TConfig(width=12, height=8, spp=4, max_depth=3, rng="hash",
                   nee=True)
-    scene = scene_from_arrays(_arrays(_lit_scene_arrays()))
+    scene = scene_from_arrays(_arrays(_lit_scene_arrays()), device="cpu")
     from qt_raytracer_tpu_torch.core.camera import make_camera
     cam = make_camera((0.0, 0.4, 1.2), (0.0, 0.0, -1.5), vfov=55.0,
-                      aspect_ratio=cfg.aspect_ratio)
+                      aspect_ratio=cfg.aspect_ratio, device="cpu")
     cams = tmv.orbit_cameras(cam, [(0, 0, 0), (0.2, 0, 0)])
     tgt = tmv.render_targets(scene, cams, cfg, seed=5, spp_per_call=3)
     for v, c in enumerate(cams):
@@ -246,12 +278,43 @@ def test_render_targets_is_the_mean_image():
 
 def test_unported_training_options_raise():
     cfg, wrong, jc, _ = _three_sphere_case()
-    args = (scene_from_arrays(_arrays(wrong)), camera_from_arrays(_arrays(jc)),
+    args = (scene_from_arrays(_arrays(wrong), device="cpu"),
+    camera_from_arrays(_arrays(jc), device="cpu"),
             TConfig(**cfg), tinv.adam(1e-2))
     with pytest.raises(NotImplementedError, match="item 11"):
         tinv.make_train_step(*args, mesh=object())
     with pytest.raises(ValueError, match="'l2' or 'dual'"):
         tinv.make_train_step(*args, loss="l1")
-    init, step, _, _ = tinv.make_train_step(*args, edge_aware=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        step(init(), torch.zeros((8, 12, 3)), 0)
+    with pytest.raises(ValueError, match="'pose' or False"):
+        tmv.make_multiview_train_step(args[0], [args[1]], *args[2:],
+                                      train_camera=True)
+
+
+def test_edge_aware_train_step_matches_jax():
+    # One edge-aware step of make_train_step on albedo, sphere centers and
+    # the camera pose: the loss, the updated parameters and the gradients
+    # (Adam's first moments) against the JAX package. The pose and center
+    # gradients are the boundary term's: they differ from the pathwise
+    # step's on the same key.
+    cfg, wrong, jc, target = _three_sphere_case()
+    kw = dict(trainable=("albedo", "center"), train_camera="pose")
+    j_init, j_step, _, _ = jinv.make_train_step(
+        wrong, jc, JConfig(**cfg), optax.adam(5e-2), edge_aware=True, **kw)
+    tscene = scene_from_arrays(_arrays(wrong), device="cpu")
+    tcam = camera_from_arrays(_arrays(jc), device="cpu")
+    t_init, t_step, _, _ = tinv.make_train_step(
+        tscene, tcam, TConfig(**cfg), tinv.adam(5e-2), edge_aware=True, **kw)
+    k = jax.random.fold_in(KEY, 0)
+    js, jl = j_step(j_init(), jnp.asarray(target), k)
+    ts, tl = t_step(t_init(), torch.tensor(target), _key(k))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=TOL)
+    _assert_params_close(ts, js)
+    _assert_first_moments_close(ts, js)
+
+    p_init, p_step, _, _ = tinv.make_train_step(
+        tscene, tcam, TConfig(**cfg), tinv.adam(5e-2), **kw)
+    ps, pl = p_step(p_init(), torch.tensor(target), _key(k))
+    assert float(pl) == float(tl)                     # primal zero
+    moment = lambda st: st.opt_state.state[
+        st.params["camera"]["translate"]]["exp_avg"]
+    assert not torch.allclose(moment(ps), moment(ts), rtol=1e-2, atol=0.0)

@@ -32,6 +32,8 @@ def test_import_loads_no_jax():
         "import qt_raytracer_tpu_torch.kernels.sphere_intersect\n"
         "import qt_raytracer_tpu_torch.diff.inverse\n"
         "import qt_raytracer_tpu_torch.diff.multiview\n"
+        "import qt_raytracer_tpu_torch.diff.edge\n"
+        "import qt_raytracer_tpu_torch.runtime.device\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'qt_raytracer_tpu' or "
         "m.startswith('qt_raytracer_tpu.'))\n"
@@ -56,14 +58,16 @@ def _tiny_cfg(**kw):
 def test_cuda_render_raises_without_cuda():
     _no_cuda()
     cfg = _tiny_cfg()
-    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio)
+    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio,
+                                  device="cpu")
     with pytest.raises((RuntimeError, AssertionError)):
         render_linear(scene.to("cuda"), cam.to("cuda"), cfg, 0)
 
 
 def test_render_refuses_mixed_devices():
     cfg = _tiny_cfg()
-    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio)
+    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio,
+                                  device="cpu")
     with pytest.raises(ValueError, match="camera"):
         render_linear(scene, cam.to("meta"), cfg, 0)
 
@@ -76,7 +80,7 @@ def _rays(device, n=1024):
 
 def test_kernel_route_raises_instead_of_falling_back():
     _no_cuda()
-    scene = scenes.three_sphere_scene()
+    scene = scenes.three_sphere_scene(device="cpu")
     # A device that is neither CPU nor CUDA is refused, not run plain.
     tables = fh.prep_fused_spheres(scene.to("meta"))
     rays, alive = _rays("meta")
@@ -109,17 +113,26 @@ def test_library_is_named_after_sources_and_flags():
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
 
 
-def _raises_edge_aware():
-    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1, rng="hash",
-                       edge_aware=True)
-    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio)
-    render_linear(scene, cam, cfg, 0)
+def _edge_cfg():
+    return RenderConfig(width=8, height=8, spp=1, max_depth=1, rng="hash",
+                        edge_aware=True)
+
+
+def _runs_edge_aware():
+    cfg = _edge_cfg()
+    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio,
+                                  device="cpu")
+    img = render_linear(scene, cam, cfg, 0)
+    plain = render_linear(scene, cam, RenderConfig(
+        width=8, height=8, spp=1, max_depth=1, rng="hash"), 0)
+    assert torch.equal(img, plain)
 
 
 def _raises_xla():
     cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1, rng="hash",
                        intersector="xla")
-    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio)
+    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio,
+                                  device="cpu")
     render_linear(scene, cam, cfg, 0)
 
 
@@ -127,45 +140,121 @@ def _rays4():
     return torch.zeros((4, 3)), torch.ones((4, 3))
 
 
-def _raises_a5_exclude():
+def _runs_a5_exclude():
     from qt_raytracer_tpu_torch.kernels.sphere_intersect import sphere_search
-    sphere_search(scenes.three_sphere_scene(), *_rays4(), 1e-3,
-                  exclude=torch.full((4,), -1, dtype=torch.int32))
+    t, idx = sphere_search(scenes.three_sphere_scene(device="cpu"), *_rays4(),
+                           1e-3,
+                           exclude=torch.full((4,), -1, dtype=torch.int32))
+    assert t.shape == idx.shape == (4,)
 
 
-def _raises_a5_clustered():
+def _big_scene():
     from qt_raytracer_tpu_torch import SceneBuilder
-    from qt_raytracer_tpu_torch.kernels.sphere_intersect import sphere_search
     b = SceneBuilder()
     for k in range(1024):
         b.lambertian((float(k), 0.0, 0.0), 0.1, (0.5, 0.5, 0.5))
-    sphere_search(b.build(pad_to=None), *_rays4(), 1e-3)
+    return b.build(pad_to=None, device="cpu")
+
+
+def _runs_a6_clustered():
+    from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
+    scene = _big_scene()
+    assert si.prep_sphere_search(scene).num_chunks == 16
+    t, idx = si.sphere_search(scene, *_rays4(), 1e-3)
+    assert t.shape == idx.shape == (4,)
 
 
 def _raises_sharded_mesh():
     from qt_raytracer_tpu_torch.diff.inverse import adam, make_train_step
     cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1, rng="hash")
-    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio)
+    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio,
+                                  device="cpu")
     make_train_step(scene, cam, cfg, adam(1e-2), mesh="sp,px")
 
 
-def _raises_exclude_prim0():
+def _runs_exclude_prim0():
     from qt_raytracer_tpu_torch.core.integrator import trace
-    trace(scenes.three_sphere_scene(), *_rays4(),
-          torch.zeros(4, dtype=torch.int64), 1,
-          exclude_prim0=torch.full((4,), -1, dtype=torch.int32))
+    out = trace(scenes.three_sphere_scene(device="cpu"), *_rays4(),
+                torch.zeros(4, dtype=torch.int64), 1,
+                exclude_prim0=torch.full((4,), -1, dtype=torch.int32))
+    assert out.shape == (4, 3)
+
+
+def _keys4():
+    return torch.zeros(4, dtype=torch.int64)
+
+
+def _raises_compact():
+    from qt_raytracer_tpu_torch.core.integrator_flat import trace_flat
+    trace_flat(scenes.three_sphere_scene(device="cpu"), *_rays4(), _keys4(),
+               1, compact=True)
+
+
+def _mesh_clusters():
+    from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
+    from qt_raytracer_tpu_torch.models import meshes
+    world = meshes.icosphere_world(1, builder="numpy", device="cpu")
+    return mi, mi.prep_mesh_clusters(world.mesh)
+
+
+def _flat4():
+    return [torch.zeros(4)] * 3 + [torch.ones(4)] * 3
+
+
+def _raises_pair_first_cluster():
+    mi, mc = _mesh_clusters()
+    mi.first_crossed_cluster(mc, *_flat4(), 1e-3, pair=True)
+
+
+def _raises_rowgate():
+    mi, mc = _mesh_clusters()
+    mi.mesh_search(mc, *_flat4(), 1e-3, visit="rowgate")
+
+
+def _raises_pairs_kernel():
+    from qt_raytracer_tpu_torch.core.integrator_flat import trace_flat_world
+    from qt_raytracer_tpu_torch.models import meshes
+    world = meshes.icosphere_world(1, builder="numpy", device="cpu")
+    trace_flat_world(world, *_rays4(), _keys4(), 1, mesh_kernel="pairs")
 
 
 # Each case names a feature that is still not ported, and the ROADMAP item
-# that brings it.
+# or queue that brings it.
 @pytest.mark.parametrize("run,item", [
-    (_raises_edge_aware, "item 8"),
     (_raises_xla, "item 13"),
-    (_raises_a5_exclude, "item 8"),
-    (_raises_a5_clustered, "item 12"),
     (_raises_sharded_mesh, "item 11"),
-    (_raises_exclude_prim0, "item 8"),
+    (_raises_compact, "Queue B"),
+    (_raises_pair_first_cluster, "Queue B"),
+    (_raises_rowgate, "Queue B"),
+    (_raises_pairs_kernel, "item 12"),
 ])
 def test_unported_features_raise(run, item):
     with pytest.raises(NotImplementedError, match=item):
         run()
+
+
+# What raised NotImplementedError until it was ported.
+@pytest.mark.parametrize("run", [_runs_edge_aware, _runs_a5_exclude,
+                                 _runs_a6_clustered, _runs_exclude_prim0])
+def test_ported_features_run(run):
+    run()
+
+
+def test_exclude_refusals_are_the_jax_packages():
+    # The two places where an exclude operand raises ValueError, as in JAX:
+    # the clustered sphere sweep, and trace_flat with compact=True.
+    from qt_raytracer_tpu_torch.core.integrator_flat import trace_flat
+    from qt_raytracer_tpu_torch.kernels.sphere_intersect import sphere_search
+    none = torch.full((4,), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="clustered"):
+        sphere_search(_big_scene(), *_rays4(), 1e-3, exclude=none)
+    with pytest.raises(ValueError, match="compact"):
+        trace_flat(scenes.three_sphere_scene(device="cpu"), *_rays4(),
+                   _keys4(), 1, compact=True, exclude_prim0=none)
+    # So an edge-aware render of a scene of 1,024 slots through "pallas"
+    # raises, in the port as in JAX.
+    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1, rng="hash",
+                       edge_aware=True, intersector="pallas")
+    cam = scenes.three_sphere_camera(cfg.aspect_ratio, device="cpu")
+    with pytest.raises(ValueError, match="clustered"):
+        render_linear(_big_scene(), cam, cfg, 0)

@@ -37,11 +37,13 @@ from qt_raytracer_tpu_torch.utils.convert import mesh_from_arrays, world_from_ar
 
 WORLDS = {
     "terrain48": (lambda b: jmeshes.terrain_world(48, 48, builder=b),
-                  lambda b: tmeshes.terrain_world(48, 48, builder=b)),
+                  lambda b: tmeshes.terrain_world(48, 48, builder=b,
+                                                  device="cpu")),
     "cornell": (lambda b: jmeshes.cornell_box_world(builder=b),
-                lambda b: tmeshes.cornell_box_world(builder=b)),
+                lambda b: tmeshes.cornell_box_world(builder=b, device="cpu")),
     "icosphere": (lambda b: jmeshes.icosphere_world(2, builder=b),
-                  lambda b: tmeshes.icosphere_world(2, builder=b)),
+                  lambda b: tmeshes.icosphere_world(2, builder=b,
+                                                    device="cpu")),
 }
 
 
@@ -97,7 +99,7 @@ def test_numpy_bvh_matches_jax():
 
 def test_mesh_builder_materials_bitwise():
     # Per-face materials, the fuzz clamp, emissive faces, a rotated box.
-    def fill(b):
+    def fill(b, **kw):
         b.add_triangles([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0.5]],
                         [[0, 1, 2], [1, 3, 2]], mat_type=1,
                         albedo=(0.9, 0.2, 0.1), fuzz=3.0)
@@ -105,18 +107,18 @@ def test_mesh_builder_materials_bitwise():
                    emission=(4.0, 5.0, 6.0))
         b.add_box((0.3, 0.5, 0.2), (0.5, 1.0, 0.4), rotate_y=27.0,
                   mat_type=2, ior=1.33)
-        return b.build(builder="numpy")
+        return b.build(builder="numpy", **kw)
 
     want = _arrays(fill(jmesh.MeshBuilder()))
-    got = fill(tmesh.MeshBuilder())
+    got = fill(tmesh.MeshBuilder(), device="cpu")
     _assert_fields_equal(got, want)
     assert got.num_triangles == 16 and got.num_lights == 2
     assert float(got.fuzz.max()) == 1.0
     with pytest.raises(ValueError):
-        tmesh.MeshBuilder().build()
+        tmesh.MeshBuilder().build(device="cpu")
     with pytest.raises(ValueError, match="builder"):
         tmesh.build_mesh([[0, 0, 0], [1, 0, 0], [0, 1, 0]], [[0, 1, 2]],
-                         builder="sah")
+                         builder="sah", device="cpu")
 
 
 def _mixed_lights_world(pkg):
@@ -129,10 +131,11 @@ def _mixed_lights_world(pkg):
     mb.add_quad((-1, 0, -1), (0, 0, 2), (2, 0, 0))
     mb.add_quad((-0.3, 1.9, -0.3), (0.6, 0, 0), (0, 0, 0.6), mat_type=3,
                 emission=(7.0, 7.0, 7.0))
-    mesh = mb.build(builder="numpy")
     if pkg == "jax":
-        return jworld.World(spheres=sb.build(pad_to=8), mesh=mesh)
-    return tworld.World(spheres=sb.build(pad_to=8), mesh=mesh)
+        return jworld.World(spheres=sb.build(pad_to=8),
+                            mesh=mb.build(builder="numpy"))
+    return tworld.World(spheres=sb.build(pad_to=8, device="cpu"),
+                        mesh=mb.build(builder="numpy", device="cpu"))
 
 
 @pytest.mark.parametrize("name", ["cornell", "terrain48", "mixed"])
@@ -216,18 +219,19 @@ def test_sort_keys_bitwise(name):
 
 def test_carry_mesh_and_world_across():
     jw = jmeshes.cornell_box_world(builder="numpy")
-    tw = world_from_arrays(_arrays(jw.spheres), _arrays(jw.mesh))
+    tw = world_from_arrays(_arrays(jw.spheres), _arrays(jw.mesh), device="cpu")
     _assert_fields_equal(tw.mesh, _arrays(jw.mesh))
     _assert_fields_equal(tw.spheres, _arrays(jw.spheres))
-    assert torch.equal(mesh_from_arrays(_arrays(jw.mesh)).v0, tw.mesh.v0)
-    bare = world_from_arrays(_arrays(jw.spheres), None)
+    assert torch.equal(mesh_from_arrays(_arrays(jw.mesh),
+                                        device="cpu").v0, tw.mesh.v0)
+    bare = world_from_arrays(_arrays(jw.spheres), None, device="cpu")
     assert bare.mesh is None and bare.device == torch.device("cpu")
     assert tworld.as_world(bare.spheres).spheres is bare.spheres
     assert tworld.as_world(tw) is tw
     moved = tw.to("meta")
     assert moved.device.type == "meta" and moved.mesh.device.type == "meta"
     with pytest.raises(KeyError):
-        mesh_from_arrays({"v0": np.zeros((1, 3), np.float32)})
+        mesh_from_arrays({"v0": np.zeros((1, 3), np.float32)}, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["terrain", "icosphere", "cornell_mesh"])
@@ -235,7 +239,7 @@ def test_mesh_scene_cameras_match(name):
     _, jc = jscenes.get_scene(name, 16 / 9, **(
         {"nx": 8, "nz": 8} if name == "terrain" else {}))
     tw, tc = tscenes.get_scene(name, 16 / 9, **(
-        {"nx": 8, "nz": 8} if name == "terrain" else {}))
+        {"nx": 8, "nz": 8} if name == "terrain" else {}), device="cpu")
     assert isinstance(tw, tworld.World) and tw.mesh is not None
     want = _arrays(jc)
     for f in dataclasses.fields(tc):

@@ -74,7 +74,7 @@ def case(request):
     # Half the lanes capped somewhere along the ray, the rest at BIG.
     cap = np.where(rng.random(N) < 0.5, rng.uniform(0.3, 3.0, N),
                    BIG).astype(np.float32)
-    mc = tmi.prep_mesh_clusters(mesh_from_arrays(_arrays(jm)))
+    mc = tmi.prep_mesh_clusters(mesh_from_arrays(_arrays(jm), device="cpu"))
     comps = [np.ascontiguousarray(x[:, a]) for x in (o, d) for a in range(3)]
     return dict(name=name, jm=jm, mc=mc, o=o, d=d, alive=alive, cap=cap,
                 j_rays=(tuple(map(jnp.asarray, comps[:3])),
@@ -189,13 +189,13 @@ def test_wrappers_refuse_what_is_not_ported(case):
     for kw, what in ((dict(mt="mxu"), "mxu"), (dict(visit="rowgate"), "rowgate"),
                      (dict(visit="subtile"), "subtile"),
                      (dict(sort_mode="crossing2"), "crossing2"),
-                     (dict(sort_mode="morton"), "morton"),
-                     (dict(exclude=torch.zeros(N, dtype=torch.int32)),
-                      "exclude")):
+                     (dict(sort_mode="morton"), "morton")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmi.mesh_search(mc, *rays, T_MIN, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmi.first_crossed_cluster(mc, *rays, T_MIN, pair=True)
+    with pytest.raises(ValueError):       # the exclude operand is integer
+        tmi.mesh_search(mc, *rays, T_MIN, exclude=torch.zeros(N))
     with pytest.raises(ValueError):
         tmi.mesh_search(mc, *rays[:5], rays[5].double(), T_MIN)
     with pytest.raises(ValueError):
@@ -206,3 +206,23 @@ def test_wrappers_refuse_what_is_not_ported(case):
         tmi.mesh_hits(mc._replace(tri_planes=mc.tri_planes.to("meta"),
                                   box_planes=mc.box_planes.to("meta")),
                       *(r.to("meta") for r in rays), T_MIN)
+
+
+@pytest.mark.parametrize("capped", [False, True])
+def test_gated_plain_sweep_counts_visits_and_keeps_results(case, capped):
+    # The measuring aid behind A3's bound: the kernel's per-lane gate in
+    # plain PyTorch gives the ungated sweep's results and counts the
+    # (ray, cluster) pairs it lets through.
+    _, t_cap = _cap(case, capped)
+    alive = torch.from_numpy(case["alive"])
+    t_cap = torch.full((N,), BIG) if t_cap is None else t_cap
+    ref = tmi.mesh_search_plain(case["mc"], *case["t_rays"], T_MIN, alive,
+                                t_cap)
+    t, idx, visits = tmi.mesh_search_gated_plain(
+        case["mc"], *case["t_rays"], T_MIN, alive, t_cap)
+    assert torch.equal(t, ref[0]) and torch.equal(idx, ref[1])
+    live = int(alive.sum())
+    if case["mc"].k == 1:
+        assert 0 < visits <= live
+    else:       # the gate prunes: fewer visits than the ungated sweep makes
+        assert live < visits < 0.8 * live * case["mc"].k

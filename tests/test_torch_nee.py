@@ -75,7 +75,8 @@ def shadow_case(request):
     comps = [np.ascontiguousarray(x[:, a]) for x in (o, d) for a in range(3)]
     want = fused_hit_pallas(js, *map(jnp.asarray, comps), jnp.asarray(alive),
                             T_MIN, shadow_only=True, interpret=True)
-    tables = tfh.prep_fused_spheres(scene_from_arrays(_arrays(js)))
+    tables = tfh.prep_fused_spheres(scene_from_arrays(_arrays(js),
+                                                      device="cpu"))
     got = tfh.fused_hit(tables, *map(torch.from_numpy, comps),
                         torch.from_numpy(alive), T_MIN, shadow_only=True)
     return dict(js=js, o=o, d=d, alive=alive,
@@ -134,7 +135,8 @@ def test_shadow_mode_dead_lanes(shadow_case):
 def test_shadow_mode_is_the_full_sweep(shadow_case):
     # Same sweep as full mode: the ids agree, and the refinement only moves t.
     c = shadow_case
-    tables = tfh.prep_fused_spheres(scene_from_arrays(_arrays(c["js"])))
+    tables = tfh.prep_fused_spheres(scene_from_arrays(_arrays(c["js"]),
+                                                      device="cpu"))
     comps = [torch.from_numpy(np.ascontiguousarray(x[:, a]))
              for x in (c["o"], c["d"]) for a in range(3)]
     alive = torch.from_numpy(c["alive"])
@@ -187,7 +189,7 @@ def test_nee_flat_matches_jax(nee_case):
                          *map(jnp.asarray, c["thr"]),
                          jnp.asarray(c["diffuse"]), jnp.asarray(c["uni"]),
                          T_MIN, True)
-    ts = scene_from_arrays(_arrays(c["js"]))
+    ts = scene_from_arrays(_arrays(c["js"]), device="cpu")
     got = tif._nee_flat(tfh.prep_fused_spheres(ts), ts.light_idx,
                         *(torch.tensor(h[k]) for k in keys),
                         *map(torch.from_numpy, c["thr"]),
@@ -222,14 +224,15 @@ def test_cornell_nee_rr_render_matches_jax():
     js, jc = jscenes.get_scene("cornell", jcfg.aspect_ratio)
     want = np.asarray(j_render_linear(js, jc, jcfg,
                                       jax.random.PRNGKey(SEED))) / jcfg.spp
-    got = t_render_linear(scene_from_arrays(_arrays(js)),
-                          camera_from_arrays(_arrays(jc)), tcfg, SEED)
+    got = t_render_linear(scene_from_arrays(_arrays(js), device="cpu"),
+                          camera_from_arrays(_arrays(jc),
+                                             device="cpu"), tcfg, SEED)
     assert got.shape == (12, 16, 3) and bool(torch.isfinite(got).all())
     got = got.numpy() / tcfg.spp
     bad = np.abs(got - want) > 2e-3 + 2e-3 * np.abs(want)
     assert bad.mean() <= 0.01, bad.mean()
     # NEE changes the estimate (same expectation, other samples).
-    no_nee = t_render_linear(scene_from_arrays(_arrays(js)),
-                             camera_from_arrays(_arrays(jc)),
+    no_nee = t_render_linear(scene_from_arrays(_arrays(js), device="cpu"),
+                             camera_from_arrays(_arrays(jc), device="cpu"),
                              dataclasses.replace(tcfg, nee=False), SEED)
     assert not np.array_equal(got, no_nee.numpy() / tcfg.spp)

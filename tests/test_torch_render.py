@@ -49,8 +49,8 @@ def _arrays(obj):
 
 def _both(name, aspect):
     js, jc = jscenes.get_scene(name, aspect)
-    return (js, jc), (scene_from_arrays(_arrays(js)),
-                      camera_from_arrays(_arrays(jc)))
+    return (js, jc), (scene_from_arrays(_arrays(js), device="cpu"),
+                      camera_from_arrays(_arrays(jc), device="cpu"))
 
 
 def _mismatch(got, want):
@@ -81,7 +81,8 @@ def test_trace_flat_matches_jax(rays, rr_start):
     want = np.asarray(j_trace_flat(js, jnp.asarray(o), jnp.asarray(d),
                                    jnp.asarray(keys), 5, 1e-3,
                                    rr_start=rr_start, interpret=True))
-    got = t_trace_flat(scene_from_arrays(_arrays(js)), torch.tensor(o),
+    got = t_trace_flat(scene_from_arrays(_arrays(js),
+                                         device="cpu"), torch.tensor(o),
                        torch.tensor(d), torch.tensor(keys.astype(np.int64)),
                        5, 1e-3,
                        rr_start=rr_start)

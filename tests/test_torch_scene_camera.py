@@ -43,7 +43,7 @@ def _arrays(obj):
 @pytest.mark.parametrize("name", SPHERE_SCENES)
 def test_scenes_and_param_tables_bitwise(name):
     js, _ = jscenes.get_scene(name, 16 / 9)
-    ts, _ = tscenes.get_scene(name, 16 / 9)
+    ts, _ = tscenes.get_scene(name, 16 / 9, device="cpu")
     want = _arrays(js)
     for f in dataclasses.fields(ts):
         got = getattr(ts, f.name).numpy()
@@ -51,17 +51,17 @@ def test_scenes_and_param_tables_bitwise(name):
         np.testing.assert_array_equal(got, want[f.name], err_msg=f.name)
     np.testing.assert_array_equal(t_ptab(ts).numpy(), np.asarray(j_ptab(js)))
     # Carrying the JAX scene across gives the same tensors.
-    carried = scene_from_arrays(want)
+    carried = scene_from_arrays(want, device="cpu")
     for f in dataclasses.fields(ts):
         assert torch.equal(getattr(carried, f.name), getattr(ts, f.name))
 
 
 def test_random_scene_padding_and_morton_order():
-    ts = tscenes.random_scene()
+    ts = tscenes.random_scene(device="cpu")
     assert ts.num_spheres == 512 and int(ts.active.sum()) == 487
     assert torch.all(ts.center[~ts.active] == 1.0e9)
     assert ts.num_lights == 0
-    cornell = tscenes.cornell_box_spheres()
+    cornell = tscenes.cornell_box_spheres(device="cpu")
     assert cornell.light_idx.tolist() == [5]
 
 
@@ -69,7 +69,7 @@ def test_random_scene_padding_and_morton_order():
 @pytest.mark.parametrize("aspect", [16 / 9, 1.0])
 def test_make_camera_matches(name, aspect):
     _, jc = jscenes.get_scene(name, aspect)
-    _, tc = tscenes.get_scene(name, aspect)
+    _, tc = tscenes.get_scene(name, aspect, device="cpu")
     want = _arrays(jc)
     for f in dataclasses.fields(tc):
         np.testing.assert_allclose(getattr(tc, f.name).numpy(), want[f.name],
@@ -79,7 +79,7 @@ def test_make_camera_matches(name, aspect):
 @pytest.mark.parametrize("name", ["random", "glossy_dof"])
 def test_get_rays_on_identical_inputs(name):
     _, jc = jscenes.get_scene(name, 16 / 9)
-    tc = camera_from_arrays(_arrays(jc))
+    tc = camera_from_arrays(_arrays(jc), device="cpu")
     rng = np.random.default_rng(5)
     s, t, u1, u2 = rng.random((4, 4096), dtype=np.float32)
     jo, jd = jcam.get_rays(jc, *map(jnp.asarray, (s, t, u1, u2)))
@@ -100,7 +100,13 @@ def test_get_rays_on_identical_inputs(name):
 def test_render_config_clamps_match(kw):
     j = jconfig.RenderConfig(**kw)
     t = tconfig.RenderConfig(**kw)
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    want, got = dataclasses.asdict(j), dataclasses.asdict(t)
+    # The port's own fields: the edge options that the JAX package reads
+    # from the environment, at its defaults.
+    own = {k: got.pop(k) for k in sorted(set(got) - set(want))}
+    assert own == {"edge_kernel_order": 1, "edge_kernel_px": 1.0,
+                   "edge_shadow": True}
+    assert got == want
     assert t.num_pixels == j.num_pixels and t.aspect_ratio == j.aspect_ratio
 
 
@@ -140,7 +146,7 @@ def test_mesh_scene_not_ported():
     # Mesh scenes are ported: a World and its camera. What of the mesh path
     # is not ported yet (compaction, the pair-wavefront kernels, non-default
     # mesh-kernel options) raises, naming ROADMAP.
-    world, cam = tscenes.get_scene("cornell_mesh", 16 / 9)
+    world, cam = tscenes.get_scene("cornell_mesh", 16 / 9, device="cpu")
     assert isinstance(world, World) and world.mesh is not None
     assert world.mesh.num_triangles == 36 and world.mesh.num_lights == 2
     rays = torch.zeros((4, 3)), torch.ones((4, 3))
@@ -154,4 +160,53 @@ def test_mesh_scene_not_ported():
         mesh_search(mc, *rays[0].T.contiguous(), *rays[1].T.contiguous(),
                     1e-3, visit="rowgate")
     with pytest.raises(KeyError):
-        tscenes.get_scene("nope", 16 / 9)
+        tscenes.get_scene("nope", 16 / 9, device="cpu")
+
+
+def test_constructors_build_on_the_card_unless_asked_for_the_cpu():
+    # device=None is the CUDA card: without one every constructor raises,
+    # naming the missing CUDA, instead of building on the CPU in silence;
+    # device="cpu" gives CPU tensors.
+    from qt_raytracer_tpu_torch.accel.mesh import build_mesh
+    from qt_raytracer_tpu_torch.core.scene import SceneBuilder
+    from qt_raytracer_tpu_torch.core.world import tensors_of
+    from qt_raytracer_tpu_torch.models import meshes as tmeshes
+    from qt_raytracer_tpu_torch.runtime.device import resolve_device
+    from qt_raytracer_tpu_torch.utils import convert
+
+    tri = ([[0, 0, 0], [1, 0, 0], [0, 1, 0]], [[0, 1, 2]])
+    ball = lambda: SceneBuilder().lambertian((0, 0, -1), 0.5, (0.5,) * 3)
+    scene, cam = tscenes.get_scene("three_sphere", 1.5, device="cpu")
+    arrays = {k: np.asarray(v) for k, v in
+              zip((f.name for f in dataclasses.fields(scene)),
+                  tensors_of(scene))}
+    makers = {
+        "get_scene": lambda **kw: tscenes.get_scene("cornell", 1.5, **kw),
+        "scene": lambda **kw: tscenes.random_scene(**kw),
+        "camera": lambda **kw: tscenes.random_scene_camera(1.5, **kw),
+        "make_camera": lambda **kw: tcam.make_camera((0, 0, 1), (0, 0, 0),
+                                                     **kw),
+        "SceneBuilder": lambda **kw: ball().build(**kw),
+        "build_mesh": lambda **kw: build_mesh(*tri, builder="numpy", **kw),
+        "mesh_world": lambda **kw: tmeshes.icosphere_world(
+            1, builder="numpy", **kw),
+        "mesh_camera": lambda **kw: tmeshes.icosphere_camera(1.5, **kw),
+        "scene_from_arrays": lambda **kw: scene_from_arrays(arrays, **kw),
+        "world_from_arrays": lambda **kw: convert.world_from_arrays(
+            arrays, None, **kw),
+    }
+    for name, build in makers.items():
+        out = build(device="cpu")
+        for obj in out if isinstance(out, tuple) else (out,):
+            assert all(t.device.type == "cpu" for t in tensors_of(obj)), name
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                build()
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in tensors_of(ball().build()))
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device(None)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device("cuda")

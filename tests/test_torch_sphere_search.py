@@ -89,7 +89,7 @@ def test_plain_search_matches_pallas_interpret(name):
                                   interpret=True, alive=jnp.asarray(alive))
     jt, ji = np.asarray(jt), np.asarray(ji)
     before = tsi.launches
-    tt, ti = tsi.sphere_search(scene_from_arrays(_arrays(js)),
+    tt, ti = tsi.sphere_search(scene_from_arrays(_arrays(js), device="cpu"),
                                torch.from_numpy(o), torch.from_numpy(d),
                                T_MIN, alive=torch.from_numpy(alive))
     assert tsi.launches == before          # CPU tensors: the plain version
@@ -121,7 +121,8 @@ def test_plain_search_is_the_argmin_of_the_ns_form():
         .lambertian((0.0, 0.0, -1.0), 0.5, (0.7, 0.3, 0.3)) \
         .metal((1.0, 0.0, -1.0), 0.5, (0.8, 0.6, 0.2)) \
         .dielectric((-1.0, 0.0, -1.0), 0.5) \
-        .emissive((0.0, 2.0, -1.0), 0.3, (4.0, 4.0, 4.0)).build(pad_to=8)
+        .emissive((0.0, 2.0, -1.0), 0.3, (4.0, 4.0, 4.0)) \
+        .build(pad_to=8, device="cpu")
     rng = np.random.default_rng(1)
     o = torch.from_numpy(rng.uniform(-2, 2, (N, 3)).astype(np.float32))
     d = torch.from_numpy(rng.normal(size=(N, 3)).astype(np.float32))
@@ -137,7 +138,8 @@ def test_plain_search_is_the_argmin_of_the_ns_form():
 
 def test_table_is_the_tpu_kernels_padded_table():
     scene = scene_from_arrays(_arrays(jscenes.get_scene("three_sphere",
-                                                         1.0)[0]))
+                                                         1.0)[0]),
+                                                                 device="cpu")
     small = dataclasses.replace(scene, **{
         f.name: getattr(scene, f.name)[:5] for f in dataclasses.fields(scene)
         if f.name != "light_idx"})
@@ -154,14 +156,26 @@ def test_table_is_the_tpu_kernels_padded_table():
 
 
 def test_unported_options_raise():
+    # What the sphere search refuses: a malformed exclude operand, and any
+    # exclude operand on the clustered sweep (ValueError, as the JAX wrapper
+    # raises). The exclude on the monolithic sweep and a 1,024-slot table,
+    # which raised before they were ported, run.
     scene, _ = jscenes.get_scene("three_sphere", 1.0)
-    ts = scene_from_arrays(_arrays(scene))
+    ts = scene_from_arrays(_arrays(scene), device="cpu")
     o, d = torch.zeros((4, 3)), torch.ones((4, 3))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsi.sphere_search(ts, o, d, T_MIN, exclude=torch.zeros(4,
-                                                                dtype=torch.int32))
+    none = torch.full((4,), -1, dtype=torch.int32)
+    for a, b in zip(tsi.sphere_search(ts, o, d, T_MIN, exclude=none),
+                    tsi.sphere_search(ts, o, d, T_MIN)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="integer"):
+        tsi.sphere_search(ts, o, d, T_MIN, exclude=torch.zeros(4))
+    with pytest.raises(ValueError, match="integer"):
+        tsi.sphere_search(ts, o, d, T_MIN, exclude=none[:3])
     big = SceneBuilder()
     for i in range(1024):
         big.lambertian((float(i), 0.0, 0.0), 0.1, (0.5, 0.5, 0.5))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tsi.sphere_search(big.build(pad_to=None), o, d, T_MIN)
+    big = big.build(pad_to=None, device="cpu")
+    t, idx = tsi.sphere_search(big, o, d, T_MIN)
+    assert t.shape == (4,) and idx.dtype == torch.int32
+    with pytest.raises(ValueError, match="clustered"):
+        tsi.sphere_search(big, o, d, T_MIN, exclude=none)

@@ -59,8 +59,8 @@ def _arrays(obj):
 def _both(name, aspect):
     build, camera = WORLDS[name]
     jw, jc = build(), camera(aspect)
-    tw = world_from_arrays(_arrays(jw.spheres), _arrays(jw.mesh))
-    return (jw, jc), (tw, camera_from_arrays(_arrays(jc)))
+    tw = world_from_arrays(_arrays(jw.spheres), _arrays(jw.mesh), device="cpu")
+    return (jw, jc), (tw, camera_from_arrays(_arrays(jc), device="cpu"))
 
 
 def _mismatch(got, want):
