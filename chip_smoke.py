@@ -12,7 +12,10 @@ counts set to 0 just before it and read just after:
     chunks of 414,720 rays, one fused-hit launch per chunk and bounce);
   - the mesh-world path: the ~100k-triangle terrain (BASELINE config 4),
     1920x1080, 1 spp, depth 5 (fused hit, first crossed cluster and mesh
-    search once per chunk and bounce);
+    search once per chunk and bounce); then the same frame with the
+    pair-wavefront mesh search (``mesh_kernel="hybrid"`` and ``"pairs"``:
+    crossing lists and pair hits, with the clustered search as the overflow
+    fallback) and with ``mesh_compact=True``, each bit-identical to it;
   - the mesh-world path with next-event estimation: the true Cornell box
     (BASELINE config 2), 512x512, 64 spp, depth 10 (fused hit, shadow-mode
     fused hit and two mesh searches per chunk, sample batch and bounce);
@@ -27,7 +30,10 @@ counts set to 0 just before it and read just after:
     (``edge_aware=True``: the boundary term of ``diff.edge``, whose
     background re-trace runs the kernels' exclude operands), with a
     view-step's gradients held against the plain versions' on the card and
-    against the CPU.
+    against the CPU; and one pathwise step on the true Cornell box with
+    ``mesh_kernel="pairs"``, whose loss equals the clustered step's (its
+    crossing-list and pair kernels held against their plain versions on
+    one of its wavefronts: one cluster, lists of width 1).
 
 Each frame is checked for finite values and against the same frame with the
 plain versions (at a reduced size where the plain mesh search is too slow),
@@ -75,7 +81,10 @@ TIMED_RUNS = 7
 KERNELS = ("fused_hit", "fused_hit_shadow", "mesh_first_cluster",
            "mesh_search", "sphere_search", "sphere_search_clustered",
            "fused_hit[exclude]", "sphere_search[exclude]",
-           "mesh_search[exclude]")
+           "mesh_search[exclude]", "mesh_first_cluster[pair]",
+           "mesh_crossing_lists", "mesh_pairs")
+PAIR_C = 6                 # crossing-list width of the pair search
+WIDE_PAIR_C = 24           # a wider list, timed once beside it
 PEAK_FP32 = 67e12          # FLOP/s outside the tensor cores (H100 SXM)
 PEAK_BYTES = 3.35e12       # bytes/s of HBM3
 SWEEP_FLOPS = 25           # per (ray, sphere) pair of a sphere sweep
@@ -220,23 +229,33 @@ def _sphere_search_module():
     return sphere_intersect
 
 
+def _mesh_pairs_module():
+    from qt_raytracer_tpu_torch.kernels import mesh_pairs
+    return mesh_pairs
+
+
 def reset_counts(fh, mi) -> None:
-    si = _sphere_search_module()
+    si, mp = _sphere_search_module(), _mesh_pairs_module()
     fh.launches = fh.shadow_launches = 0
     fh.exclude_launches = fh.shadow_exclude_launches = 0
     mi.launches = mi.first_cluster_launches = mi.exclude_launches = 0
+    mi.first_cluster_pair_launches = 0
     si.launches = si.clustered_launches = si.exclude_launches = 0
+    mp.crossing_lists_launches = mp.pair_hits_launches = 0
 
 
 def read_counts(fh, mi) -> dict:
-    si = _sphere_search_module()
+    si, mp = _sphere_search_module(), _mesh_pairs_module()
     return {"fused_hit": fh.launches, "fused_hit_shadow": fh.shadow_launches,
             "mesh_first_cluster": mi.first_cluster_launches,
             "mesh_search": mi.launches, "sphere_search": si.launches,
             "sphere_search_clustered": si.clustered_launches,
             "fused_hit[exclude]": fh.exclude_launches,
             "sphere_search[exclude]": si.exclude_launches,
-            "mesh_search[exclude]": mi.exclude_launches}
+            "mesh_search[exclude]": mi.exclude_launches,
+            "mesh_first_cluster[pair]": mi.first_cluster_pair_launches,
+            "mesh_crossing_lists": mp.crossing_lists_launches,
+            "mesh_pairs": mp.pair_hits_launches}
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -442,6 +461,49 @@ def against_plain_frame(render_linear, scene, camera, cfg, img=None,
             out["mismatch_frac"] > IMG_MISMATCH_MAX:
         raise AssertionError(f"frame differs from the plain frame: {out}")
     return out
+
+
+def pair_step_wavefront(fh, mi, mp, world, rays, t_min) -> None:
+    """A7 and A8 against their plain versions, and the pair search against
+    the clustered one, at the shape the true-Cornell train step gives them:
+    one chunk of primary rays with scattered dead lanes, capped by the
+    sphere hit as intersect_world caps them; one cluster of one 128-triangle
+    row, so lists of width 1. All bitwise."""
+    from qt_raytracer_tpu_torch.core.intersect import intersect_spheres
+    mc = mi.prep_mesh_clusters(world.mesh)
+    n = rays[0].shape[0]
+    alive = with_dead_lanes(torch.ones(n, dtype=torch.bool,
+                                       device=rays[0].device), 5)
+    hs = intersect_spheres(world.spheres, torch.stack(rays[:3], dim=1),
+                           torch.stack(rays[3:], dim=1), t_min, alive=alive)
+    cap = torch.where(hs.hit, hs.t, fh.BIG).detach().contiguous()
+    width = mp.pair_list_width(mc, n)
+    a7 = lambda **kw: mp.crossing_lists(mc, *rays, t_min, alive, cap, width,
+                                        **kw)
+    lists, ncross = a7()
+    if not all(torch.equal(a, b) for a, b in zip((lists, ncross),
+                                                 a7(interpret=True))):
+        raise AssertionError("A7 differs from its plain version (Cornell)")
+    ray_buf, gmap = mp.pair_slots(lists, mc.k)
+    a8 = lambda **kw: mp.pair_hits(mc, *rays, cap, ray_buf, gmap, t_min, **kw)
+    kern = a8()
+    if not all(torch.equal(a, b) for a, b in zip(kern, a8(interpret=True))):
+        raise AssertionError("A8 differs from its plain version (Cornell)")
+    st = compare_t_idx(
+        fh.BIG, mp.mesh_search_pairs(mc, *rays, t_min, alive, cap),
+        mi.mesh_search(mc, *rays, t_min, alive=alive, t_cap=cap), alive)
+    if not st["bitwise"]:
+        raise AssertionError(f"the pair search is not bitwise equal to the "
+                             f"clustered search (Cornell): {st}")
+    st.update(rays=n, clusters=mc.k, tris_per_cluster=mc.tris_per_cluster,
+              list_width=width, pairs=int(ncross.sum()),
+              slots=int(ray_buf.shape[0]), hits=int((kern[0] < fh.BIG).sum()),
+              a7_ms=cuda_ms(a7), a7_plain_ms=cuda_ms(
+                  lambda: a7(interpret=True), 3),
+              a8_ms=cuda_ms(a8), a8_plain_ms=cuda_ms(
+                  lambda: a8(interpret=True), 3))
+    print(f"A7 and A8 on a wavefront of the true-Cornell step: "
+          f"{json.dumps(st)}", flush=True)
 
 
 def main() -> None:
@@ -730,10 +792,132 @@ def main() -> None:
             *(st["subset"]["max_abs_err"] for st in a3.values())),
         a3["primary_chunk2"])
 
+    phase("A7 mesh_crossing_lists, A8 mesh_pairs and the A4 pair vs plain "
+          "versions; the pair search vs the clustered search (terrain)")
+    mp = _mesh_pairs_module()
+    a4p, a7, a8 = {}, {}, {}
+    for name in ("primary_chunk2", "bounce2_chunk2"):
+        s = wavefronts[name]
+        rays, alive = rays_of(s), s.alive
+        cap = fh.fused_hit(wt.spheres, *rays, alive, t_min)["t"]
+        n, live = rays[0].shape[0], int(alive.sum())
+        box_bytes = mc.box_planes.numel() * 4
+        # A4 with its second output, whole wavefront: bitwise.
+        c12 = mi.first_crossed_cluster(mc, *rays, t_min, alive, cap,
+                                       pair=True)
+        c12_p = mi.first_crossed_cluster(mc, *rays, t_min, alive, cap,
+                                         pair=True, interpret=True)
+        if not all(torch.equal(a, b) for a, b in zip(c12, c12_p)):
+            raise AssertionError(f"the A4 pair differs from its plain "
+                                 f"version ({name})")
+        tested = torch.where(c12[1] < mc.k, c12[1] + 1, mc.k)[alive].sum()
+        a4p[name] = {
+            **bound(float(tested) * SLAB_FLOPS, n * 37 + box_bytes),
+            "rays": n, "live": live, "bitwise": True, "max_abs_err": 0.0,
+            "second_crossing_share": float((c12[1][alive] < mc.k).float()
+                                           .mean()),
+            "ms": cuda_ms(lambda: mi.first_crossed_cluster(
+                mc, *rays, t_min, alive, cap, pair=True)),
+            "plain_ms": cuda_ms(lambda: mi.first_crossed_cluster(
+                mc, *rays, t_min, alive, cap, pair=True, interpret=True), 3)}
+        print(f"A4 pair {name}: {json.dumps(a4p[name])}", flush=True)
+
+        # A7, whole wavefront: bitwise lists and counts.
+        lists, ncross = mp.crossing_lists(mc, *rays, t_min, alive, cap,
+                                          PAIR_C)
+        lists_p, ncross_p = mp.crossing_lists(mc, *rays, t_min, alive, cap,
+                                              PAIR_C, interpret=True)
+        if not (torch.equal(lists, lists_p) and torch.equal(ncross,
+                                                            ncross_p)):
+            raise AssertionError(f"A7 differs from its plain version "
+                                 f"({name})")
+        if not (torch.equal(lists[:, 0], c12[0])
+                and torch.equal(lists[:, 1], c12[1])):
+            raise AssertionError("A7's first two ids are not A4's")
+        unsafe = ncross > PAIR_C
+        pairs = int(torch.clamp_max(ncross, PAIR_C).sum())
+        a7[name] = {
+            **bound(float(live) * mc.k * SLAB_FLOPS,
+                    n * (33 + 4 * (PAIR_C + 1)) + box_bytes),
+            "rays": n, "live": live, "bitwise": True, "max_abs_err": 0.0,
+            "crossings_per_live_ray": float(ncross[alive].float().mean()),
+            "share_over_c": float(unsafe[alive].float().mean()),
+            "max_crossings": int(ncross.max()),
+            "pairs": pairs,
+            "ms": cuda_ms(lambda: mp.crossing_lists(
+                mc, *rays, t_min, alive, cap, PAIR_C)),
+            "plain_ms": cuda_ms(lambda: mp.crossing_lists(
+                mc, *rays, t_min, alive, cap, PAIR_C, interpret=True), 3)}
+        print(f"A7 {name}: {json.dumps(a7[name])}", flush=True)
+
+        # The whole pair search against the clustered search: bitwise on
+        # live lanes, (BIG, 0) on dead ones; then its stages' times.
+        ref = mi.mesh_search(mc, *rays, t_min, alive=alive, t_cap=cap)
+        got = mp.mesh_search_pairs(mc, *rays, t_min, alive, cap,
+                                   pair_c=PAIR_C)
+        torch.cuda.synchronize()
+        st = compare_t_idx(fh.BIG, got, ref, alive)
+        if not st["bitwise"]:
+            raise AssertionError(f"the pair search is not bitwise equal to "
+                                 f"the clustered search ({name}): {st}")
+        ray_buf, gmap = mp.pair_slots(lists, mc.k)
+        valid = ray_buf >= 0
+        tp, ip = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, t_min)
+        num_tris = mc.k * mc.tris_per_cluster
+        live_tiles = int(valid.view(-1, 128).any(dim=1).sum())
+        st.update(
+            rays=n, pairs=pairs, slots=int(ray_buf.shape[0]),
+            padded_slots=live_tiles * 128, tiles=int(gmap.shape[0]),
+            a7_ms=a7[name]["ms"],
+            a8_ms=cuda_ms(lambda: mp.pair_hits(mc, *rays, cap, ray_buf, gmap,
+                                               t_min)),
+            glue_ms=cuda_ms(lambda: (
+                mp.pair_slots(lists, mc.k),
+                mp.reduce_pairs(ray_buf, tp, ip, n, num_tris))),
+            fallback_ms=cuda_ms(lambda: mi.mesh_search(
+                mc, *rays, t_min, alive=unsafe, t_cap=cap)),
+            pair_search_ms=cuda_ms(lambda: mp.mesh_search_pairs(
+                mc, *rays, t_min, alive, cap, pair_c=PAIR_C)),
+            clustered_search_ms=cuda_ms(lambda: mi.mesh_search(
+                mc, *rays, t_min, alive=alive, t_cap=cap)))
+        print(f"pair search {name}: {json.dumps(st)}", flush=True)
+        if name == "bounce2_chunk2":
+            # A wider list leaves fewer rays to the fallback.
+            over = ncross > WIDE_PAIR_C
+            wide = {"share_over_c": float(over[alive].float().mean()),
+                    "fallback_ms": cuda_ms(lambda: mi.mesh_search(
+                        mc, *rays, t_min, alive=over, t_cap=cap), 3),
+                    "pair_search_ms": cuda_ms(lambda: mp.mesh_search_pairs(
+                        mc, *rays, t_min, alive, cap, pair_c=WIDE_PAIR_C), 3)}
+            print(f"pair search {name}, list width {WIDE_PAIR_C}: "
+                  f"{json.dumps(wide)}", flush=True)
+        # A8, whole wavefront, on the slots the pair search hands it:
+        # bitwise, per pair.
+        tp_p, ip_p = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, t_min,
+                                  interpret=True)
+        if not (torch.equal(tp, tp_p) and torch.equal(ip, ip_p)):
+            raise AssertionError(f"A8 differs from its plain version "
+                                 f"({name})")
+        a8[name] = {
+            **bound(float(pairs) * mc.tris_per_cluster * MT_FLOPS,
+                    pairs * 28 + ray_buf.shape[0] * 16 + gmap.numel() * 4
+                    + mc.tri_planes.numel() * 4),
+            "rays": n, "pairs": pairs, "slots": st["slots"],
+            "tiles": st["tiles"], "bitwise": True, "max_abs_err": 0.0,
+            "hits": int((tp < fh.BIG).sum()), "ms": st["a8_ms"],
+            "plain_ms": cuda_ms(lambda: mp.pair_hits(
+                mc, *rays, cap, ray_buf, gmap, t_min, interpret=True), 3)}
+        print(f"A8 {name}: {json.dumps(a8[name])}", flush=True)
+        del lists, lists_p, ncross, ncross_p, ray_buf, tp, ip, tp_p, ip_p
+        del got, ref
+    results["mesh_first_cluster[pair]"] = (0.0, a4p["bounce2_chunk2"])
+    results["mesh_crossing_lists"] = (0.0, a7["bounce2_chunk2"])
+    results["mesh_pairs"] = (0.0, a8["bounce2_chunk2"])
+
     phase("terrain 1080p frame (BASELINE config 4) through render_linear")
     chunks = chunk_count(cfg_t)
     per = chunks * cfg_t.max_depth
-    _, frame = drive_frame(
+    img_t, frame = drive_frame(
         fh, mi, render_linear, world, camera, cfg_t,
         {"fused_hit": per, "mesh_first_cluster": per, "mesh_search": per})
     w, h = TERRAIN_PLAIN_WH
@@ -743,7 +927,39 @@ def main() -> None:
     print(f"terrain frame: {json.dumps(frame)}", flush=True)
     for k, v in frame["launches"].items():
         launches[k] += v
-    del world, wt, mc, s0, s0c2, s2
+
+    phase("terrain 1080p frame with the pair-wavefront mesh search, with the "
+          "two-cluster sort key, and compacted: bit-identical")
+    # Every world hit of "pairs" runs A7, A8 and the fallback (A4, A3);
+    # "hybrid" runs the clustered search alone at each chunk's bounce 0.
+    bounce_hits = chunks * (cfg_t.max_depth - 1)
+    variants = {
+        "hybrid": (dict(mesh_kernel="hybrid"),
+                   {"mesh_crossing_lists": bounce_hits,
+                    "mesh_pairs": bounce_hits}),
+        "pairs": (dict(mesh_kernel="pairs"),
+                  {"mesh_crossing_lists": per, "mesh_pairs": per}),
+        "compact": (dict(mesh_compact=True), {}),
+        "sort0_off": (dict(mesh_sort0=False),
+                      {"mesh_first_cluster": bounce_hits}),
+        "crossing2": (dict(mesh_sort_mode="crossing2"),
+                      {"mesh_first_cluster": 0,
+                       "mesh_first_cluster[pair]": per}),
+    }
+    for name, (option, counts) in variants.items():
+        img_v, fr = drive_frame(
+            fh, mi, render_linear, world, camera,
+            dataclasses.replace(cfg_t, **option),
+            {"fused_hit": per, "mesh_first_cluster": per, "mesh_search": per,
+             **counts})
+        if not torch.equal(img_v, img_t):
+            raise AssertionError(f"the {name} terrain frame is not "
+                                 f"bit-identical to the default frame")
+        fr["bit_identical"] = True
+        print(f"terrain frame {name}: {json.dumps(fr)}", flush=True)
+        for k, v in fr["launches"].items():
+            launches[k] += v
+    del world, wt, mc, s0, s0c2, s2, wavefronts, img_t, img_v
 
     # ------------------------------------- mesh-world path with NEE
     cfg_c = RenderConfig(**CORNELL, rng="hash")
@@ -1063,6 +1279,8 @@ def main() -> None:
 
     print(f"targets: 2 views in {tgt_s:.3f} s; start "
           f"{json.dumps(mesh_errs(init()))}", flush=True)
+    pair_step_wavefront(fh, mi, mp, world, rays_of(primary(camw, cfg5)),
+                        cfg5.t_min)
     # Pathwise: per evaluation a world hit and a shadow ray's world hit at
     # every bounce, each A5 then A3 (one cluster: no A4).
     per = views * evals * 2 * bounces
@@ -1086,6 +1304,31 @@ def main() -> None:
     rel = pose_gradient_differs(g_edge, g_path, "true Cornell box")
     print(f"pose gradient, edge-aware against pathwise on the same key: "
           f"relative change {rel}", flush=True)
+    # The same pathwise step with the pair-wavefront mesh search: every
+    # world hit is A5, then A7, A8 and the fallback's A3 (one cluster: a
+    # list of width 1, no A4).
+    print("pathwise, mesh_kernel='pairs':", flush=True)
+    init_p, step_p, _, _ = mv.make_multiview_train_step_perview(
+        world, start, dataclasses.replace(cfg5, mesh_kernel="pairs"),
+        inv.adam(2.5e-2), trainable=(), train_camera="pose")
+    per = views * evals * 2 * bounces
+    _, c5m_pairs, counts, g_pairs = train_steps(
+        step_p, init_p(), targets, key11, fh, mi, mesh_errs,
+        C5_PATHWISE_STEPS,
+        {"sphere_search": per, "mesh_search": per,
+         "mesh_crossing_lists": per, "mesh_pairs": per})
+    for k, v in counts.items():
+        train_launches[k] += v
+    if c5m_pairs[0]["loss"] != c5m[0]["loss"]:
+        raise AssertionError(
+            f"the pair-search step's loss {c5m_pairs[0]['loss']} is not the "
+            f"clustered step's {c5m[0]['loss']}")
+    # The hits are the same bits; the backward's atomic adds are not ordered.
+    same = compare_grads((torch.tensor(c5m_pairs[0]["loss"]), g_pairs),
+                         (torch.tensor(c5m[0]["loss"]), g_path),
+                         GRAD_RTOL_PLAIN, "pair-search step vs clustered step")
+    print(f"pair-search step against the clustered step: {json.dumps(same)}",
+          flush=True)
     del targets
 
     phase("config-5 gradients, pathwise and edge-aware: kernels vs plain "
@@ -1139,12 +1382,17 @@ def main() -> None:
             "qt_raytracer_tpu_torch/csrc/fused_hit.cu",
             "qt_raytracer_tpu/kernels/sphere_intersect.py:108"),
     }
-    # The exclude variants are template instances of their kernels.
+    sources["mesh_crossing_lists"] = (
+        "qt_raytracer_tpu_torch/csrc/mesh_pairs.cu",
+        "qt_raytracer_tpu/kernels/mesh_pairs.py:136")
+    sources["mesh_pairs"] = ("qt_raytracer_tpu_torch/csrc/mesh_pairs.cu",
+                             "qt_raytracer_tpu/kernels/mesh_pairs.py:58")
+    # The exclude and pair variants are template instances of their kernels.
     for name in KERNELS:
-        if name.endswith("[exclude]"):
-            sources[name] = sources[name[:-len("[exclude]")]]
-    print(f"launches over the four forward paths' counted frames: "
-          f"{json.dumps(launches)}; over the eight train steps: "
+        if name.endswith(("[exclude]", "[pair]")):
+            sources[name] = sources[name[:name.index("[")]]
+    print(f"launches over the forward paths' counted frames: "
+          f"{json.dumps(launches)}; over the nine train steps: "
           f"{json.dumps(train_launches)}")
     for k, v in train_launches.items():
         launches[k] += v

@@ -6,16 +6,22 @@ both packages. The config accepts every value the JAX package accepts;
 ``require_ported`` is where the renderer refuses a value whose port has not
 landed yet, naming the ROADMAP item that brings it.
 
-Three fields are the port's own: ``edge_kernel_px``, ``edge_kernel_order``
-and ``edge_shadow``. The JAX package reads them from the environment
-(``QTRT_EDGE_KERNEL_PX``, ``QTRT_EDGE_KERNEL_ORDER``, ``QTRT_EDGE_SHADOW``)
-while it traces ``diff/edge.py``; here they are explicit, validated options
-with the same defaults and meaning.
+Eight fields are the port's own. The JAX package reads them from the
+environment while it traces; here they are explicit, validated options with
+the same defaults and meaning: ``edge_kernel_px``, ``edge_kernel_order`` and
+``edge_shadow`` (``QTRT_EDGE_KERNEL_PX``, ``QTRT_EDGE_KERNEL_ORDER``,
+``QTRT_EDGE_SHADOW``, ``diff/edge.py``), and the mesh-search options
+``mesh_kernel`` (``QTRT_MESH_KERNEL``), ``mesh_pair_c`` (``QTRT_PAIR_C``),
+``mesh_compact`` (``QTRT_MESH_COMPACT``), ``mesh_sort0``
+(``QTRT_MESH_SORT0``) and ``mesh_sort_mode`` (``QTRT_MESH_SORT``). Where the
+JAX package falls back to its default on an unknown value, the port raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from ..kernels.mesh_intersect import SORT_MODES as MESH_SORT_MODES
 
 # Validation ranges mirrored from the reference UI
 # (resources/qml/Main.qml:394,426,458,491 and RayTracerFboItem.cpp:189-228).
@@ -39,6 +45,7 @@ _UNPORTED_INTERSECTORS = {
     "xla": "ROADMAP Queue A item 13 (the XLA [N,S] search and "
            "accel/traverse.py)",
 }
+MESH_KERNELS = ("clustered", "pairs", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +76,15 @@ class RenderConfig:
     edge_kernel_px: float = 1.0   # one-sided kernel width W, in pixels
     edge_kernel_order: int = 1    # 1: triangular weight; 2: 2 w_{W/2} - w_W
     edge_shadow: bool = True      # the NEE shadow-edge term (needs nee)
+    # The mesh search of a mesh world; no choice changes a bit of the image.
+    # "clustered": A3 behind the A4 sort; "pairs": the pair-wavefront search
+    # (A7, A8) at every bounce; "hybrid": clustered at bounce 0, pairs after
+    # (on the flat path; the [N,3] integrator takes clustered under it).
+    mesh_kernel: str = "clustered"
+    mesh_pair_c: int = 6          # crossing-list width of the pair search
+    mesh_compact: bool = False    # flat world path: sort live rays first
+    mesh_sort0: bool = True       # False: no wavefront sort at bounce 0
+    mesh_sort_mode: str = "crossing"   # the clustered search's sort key
 
     def __post_init__(self):
         object.__setattr__(self, "width", _clamp(self.width, MIN_DIM, MAX_WIDTH))
@@ -90,6 +106,20 @@ class RenderConfig:
         if self.edge_kernel_order not in (1, 2):
             raise ValueError(f"edge_kernel_order must be 1 or 2, got "
                              f"{self.edge_kernel_order}")
+        if self.mesh_kernel not in MESH_KERNELS:
+            raise ValueError(f"mesh_kernel must be one of {MESH_KERNELS}, "
+                             f"got {self.mesh_kernel!r}")
+        if isinstance(self.mesh_pair_c, bool) or \
+                not isinstance(self.mesh_pair_c, int) or self.mesh_pair_c < 1:
+            raise ValueError(f"mesh_pair_c must be an integer >= 1, got "
+                             f"{self.mesh_pair_c!r}")
+        for name in ("mesh_compact", "mesh_sort0"):
+            if not isinstance(getattr(self, name), bool):
+                raise ValueError(f"{name} must be a bool, got "
+                                 f"{getattr(self, name)!r}")
+        if self.mesh_sort_mode not in MESH_SORT_MODES:
+            raise ValueError(f"mesh_sort_mode must be one of "
+                             f"{MESH_SORT_MODES}, got {self.mesh_sort_mode!r}")
         if self.edge_aware and self.samples_per_batch != 1:
             # The boundary term needs per-sample pixel coordinates, so an
             # edge-aware render traces one sample per batch (clamped, as
@@ -108,6 +138,13 @@ class RenderConfig:
     @property
     def aspect_ratio(self) -> float:
         return self.width / self.height
+
+
+def mesh_search_options(cfg: RenderConfig) -> dict:
+    """cfg's mesh-search options as the keyword arguments of
+    ``integrator.trace`` and ``world.intersect_world``."""
+    return dict(mesh_kernel=cfg.mesh_kernel, mesh_pair_c=cfg.mesh_pair_c,
+                mesh_sort_mode=cfg.mesh_sort_mode)
 
 
 def require_ported(cfg: RenderConfig) -> None:

@@ -2,8 +2,9 @@
 (counterpart of ``qt_raytracer_tpu.core.integrator``).
 
 A Python loop over bounce depth on SoA ray state with an alive mask.
-Intersections go through ``world.intersect_world``: the kernels (A5, and A3
-with A4 on mesh worlds) pick the winners detached, and every hit quantity is
+Intersections go through ``world.intersect_world``: the kernels (A5, and on
+mesh worlds A3 with A4 or, by ``mesh_kernel``, A7 and A8) pick the winners
+detached, and every hit quantity is
 re-derived differentiably, so autograd reaches scene, mesh and camera
 tensors. Every sampling decision is a function of the counter-based
 uniforms and is held fixed (pathwise gradients).
@@ -132,7 +133,7 @@ def light_direction(row, is_tri, p, u5, u6):
 
 
 def _nee_mis(world: World, lights: WorldLights, hits, throughput,
-             diffuse_mask, uniforms, t_min, intersector):
+             diffuse_mask, uniforms, t_min, intersector, mesh_kw):
     """One-sample MIS next-event estimation over the unified light table:
     L += T * albedo/pi * cos_surf * Le / (p_j/L + cos_surf/pi) where the
     shadow ray's closest hit is the picked light. Slots 4 (pick), 5 and 6."""
@@ -144,7 +145,7 @@ def _nee_mis(world: World, lights: WorldLights, hits, throughput,
     cand = diffuse_mask & valid & (cos_surf > 0.0)
 
     shadow = intersect_world(world, hits.point, ldir, t_min,
-                             backend=intersector, alive=cand)
+                             backend=intersector, alive=cand, **mesh_kw)
     lit = cand & shadow.hit & (shadow.prim_idx == exp_prim)
 
     denom = pdf_j / n_lights + cos_surf * INV_PI
@@ -188,7 +189,9 @@ def sky_color(directions):
 def trace(scene, origins: torch.Tensor, directions: torch.Tensor,
           sample_keys: torch.Tensor, max_depth: int, t_min: float = 1.0e-3,
           intersector: str = "pallas", nee: bool = False, rr_start: int = 0,
-          exclude_prim0=None) -> torch.Tensor:
+          exclude_prim0=None, mesh_kernel: str = "clustered",
+          mesh_pair_c: int = 6,
+          mesh_sort_mode: str = "crossing") -> torch.Tensor:
     """Trace N rays to completion; returns linear radiance [N,3].
 
     scene: a SphereScene or a World. sample_keys: [N] hash states or [N,2]
@@ -201,8 +204,11 @@ def trace(scene, origins: torch.Tensor, directions: torch.Tensor,
     bounce-0 intersection only (-1 for none): the background radiance of
     the edge-aware estimator (``diff.edge``), "what this primary ray would
     see if its winner were absent"; later bounces and every NEE shadow ray
-    see the whole scene."""
+    see the whole scene. mesh_kernel, mesh_pair_c, mesh_sort_mode: the mesh
+    search of every intersection, as intersect_world takes them."""
     world = as_world(scene)
+    mesh_kw = dict(mesh_kernel=mesh_kernel, mesh_pair_c=mesh_pair_c,
+                   mesh_sort_mode=mesh_sort_mode)
     lights = world_lights(world)
     do_nee = bool(nee) and lights.n_total > 0
 
@@ -218,7 +224,7 @@ def trace(scene, origins: torch.Tensor, directions: torch.Tensor,
         hits = intersect_world(
             world, state.origin, state.direction, t_min, backend=intersector,
             alive=state.alive,
-            exclude=exclude_prim0 if depth_idx == 0 else None)
+            exclude=exclude_prim0 if depth_idx == 0 else None, **mesh_kw)
         uniforms = sampling.stream_uniforms(
             sample_keys, sampling.STREAM_BOUNCE0 + depth_idx,
             sampling.UNIFORMS_PER_BOUNCE)
@@ -243,7 +249,7 @@ def trace(scene, origins: torch.Tensor, directions: torch.Tensor,
         if do_nee:
             radiance = radiance + _nee_mis(
                 world, lights, hits, state.throughput, diffuse_hit, uniforms,
-                t_min, intersector)
+                t_min, intersector, mesh_kw)
 
         continues = state.alive & hits.hit & sc.ok
         throughput = torch.where(continues[:, None],

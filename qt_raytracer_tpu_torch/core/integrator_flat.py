@@ -1,12 +1,16 @@
 """Flat-SoA wavefront integrator (counterpart of
 ``qt_raytracer_tpu.core.integrator_flat``: ``trace_flat`` and
-``trace_flat_world``, each with compact=False).
+``trace_flat_world``).
 
 The ray state is carried as flat [N] component tensors. For sphere scenes
 each bounce makes one ``fused_hit`` call (kernel A1) that returns the
 closest hit, its refined t, hit point, normal and the winner's material
-parameters. Mesh worlds add the clustered mesh search (kernels A3 and A4)
-capped by the sphere hit, merged into one id space. Next-event estimation
+parameters. Mesh worlds add the mesh search capped by the sphere hit, merged
+into one id space: the clustered search (kernels A3 and A4) or, by
+``mesh_kernel``, the pair-wavefront search (A7 and A8), which give live
+lanes the same bits. ``compact=True`` sorts the carry before every bounce so
+that live rays form a dense prefix, and puts the radiance back in ray order
+at the end; the image does not change by a bit. Next-event estimation
 casts one shadow ray per diffuse hit through the shadow-mode sphere sweep
 (kernel A2) and, in a world, the mesh search, and weighs it against the
 BSDF sample by the balance heuristic. The estimator, the uniform slots and
@@ -28,8 +32,9 @@ import torch
 from . import sampling
 from .scene import DIELECTRIC, EMISSIVE, LAMBERTIAN, METAL, SphereScene
 from .vecmath import gather_rows, safe_sqrt
-from .world import (World, WorldLights, face_param_table, tensors_of,
-                    world_lights)
+from .config import MESH_KERNELS
+from .world import (World, WorldLights, face_param_table, search_mesh,
+                    tensors_of, world_lights)
 from ..kernels.fused_hit import (BIG, TILE, FusedSpheres, fused_hit,
                                  prep_fused_spheres)
 from ..kernels.mesh_intersect import (MeshClusters, mesh_search,
@@ -235,6 +240,7 @@ class RayState(NamedTuple):
     alive: torch.Tensor     # bool
     prev_pdf: torch.Tensor  # pdf of the BSDF sample that made the ray
     keys: torch.Tensor      # per-ray hash states (uint32 values in int64)
+    pid: torch.Tensor       # i64: the ray's lane at the start (compact mode)
 
 
 def initial_state(origins: torch.Tensor, directions: torch.Tensor,
@@ -253,8 +259,27 @@ def initial_state(origins: torch.Tensor, directions: torch.Tensor,
     alive = padf(origins[:, 0] * 0.0 + 1.0) > 0.5
     zero = torch.zeros_like(ox)
     one = torch.ones_like(ox)
+    pid = torch.arange(ox.shape[0], device=ox.device)
     return RayState(ox, oy, oz, dx, dy, dz, one, one, one, zero, zero, zero,
-                    alive, zero - 1.0, keys)
+                    alive, zero - 1.0, keys, pid)
+
+
+def compact_state(s: RayState) -> RayState:
+    """The carry under a stable sort that puts live rays first: whole
+    128-lane kernel blocks go dead and are skipped. Every per-ray quantity
+    rides the permutation (the keys drive the RNG, pid restores the order at
+    the end), so no ray's values change."""
+    order = torch.sort((~s.alive).to(torch.int8), stable=True).indices
+    return RayState(*(x[order] for x in s))
+
+
+def radiance_in_ray_order(s: RayState, n: int, compact: bool) -> torch.Tensor:
+    """[n, 3] radiance of the first n rays; after compact bounces lane i
+    holds ray pid[i]'s, and it is scattered back (padding lanes are cut)."""
+    rad = torch.stack([s.rx, s.ry, s.rz], dim=-1)
+    if compact:
+        rad = torch.zeros_like(rad).index_copy(0, s.pid, rad)
+    return rad[:n]
 
 
 def _shade(s: RayState, h: dict, depth_idx: int, rr_start: int, emit_w,
@@ -317,7 +342,7 @@ def _shade(s: RayState, h: dict, depth_idx: int, rr_start: int, emit_w,
         torch.where(continues, sdx, s.dx),
         torch.where(continues, sdy, s.dy),
         torch.where(continues, sdz, s.dz),
-        tx, ty, tz, rx, ry, rz, continues, prev_pdf, s.keys)
+        tx, ty, tz, rx, ry, rz, continues, prev_pdf, s.keys, s.pid)
 
 
 def _rederive_hits_flat(params, ox, oy, oz, dx, dy, dz, t_sel, idx, t_min):
@@ -447,7 +472,8 @@ def trace_flat(
     hit query only (-1 for none), the background re-trace of the edge-aware
     estimator (``diff.edge``); it raises ValueError with compact=True, whose
     lane permutation would detach the exclusion from its ray. compact=True
-    itself (the per-bounce alive-compaction sort) is not ported yet.
+    sorts the carry before every bounce, live rays first (compact_state);
+    radiance and gradients are those of compact=False, bit for bit.
 
     diff=False: the full-mode kernel (A1) computes every hit quantity,
     detached; forward only (differentiating raises). diff=True: the
@@ -458,10 +484,6 @@ def trace_flat(
     if exclude_prim0 is not None and compact:
         raise ValueError("exclude_prim0 is incompatible with compact (lane "
                          "permutation would detach the exclusion)")
-    if compact:
-        raise NotImplementedError(
-            "compact=True is not ported yet: ROADMAP.md Queue B lists it "
-            "under the A3/A4 variants")
 
     def run():
         tables = prep_fused_spheres(scene)
@@ -474,11 +496,12 @@ def trace_flat(
                 exclude_prim0.detach().to(torch.int32),
                 (0, state.ox.shape[0] - origins.shape[0]), value=-1)
         for depth_idx in range(max_depth):
+            if compact:
+                state = compact_state(state)
             state = bounce(tables, state, depth_idx, float(t_min),
                            int(rr_start), interpret, lights, diff,
                            excl0 if depth_idx == 0 else None)
-        n = origins.shape[0]
-        return torch.stack([state.rx, state.ry, state.rz], dim=-1)[:n]
+        return radiance_in_ray_order(state, origins.shape[0], compact)
 
     if diff:
         return run()
@@ -505,16 +528,26 @@ def prep_world(world: World) -> WorldTables:
 
 
 def _world_hit_flat(wt: WorldTables, ox, oy, oz, dx, dy, dz, alive, t_min,
-                    interpret):
+                    interpret, mesh_kernel: str = "clustered", depth_idx=None,
+                    sort0: bool = True, pair_c: int = 6,
+                    sort_mode: str = "crossing"):
     """Merged sphere + mesh closest hit on flat components (forward only):
     the sphere hit from A1, the mesh hit capped by A1's refined t, merged
     on a strict '<' into one id space (prim = num_spheres + triangle id),
-    with the winning face's row of face_param_table."""
+    with the winning face's row of face_param_table.
+
+    mesh_kernel, depth_idx, sort0, pair_c and sort_mode choose the mesh
+    search (``world.search_mesh``): "clustered", "pairs" on
+    every bounce, or "hybrid" (clustered at depth_idx 0, pairs after);
+    sort0=False leaves the clustered search unsorted at bounce 0. Live
+    lanes get the same bits under every choice."""
     ns = wt.num_spheres
     h = fused_hit(wt.spheres, ox, oy, oz, dx, dy, dz, alive, t_min,
                   interpret=interpret)
-    t_m, idx_m = mesh_search(wt.mesh, ox, oy, oz, dx, dy, dz, t_min,
-                             alive=alive, t_cap=h["t"], interpret=interpret)
+    t_m, idx_m = search_mesh(wt.mesh, ox, oy, oz, dx, dy, dz, t_min, alive,
+                             h["t"], mesh_kernel=mesh_kernel,
+                             depth_idx=depth_idx, pair_c=pair_c, sort0=sort0,
+                             sort_mode=sort_mode, interpret=interpret)
     mesh_hit = t_m < BIG
     closer = mesh_hit & ((h["t"] >= BIG) | (t_m < h["t"]))
 
@@ -611,18 +644,20 @@ def _nee_shadow_rays_world(lights: WorldLights, px, py, pz, nx, ny, nz,
 
 
 def _nee_flat_world(wt: WorldTables, px, py, pz, nx, ny, nz, ax, ay, az,
-                    tx, ty, tz, diffuse, uni, t_min, interpret):
+                    tx, ty, tz, diffuse, uni, t_min, interpret,
+                    sort_mode: str = "crossing"):
     """integrator._nee_mis on flat components: one-sample MIS over the
     unified sphere + triangle light table. The shadow ray's closest world
-    hit (A2, then the mesh search capped by A2's unrefined t, merged as in
-    _world_hit_flat) must be exactly the chosen light."""
+    hit (A2, then the clustered mesh search capped by A2's unrefined t,
+    merged as in _world_hit_flat) must be exactly the chosen light."""
     (ldx, ldy, ldz, cand, pdf_j, cos_surf, row,
      exp_prim) = _nee_shadow_rays_world(wt.lights, px, py, pz, nx, ny, nz,
                                         diffuse, uni)
     sh = fused_hit(wt.spheres, px, py, pz, ldx, ldy, ldz, cand, t_min,
                    shadow_only=True, interpret=interpret)
     t_m, idx_m = mesh_search(wt.mesh, px, py, pz, ldx, ldy, ldz, t_min,
-                             alive=cand, t_cap=sh["t"], interpret=interpret)
+                             alive=cand, t_cap=sh["t"], sort_mode=sort_mode,
+                             interpret=interpret)
     mesh_w = (t_m < BIG) & ((sh["t"] >= BIG) | (t_m < sh["t"]))
     has_win = mesh_w | (sh["t"] < BIG)
     win_prim = torch.where(mesh_w, wt.num_spheres + idx_m, sh["idx"])
@@ -654,10 +689,14 @@ def _emit_weight_flat_world(h, ox, oy, oz, num_spheres, n_lights, prev_pdf):
 
 def bounce_world(wt: WorldTables, s: RayState, depth_idx: int, t_min: float,
                  nee: bool = False, rr_start: int = 0,
-                 interpret: bool = False) -> RayState:
-    """One bounce of every ray in a mesh world."""
+                 interpret: bool = False, mesh_kernel: str = "clustered",
+                 sort0: bool = True, pair_c: int = 6,
+                 sort_mode: str = "crossing") -> RayState:
+    """One bounce of every ray in a mesh world. The mesh options are
+    _world_hit_flat's; the NEE shadow rays keep the clustered search."""
     h = _world_hit_flat(wt, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive,
-                        t_min, interpret)
+                        t_min, interpret, mesh_kernel, depth_idx, sort0,
+                        pair_c, sort_mode)
     emit_w, nee_fn = 1.0, None
     if nee and wt.lights.n_total > 0:
         emit_w = _emit_weight_flat_world(h, s.ox, s.oy, s.oz, wt.num_spheres,
@@ -665,7 +704,7 @@ def bounce_world(wt: WorldTables, s: RayState, depth_idx: int, t_min: float,
         nee_fn = lambda diffuse, uni: _nee_flat_world(
             wt, h["px"], h["py"], h["pz"], h["nx"], h["ny"], h["nz"],
             h["ax"], h["ay"], h["az"], s.tx, s.ty, s.tz, diffuse, uni,
-            t_min, interpret)
+            t_min, interpret, sort_mode)
     return _shade(s, h, depth_idx, rr_start, emit_w, nee_fn)
 
 
@@ -681,34 +720,40 @@ def trace_flat_world(
     interpret: bool = False,
     compact: bool = False,
     mesh_kernel: str = "clustered",
+    mesh_pair_c: int = 6,
+    mesh_sort0: bool = True,
+    mesh_sort_mode: str = "crossing",
 ) -> torch.Tensor:
     """Radiance [N,3] of rays in a mesh world (spheres + triangles), on the
     world's device; the same estimator and uniform slots as trace_flat.
     Forward only: differentiating it raises (mesh-world gradients take
     integrator.trace with the 'pallas' intersector).
 
-    compact=True (the per-bounce alive-compaction sort) and
-    mesh_kernel="pairs"/"hybrid" (the pair-wavefront mesh search) are not
-    ported yet and raise."""
+    mesh_kernel: "clustered" (A3 behind the A4 sort), "pairs" (the
+    pair-wavefront search, A7 and A8, on every bounce) or "hybrid"
+    (clustered at bounce 0, pairs on bounce wavefronts); mesh_pair_c is the
+    pair search's crossing-list width. mesh_sort0=False leaves the clustered
+    search unsorted at bounce 0, whose rays arrive in pixel order.
+    mesh_sort_mode is the clustered search's sort key ("crossing",
+    "crossing2", "morton"). compact=True sorts the carry before every
+    bounce, live rays first. None of these changes a bit of the image."""
     if not isinstance(world, World) or world.mesh is None:
         raise TypeError("trace_flat_world handles a World with a mesh")
-    if compact:
-        raise NotImplementedError(
-            "compact=True is not ported yet: ROADMAP.md Queue B lists it "
-            "under the A3/A4 variants")
-    if mesh_kernel != "clustered":
-        raise NotImplementedError(
-            f"mesh_kernel={mesh_kernel!r} is not ported yet: ROADMAP.md "
-            "Queue A item 12 (kernels A7, A8)")
+    if mesh_kernel not in MESH_KERNELS:
+        raise ValueError(f"mesh_kernel must be one of {MESH_KERNELS}, got "
+                         f"{mesh_kernel!r}")
 
     def run():
         wt = prep_world(world)
         state = initial_state(origins, directions, sample_keys)
         for depth_idx in range(max_depth):
+            if compact:
+                state = compact_state(state)
             state = bounce_world(wt, state, depth_idx, float(t_min),
-                                 bool(nee), int(rr_start), interpret)
-        n = origins.shape[0]
-        return torch.stack([state.rx, state.ry, state.rz], dim=-1)[:n]
+                                 bool(nee), int(rr_start), interpret,
+                                 mesh_kernel, bool(mesh_sort0),
+                                 int(mesh_pair_c), mesh_sort_mode)
+        return radiance_in_ray_order(state, origins.shape[0], compact)
 
     return _forward_only("trace_flat_world", run, world, origins,
                          directions)

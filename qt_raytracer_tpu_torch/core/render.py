@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import camera as cam_mod
 from . import sampling, tonemap
-from .config import RenderConfig, require_ported
+from .config import RenderConfig, mesh_search_options, require_ported
 from .integrator import trace
 from .integrator_flat import trace_flat, trace_flat_world
 from .scene import SphereScene
@@ -66,9 +66,12 @@ def _trace_dispatch(scene, origins, directions, samp_keys, cfg: RenderConfig):
     spheres. "fused*" on a SphereScene takes trace_flat (diff=True for
     "fused_diff*"); "fused"/"fused_interpret" on a mesh world take
     trace_flat_world; "fused_diff*" on a mesh world and "pallas*" anywhere
-    take the [N,3] integrator trace with "pallas[_interpret]"."""
+    take the [N,3] integrator trace with "pallas[_interpret]". Both mesh
+    paths get cfg's mesh-search options; cfg.mesh_compact and
+    cfg.mesh_sort0 belong to the flat world path alone, as in JAX."""
     backend = resolve_intersector(cfg)
     kw = dict(nee=cfg.nee, rr_start=cfg.rr_start)
+    mesh_kw = mesh_search_options(cfg)
     if isinstance(scene, World) and scene.mesh is None:
         scene = scene.spheres
     if backend.startswith("fused"):
@@ -81,10 +84,13 @@ def _trace_dispatch(scene, origins, directions, samp_keys, cfg: RenderConfig):
         if not diff:
             return trace_flat_world(scene, origins, directions, samp_keys,
                                     cfg.max_depth, cfg.t_min,
-                                    interpret=interpret, **kw)
+                                    interpret=interpret,
+                                    compact=cfg.mesh_compact,
+                                    mesh_sort0=cfg.mesh_sort0, **kw,
+                                    **mesh_kw)
         backend = "pallas_interpret" if interpret else "pallas"
     return trace(scene, origins, directions, samp_keys, cfg.max_depth,
-                 cfg.t_min, intersector=backend, **kw)
+                 cfg.t_min, intersector=backend, **kw, **mesh_kw)
 
 
 def pixel_grid(cfg: RenderConfig, device=None):

@@ -9,9 +9,11 @@ spheres, then emissive faces) drives NEE/MIS.
 
 ``intersect_world`` is the merged closest hit of the [N,3] gradient
 integrator: the sphere search (kernel A5, or A6 from 1,024 slots on), then
-the mesh search (A3, with A4 and the crossing sort on multi-cluster meshes)
-capped by the sphere winner, both detached; the winning triangle's t is re-derived differentiably
-(``_tri_t_diff``) and its face row supplies the rest.
+the mesh search (A3, with A4 and the crossing sort on multi-cluster meshes;
+or, with ``mesh_kernel="pairs"``, the pair-wavefront search A7 and A8)
+capped by the sphere winner, both detached; the winning triangle's t is
+re-derived differentiably (``_tri_t_diff``) and its face row supplies the
+rest.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from ..accel.mesh import TriangleMesh
 from . import vecmath as vm
+from .config import MESH_KERNELS
 from .intersect import BIG, Hits, intersect_spheres
 from .scene import SphereScene
 
@@ -138,9 +141,44 @@ def _tri_t_diff(mesh: TriangleMesh, tri_idx, o, d, t_min, t_max):
     return t, ok & (t >= t_min) & (t <= t_max)
 
 
+def search_mesh(mc, ox, oy, oz, dx, dy, dz, t_min: float,
+                alive, t_cap, *, mesh_kernel: str = "clustered",
+                depth_idx=None, pair_c: int = 6, sort0: bool = True,
+                sort_mode: str = "crossing", exclude=None,
+                interpret: bool = False):
+    """The mesh search an integrator asks for, by policy; every choice gives
+    live lanes the same bits. mesh_kernel "pairs": the pair-wavefront search;
+    "hybrid" with a bounce index: the clustered search at bounce 0, whose
+    rays arrive in pixel order, and the pair search on bounce wavefronts;
+    "clustered", or "hybrid" without a bounce index: the clustered search.
+    An exclude operand always takes the clustered search (the pair kernels
+    have none). sort0=False leaves the clustered search unsorted at bounce
+    0, where the sort buys nothing."""
+    if mesh_kernel not in MESH_KERNELS:
+        raise ValueError(f"mesh_kernel must be one of {MESH_KERNELS}, got "
+                         f"{mesh_kernel!r}")
+    from ..kernels.mesh_intersect import mesh_search
+    from ..kernels.mesh_pairs import mesh_search_pairs
+
+    rays = (ox, oy, oz, dx, dy, dz)
+    bounce0 = depth_idx is not None and depth_idx == 0
+    pairs = mesh_kernel == "pairs" or (
+        mesh_kernel == "hybrid" and depth_idx is not None and not bounce0)
+    if pairs and exclude is None:
+        return mesh_search_pairs(mc, *rays, t_min, alive, t_cap,
+                                 pair_c=pair_c, sort_mode=sort_mode,
+                                 interpret=interpret)
+    sort = sort0 or not bounce0 or mesh_kernel == "hybrid"
+    return mesh_search(mc, *rays, t_min, alive=alive, t_cap=t_cap, sort=sort,
+                       sort_mode=sort_mode, exclude=exclude,
+                       interpret=interpret)
+
+
 def intersect_world(world: World, origins, directions, t_min,
                     backend: str = "pallas", alive=None,
-                    exclude=None) -> Hits:
+                    exclude=None, mesh_kernel: str = "clustered",
+                    mesh_pair_c: int = 6,
+                    mesh_sort_mode: str = "crossing") -> Hits:
     """Closest hit over every primitive family, merged into one Hits with
     one id space (triangle j is prim num_spheres + j), on a strict '<'.
 
@@ -150,7 +188,12 @@ def intersect_world(world: World, origins, directions, t_min,
     exclude: optional [N] integer unified prim id to leave out of each
     lane's search (-1 for none): an id below num_spheres excludes that
     sphere, an id from num_spheres on excludes triangle id - num_spheres
-    from the mesh search (the edge-aware background re-trace)."""
+    from the mesh search (the edge-aware background re-trace).
+
+    mesh_kernel: "pairs" takes the pair-wavefront mesh search (list width
+    mesh_pair_c) unless an exclude id is given, which the pair kernels do
+    not take; "clustered" and "hybrid" take the clustered search, sorted by
+    mesh_sort_mode. Live lanes get the same bits either way."""
     ns = world.spheres.num_spheres
     excl_s = excl_m = None
     if exclude is not None:
@@ -162,7 +205,7 @@ def intersect_world(world: World, origins, directions, t_min,
     mesh = world.mesh
     if mesh is None:
         return hs
-    from ..kernels.mesh_intersect import mesh_search, prep_mesh_clusters
+    from ..kernels.mesh_intersect import prep_mesh_clusters
 
     # The sphere winner caps the mesh search: clusters beyond it prune, and
     # lanes whose winner is a sphere come back as a mesh miss.
@@ -172,11 +215,13 @@ def intersect_world(world: World, origins, directions, t_min,
         n = origins.shape[0]
         live = alive if alive is not None else \
             torch.ones(n, dtype=torch.bool, device=origins.device)
-        t_m, idx_m = mesh_search(
+        t_m, idx_m = search_mesh(
             prep_mesh_clusters(mesh), *comps, float(t_min),
-            alive=live.contiguous(),
-            t_cap=torch.where(hs.hit, hs.t, BIG).contiguous(),
-            interpret=backend == "pallas_interpret", exclude=excl_m)
+            live.contiguous(),
+            torch.where(hs.hit, hs.t, BIG).contiguous(),
+            mesh_kernel=mesh_kernel, pair_c=mesh_pair_c,
+            sort_mode=mesh_sort_mode, exclude=excl_m,
+            interpret=backend == "pallas_interpret")
     tri_hit = t_m < BIG
     t_d, ok_d = _tri_t_diff(mesh, idx_m, origins, directions, t_min, BIG)
     t_tri = torch.where(tri_hit & ok_d, t_d, t_m)

@@ -8,10 +8,12 @@
 // lane's excluded triangle (a BVH-order id, -1 for none; the edge-aware
 // background re-trace of diff/edge.py) fails the accept test of every
 // visit, as on the TPU (mesh_intersect.py:345-346). The operand is a
-// template flag, so without it the instruction stream is unchanged. A4, qtrt_mesh_first_cluster, replaces
-// _c1_kernel with pair=False: per ray, the lowest id of a cluster whose
-// slacked, capped slab test passes (k when none), which keys the wavefront
-// sort that runs before A3. The plain PyTorch versions are
+// template flag, so without it the compiled kernel is unchanged. A4,
+// qtrt_mesh_first_cluster, replaces _c1_kernel: per ray, the lowest id of a
+// cluster whose slacked, capped slab test passes (k when none), which keys
+// the wavefront sort that runs before A3; with a second output (pair=True
+// on the TPU, a template flag here) also the lowest crossed id above it,
+// for the two-cluster sort key. The plain PyTorch versions are
 // mesh_search_plain and first_crossed_cluster_plain in
 // qt_raytracer_tpu_torch/kernels/mesh_intersect.py.
 //
@@ -33,7 +35,14 @@
 // per load), so memory should not bound it. Measured on an H100 80GB HBM3
 // at 700 W: 8.0 ms for the 414,720 primary rays of the terrain frame's
 // middle chunk, 13.5 ms for its sorted bounce-2 wavefront (23.9 ms
-// unsorted), some 83% of that frame's device time.
+// unsorted), some 83% of that frame's device time. The pair search's
+// fallback later showed what sets that time: with all but the 0.4% of the
+// bounce wavefront's live rays that cross more than 24 clusters masked out,
+// the sorted sweep takes as long as on the whole wavefront (chip_smoke.py's
+// pair-search phase). So the time is that of the longest visit list of one
+// warp (the union of its 32 lanes' lists; a grazing ray alone crosses up to
+// 41 of the 195 clusters, 512 triangles each, one after the other), not of
+// the sum of the work.
 //
 // What the design does about it. One thread per ray keeps its running
 // (t_best, idx) in registers. Each block stages the cluster boxes in shared
@@ -52,95 +61,28 @@
 // pair. Triangles are not staged in shared memory yet; tiling, occupancy
 // and staging are untuned.
 //
-// Numerics. Every add, multiply and divide is rounded on its own
-// (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn; no FMA contraction), with
-// the expression tree of the TPU kernel's visit_vpu (mesh_intersect.py:
-// 360-410): cross products as a1*b2 - a2*b1, dot products left to right. So
-// the kernel rounds as the plain PyTorch version does, op by op. In
-// ascending triangle order, the strict '<' update of the running minimum
-// is the TPU's per-row min-then-match followed by its strict 'better'. A
-// dead lane gets t = BIG and idx = 0 (the TPU leaves dead lanes unspecified;
-// every caller masks them).
+// Numerics: mesh_common.cuh (every op rounded on its own, the TPU kernel's
+// expression tree). In ascending triangle order, the strict '<' update of
+// the running minimum is the TPU's per-row min-then-match followed by its
+// strict 'better'. A dead lane gets t = BIG and idx = 0 (the TPU leaves dead
+// lanes unspecified; every caller masks them).
 
 #include <cuda_runtime.h>
 
+#include "mesh_common.cuh"
+
 namespace {
 
-constexpr float BIG = 3.0e38f;
-constexpr int BLOCK = 128;   // rays per block, one per thread
-constexpr int TILE_K = 256;  // cluster boxes per shared-memory tile (6 KB)
+using namespace qtrt_mesh;
 
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-
-// Slab reciprocal of one direction component, as the TPU kernels take it:
-// 1 / (|d| < 1e-30 ? (d < 0 ? -1e-30 : 1e-30) : d). d = -0.0 takes +1e-30.
-__device__ __forceinline__ float slab_inv(float d) {
-  const float c = fabsf(d) < 1e-30f ? (d < 0.f ? -1e-30f : 1e-30f) : d;
-  return __fdiv_rn(1.f, c);
-}
-
-// The slacked gate cap: min(t * 1.0001 + 1e-4, 1e37).
-__device__ __forceinline__ float gate_cap(float t) {
-  return fminf(add(mul(t, 1.0001f), 1e-4f), 1e37f);
-}
-
-struct Ray {
-  float o[3], inv[3];
-};
-
-// Slab test of box j of the shared tile: true when exit > enter, with
-// enter = max(t_min, min(t0, t1) over the axes) and
-// exit = min(BIG, max(t0, t1) over the axes), in the TPU's axis order.
-__device__ __forceinline__ bool slab(float (*box)[TILE_K], int j,
-                                     const Ray& r, float t_min,
-                                     float& enter) {
-  float en = t_min, ex = BIG;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float t0 = mul(sub(box[a][j], r.o[a]), r.inv[a]);
-    const float t1 = mul(sub(box[3 + a][j], r.o[a]), r.inv[a]);
-    en = fmaxf(en, fminf(t0, t1));
-    ex = fminf(ex, fmaxf(t0, t1));
-  }
-  enter = en;
-  return ex > en;
-}
-
-// Stage boxes [base, base + m) into the shared tile.
-__device__ __forceinline__ void stage_boxes(float (*tile)[TILE_K],
-                                            const float* __restrict__ boxes,
-                                            int k_stride, int base, int m) {
-  for (int j = threadIdx.x; j < m; j += BLOCK) {
-#pragma unroll
-    for (int r = 0; r < 6; ++r)
-      tile[r][j] = boxes[static_cast<size_t>(r) * k_stride + base + j];
-  }
-}
-
-__device__ __forceinline__ Ray load_ray(int i, const float* __restrict__ ox,
-                                        const float* __restrict__ oy,
-                                        const float* __restrict__ oz,
-                                        const float* __restrict__ dx,
-                                        const float* __restrict__ dy,
-                                        const float* __restrict__ dz,
-                                        float d[3]) {
-  Ray r;
-  r.o[0] = ox[i]; r.o[1] = oy[i]; r.o[2] = oz[i];
-  d[0] = dx[i]; d[1] = dy[i]; d[2] = dz[i];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) r.inv[a] = slab_inv(d[a]);
-  return r;
-}
-
+template <bool PAIR>
 __global__ void __launch_bounds__(BLOCK) first_cluster_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const bool* __restrict__ alive, const float* __restrict__ t_cap,
     const float* __restrict__ boxes, int k, int k_stride, float t_min, int n,
-    int* __restrict__ out) {
+    int* __restrict__ out, int* __restrict__ out2) {
   __shared__ float tile[6][TILE_K];
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool live = i < n && alive[i];
@@ -154,23 +96,30 @@ __global__ void __launch_bounds__(BLOCK) first_cluster_kernel(
     cap = gate_cap(t_cap[i]);
   }
   int c1 = k;
+  int c2 = k;  // the next crossed id above c1; sought only when PAIR
   if (block_live) {
     for (int base = 0; base < k; base += TILE_K) {
       const int m = min(TILE_K, k - base);
       __syncthreads();
       stage_boxes(tile, boxes, k_stride, base, m);
       __syncthreads();
-      if (!live || c1 < k) continue;
+      if (!live || (PAIR ? c2 : c1) < k) continue;
       for (int j = 0; j < m; ++j) {
         float enter;
         if (slab(tile, j, r, t_min, enter) && enter <= cap) {
-          c1 = base + j;
+          if (PAIR && c1 == k) {
+            c1 = base + j;
+            continue;
+          }
+          if (PAIR) c2 = base + j; else c1 = base + j;
           break;
         }
       }
     }
   }
-  if (i < n) out[i] = c1;
+  if (i >= n) return;
+  out[i] = c1;
+  if constexpr (PAIR) out2[i] = c2;
 }
 
 template <bool EXCL>
@@ -225,29 +174,8 @@ __global__ void __launch_bounds__(BLOCK) mesh_search_kernel(
           const float v0[3] = {__ldg(v0x + p), __ldg(v0y + p), __ldg(v0z + p)};
           const float e1[3] = {__ldg(e1x + p), __ldg(e1y + p), __ldg(e1z + p)};
           const float e2[3] = {__ldg(e2x + p), __ldg(e2y + p), __ldg(e2z + p)};
-          // pv = d x e2, det = pv . e1
-          const float pv0 = sub(mul(d[1], e2[2]), mul(d[2], e2[1]));
-          const float pv1 = sub(mul(d[2], e2[0]), mul(d[0], e2[2]));
-          const float pv2 = sub(mul(d[0], e2[1]), mul(d[1], e2[0]));
-          const float det = add(add(mul(pv0, e1[0]), mul(pv1, e1[1])),
-                                mul(pv2, e1[2]));
-          if (!(fabsf(det) > 1e-12f)) continue;
-          const float inv_det = __fdiv_rn(1.f, det);
-          const float s0 = sub(r.o[0], v0[0]);
-          const float s1 = sub(r.o[1], v0[1]);
-          const float s2 = sub(r.o[2], v0[2]);
-          const float u = mul(add(add(mul(s0, pv0), mul(s1, pv1)),
-                                  mul(s2, pv2)), inv_det);
-          // qv = s x e1
-          const float qv0 = sub(mul(s1, e1[2]), mul(s2, e1[1]));
-          const float qv1 = sub(mul(s2, e1[0]), mul(s0, e1[2]));
-          const float qv2 = sub(mul(s0, e1[1]), mul(s1, e1[0]));
-          const float v = mul(add(add(mul(qv0, d[0]), mul(qv1, d[1])),
-                                  mul(qv2, d[2])), inv_det);
-          const float t = mul(add(add(mul(qv0, e2[0]), mul(qv1, e2[1])),
-                                  mul(qv2, e2[2])), inv_det);
-          bool ok = u >= 0.f && v >= 0.f && add(u, v) <= 1.f &&
-                    t >= t_min && t < t_best;
+          float t;
+          bool ok = moller_trumbore(r.o, d, v0, e1, e2, t_min, t_best, t);
           if constexpr (EXCL) ok = ok && p != ex;
           if (ok) {
             t_best = t;
@@ -268,7 +196,8 @@ __global__ void __launch_bounds__(BLOCK) mesh_search_kernel(
 
 // Kernel A4. Ray operands: [n] f32 components, [n] bool alive, [n] f32
 // t_cap (BIG for no cap); boxes: [6, k_stride] f32; out: [n] i32, the first
-// passing cluster id or k (dead lanes: k). Launches on `stream`; returns the
+// passing cluster id or k (dead lanes: k); out2: null, or [n] i32 for the
+// next passing id above it (k when none). Launches on `stream`; returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int qtrt_mesh_first_cluster(const float* ox, const float* oy,
                                        const float* oz, const float* dx,
@@ -276,13 +205,20 @@ extern "C" int qtrt_mesh_first_cluster(const float* ox, const float* oy,
                                        const bool* alive, const float* t_cap,
                                        const float* boxes, int k,
                                        int k_stride, float t_min, int n,
-                                       int* out, void* stream) {
+                                       int* out, int* out2, void* stream) {
   if (n <= 0 || k <= 0 || k_stride < k)
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid = n / BLOCK + (n % BLOCK != 0);
-  first_cluster_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, alive, t_cap, boxes, k, k_stride, t_min, n,
-      out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (out2 != nullptr) {
+    first_cluster_kernel<true><<<grid, BLOCK, 0, st>>>(
+        ox, oy, oz, dx, dy, dz, alive, t_cap, boxes, k, k_stride, t_min, n,
+        out, out2);
+  } else {
+    first_cluster_kernel<false><<<grid, BLOCK, 0, st>>>(
+        ox, oy, oz, dx, dy, dz, alive, t_cap, boxes, k, k_stride, t_min, n,
+        out, nullptr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

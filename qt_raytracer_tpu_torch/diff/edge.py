@@ -63,7 +63,7 @@ import torch.autograd.forward_ad as fwad
 from ..core import camera as cam_mod
 from ..core import sampling
 from ..core import vecmath as vm
-from ..core.config import RenderConfig
+from ..core.config import RenderConfig, mesh_search_options
 from ..core.integrator import (INV_PI, light_direction, pick_light, trace)
 from ..core.scene import LAMBERTIAN, SphereScene
 from ..core.world import as_world, intersect_world, world_lights
@@ -164,6 +164,7 @@ def sample_radiance_edge_aware(scene, camera, cfg: RenderConfig,
     origins, directions = rays_of(i, j)
     o_sg, d_sg = origins.detach(), directions.detach()
     kw = dict(nee=cfg.nee, rr_start=cfg.rr_start)
+    mesh_kw = mesh_search_options(cfg)
 
     # With a fused intersector and a pure sphere scene all three traces take
     # the flat path: l_full through the gradient-capable trace_flat, the
@@ -198,11 +199,11 @@ def sample_radiance_edge_aware(scene, camera, cfg: RenderConfig,
             diffuse0 = hit0 & (h0f["mat"] == LAMBERTIAN)
     else:
         l_full = trace(world, origins, directions, samp_keys, cfg.max_depth,
-                       cfg.t_min, intersector=backend, **kw)
+                       cfg.t_min, intersector=backend, **kw, **mesh_kw)
         with torch.no_grad():
             # Bounce-0 winner: selection only.
             h0 = intersect_world(world, o_sg, d_sg, cfg.t_min,
-                                 backend=backend)
+                                 backend=backend, **mesh_kw)
             prim0 = h0.prim_idx
             hit0 = h0.hit
             is_sph = h0.hit & (h0.prim_idx < ns) & h0.front_face
@@ -245,7 +246,7 @@ def sample_radiance_edge_aware(scene, camera, cfg: RenderConfig,
         else:
             l_bg = trace(world, o_sg, d_sg, samp_keys, cfg.max_depth,
                          cfg.t_min, intersector=backend, exclude_prim0=excl,
-                         **kw)
+                         **kw, **mesh_kw)
         delta = l_full.detach() - l_bg
     edge = term[:, None] * delta
 
@@ -268,7 +269,7 @@ def sample_radiance_edge_aware(scene, camera, cfg: RenderConfig,
             cos_surf = vm.dot(n0, ldir0)
             cand = diffuse0 & valid_l & (cos_surf > 0.0)
             shadow = intersect_world(world, p0, ldir0, cfg.t_min,
-                                     backend=backend, alive=cand)
+                                     backend=backend, alive=cand, **mesh_kw)
             lit = cand & shadow.hit & (shadow.prim_idx == exp_prim)
             blocked = cand & shadow.hit & ~lit
             denom = pdf_j / lights.n_total + cos_surf * INV_PI

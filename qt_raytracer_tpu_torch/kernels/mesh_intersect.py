@@ -1,6 +1,7 @@
 """Clustered triangle-mesh closest hit: the CUDA kernels' wrappers, their
 plain versions, and the wavefront sort around them (counterpart of
-``qt_raytracer_tpu.kernels.mesh_intersect`` in its default configuration).
+``qt_raytracer_tpu.kernels.mesh_intersect`` with ``mt="vpu"`` and
+``visit="full"``).
 
 Triangles are BVH-ordered (spatially coherent) and packed into clusters of
 ``cluster_rows_for(P) * 128`` consecutive triangles, each behind an
@@ -8,7 +9,8 @@ epsilon-padded AABB (``prep_mesh_clusters``). Two kernels, both in
 ``csrc/mesh_intersect.cu``:
 
   - A4, ``first_crossed_cluster``: per ray, the lowest id of a cluster whose
-    slacked, capped slab test passes (k when none). It keys the sort.
+    slacked, capped slab test passes (k when none), and with ``pair=True``
+    also the lowest such id above it. It keys the sort.
   - A3, ``mesh_hits``: per ray, the closest triangle hit strictly below a
     per-lane cap ``t_cap``, ties to the lowest triangle id; (BIG, 0) where
     no triangle beats the cap, and on dead lanes. An optional per-lane
@@ -19,6 +21,10 @@ epsilon-padded AABB (``prep_mesh_clusters``). Two kernels, both in
 rays and more than one cluster, a stable sort of the wavefront by the
 crossing key ``c1 * 2^18 + (octant << 15 | morton)`` (dead rays keyed
 ``1 << 30`` sort last), A3 on the sorted rays, and the inverse permutation.
+``sort_mode`` picks the key: "crossing" (that one), "crossing2" (the first
+two crossed clusters, from A4 with ``pair=True``) or "morton" (octant and
+Morton cell alone, no A4 launch); ``sort=False`` leaves the rays as they
+come.
 Each lane's result does not depend on its neighbours, so the sort changes
 only how much work a warp shares, never a live lane's result. Every per-ray
 operand (alive, the cap, the exclude id) rides through the sort with its
@@ -26,8 +32,8 @@ ray.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for CPU tensors or with ``interpret=True``; on a CUDA tensor it
-launches the kernel or raises. Only the defaults are ported (``mt="vpu"``,
-``visit="full"``, ``sort_mode="crossing"``, sorting at every bounce); the
+launches the kernel or raises. Of the Moller-Trumbore engines and visit
+modes only the defaults are ported (``mt="vpu"``, ``visit="full"``); the
 others raise NotImplementedError naming ROADMAP.md.
 """
 
@@ -47,14 +53,18 @@ SORT_MIN_RAYS = 2048      # the sort runs from this many rays on
 PLAIN_SLICE_RAYS = 2048   # rays per block of the plain versions
 PLAIN_SLICE_TRIS = 4096   # triangles per block of the plain A3
 PLAIN_SLICE_CLUSTERS = 256
+SORT_MODES = ("crossing", "crossing2", "morton")   # the wavefront sort keys
 
 # Kernel launches, A3 (mesh_hits) and A4 (first_crossed_cluster); a run
 # resets them to 0 and reads them back to show its path went through them.
 launches = 0
 first_cluster_launches = 0
+first_cluster_pair_launches = 0   # the A4 launches with the second output
 exclude_launches = 0   # the A3 launches that had an exclude operand
 
-_LATER = "is not ported yet: ROADMAP.md Queue B lists it under A3/A4 variants"
+CROSSING2_MAX_K = 254  # (c1 * (k + 1) + c2) << 15 fits int32 up to here
+
+_LATER = "is not ported yet: ROADMAP.md Queue B lists it under the A3 variants"
 
 
 def num_clusters(num_tris: int) -> int:
@@ -139,9 +149,7 @@ def sort_keys(ox, oy, oz, dx, dy, dz, alive, lo, hi):
             for a, c in enumerate((ox, oy, oz))]
     morton = (_part1by2(cell[0]) << 2) | (_part1by2(cell[1]) << 1) \
         | _part1by2(cell[2])
-    octant = ((dx < 0).to(torch.int32) * 4 + (dy < 0).to(torch.int32) * 2
-              + (dz < 0).to(torch.int32))
-    key = (octant << 15) | morton
+    key = (_octant(dx, dy, dz) << 15) | morton
     if alive is not None:
         key = torch.where(alive, key, 1 << 30)
     return key
@@ -157,8 +165,9 @@ def _check(mc: MeshClusters, rays, alive, t_cap) -> None:
         if x.device != dev or not x.is_contiguous():
             raise ValueError("ray components and t_cap must be contiguous and "
                              "on one device")
-    if (alive.dtype != torch.bool or alive.shape != (n,) or alive.device != dev
-            or not alive.is_contiguous()):
+    if alive is not None and (
+            alive.dtype != torch.bool or alive.shape != (n,)
+            or alive.device != dev or not alive.is_contiguous()):
         raise ValueError("alive must be a contiguous [N] bool tensor on the "
                          "rays' device")
     for x, rows in ((mc.tri_planes, 9), (mc.box_planes, 6)):
@@ -198,32 +207,35 @@ def _stream(dev):
 # --------------------------------------------------------------- A4
 def first_crossed_cluster(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
                           t_min: float, alive=None, t_cap=None, *,
-                          interpret: bool = False,
-                          pair: bool = False) -> torch.Tensor:
+                          interpret: bool = False, pair: bool = False):
     """[N] i32: the lowest id of a cluster whose slab test passes with an
     entry at most min(t_cap * 1.0001 + 1e-4, 1e37); k when none and on dead
-    lanes."""
-    global first_cluster_launches
-    if pair:
-        raise NotImplementedError(f"first_crossed_cluster(pair=True) {_LATER}")
+    lanes. pair=True returns (c1, c2): also the lowest such id above c1, k
+    when none."""
+    global first_cluster_launches, first_cluster_pair_launches
     rays = (ox, oy, oz, dx, dy, dz)
     alive, t_cap = _defaults(ox, alive, t_cap)
     _check(mc, rays, alive, t_cap)
     dev = ox.device
     if not _route(dev, interpret):
-        return first_crossed_cluster_plain(mc, *rays, t_min, alive, t_cap)
+        return first_crossed_cluster_plain(mc, *rays, t_min, alive, t_cap,
+                                           pair=pair)
     lib = cuda_build.load_library()
     n = ox.shape[0]
     out = torch.empty(n, dtype=torch.int32, device=dev)
+    out2 = torch.empty(n, dtype=torch.int32, device=dev) if pair else None
     with torch.cuda.device(dev):
         err = lib.qtrt_mesh_first_cluster(
             *(x.data_ptr() for x in rays), alive.data_ptr(),
             t_cap.data_ptr(), mc.box_planes.data_ptr(), mc.k,
             mc.box_planes.shape[1], float(t_min), n, out.data_ptr(),
-            _stream(dev))
+            out2.data_ptr() if pair else None, _stream(dev))
     if err != 0:
         raise RuntimeError(f"mesh first-cluster kernel launch failed: "
                            f"cudaError_t {err}")
+    if pair:
+        first_cluster_pair_launches += 1
+        return out, out2
     first_cluster_launches += 1
     return out
 
@@ -250,28 +262,49 @@ def _slab(box_planes, lo_c, hi_c, o, inv, t_min):
     return enter, exit_
 
 
+def crossing_mask(mc: MeshClusters, o, inv, cap, alive, c0: int, c_hi: int,
+                  t_min: float) -> torch.Tensor:
+    """[m, c_hi - c0] bool: the gate of A4, A7 and A3's first look at a
+    cluster, for rays (o, inv components [m], slacked cap, alive) against
+    clusters [c0, c_hi): exit > enter and enter <= cap on a live lane."""
+    enter, exit_ = _slab(mc.box_planes, c0, c_hi, o, inv, float(t_min))
+    return (exit_ > enter) & (enter <= cap[:, None]) & alive[:, None]
+
+
 def first_crossed_cluster_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
                                 t_min: float, alive, t_cap,
-                                slice_rays: int = PLAIN_SLICE_RAYS
-                                ) -> torch.Tensor:
-    """Plain PyTorch version of A4, in [slice_rays, clusters] blocks."""
+                                slice_rays: int = PLAIN_SLICE_RAYS,
+                                pair: bool = False):
+    """Plain PyTorch version of A4, in [slice_rays, clusters] blocks; with
+    pair=True (c1, c2), the second from another pass over the clusters
+    above c1."""
     n, k = ox.shape[0], mc.k
     out = torch.full((n,), k, dtype=torch.int32, device=ox.device)
+    out2 = out.clone() if pair else None
     cap_all = torch.clamp_max(t_cap * 1.0001 + 1e-4, 1e37)
     for lo in range(0, n, slice_rays):
         sl = slice(lo, min(n, lo + slice_rays))
         o = (ox[sl], oy[sl], oz[sl])
         inv = tuple(slab_inv(d) for d in (dx[sl], dy[sl], dz[sl]))
-        c1 = out[sl]
-        for c0 in range(0, k, PLAIN_SLICE_CLUSTERS):
-            c_hi = min(k, c0 + PLAIN_SLICE_CLUSTERS)
-            enter, exit_ = _slab(mc.box_planes, c0, c_hi, o, inv, float(t_min))
-            mask = (exit_ > enter) & (enter <= cap_all[sl][:, None]) \
-                & alive[sl][:, None]
-            cid = torch.arange(c0, c_hi, dtype=torch.int32, device=ox.device)
-            c1 = torch.minimum(c1, torch.where(mask, cid, k).amin(dim=1))
+
+        def lowest(above=None):
+            c = out[sl]
+            for c0 in range(0, k, PLAIN_SLICE_CLUSTERS):
+                c_hi = min(k, c0 + PLAIN_SLICE_CLUSTERS)
+                mask = crossing_mask(mc, o, inv, cap_all[sl], alive[sl], c0,
+                                     c_hi, t_min)
+                cid = torch.arange(c0, c_hi, dtype=torch.int32,
+                                   device=ox.device)
+                if above is not None:
+                    mask = mask & (cid[None, :] > above[:, None])
+                c = torch.minimum(c, torch.where(mask, cid, k).amin(dim=1))
+            return c
+
+        c1 = lowest()
+        if pair:
+            out2[sl] = lowest(above=c1)
         out[sl] = c1
-    return out
+    return (out, out2) if pair else out
 
 
 # --------------------------------------------------------------- A3
@@ -437,15 +470,53 @@ def _moller_trumbore(o, d, v0, e1, e2, t_min):
 
 
 # --------------------------------------------------------------- pipeline
+def _octant(dx, dy, dz):
+    return ((dx < 0).to(torch.int32) * 4 + (dy < 0).to(torch.int32) * 2
+            + (dz < 0).to(torch.int32))
+
+
+def crossing2_keys(mc: MeshClusters, ox, oy, oz, dx, dy, dz, alive, c1, c2):
+    """[N] i32 two-cluster sort key: (c1 * (k + 1) + c2) << 15 | octant << 12
+    | the origin's 12-bit Morton cell (16 cells per axis of the BVH root
+    box); dead rays get 2^31 - 1 and sort last."""
+    lo = mc.root_lo
+    ext = torch.clamp_min(mc.root_hi - lo, 1e-6)
+    cell = [torch.clamp(((c - lo[a]) / ext[a] * 16.0).to(torch.int32), 0, 15)
+            for a, c in enumerate((ox, oy, oz))]
+    m12 = ((_part1by2(cell[0]) << 2) | (_part1by2(cell[1]) << 1)
+           | _part1by2(cell[2])) & 0xFFF
+    key = (c1 * (mc.k + 1) + c2) * (1 << 15) + (_octant(dx, dy, dz) << 12) \
+        + m12
+    return torch.where(alive, key, 2 ** 31 - 1)
+
+
 def crossing_order(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
-                   alive, t_cap, *, interpret: bool = False) -> torch.Tensor:
+                   alive, t_cap, *, interpret: bool = False,
+                   sort_mode: str = "crossing") -> torch.Tensor:
     """The wavefront permutation mesh_search applies before A3: a stable
-    sort by c1 * 2^18 + sort_keys, with c1 from A4."""
+    sort by the key of sort_mode. "crossing": c1 * 2^18 + sort_keys, with c1
+    from A4; "crossing2": crossing2_keys, with (c1, c2) from A4's pair
+    variant (k <= 254, or the key leaves int32); "morton": sort_keys."""
+    if sort_mode not in SORT_MODES:
+        raise ValueError(f"sort_mode must be one of {SORT_MODES}, got "
+                         f"{sort_mode!r}")
     rays = (ox, oy, oz, dx, dy, dz)
-    key = sort_keys(*rays, alive, mc.root_lo, mc.root_hi)
-    c1 = first_crossed_cluster(mc, *rays, t_min, alive, t_cap,
-                               interpret=interpret)
-    return torch.sort(c1 * (1 << 18) + key, stable=True).indices
+    if sort_mode == "crossing2":
+        if mc.k > CROSSING2_MAX_K:
+            raise ValueError(
+                f"sort_mode='crossing2' packs two cluster ids into an int32 "
+                f"key and takes at most {CROSSING2_MAX_K} clusters, got "
+                f"{mc.k}")
+        c1, c2 = first_crossed_cluster(mc, *rays, t_min, alive, t_cap,
+                                       interpret=interpret, pair=True)
+        key = crossing2_keys(mc, *rays, alive, c1, c2)
+    else:
+        key = sort_keys(*rays, alive, mc.root_lo, mc.root_hi)
+        if sort_mode == "crossing":
+            c1 = first_crossed_cluster(mc, *rays, t_min, alive, t_cap,
+                                       interpret=interpret)
+            key = c1 * (1 << 18) + key
+    return torch.sort(key, stable=True).indices
 
 
 @torch.no_grad()
@@ -457,16 +528,18 @@ def mesh_search(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     """Closest hit over the mesh: (t [N] f32, BIG = miss; idx [N] i32, the
     BVH-order triangle id), strictly below t_cap (default BIG). With
     sort=True, n >= 2048 and more than one cluster, the wavefront is sorted
-    by the crossing key (A4) before A3 and the results are put back; live
-    lanes get the same result either way. Both outputs are detached.
+    by the key of sort_mode ("crossing", "crossing2" or "morton", see
+    crossing_order) before A3 and the results are put back; live lanes get
+    the same result either way. Both outputs are detached.
     exclude: optional [N] integer BVH-order triangle id that the lane never
     accepts (-1 for none); it is sorted with its ray."""
     if mt != "vpu":
         raise NotImplementedError(f"mt={mt!r} {_LATER}")
     if visit != "full":
         raise NotImplementedError(f"visit={visit!r} {_LATER}")
-    if sort_mode != "crossing":
-        raise NotImplementedError(f"sort_mode={sort_mode!r} {_LATER}")
+    if sort_mode not in SORT_MODES:
+        raise ValueError(f"sort_mode must be one of {SORT_MODES}, got "
+                         f"{sort_mode!r}")
     rays = (ox, oy, oz, dx, dy, dz)
     alive, t_cap = _defaults(ox, alive, t_cap)
     _check(mc, rays, alive, t_cap)
@@ -475,7 +548,8 @@ def mesh_search(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     if not (sort and n >= SORT_MIN_RAYS and mc.k > 1):
         return mesh_hits(mc, *rays, t_min, alive, t_cap, interpret=interpret,
                          exclude=exclude)
-    perm = crossing_order(mc, *rays, t_min, alive, t_cap, interpret=interpret)
+    perm = crossing_order(mc, *rays, t_min, alive, t_cap, interpret=interpret,
+                          sort_mode=sort_mode)
     g = lambda x: x[perm]
     # The exclude id belongs to its ray: it takes the same permutation.
     t_s, idx_s = mesh_hits(mc, *map(g, rays), t_min, g(alive), g(t_cap),

@@ -2,7 +2,8 @@
 
 ``csrc/*.cu`` have a plain C interface (no PyTorch headers), so ``nvcc``
 builds them in seconds: one ``nvcc -c`` per source, all started together,
-then one link into a shared library. The library lands in
+then one link into a shared library. ``csrc/*.cuh`` are the headers they
+share. The library lands in
 ``qt_raytracer_tpu_torch/_build`` (listed in .gitignore), named after a hash
 of the sources and flags, so an edited source or flag builds anew and an
 unchanged one is reused. Nothing is built at import. Every failure raises: a
@@ -62,7 +63,7 @@ def _sources() -> list[pathlib.Path]:
 def library_path() -> pathlib.Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    for src in (*_sources(), *sorted(CSRC_DIR.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libqtrt_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -147,12 +148,23 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.qtrt_sphere_search_clustered.argtypes = ([p] * 9 + [i, i, i, f, i]
                                                  + [p] * 3)
     # qtrt_mesh_first_cluster(ox, oy, oz, dx, dy, dz, alive, t_cap, boxes,
-    #                         k, k_stride, t_min, n, out, stream)
+    #                         k, k_stride, t_min, n, out, out2, stream)
+    # out2 is a device pointer, or None for the first id alone.
     lib.qtrt_mesh_first_cluster.restype = i
-    lib.qtrt_mesh_first_cluster.argtypes = [p] * 9 + [i, i, f, i] + [p] * 2
+    lib.qtrt_mesh_first_cluster.argtypes = [p] * 9 + [i, i, f, i] + [p] * 3
     # qtrt_mesh_search(ox, oy, oz, dx, dy, dz, alive, t_cap, excl, tris,
     #                  p_stride, boxes, k, k_stride, g, t_min, n, t_out,
     #                  idx_out, stream)
     lib.qtrt_mesh_search.restype = i
     lib.qtrt_mesh_search.argtypes = ([p] * 10 + [i, p, i, i, i, f, i]
                                      + [p] * 3)
+    # qtrt_mesh_crossing_lists(ox, oy, oz, dx, dy, dz, alive, t_cap, boxes,
+    #                          k, k_stride, t_min, n, c_max, lists, ncross,
+    #                          stream)
+    lib.qtrt_mesh_crossing_lists.restype = i
+    lib.qtrt_mesh_crossing_lists.argtypes = ([p] * 9 + [i, i, f, i, i]
+                                             + [p] * 3)
+    # qtrt_mesh_pairs(ox, oy, oz, dx, dy, dz, t_cap, ray_buf, gmap, tris,
+    #                 p_stride, g, t_min, n, b, t_out, idx_out, stream)
+    lib.qtrt_mesh_pairs.restype = i
+    lib.qtrt_mesh_pairs.argtypes = [p] * 10 + [i, i, f, i, i] + [p] * 3

@@ -510,3 +510,164 @@ def test_edge_aware_gradients_on_card_match_cpu(card, name, intersector):
         assert bool(torch.isfinite(a).all())
         assert torch.allclose(a, b, rtol=2e-3,
                               atol=2e-3 * float(b.abs().max()))
+
+
+# ------------------- pair-wavefront mesh search (A7, A8) and the A4 pair
+def _list_widths(k: int):
+    return sorted({1, min(6, k), k})
+
+
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("n", [1, 127, 4097])
+@pytest.mark.parametrize("name", ["terrain48", "cornell_mesh"])
+def test_crossing_kernels_match_plain_versions(card, mesh_worlds, name, n,
+                                               capped):
+    # A7 at list widths 1, 6 and k, and A4's second output: integers,
+    # bitwise; dead lanes hold k and a count of 0.
+    from qt_raytracer_tpu_torch.kernels import mesh_pairs as mp
+    mc = mesh_worlds[name]
+    rays, alive, cap = _mesh_rays(mc, n, seed=n + 17, device=card)
+    cap = cap if capped else None
+    before = (mi.first_cluster_launches, mi.first_cluster_pair_launches,
+              mp.crossing_lists_launches)
+    c1, c2 = mi.first_crossed_cluster(mc, *rays, T_MIN, alive, cap, pair=True)
+    p1, p2 = mi.first_crossed_cluster(mc, *rays, T_MIN, alive, cap, pair=True,
+                                      interpret=True)
+    assert (mi.first_cluster_launches, mi.first_cluster_pair_launches) == \
+        (before[0], before[1] + 1)
+    assert torch.equal(c1.cpu(), p1.cpu()) and torch.equal(c2.cpu(), p2.cpu())
+    assert torch.equal(c1, mi.first_crossed_cluster(mc, *rays, T_MIN, alive,
+                                                    cap))
+    dead = ~alive.cpu()
+    assert torch.all(c2.cpu()[dead] == mc.k)
+    for j, c_max in enumerate(_list_widths(mc.k)):
+        lists, ncross = mp.crossing_lists(mc, *rays, T_MIN, alive, cap, c_max)
+        assert mp.crossing_lists_launches == before[2] + j + 1
+        pl, pn = mp.crossing_lists(mc, *rays, T_MIN, alive, cap, c_max,
+                                   interpret=True)
+        assert lists.shape == (n, c_max) and lists.dtype == torch.int32
+        assert torch.equal(lists.cpu(), pl.cpu())
+        assert torch.equal(ncross.cpu(), pn.cpu())
+        assert torch.equal(lists[:, 0], c1)
+        if c_max > 1:
+            assert torch.equal(lists[:, 1], c2)
+        assert torch.all(lists.cpu()[dead] == mc.k)
+        assert torch.all(ncross.cpu()[dead] == 0)
+    assert mp.crossing_lists_launches == before[2] + len(_list_widths(mc.k))
+
+
+@pytest.mark.parametrize("n", [1, 127, 4097])
+@pytest.mark.parametrize("name", ["terrain48", "cornell_mesh"])
+def test_pair_kernel_matches_plain_version(card, mesh_worlds, name, n):
+    # A8 on the slots the pipeline builds from A7's lists: bitwise per pair,
+    # (BIG, 0) on padding slots and in tiles without a valid pair.
+    from qt_raytracer_tpu_torch.kernels import mesh_pairs as mp
+    mc = mesh_worlds[name]
+    rays, alive, cap = _mesh_rays(mc, n, seed=n + 19, device=card)
+    for c_max in _list_widths(mc.k):
+        lists, _ = mp.crossing_lists(mc, *rays, T_MIN, alive, cap, c_max)
+        ray_buf, gmap = mp.pair_slots(lists, mc.k)
+        valid = ray_buf >= 0
+        before = mp.pair_hits_launches
+        t, idx = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, T_MIN)
+        assert mp.pair_hits_launches == before + 1
+        pt, pidx = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, T_MIN,
+                                interpret=True)
+        assert mp.pair_hits_launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(t.cpu(), pt.cpu())
+        assert torch.equal(idx.cpu(), pidx.cpu())
+        assert torch.all(t[~valid] == fh.BIG) and torch.all(idx[~valid] == 0)
+        assert bool((t[valid] < fh.BIG).any()) or n == 1
+
+
+@pytest.mark.parametrize("budget", [0, 1024])
+@pytest.mark.parametrize("n", [1, 127, 4097])
+@pytest.mark.parametrize("name", ["terrain48", "cornell_mesh"])
+def test_pair_search_equals_clustered_search(card, mesh_worlds, name, n,
+                                             budget):
+    # The whole pipeline on the card, kernels against the clustered search
+    # and against its own plain versions: bitwise on live lanes, (BIG, 0)
+    # on dead ones; pair_budget=1024 puts most of 4,097 rays on the
+    # overflow fallback.
+    from qt_raytracer_tpu_torch.kernels import mesh_pairs as mp
+    mc = mesh_worlds[name]
+    rays, alive, cap = _mesh_rays(mc, n, seed=n + 23, device=card)
+    ref = mi.mesh_search(mc, *rays, T_MIN, alive=alive, t_cap=cap)
+    got = mp.mesh_search_pairs(mc, *rays, T_MIN, alive, cap,
+                               pair_budget=budget)
+    plain = mp.mesh_search_pairs(mc, *rays, T_MIN, alive, cap,
+                                 pair_budget=budget, interpret=True)
+    live = alive.cpu()
+    for a, b, c in zip(got, ref, plain):
+        assert torch.equal(a.cpu()[live], b.cpu()[live])
+        assert torch.equal(a.cpu(), c.cpu())
+    assert torch.all(got[0].cpu()[~live] == fh.BIG)
+    assert torch.all(got[1].cpu()[~live] == 0)
+
+
+@pytest.mark.parametrize("name", ["terrain48", "cornell_mesh"])
+def test_pair_search_all_dead(card, mesh_worlds, name):
+    from qt_raytracer_tpu_torch.kernels import mesh_pairs as mp
+    mc = mesh_worlds[name]
+    rays, alive, cap = _mesh_rays(mc, 4097, seed=29, device=card)
+    dead = torch.zeros_like(alive)
+    t, idx = mp.mesh_search_pairs(mc, *rays, T_MIN, dead, cap)
+    assert torch.all(t.cpu() == fh.BIG) and torch.all(idx.cpu() == 0)
+    lists, ncross = mp.crossing_lists(mc, *rays, T_MIN, dead, cap,
+                                      min(6, mc.k))
+    assert torch.all(lists.cpu() == mc.k) and torch.all(ncross.cpu() == 0)
+    c1, c2 = mi.first_crossed_cluster(mc, *rays, T_MIN, dead, cap, pair=True)
+    assert torch.all(c1.cpu() == mc.k) and torch.all(c2.cpu() == mc.k)
+
+
+@pytest.mark.parametrize("sort_mode", ["crossing2", "morton"])
+def test_sort_modes_on_card_keep_live_lanes(card, mesh_worlds, sort_mode):
+    mc = mesh_worlds["terrain48"]
+    rays, alive, cap = _mesh_rays(mc, 4097, seed=31, device=card)
+    ref = mi.mesh_search(mc, *rays, T_MIN, alive=alive, t_cap=cap)
+    before = (mi.first_cluster_launches, mi.first_cluster_pair_launches)
+    got = mi.mesh_search(mc, *rays, T_MIN, alive=alive, t_cap=cap,
+                         sort_mode=sort_mode)
+    pair = sort_mode == "crossing2"
+    assert (mi.first_cluster_launches, mi.first_cluster_pair_launches) == \
+        (before[0], before[1] + pair)
+    for a, b in zip(got, ref):
+        assert torch.equal(a[alive], b[alive])
+
+
+@pytest.mark.parametrize("option", [
+    dict(mesh_kernel="pairs"), dict(mesh_kernel="hybrid"),
+    dict(mesh_sort0=False), dict(mesh_compact=True),
+    dict(mesh_sort_mode="crossing2"), dict(mesh_kernel="pairs",
+                                           mesh_pair_c=1)])
+def test_world_render_options_on_card_are_bit_identical(card, option):
+    # Every mesh-search option gives the default frame bit for bit, and its
+    # launches are the ones its policy names: 2 samples x 5 bounces of one
+    # 2,304-ray chunk.
+    import dataclasses
+    from qt_raytracer_tpu_torch.kernels import mesh_pairs as mp
+    world = meshes.terrain_world(48, 48, device="cpu").to(card)
+    cfg = RenderConfig(width=48, height=48, spp=2, max_depth=5, rng="hash",
+                       pixel_chunk=-1)
+    cam = meshes.terrain_camera(cfg.aspect_ratio, device="cpu").to(card)
+    want = render_linear(world, cam, cfg, 5)
+    mi.launches = mi.first_cluster_launches = 0
+    mi.first_cluster_pair_launches = 0
+    mp.crossing_lists_launches = mp.pair_hits_launches = 0
+    got = render_linear(world, cam, dataclasses.replace(cfg, **option), 5)
+    assert torch.equal(got, want)
+    counts = (mi.launches, mi.first_cluster_launches,
+              mi.first_cluster_pair_launches, mp.crossing_lists_launches,
+              mp.pair_hits_launches)
+    kernel = option.get("mesh_kernel", "clustered")
+    if kernel == "pairs":
+        assert counts == (10, 10, 0, 10, 10)
+    elif kernel == "hybrid":
+        assert counts == (10, 10, 0, 8, 8)
+    elif option.get("mesh_sort0") is False:
+        assert counts == (10, 8, 0, 0, 0)
+    elif option.get("mesh_sort_mode") == "crossing2":
+        assert counts == (10, 0, 10, 0, 0)
+    else:
+        assert counts == (10, 10, 0, 0, 0)

@@ -25,6 +25,8 @@ def test_import_loads_no_jax():
         "import qt_raytracer_tpu_torch.utils.convert\n"
         "import qt_raytracer_tpu_torch.runtime.cuda_build\n"
         "import qt_raytracer_tpu_torch.kernels.mesh_intersect\n"
+        "import qt_raytracer_tpu_torch.kernels.mesh_pairs\n"
+        "import qt_raytracer_tpu_torch.core.integrator_flat\n"
         "import qt_raytracer_tpu_torch.core.world\n"
         "import qt_raytracer_tpu_torch.accel.mesh\n"
         "import qt_raytracer_tpu_torch.models.meshes\n"
@@ -108,9 +110,41 @@ def test_library_is_named_after_sources_and_flags():
     assert path.parent == cuda_build.BUILD_DIR
     assert path.name.startswith("libqtrt_torch_kernels_") and path.suffix == ".so"
     assert path == cuda_build.library_path()
-    assert (cuda_build.CSRC_DIR / "fused_hit.cu").is_file()
+    for name in ("fused_hit.cu", "mesh_intersect.cu", "mesh_pairs.cu",
+                 "mesh_common.cuh"):
+        assert (cuda_build.CSRC_DIR / name).is_file(), name
     assert "--use_fast_math" not in cuda_build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+
+
+def test_kernel_sources_are_package_data_and_hashed(tmp_path, monkeypatch):
+    # Every file under csrc/ ships with the package (pyproject.toml's
+    # package-data patterns) and names the library: a shared header that
+    # changed must build anew. No source includes a PyTorch header.
+    import fnmatch
+    import re
+    import shutil
+    text = (REPO / "pyproject.toml").read_text()
+    entry = re.search(r"^qt_raytracer_tpu_torch\s*=\s*\[(.*?)\]", text,
+                      re.M | re.S).group(1)
+    patterns = re.findall(r'"([^"]+)"', entry)
+    files = sorted(f for f in cuda_build.CSRC_DIR.iterdir() if f.is_file())
+    assert {f.suffix for f in files} == {".cu", ".cuh"}
+    for f in files:
+        assert any(fnmatch.fnmatch(f"csrc/{f.name}", pat)
+                   for pat in patterns), f.name
+        includes = re.findall(r"^#include\s+[<\"]([^>\"]+)", f.read_text(),
+                              re.M)
+        assert includes and all(
+            inc == "cuda_runtime.h" or inc.endswith(".cuh")
+            for inc in includes), (f.name, includes)
+    copy = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC_DIR, copy)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", copy)
+    before = cuda_build.library_path()
+    with open(copy / "mesh_common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert cuda_build.library_path() != before
 
 
 def _edge_cfg():
@@ -184,10 +218,11 @@ def _keys4():
     return torch.zeros(4, dtype=torch.int64)
 
 
-def _raises_compact():
+def _runs_compact():
     from qt_raytracer_tpu_torch.core.integrator_flat import trace_flat
-    trace_flat(scenes.three_sphere_scene(device="cpu"), *_rays4(), _keys4(),
-               1, compact=True)
+    scene = scenes.three_sphere_scene(device="cpu")
+    assert torch.equal(trace_flat(scene, *_rays4(), _keys4(), 2, compact=True),
+                       trace_flat(scene, *_rays4(), _keys4(), 2))
 
 
 def _mesh_clusters():
@@ -201,9 +236,10 @@ def _flat4():
     return [torch.zeros(4)] * 3 + [torch.ones(4)] * 3
 
 
-def _raises_pair_first_cluster():
+def _runs_pair_first_cluster():
     mi, mc = _mesh_clusters()
-    mi.first_crossed_cluster(mc, *_flat4(), 1e-3, pair=True)
+    c1, c2 = mi.first_crossed_cluster(mc, *_flat4(), 1e-3, pair=True)
+    assert c1.shape == c2.shape == (4,)
 
 
 def _raises_rowgate():
@@ -211,11 +247,36 @@ def _raises_rowgate():
     mi.mesh_search(mc, *_flat4(), 1e-3, visit="rowgate")
 
 
-def _raises_pairs_kernel():
+def _raises_subtile():
+    mi, mc = _mesh_clusters()
+    mi.mesh_search(mc, *_flat4(), 1e-3, visit="subtile")
+
+
+def _raises_sliced():
+    mi, mc = _mesh_clusters()
+    mi.mesh_search(mc, *_flat4(), 1e-3, visit="sliced")
+
+
+def _raises_mxu():
+    mi, mc = _mesh_clusters()
+    mi.mesh_search(mc, *_flat4(), 1e-3, mt="mxu")
+
+
+def _runs_pairs_kernel():
     from qt_raytracer_tpu_torch.core.integrator_flat import trace_flat_world
     from qt_raytracer_tpu_torch.models import meshes
     world = meshes.icosphere_world(1, builder="numpy", device="cpu")
-    trace_flat_world(world, *_rays4(), _keys4(), 1, mesh_kernel="pairs")
+    want = trace_flat_world(world, *_rays4(), _keys4(), 2)
+    for kernel in ("pairs", "hybrid"):
+        assert torch.equal(trace_flat_world(world, *_rays4(), _keys4(), 2,
+                                            mesh_kernel=kernel), want)
+
+
+def _runs_sort_modes():
+    mi, mc = _mesh_clusters()
+    for mode in ("crossing2", "morton"):
+        t, idx = mi.mesh_search(mc, *_flat4(), 1e-3, sort_mode=mode)
+        assert t.shape == idx.shape == (4,)
 
 
 # Each case names a feature that is still not ported, and the ROADMAP item
@@ -223,10 +284,10 @@ def _raises_pairs_kernel():
 @pytest.mark.parametrize("run,item", [
     (_raises_xla, "item 13"),
     (_raises_sharded_mesh, "item 11"),
-    (_raises_compact, "Queue B"),
-    (_raises_pair_first_cluster, "Queue B"),
     (_raises_rowgate, "Queue B"),
-    (_raises_pairs_kernel, "item 12"),
+    (_raises_subtile, "Queue B"),
+    (_raises_sliced, "Queue B"),
+    (_raises_mxu, "Queue B"),
 ])
 def test_unported_features_raise(run, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -235,7 +296,9 @@ def test_unported_features_raise(run, item):
 
 # What raised NotImplementedError until it was ported.
 @pytest.mark.parametrize("run", [_runs_edge_aware, _runs_a5_exclude,
-                                 _runs_a6_clustered, _runs_exclude_prim0])
+                                 _runs_a6_clustered, _runs_exclude_prim0,
+                                 _runs_compact, _runs_pair_first_cluster,
+                                 _runs_pairs_kernel, _runs_sort_modes])
 def test_ported_features_run(run):
     run()
 

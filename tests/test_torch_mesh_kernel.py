@@ -186,14 +186,21 @@ def test_plain_blocks_do_not_change_results(case):
 
 def test_wrappers_refuse_what_is_not_ported(case):
     mc, rays = case["mc"], case["t_rays"]
+    # Still to port: the other Moller-Trumbore engine and visit modes.
     for kw, what in ((dict(mt="mxu"), "mxu"), (dict(visit="rowgate"), "rowgate"),
                      (dict(visit="subtile"), "subtile"),
-                     (dict(sort_mode="crossing2"), "crossing2"),
-                     (dict(sort_mode="morton"), "morton")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                     (dict(visit="sliced"), "sliced")):
+        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
             tmi.mesh_search(mc, *rays, T_MIN, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmi.first_crossed_cluster(mc, *rays, T_MIN, pair=True)
+        assert what in str(err.value)
+    # Ported since: the sort keys and A4's second output run.
+    for mode in ("crossing2", "morton"):
+        t, idx = tmi.mesh_search(mc, *rays, T_MIN, sort_mode=mode)
+        assert t.shape == idx.shape == (N,)
+    c1, c2 = tmi.first_crossed_cluster(mc, *rays, T_MIN, pair=True)
+    assert c1.shape == c2.shape == (N,)
+    with pytest.raises(ValueError, match="sort_mode"):
+        tmi.mesh_search(mc, *rays, T_MIN, sort_mode="fused")
     with pytest.raises(ValueError):       # the exclude operand is integer
         tmi.mesh_search(mc, *rays, T_MIN, exclude=torch.zeros(N))
     with pytest.raises(ValueError):

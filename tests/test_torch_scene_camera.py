@@ -101,11 +101,13 @@ def test_render_config_clamps_match(kw):
     j = jconfig.RenderConfig(**kw)
     t = tconfig.RenderConfig(**kw)
     want, got = dataclasses.asdict(j), dataclasses.asdict(t)
-    # The port's own fields: the edge options that the JAX package reads
-    # from the environment, at its defaults.
+    # The port's own fields: the edge and mesh-search options that the JAX
+    # package reads from the environment, at its defaults.
     own = {k: got.pop(k) for k in sorted(set(got) - set(want))}
     assert own == {"edge_kernel_order": 1, "edge_kernel_px": 1.0,
-                   "edge_shadow": True}
+                   "edge_shadow": True, "mesh_compact": False,
+                   "mesh_kernel": "clustered", "mesh_pair_c": 6,
+                   "mesh_sort0": True, "mesh_sort_mode": "crossing"}
     assert got == want
     assert t.num_pixels == j.num_pixels and t.aspect_ratio == j.aspect_ratio
 
@@ -143,19 +145,24 @@ def test_pixel_grid_matches():
 
 
 def test_mesh_scene_not_ported():
-    # Mesh scenes are ported: a World and its camera. What of the mesh path
-    # is not ported yet (compaction, the pair-wavefront kernels, non-default
-    # mesh-kernel options) raises, naming ROADMAP.
+    # Mesh scenes are ported: a World and its camera, with compaction and
+    # the pair-wavefront kernels. What of the mesh path is not ported yet
+    # (the other visit modes and Moller-Trumbore engine) raises, naming
+    # ROADMAP.
     world, cam = tscenes.get_scene("cornell_mesh", 16 / 9, device="cpu")
     assert isinstance(world, World) and world.mesh is not None
     assert world.mesh.num_triangles == 36 and world.mesh.num_lights == 2
     rays = torch.zeros((4, 3)), torch.ones((4, 3))
     keys = torch.zeros(4, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trace_flat_world(world, *rays, keys, 1, compact=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trace_flat_world(world, *rays, keys, 1, mesh_kernel="pairs")
+    plain = trace_flat_world(world, *rays, keys, 1)
+    assert torch.equal(trace_flat_world(world, *rays, keys, 1, compact=True),
+                       plain)
+    assert torch.equal(trace_flat_world(world, *rays, keys, 1,
+                                        mesh_kernel="pairs"), plain)
     mc = prep_mesh_clusters(world.mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mesh_search(mc, *rays[0].T.contiguous(), *rays[1].T.contiguous(),
+                    1e-3, mt="mxu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mesh_search(mc, *rays[0].T.contiguous(), *rays[1].T.contiguous(),
                     1e-3, visit="rowgate")

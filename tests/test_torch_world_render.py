@@ -160,7 +160,10 @@ def test_trace_flat_world_is_forward_only():
     assert out.requires_grad and bool(torch.isfinite(out).all())
     with pytest.raises(ValueError, match="forward-only"):
         out.sum().backward()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_trace_world(tw, o.detach(), d, keys, 2, compact=True)
+    # The compacted trace is forward-only too, and the same radiance.
+    packed = t_trace_world(grad_mesh, o.detach(), d, keys, 2, compact=True)
+    assert torch.equal(packed, out)
+    with pytest.raises(ValueError, match="forward-only"):
+        packed.sum().backward()
     with pytest.raises(TypeError):
         t_trace_world(tw.spheres, o.detach(), d, keys, 2)
