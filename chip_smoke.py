@@ -15,7 +15,11 @@ counts set to 0 just before it and read just after:
     search once per chunk and bounce); then the same frame with the
     pair-wavefront mesh search (``mesh_kernel="hybrid"`` and ``"pairs"``:
     crossing lists and pair hits, with the clustered search as the overflow
-    fallback) and with ``mesh_compact=True``, each bit-identical to it;
+    fallback), with ``mesh_compact=True``, the row-gated mesh search
+    (``mesh_visit="rowgate"``) and clusters of one 128-triangle row
+    (``mesh_cluster_rows=1``), each bit-identical to it, and with the
+    bilinear-form Moller-Trumbore (``mesh_mt="mxu"``) within the flip
+    budget of it;
   - the mesh-world path with next-event estimation: the true Cornell box
     (BASELINE config 2), 512x512, 64 spp, depth 10 (fused hit, shadow-mode
     fused hit and two mesh searches per chunk, sample batch and bounce);
@@ -34,6 +38,12 @@ counts set to 0 just before it and read just after:
     ``mesh_kernel="pairs"``, whose loss equals the clustered step's (its
     crossing-list and pair kernels held against their plain versions on
     one of its wavefronts: one cluster, lists of width 1).
+
+Before the frames, the mesh search's row-gated and bilinear-form instances
+are held against their plain versions and against the default instance on
+the terrain's sorted wavefronts, with and without the exclude operand; the
+default and row-gated instances are timed at clusters of 1, 2 and 4 rows on
+a bounce wavefront.
 
 Each frame is checked for finite values and against the same frame with the
 plain versions (at a reduced size where the plain mesh search is too slow),
@@ -82,15 +92,18 @@ KERNELS = ("fused_hit", "fused_hit_shadow", "mesh_first_cluster",
            "mesh_search", "sphere_search", "sphere_search_clustered",
            "fused_hit[exclude]", "sphere_search[exclude]",
            "mesh_search[exclude]", "mesh_first_cluster[pair]",
-           "mesh_crossing_lists", "mesh_pairs")
+           "mesh_crossing_lists", "mesh_pairs", "mesh_search[rowgate]",
+           "mesh_search[mxu]")
 PAIR_C = 6                 # crossing-list width of the pair search
-WIDE_PAIR_C = 24           # a wider list, timed once beside it
+CLUSTER_ROWS = (1, 2, 4)   # cluster sizes timed on the bounce wavefront
 PEAK_FP32 = 67e12          # FLOP/s outside the tensor cores (H100 SXM)
 PEAK_BYTES = 3.35e12       # bytes/s of HBM3
 SWEEP_FLOPS = 25           # per (ray, sphere) pair of a sphere sweep
 REFINE_FLOPS = 100         # per ray: A1's refinement and geometry
 SLAB_FLOPS = 20            # per (ray, box) slab test
 MT_FLOPS = 45              # per (ray, triangle) Moller-Trumbore and accept
+MXU_FLOPS = 45             # the same, bilinear form (mesh_common.cuh count)
+MXU_TRI_BYTES = 76         # 19 f32 factors per triangle
 A6_SPHERES = 1061          # the clustered scene: 1,152 slots, 18 chunks
 # BASELINE config 5 (benchmarks/run_baselines.py:196-386).
 C5 = dict(width=1920, height=1080, spp=2, max_depth=4, rng="hash", nee=True,
@@ -111,8 +124,11 @@ GRAD_RTOL_PLAIN = 1e-4   # x max|g|: atomic-add order of the gather backward
 GRAD_RTOL_CPU = 2e-3     # x max|g|: the render flip budget
 
 
+START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - START:.1f} s)", flush=True)
 
 
 def require_card() -> torch.device:
@@ -239,7 +255,8 @@ def reset_counts(fh, mi) -> None:
     fh.launches = fh.shadow_launches = 0
     fh.exclude_launches = fh.shadow_exclude_launches = 0
     mi.launches = mi.first_cluster_launches = mi.exclude_launches = 0
-    mi.first_cluster_pair_launches = 0
+    mi.first_cluster_pair_launches = mi.rowgate_launches = 0
+    mi.mxu_launches = 0
     si.launches = si.clustered_launches = si.exclude_launches = 0
     mp.crossing_lists_launches = mp.pair_hits_launches = 0
 
@@ -255,7 +272,9 @@ def read_counts(fh, mi) -> dict:
             "mesh_search[exclude]": mi.exclude_launches,
             "mesh_first_cluster[pair]": mi.first_cluster_pair_launches,
             "mesh_crossing_lists": mp.crossing_lists_launches,
-            "mesh_pairs": mp.pair_hits_launches}
+            "mesh_pairs": mp.pair_hits_launches,
+            "mesh_search[rowgate]": mi.rowgate_launches,
+            "mesh_search[mxu]": mi.mxu_launches}
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -506,6 +525,110 @@ def pair_step_wavefront(fh, mi, mp, world, rays, t_min) -> None:
           f"{json.dumps(st)}", flush=True)
 
 
+def a3_bound(mc, body: str, n: int, live: int, visits: int, rows: int = 0,
+             exclude: bool = False) -> dict:
+    """Bound of A3 (body "a3"), its row-gated ("rowgate") or bilinear-form
+    ("mxu") instance on n rays (live of them alive): 20 operations per
+    (live ray, cluster) slab test, 20 per row slab test of a visited
+    cluster (the row gate), 45 per (ray, triangle) of a visited cluster, or
+    of a row that passes the row gate; visits and rows as the gated plain
+    sweep counts them. Bytes: the rays (and the exclude ids) in, (t, idx)
+    out, the triangle planes (19 factors a triangle for "mxu"), the boxes
+    and the row boxes."""
+    g = mc.tris_per_cluster
+    flops = live * mc.k * SLAB_FLOPS
+    nbytes = n * (37 + 4 * exclude) + mc.box_planes.numel() * 4
+    if body == "rowgate":
+        flops += rows * 128 * MT_FLOPS + visits * (g // 128) * SLAB_FLOPS
+        nbytes += mc.tri_planes.numel() * 4 + mc.row_boxes.numel() * 4
+    elif body == "mxu":
+        flops += visits * g * MXU_FLOPS
+        nbytes += mc.k * g * MXU_TRI_BYTES
+    else:
+        flops += visits * g * MT_FLOPS
+        nbytes += mc.tri_planes.numel() * 4
+    return {"visits_per_live_ray": visits / max(live, 1),
+            **({"rows_per_live_ray": rows / max(live, 1)}
+               if body == "rowgate" else {}),
+            **bound(flops, nbytes)}
+
+
+def compare_body(mi, mc, body, r_sub, al_sub, cap_sub, t_min, a3_sub,
+                 exclude=None, time_plain=False) -> dict:
+    """A3's row-gated ("rowgate") or bilinear-form ("mxu") instance against
+    its plain version on a sorted subset: bitwise; the row gate also
+    bitwise equal to A3 (a3_sub), the bilinear form in winner ids on at
+    least IDX_AGREE_MIN of the live lanes. Its ms (and the plain version's
+    with time_plain), and the bound."""
+    kw = dict(visit="rowgate") if body == "rowgate" else dict(mt="mxu")
+    run = lambda **more: mi.mesh_hits(mc, *r_sub, t_min, al_sub, cap_sub,
+                                      exclude=exclude, **kw, **more)
+    kern = run()
+    # The row gate's plain version is the gated sweep that counts its work;
+    # the bilinear form's is the ungated sweep, which the gated one equals.
+    gated = mi.mesh_search_gated_plain(mc, *r_sub, t_min, al_sub, cap_sub,
+                                       exclude=exclude, **kw)
+    plain = gated[:2] if body == "rowgate" else run(interpret=True)
+    if not all(torch.equal(a, b) for a, b in zip(gated[:2], plain)):
+        raise AssertionError(f"the gated plain sweep ({body}) differs from "
+                             f"the plain version")
+    torch.cuda.synchronize()
+    st = compare_t_idx(mi.BIG, kern, plain, al_sub)
+    if not st["bitwise"]:
+        raise AssertionError(f"A3 {body} is not bitwise equal to its plain "
+                             f"version: {st}")
+    if body == "rowgate":
+        if not all(torch.equal(a[al_sub], b[al_sub])
+                   for a, b in zip(kern, a3_sub)):
+            raise AssertionError("A3 rowgate is not bitwise equal to A3")
+        st["bitwise_vs_a3"] = True
+    else:
+        st["idx_agree_vs_a3"] = float((kern[1] == a3_sub[1])[al_sub].float()
+                                      .mean())
+        if st["idx_agree_vs_a3"] < IDX_AGREE_MIN:
+            raise AssertionError(f"A3 mxu disagrees with A3: {st}")
+    if exclude is not None:
+        st.update(check_excluded(kern[0], kern[1], exclude, al_sub, mi.BIG,
+                                 f"A3 {body}"))
+    st.update(a3_bound(mc, body, r_sub[0].shape[0], int(al_sub.sum()),
+                       *gated[2:], exclude=exclude is not None),
+              subset_rays=int(r_sub[0].shape[0]), ms=cuda_ms(run))
+    if time_plain:
+        st["plain_ms"] = cuda_ms(lambda: run(interpret=True), 1)
+    return st
+
+
+def cluster_sizes(mi, world, rays, alive, cap, t_min, ref) -> dict:
+    """A3 and its row-gated instance on one wavefront at each cluster size
+    of CLUSTER_ROWS, sorted by each size's own crossing key: bitwise equal
+    on live lanes to ref (the default search); each kernel's ms on the
+    sorted rays, and its bound from the gated plain sweep's counts over the
+    whole wavefront (the row gate leaves the cluster visits as they are)."""
+    out = {}
+    for rows in CLUSTER_ROWS:
+        mc = mi.prep_mesh_clusters(world.mesh, cluster_rows=rows)
+        perm = mi.crossing_order(mc, *rays, t_min, alive, cap)
+        srays = tuple(x[perm] for x in rays)
+        salive, scap = alive[perm], cap[perm]
+        st = {"k": mc.k, "tris_per_cluster": mc.tris_per_cluster}
+        _, _, visits, row_visits = mi.mesh_search_gated_plain(
+            mc, *srays, t_min, salive, scap, visit="rowgate")
+        for body, kw in (("a3", {}), ("rowgate", dict(visit="rowgate"))):
+            got = mi.mesh_search(mc, *rays, t_min, alive=alive, t_cap=cap,
+                                 **kw)
+            if not all(torch.equal(a[alive], b[alive])
+                       for a, b in zip(got, ref)):
+                raise AssertionError(f"A3 {body} with {rows}-row clusters "
+                                     f"differs from the default search")
+            st[body] = {"ms": cuda_ms(lambda: mi.mesh_hits(
+                mc, *srays, t_min, salive, scap, **kw)),
+                **a3_bound(mc, body, rays[0].shape[0], int(alive.sum()),
+                           visits, row_visits)}
+        out[f"cluster_rows_{rows}"] = st
+        print(f"cluster rows {rows}: {json.dumps(st)}", flush=True)
+    return out
+
+
 def main() -> None:
     dev = require_card()
 
@@ -666,7 +789,8 @@ def main() -> None:
     world, camera = scenes.get_scene("terrain", cfg_t.aspect_ratio)
     print(f"terrain: {world.mesh.num_triangles} triangles, BVH builder "
           f"{mesh_mod.last_builder}", flush=True)
-    wt = itg.prep_world(world)
+    # With the row boxes and the factor planes of A3's other instances.
+    wt = itg.prep_world(world, mt="mxu")
     mc = wt.mesh
     print(f"terrain clusters: k = {mc.k}, {mc.tris_per_cluster} triangles "
           f"each", flush=True)
@@ -680,6 +804,8 @@ def main() -> None:
     s0c2 = primary(camera, cfg_t, index=2)
     s2 = itg.bounce_world(wt, itg.bounce_world(wt, s0c2, 0, t_min), 1, t_min)
     a3, a4 = {}, {}
+    a3b = {"rowgate": {}, "mxu": {}}     # A3's other instances
+    body_kw = {"rowgate": dict(visit="rowgate"), "mxu": dict(mt="mxu")}
     wavefronts = {"primary_chunk0": s0, "primary_chunk2": s0c2,
                   "bounce2_chunk2": s2}
     for name, s in wavefronts.items():
@@ -743,15 +869,24 @@ def main() -> None:
                                                               plain_sub[1])):
             raise AssertionError("the gated plain sweep differs from the "
                                  "ungated one")
-        live_sub = int(al_sub.sum())
-        st["visits_per_live_ray"] = visits / max(live_sub, 1)
+        st.update(a3_bound(mc, "a3", st["subset_rays"], int(al_sub.sum()),
+                           visits))
         st["pairs_per_live_ray"] = st["visits_per_live_ray"] \
             * mc.tris_per_cluster
-        st.update(bound(
-            visits * mc.tris_per_cluster * MT_FLOPS
-            + live_sub * mc.k * SLAB_FLOPS,
-            st["subset_rays"] * 37 + mc.tri_planes.numel() * 4
-            + mc.box_planes.numel() * 4))
+        if name != "primary_chunk0":
+            # The row-gated and bilinear-form instances on the same subset,
+            # and on the whole sorted wavefront beside A3.
+            for body, kw in body_kw.items():
+                bt = compare_body(mi, mc, body, r_sub, al_sub, cap_sub, t_min,
+                                  kern_sub,
+                                  time_plain=name == "primary_chunk2")
+                bt.update(kernel_ms_sorted=cuda_ms(lambda: mi.mesh_hits(
+                    mc, *srays, t_min, salive, scap, **kw)),
+                    a3_kernel_ms_sorted=st["kernel_ms_sorted"],
+                    pipeline_ms=cuda_ms(lambda: mi.mesh_search(
+                        mc, *rays, t_min, alive=alive, t_cap=cap, **kw)))
+                a3b[body][name] = bt
+                print(f"A3 {body} {name}: {json.dumps(bt)}", flush=True)
         if name == "primary_chunk2":
             # The exclude operand on the sorted route: every ray excludes
             # its own winner; the subset's lanes against the plain version.
@@ -783,6 +918,17 @@ def main() -> None:
             sx.update({k: st[k] for k in ("bound_ms", "bound_by")})
             print(f"A3 exclude {name}: {json.dumps(sx)}", flush=True)
             results["mesh_search[exclude]"] = (sx["max_abs_err"], sx)
+            # The other instances with the exclude operand, on the subset.
+            ex_sub = sexcl[sub]
+            a3x_sub = mi.mesh_hits(mc, *r_sub, t_min, al_sub, cap_sub,
+                                   exclude=ex_sub)
+            for body in body_kw:
+                bx = compare_body(mi, mc, body, r_sub, al_sub, cap_sub, t_min,
+                                  a3x_sub, exclude=ex_sub)
+                a3b[body][f"{name}_exclude"] = bx
+                print(f"A3 {body} exclude {name}: {json.dumps(bx)}",
+                      flush=True)
+            del a3x_sub
             del excl, kx, px, sexcl
         a3[name] = st
         print(f"A3 {name}: {json.dumps(st)}", flush=True)
@@ -791,6 +937,19 @@ def main() -> None:
         max(*(st["full"]["max_abs_err"] for st in a3.values() if "full" in st),
             *(st["subset"]["max_abs_err"] for st in a3.values())),
         a3["primary_chunk2"])
+    for body, runs in a3b.items():
+        results[f"mesh_search[{body}]"] = (
+            max(st["max_abs_err"] for st in runs.values()),
+            runs["primary_chunk2"])
+
+    phase("A3 and A3 rowgate at clusters of 1, 2 and 4 rows (terrain "
+          "bounce-2 wavefront of chunk 2)")
+    s = wavefronts["bounce2_chunk2"]
+    rays, alive = rays_of(s), s.alive
+    cap = fh.fused_hit(wt.spheres, *rays, alive, t_min)["t"]
+    ref = mi.mesh_search(mc, *rays, t_min, alive=alive, t_cap=cap)
+    cluster_sizes(mi, world, rays, alive, cap, t_min, ref)
+    del ref
 
     phase("A7 mesh_crossing_lists, A8 mesh_pairs and the A4 pair vs plain "
           "versions; the pair search vs the clustered search (terrain)")
@@ -881,16 +1040,6 @@ def main() -> None:
             clustered_search_ms=cuda_ms(lambda: mi.mesh_search(
                 mc, *rays, t_min, alive=alive, t_cap=cap)))
         print(f"pair search {name}: {json.dumps(st)}", flush=True)
-        if name == "bounce2_chunk2":
-            # A wider list leaves fewer rays to the fallback.
-            over = ncross > WIDE_PAIR_C
-            wide = {"share_over_c": float(over[alive].float().mean()),
-                    "fallback_ms": cuda_ms(lambda: mi.mesh_search(
-                        mc, *rays, t_min, alive=over, t_cap=cap), 3),
-                    "pair_search_ms": cuda_ms(lambda: mp.mesh_search_pairs(
-                        mc, *rays, t_min, alive, cap, pair_c=WIDE_PAIR_C), 3)}
-            print(f"pair search {name}, list width {WIDE_PAIR_C}: "
-                  f"{json.dumps(wide)}", flush=True)
         # A8, whole wavefront, on the slots the pair search hands it:
         # bitwise, per pair.
         tp_p, ip_p = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, t_min,
@@ -928,8 +1077,9 @@ def main() -> None:
     for k, v in frame["launches"].items():
         launches[k] += v
 
-    phase("terrain 1080p frame with the pair-wavefront mesh search, with the "
-          "two-cluster sort key, and compacted: bit-identical")
+    phase("terrain 1080p frame with the pair-wavefront mesh search, the "
+          "two-cluster sort key, compacted, row-gated and in one-row "
+          "clusters: bit-identical; with the bilinear form: in the budget")
     # Every world hit of "pairs" runs A7, A8 and the fallback (A4, A3);
     # "hybrid" runs the clustered search alone at each chunk's bounce 0.
     bounce_hits = chunks * (cfg_t.max_depth - 1)
@@ -945,6 +1095,10 @@ def main() -> None:
         "crossing2": (dict(mesh_sort_mode="crossing2"),
                       {"mesh_first_cluster": 0,
                        "mesh_first_cluster[pair]": per}),
+        "rowgate": (dict(mesh_visit="rowgate"),
+                    {"mesh_search[rowgate]": per}),
+        "cluster_rows_1": (dict(mesh_cluster_rows=1), {}),
+        "mxu": (dict(mesh_mt="mxu"), {"mesh_search[mxu]": per}),
     }
     for name, (option, counts) in variants.items():
         img_v, fr = drive_frame(
@@ -952,10 +1106,20 @@ def main() -> None:
             dataclasses.replace(cfg_t, **option),
             {"fused_hit": per, "mesh_first_cluster": per, "mesh_search": per,
              **counts})
-        if not torch.equal(img_v, img_t):
+        if name == "mxu":
+            # Its candidates round otherwise: the flip budget, not the bits.
+            bad = (img_v - img_t).abs() > IMG_ATOL + IMG_RTOL * img_t.abs()
+            fr["mismatch_frac_vs_default"] = float(bad.float().mean())
+            fr["bitwise_frac_vs_default"] = float((img_v == img_t).float()
+                                                  .mean())
+            if fr["mismatch_frac_vs_default"] > IMG_MISMATCH_MAX:
+                raise AssertionError(f"the mxu terrain frame differs from "
+                                     f"the default frame: {fr}")
+        elif not torch.equal(img_v, img_t):
             raise AssertionError(f"the {name} terrain frame is not "
                                  f"bit-identical to the default frame")
-        fr["bit_identical"] = True
+        else:
+            fr["bit_identical"] = True
         print(f"terrain frame {name}: {json.dumps(fr)}", flush=True)
         for k, v in fr["launches"].items():
             launches[k] += v
@@ -1387,10 +1551,18 @@ def main() -> None:
         "qt_raytracer_tpu/kernels/mesh_pairs.py:136")
     sources["mesh_pairs"] = ("qt_raytracer_tpu_torch/csrc/mesh_pairs.cu",
                              "qt_raytracer_tpu/kernels/mesh_pairs.py:58")
+    sources["mesh_search[rowgate]"] = (
+        "qt_raytracer_tpu_torch/csrc/mesh_intersect.cu",
+        "qt_raytracer_tpu/kernels/mesh_intersect.py:233")
+    sources["mesh_search[mxu]"] = (
+        "qt_raytracer_tpu_torch/csrc/mesh_intersect.cu",
+        "qt_raytracer_tpu/kernels/mesh_intersect.py:324")
     # The exclude and pair variants are template instances of their kernels.
     for name in KERNELS:
         if name.endswith(("[exclude]", "[pair]")):
             sources[name] = sources[name[:name.index("[")]]
+    print(f"chip_smoke.py phases done in {time.perf_counter() - START:.1f} s",
+          flush=True)
     print(f"launches over the forward paths' counted frames: "
           f"{json.dumps(launches)}; over the nine train steps: "
           f"{json.dumps(train_launches)}")

@@ -6,22 +6,29 @@ both packages. The config accepts every value the JAX package accepts;
 ``require_ported`` is where the renderer refuses a value whose port has not
 landed yet, naming the ROADMAP item that brings it.
 
-Eight fields are the port's own. The JAX package reads them from the
+Twelve fields are the port's own. The JAX package reads them from the
 environment while it traces; here they are explicit, validated options with
-the same defaults and meaning: ``edge_kernel_px``, ``edge_kernel_order`` and
+the same meaning: ``edge_kernel_px``, ``edge_kernel_order`` and
 ``edge_shadow`` (``QTRT_EDGE_KERNEL_PX``, ``QTRT_EDGE_KERNEL_ORDER``,
 ``QTRT_EDGE_SHADOW``, ``diff/edge.py``), and the mesh-search options
 ``mesh_kernel`` (``QTRT_MESH_KERNEL``), ``mesh_pair_c`` (``QTRT_PAIR_C``),
 ``mesh_compact`` (``QTRT_MESH_COMPACT``), ``mesh_sort0``
-(``QTRT_MESH_SORT0``) and ``mesh_sort_mode`` (``QTRT_MESH_SORT``). Where the
-JAX package falls back to its default on an unknown value, the port raises.
+(``QTRT_MESH_SORT0``), ``mesh_sort_mode`` (``QTRT_MESH_SORT``),
+``mesh_visit`` (``QTRT_MESH_VISIT``), ``mesh_mt`` (``QTRT_MESH_MT``),
+``mesh_sort_pipe`` (``QTRT_MESH_SORT_PIPE``) and ``mesh_cluster_rows``
+(``QTRT_CLUSTER_ROWS``). The defaults are the JAX package's, but for
+``mesh_sort_pipe``: "gather" here, where the JAX package defaults to
+"fused". The port's search has one sort step, which both values name, so
+that field is validated and read by no search. Where the JAX package falls
+back to its default on an unknown value, the port raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from ..kernels.mesh_intersect import SORT_MODES as MESH_SORT_MODES
+from ..kernels.mesh_intersect import (CLUSTER_ROWS, MT_MODES, SORT_MODES,
+                                      SORT_PIPES, VISIT_MODES)
 
 # Validation ranges mirrored from the reference UI
 # (resources/qml/Main.qml:394,426,458,491 and RayTracerFboItem.cpp:189-228).
@@ -85,6 +92,14 @@ class RenderConfig:
     mesh_compact: bool = False    # flat world path: sort live rays first
     mesh_sort0: bool = True       # False: no wavefront sort at bounce 0
     mesh_sort_mode: str = "crossing"   # the clustered search's sort key
+    # The clustered search's kernel body and cluster size (A3's instances,
+    # kernels/mesh_intersect.py): "rowgate" gates each 128-triangle row on
+    # its own box, "mxu" takes the bilinear-form Moller-Trumbore (the one
+    # option that may change a bit: its candidates round otherwise).
+    mesh_visit: str = "full"      # "full", "subtile", "sliced", "rowgate"
+    mesh_mt: str = "vpu"          # "vpu", "mxu"
+    mesh_sort_pipe: str = "gather"   # "gather", "fused": one step here
+    mesh_cluster_rows: int = CLUSTER_ROWS   # 128-triangle rows per cluster
 
     def __post_init__(self):
         object.__setattr__(self, "width", _clamp(self.width, MIN_DIM, MAX_WIDTH))
@@ -117,9 +132,17 @@ class RenderConfig:
             if not isinstance(getattr(self, name), bool):
                 raise ValueError(f"{name} must be a bool, got "
                                  f"{getattr(self, name)!r}")
-        if self.mesh_sort_mode not in MESH_SORT_MODES:
-            raise ValueError(f"mesh_sort_mode must be one of "
-                             f"{MESH_SORT_MODES}, got {self.mesh_sort_mode!r}")
+        for name, allowed in (("mesh_sort_mode", SORT_MODES),
+                              ("mesh_visit", VISIT_MODES),
+                              ("mesh_mt", MT_MODES),
+                              ("mesh_sort_pipe", SORT_PIPES)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got "
+                                 f"{getattr(self, name)!r}")
+        if isinstance(self.mesh_cluster_rows, bool) or not isinstance(
+                self.mesh_cluster_rows, int) or self.mesh_cluster_rows < 1:
+            raise ValueError(f"mesh_cluster_rows must be a positive int, got "
+                             f"{self.mesh_cluster_rows!r}")
         if self.edge_aware and self.samples_per_batch != 1:
             # The boundary term needs per-sample pixel coordinates, so an
             # edge-aware render traces one sample per batch (clamped, as
@@ -142,9 +165,11 @@ class RenderConfig:
 
 def mesh_search_options(cfg: RenderConfig) -> dict:
     """cfg's mesh-search options as the keyword arguments of
-    ``integrator.trace`` and ``world.intersect_world``."""
+    ``integrator.trace``, ``integrator_flat.trace_flat_world`` and
+    ``world.intersect_world``."""
     return dict(mesh_kernel=cfg.mesh_kernel, mesh_pair_c=cfg.mesh_pair_c,
-                mesh_sort_mode=cfg.mesh_sort_mode)
+                mesh_sort_mode=cfg.mesh_sort_mode, mesh_visit=cfg.mesh_visit,
+                mesh_mt=cfg.mesh_mt, mesh_cluster_rows=cfg.mesh_cluster_rows)
 
 
 def require_ported(cfg: RenderConfig) -> None:

@@ -189,9 +189,7 @@ def sky_color(directions):
 def trace(scene, origins: torch.Tensor, directions: torch.Tensor,
           sample_keys: torch.Tensor, max_depth: int, t_min: float = 1.0e-3,
           intersector: str = "pallas", nee: bool = False, rr_start: int = 0,
-          exclude_prim0=None, mesh_kernel: str = "clustered",
-          mesh_pair_c: int = 6,
-          mesh_sort_mode: str = "crossing") -> torch.Tensor:
+          exclude_prim0=None, **mesh_kw) -> torch.Tensor:
     """Trace N rays to completion; returns linear radiance [N,3].
 
     scene: a SphereScene or a World. sample_keys: [N] hash states or [N,2]
@@ -204,11 +202,11 @@ def trace(scene, origins: torch.Tensor, directions: torch.Tensor,
     bounce-0 intersection only (-1 for none): the background radiance of
     the edge-aware estimator (``diff.edge``), "what this primary ray would
     see if its winner were absent"; later bounces and every NEE shadow ray
-    see the whole scene. mesh_kernel, mesh_pair_c, mesh_sort_mode: the mesh
-    search of every intersection, as intersect_world takes them."""
+    see the whole scene. mesh_kw: the mesh-search options of every
+    intersection, the shadow rays' included, as intersect_world takes them
+    (mesh_kernel, mesh_pair_c, mesh_sort_mode, mesh_visit, mesh_mt,
+    mesh_cluster_rows; config.mesh_search_options)."""
     world = as_world(scene)
-    mesh_kw = dict(mesh_kernel=mesh_kernel, mesh_pair_c=mesh_pair_c,
-                   mesh_sort_mode=mesh_sort_mode)
     lights = world_lights(world)
     do_nee = bool(nee) and lights.n_total > 0
 

@@ -37,7 +37,7 @@ from .world import (World, WorldLights, face_param_table, search_mesh,
                     tensors_of, world_lights)
 from ..kernels.fused_hit import (BIG, TILE, FusedSpheres, fused_hit,
                                  prep_fused_spheres)
-from ..kernels.mesh_intersect import (MeshClusters, mesh_search,
+from ..kernels.mesh_intersect import (CLUSTER_ROWS, MeshClusters,
                                       prep_mesh_clusters)
 
 TWO_PI = 6.283185307179586
@@ -520,34 +520,35 @@ class WorldTables(NamedTuple):
     num_spheres: int
 
 
-def prep_world(world: World) -> WorldTables:
+def prep_world(world: World, cluster_rows: int = CLUSTER_ROWS,
+               mt: str = "vpu") -> WorldTables:
+    """The world's tables, its mesh packed in clusters of cluster_rows
+    128-triangle rows, with the factors that mt="mxu" reads."""
     return WorldTables(prep_fused_spheres(world.spheres),
-                       prep_mesh_clusters(world.mesh),
+                       prep_mesh_clusters(world.mesh,
+                                          cluster_rows=cluster_rows, mt=mt),
                        face_param_table(world.mesh).contiguous(),
                        world_lights(world), world.spheres.num_spheres)
 
 
 def _world_hit_flat(wt: WorldTables, ox, oy, oz, dx, dy, dz, alive, t_min,
-                    interpret, mesh_kernel: str = "clustered", depth_idx=None,
-                    sort0: bool = True, pair_c: int = 6,
-                    sort_mode: str = "crossing"):
+                    interpret, depth_idx=None, search=None):
     """Merged sphere + mesh closest hit on flat components (forward only):
     the sphere hit from A1, the mesh hit capped by A1's refined t, merged
     on a strict '<' into one id space (prim = num_spheres + triangle id),
     with the winning face's row of face_param_table.
 
-    mesh_kernel, depth_idx, sort0, pair_c and sort_mode choose the mesh
-    search (``world.search_mesh``): "clustered", "pairs" on
-    every bounce, or "hybrid" (clustered at depth_idx 0, pairs after);
-    sort0=False leaves the clustered search unsorted at bounce 0. Live
-    lanes get the same bits under every choice."""
+    search: the keyword arguments of ``world.search_mesh`` (mesh_kernel,
+    pair_c, sort0, sort_mode, visit, mt), which with depth_idx choose
+    the mesh search: "clustered", "pairs" on every bounce, or "hybrid"
+    (clustered at depth_idx 0, pairs after). Live lanes get the same bits
+    under every choice but mt="mxu"."""
     ns = wt.num_spheres
     h = fused_hit(wt.spheres, ox, oy, oz, dx, dy, dz, alive, t_min,
                   interpret=interpret)
     t_m, idx_m = search_mesh(wt.mesh, ox, oy, oz, dx, dy, dz, t_min, alive,
-                             h["t"], mesh_kernel=mesh_kernel,
-                             depth_idx=depth_idx, pair_c=pair_c, sort0=sort0,
-                             sort_mode=sort_mode, interpret=interpret)
+                             h["t"], depth_idx=depth_idx, interpret=interpret,
+                             **(search or {}))
     mesh_hit = t_m < BIG
     closer = mesh_hit & ((h["t"] >= BIG) | (t_m < h["t"]))
 
@@ -645,19 +646,20 @@ def _nee_shadow_rays_world(lights: WorldLights, px, py, pz, nx, ny, nz,
 
 def _nee_flat_world(wt: WorldTables, px, py, pz, nx, ny, nz, ax, ay, az,
                     tx, ty, tz, diffuse, uni, t_min, interpret,
-                    sort_mode: str = "crossing"):
+                    search=None):
     """integrator._nee_mis on flat components: one-sample MIS over the
     unified sphere + triangle light table. The shadow ray's closest world
     hit (A2, then the clustered mesh search capped by A2's unrefined t,
-    merged as in _world_hit_flat) must be exactly the chosen light."""
+    with search's options but mesh_kernel, merged as in _world_hit_flat)
+    must be exactly the chosen light."""
     (ldx, ldy, ldz, cand, pdf_j, cos_surf, row,
      exp_prim) = _nee_shadow_rays_world(wt.lights, px, py, pz, nx, ny, nz,
                                         diffuse, uni)
     sh = fused_hit(wt.spheres, px, py, pz, ldx, ldy, ldz, cand, t_min,
                    shadow_only=True, interpret=interpret)
-    t_m, idx_m = mesh_search(wt.mesh, px, py, pz, ldx, ldy, ldz, t_min,
-                             alive=cand, t_cap=sh["t"], sort_mode=sort_mode,
-                             interpret=interpret)
+    t_m, idx_m = search_mesh(wt.mesh, px, py, pz, ldx, ldy, ldz, t_min,
+                             cand, sh["t"], interpret=interpret,
+                             **{**(search or {}), "mesh_kernel": "clustered"})
     mesh_w = (t_m < BIG) & ((sh["t"] >= BIG) | (t_m < sh["t"]))
     has_win = mesh_w | (sh["t"] < BIG)
     win_prim = torch.where(mesh_w, wt.num_spheres + idx_m, sh["idx"])
@@ -689,14 +691,11 @@ def _emit_weight_flat_world(h, ox, oy, oz, num_spheres, n_lights, prev_pdf):
 
 def bounce_world(wt: WorldTables, s: RayState, depth_idx: int, t_min: float,
                  nee: bool = False, rr_start: int = 0,
-                 interpret: bool = False, mesh_kernel: str = "clustered",
-                 sort0: bool = True, pair_c: int = 6,
-                 sort_mode: str = "crossing") -> RayState:
-    """One bounce of every ray in a mesh world. The mesh options are
-    _world_hit_flat's; the NEE shadow rays keep the clustered search."""
+                 interpret: bool = False, search=None) -> RayState:
+    """One bounce of every ray in a mesh world. search: _world_hit_flat's
+    mesh-search options; the NEE shadow rays keep the clustered search."""
     h = _world_hit_flat(wt, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive,
-                        t_min, interpret, mesh_kernel, depth_idx, sort0,
-                        pair_c, sort_mode)
+                        t_min, interpret, depth_idx, search)
     emit_w, nee_fn = 1.0, None
     if nee and wt.lights.n_total > 0:
         emit_w = _emit_weight_flat_world(h, s.ox, s.oy, s.oz, wt.num_spheres,
@@ -704,7 +703,7 @@ def bounce_world(wt: WorldTables, s: RayState, depth_idx: int, t_min: float,
         nee_fn = lambda diffuse, uni: _nee_flat_world(
             wt, h["px"], h["py"], h["pz"], h["nx"], h["ny"], h["nz"],
             h["ax"], h["ay"], h["az"], s.tx, s.ty, s.tz, diffuse, uni,
-            t_min, interpret, sort_mode)
+            t_min, interpret, search)
     return _shade(s, h, depth_idx, rr_start, emit_w, nee_fn)
 
 
@@ -723,6 +722,9 @@ def trace_flat_world(
     mesh_pair_c: int = 6,
     mesh_sort0: bool = True,
     mesh_sort_mode: str = "crossing",
+    mesh_visit: str = "full",
+    mesh_mt: str = "vpu",
+    mesh_cluster_rows: int = CLUSTER_ROWS,
 ) -> torch.Tensor:
     """Radiance [N,3] of rays in a mesh world (spheres + triangles), on the
     world's device; the same estimator and uniform slots as trace_flat.
@@ -735,24 +737,30 @@ def trace_flat_world(
     pair search's crossing-list width. mesh_sort0=False leaves the clustered
     search unsorted at bounce 0, whose rays arrive in pixel order.
     mesh_sort_mode is the clustered search's sort key ("crossing",
-    "crossing2", "morton"). compact=True sorts the carry before every
-    bounce, live rays first. None of these changes a bit of the image."""
+    "crossing2", "morton"), mesh_visit ("full", "subtile", "sliced",
+    "rowgate") and mesh_mt ("vpu", "mxu") its kernel body, and
+    mesh_cluster_rows its cluster size in 128-triangle rows. compact=True
+    sorts the carry before every bounce, live rays first. None of these
+    changes a bit of the image but mesh_mt="mxu", whose candidates round
+    otherwise."""
     if not isinstance(world, World) or world.mesh is None:
         raise TypeError("trace_flat_world handles a World with a mesh")
     if mesh_kernel not in MESH_KERNELS:
         raise ValueError(f"mesh_kernel must be one of {MESH_KERNELS}, got "
                          f"{mesh_kernel!r}")
 
+    search = dict(mesh_kernel=mesh_kernel, pair_c=int(mesh_pair_c),
+                  sort0=bool(mesh_sort0), sort_mode=mesh_sort_mode,
+                  visit=mesh_visit, mt=mesh_mt)
+
     def run():
-        wt = prep_world(world)
+        wt = prep_world(world, mesh_cluster_rows, mesh_mt)
         state = initial_state(origins, directions, sample_keys)
         for depth_idx in range(max_depth):
             if compact:
                 state = compact_state(state)
             state = bounce_world(wt, state, depth_idx, float(t_min),
-                                 bool(nee), int(rr_start), interpret,
-                                 mesh_kernel, bool(mesh_sort0),
-                                 int(mesh_pair_c), mesh_sort_mode)
+                                 bool(nee), int(rr_start), interpret, search)
         return radiance_in_ray_order(state, origins.shape[0], compact)
 
     return _forward_only("trace_flat_world", run, world, origins,

@@ -25,6 +25,7 @@ import torch
 
 from ..accel.mesh import TriangleMesh
 from . import vecmath as vm
+from ..kernels.mesh_intersect import CLUSTER_ROWS
 from .config import MESH_KERNELS
 from .intersect import BIG, Hits, intersect_spheres
 from .scene import SphereScene
@@ -144,8 +145,7 @@ def _tri_t_diff(mesh: TriangleMesh, tri_idx, o, d, t_min, t_max):
 def search_mesh(mc, ox, oy, oz, dx, dy, dz, t_min: float,
                 alive, t_cap, *, mesh_kernel: str = "clustered",
                 depth_idx=None, pair_c: int = 6, sort0: bool = True,
-                sort_mode: str = "crossing", exclude=None,
-                interpret: bool = False):
+                exclude=None, interpret: bool = False, **clustered):
     """The mesh search an integrator asks for, by policy; every choice gives
     live lanes the same bits. mesh_kernel "pairs": the pair-wavefront search;
     "hybrid" with a bounce index: the clustered search at bounce 0, whose
@@ -153,7 +153,9 @@ def search_mesh(mc, ox, oy, oz, dx, dy, dz, t_min: float,
     "clustered", or "hybrid" without a bounce index: the clustered search.
     An exclude operand always takes the clustered search (the pair kernels
     have none). sort0=False leaves the clustered search unsorted at bounce
-    0, where the sort buys nothing."""
+    0, where the sort buys nothing. clustered: the clustered search's
+    options (sort_mode, mt, visit), which mesh_search takes and the
+    pair search hands to its fallback; mc carries the tables they read."""
     if mesh_kernel not in MESH_KERNELS:
         raise ValueError(f"mesh_kernel must be one of {MESH_KERNELS}, got "
                          f"{mesh_kernel!r}")
@@ -166,19 +168,20 @@ def search_mesh(mc, ox, oy, oz, dx, dy, dz, t_min: float,
         mesh_kernel == "hybrid" and depth_idx is not None and not bounce0)
     if pairs and exclude is None:
         return mesh_search_pairs(mc, *rays, t_min, alive, t_cap,
-                                 pair_c=pair_c, sort_mode=sort_mode,
-                                 interpret=interpret)
+                                 pair_c=pair_c, interpret=interpret,
+                                 **clustered)
     sort = sort0 or not bounce0 or mesh_kernel == "hybrid"
     return mesh_search(mc, *rays, t_min, alive=alive, t_cap=t_cap, sort=sort,
-                       sort_mode=sort_mode, exclude=exclude,
-                       interpret=interpret)
+                       exclude=exclude, interpret=interpret, **clustered)
 
 
 def intersect_world(world: World, origins, directions, t_min,
                     backend: str = "pallas", alive=None,
                     exclude=None, mesh_kernel: str = "clustered",
                     mesh_pair_c: int = 6,
-                    mesh_sort_mode: str = "crossing") -> Hits:
+                    mesh_sort_mode: str = "crossing",
+                    mesh_visit: str = "full", mesh_mt: str = "vpu",
+                    mesh_cluster_rows: int = CLUSTER_ROWS) -> Hits:
     """Closest hit over every primitive family, merged into one Hits with
     one id space (triangle j is prim num_spheres + j), on a strict '<'.
 
@@ -193,7 +196,10 @@ def intersect_world(world: World, origins, directions, t_min,
     mesh_kernel: "pairs" takes the pair-wavefront mesh search (list width
     mesh_pair_c) unless an exclude id is given, which the pair kernels do
     not take; "clustered" and "hybrid" take the clustered search, sorted by
-    mesh_sort_mode. Live lanes get the same bits either way."""
+    mesh_sort_mode. mesh_visit and mesh_mt pick the clustered search's
+    body, mesh_cluster_rows its cluster size (RenderConfig's fields of
+    those names). Live lanes get the same
+    bits under every choice but mesh_mt="mxu"."""
     ns = world.spheres.num_spheres
     excl_s = excl_m = None
     if exclude is not None:
@@ -215,12 +221,14 @@ def intersect_world(world: World, origins, directions, t_min,
         n = origins.shape[0]
         live = alive if alive is not None else \
             torch.ones(n, dtype=torch.bool, device=origins.device)
+        mc = prep_mesh_clusters(mesh, cluster_rows=mesh_cluster_rows,
+                                mt=mesh_mt)
         t_m, idx_m = search_mesh(
-            prep_mesh_clusters(mesh), *comps, float(t_min),
-            live.contiguous(),
+            mc, *comps, float(t_min), live.contiguous(),
             torch.where(hs.hit, hs.t, BIG).contiguous(),
             mesh_kernel=mesh_kernel, pair_c=mesh_pair_c,
-            sort_mode=mesh_sort_mode, exclude=excl_m,
+            sort_mode=mesh_sort_mode, visit=mesh_visit, mt=mesh_mt,
+            exclude=excl_m,
             interpret=backend == "pallas_interpret")
     tri_hit = t_m < BIG
     t_d, ok_d = _tri_t_diff(mesh, idx_m, origins, directions, t_min, BIG)

@@ -86,13 +86,22 @@ def prep_fused_spheres(scene: SphereScene) -> FusedSpheres:
 @torch.no_grad()
 def fused_hit(tables: FusedSpheres, ox, oy, oz, dx, dy, dz, alive,
               t_min: float, *, interpret: bool = False,
-              shadow_only: bool = False, exclude=None) -> dict:
+              shadow_only: bool = False, exclude=None,
+              mxu_extract: bool = True) -> dict:
     """Fused hit query on flat [N] f32 ray components and an [N] bool alive
     mask. Returns a dict of the 19 [N] outputs named in NAMES, or with
     shadow_only=True of ``t`` and ``idx`` alone; every output is detached
     (the gradient path re-derives what it differentiates). exclude: optional
     [N] integer tensor, the sphere id each lane leaves out of its sweep (-1
-    for none)."""
+    for none).
+
+    mxu_extract: how the TPU kernel reads the winner's 13 parameters, by a
+    one-hot product against the table split into three bf16 pieces (True,
+    its default; exact) or by a select over the f32 table (False). Both
+    give the f32 row bit for bit, which the kernel here loads directly, so
+    both values launch the same kernel and give the same outputs."""
+    if not isinstance(mxu_extract, bool):
+        raise ValueError(f"mxu_extract must be a bool, got {mxu_extract!r}")
     rays = (ox, oy, oz, dx, dy, dz)
     _check(tables, rays, alive)
     exclude = check_exclude(exclude, ox)

@@ -1,7 +1,6 @@
 """Clustered triangle-mesh closest hit: the CUDA kernels' wrappers, their
 plain versions, and the wavefront sort around them (counterpart of
-``qt_raytracer_tpu.kernels.mesh_intersect`` with ``mt="vpu"`` and
-``visit="full"``).
+``qt_raytracer_tpu.kernels.mesh_intersect``).
 
 Triangles are BVH-ordered (spatially coherent) and packed into clusters of
 ``cluster_rows_for(P) * 128`` consecutive triangles, each behind an
@@ -17,6 +16,26 @@ epsilon-padded AABB (``prep_mesh_clusters``). Two kernels, both in
     ``exclude`` operand names one BVH-order triangle id that the lane never
     accepts (-1 for none): the edge-aware background re-trace.
 
+A3 has the TPU kernel's bodies as template instances, chosen as the JAX
+package chooses them (``mt`` first, then ``visit``):
+
+  - ``mt="vpu"``, ``visit="full"``: Moller-Trumbore on the triangle planes.
+  - ``visit="rowgate"``: inside a gated cluster, each 128-triangle row is
+    slab-tested against its own epsilon-padded box (``prep_row_boxes``) and
+    skipped when no hit in it could beat the lane's running cap. The same
+    bits as "full": the row gate is as conservative as the cluster gate.
+  - ``mt="mxu"``: Moller-Trumbore as bilinear forms of ray features (d,
+    o x d, o, 1) and 19 per-triangle factors (``build_mt_features``). The
+    candidates round differently, so it agrees with "vpu" without being
+    bitwise equal to it.
+  - ``visit="subtile"`` and ``"sliced"`` re-tile the TPU's (128 rays, 128
+    triangles) visit into (``SUBTILE_ROWS``, 128) slices with the same
+    expression tree, "sliced" also skipping slices whose gate popcount is 0;
+    both are bitwise equal to "full" there. On the card one thread runs one
+    ray and gates every cluster on its own cap, which is at least as fine
+    as any slice, with the same expression tree: both launch the "full"
+    instance. Neither is a fallback: they are the same function.
+
 ``mesh_search`` is the pipeline of ``mesh_search_pallas``: for n >= 2048
 rays and more than one cluster, a stable sort of the wavefront by the
 crossing key ``c1 * 2^18 + (octant << 15 | morton)`` (dead rays keyed
@@ -24,7 +43,10 @@ crossing key ``c1 * 2^18 + (octant << 15 | morton)`` (dead rays keyed
 ``sort_mode`` picks the key: "crossing" (that one), "crossing2" (the first
 two crossed clusters, from A4 with ``pair=True``) or "morton" (octant and
 Morton cell alone, no A4 launch); ``sort=False`` leaves the rays as they
-come.
+come. The operands ride the permutation by one gather each, the results
+come back by one scatter each. ``pipe`` takes the JAX package's names for
+that step, "gather" and "fused" (there one packed row gather and scatter);
+both name this one step, which gives the same bits either way.
 Each lane's result does not depend on its neighbours, so the sort changes
 only how much work a warp shares, never a live lane's result. Every per-ray
 operand (alive, the cap, the exclude id) rides through the sort with its
@@ -32,14 +54,12 @@ ray.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for CPU tensors or with ``interpret=True``; on a CUDA tensor it
-launches the kernel or raises. Of the Moller-Trumbore engines and visit
-modes only the defaults are ported (``mt="vpu"``, ``visit="full"``); the
-others raise NotImplementedError naming ROADMAP.md.
+launches the instance its options name or raises.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,35 +69,73 @@ from .fused_hit import BIG, check_exclude, excl_ptr
 
 LANE = 128
 CLUSTER_ROWS = 4          # 128-triangle rows per cluster (multi-cluster)
+SUBTILE_ROWS = 32         # rays per slice of visit "subtile"/"sliced" (TPU)
 SORT_MIN_RAYS = 2048      # the sort runs from this many rays on
 PLAIN_SLICE_RAYS = 2048   # rays per block of the plain versions
 PLAIN_SLICE_TRIS = 4096   # triangles per block of the plain A3
 PLAIN_SLICE_CLUSTERS = 256
 SORT_MODES = ("crossing", "crossing2", "morton")   # the wavefront sort keys
+MT_MODES = ("vpu", "mxu")                          # Moller-Trumbore engines
+VISIT_MODES = ("full", "subtile", "sliced", "rowgate")
+SORT_PIPES = ("gather", "fused")
+MT_FEATURES = 19          # bilinear-form factors per triangle (mt="mxu")
+# A3's template instances (csrc/mesh_intersect.cu, enum SearchMode).
+_VPU, _ROWGATE, _MXU = 0, 1, 2
 
 # Kernel launches, A3 (mesh_hits) and A4 (first_crossed_cluster); a run
 # resets them to 0 and reads them back to show its path went through them.
-launches = 0
+launches = 0          # every A3 launch, whatever its instance
 first_cluster_launches = 0
 first_cluster_pair_launches = 0   # the A4 launches with the second output
 exclude_launches = 0   # the A3 launches that had an exclude operand
+rowgate_launches = 0   # the A3 launches of the row-gated instance
+mxu_launches = 0       # the A3 launches of the bilinear-form instance
 
 CROSSING2_MAX_K = 254  # (c1 * (k + 1) + c2) << 15 fits int32 up to here
 
-_LATER = "is not ported yet: ROADMAP.md Queue B lists it under the A3 variants"
+
+def check_search_options(mt: str = "vpu", visit: str = "full",
+                         pipe: str = "gather") -> None:
+    """Raise ValueError on an unknown Moller-Trumbore engine, visit mode or
+    sort pipe (the JAX package validates none of them)."""
+    for name, value, allowed in (("mt", mt, MT_MODES),
+                                 ("visit", visit, VISIT_MODES),
+                                 ("pipe", pipe, SORT_PIPES)):
+        if value not in allowed:
+            raise ValueError(f"{name} must be one of {allowed}, got "
+                             f"{value!r}")
 
 
-def num_clusters(num_tris: int) -> int:
+def check_cluster_rows(cluster_rows) -> int:
+    """cluster_rows as a positive int, else ValueError."""
+    if isinstance(cluster_rows, bool) or not isinstance(cluster_rows, int) \
+            or cluster_rows < 1:
+        raise ValueError(f"cluster_rows must be a positive int, got "
+                         f"{cluster_rows!r}")
+    return cluster_rows
+
+
+def _instance(mt: str, visit: str) -> int:
+    """A3's instance for (mt, visit), with the JAX package's precedence:
+    mt="mxu" takes the bilinear-form body whatever visit says."""
+    if mt == "mxu":
+        return _MXU
+    return _ROWGATE if visit == "rowgate" else _VPU
+
+
+def num_clusters(num_tris: int, cluster_rows: int = CLUSTER_ROWS) -> int:
     """Cluster count of a mesh of num_tris triangles."""
-    return max(-(-num_tris // (CLUSTER_ROWS * LANE)), 1)
+    return max(-(-num_tris // (check_cluster_rows(cluster_rows) * LANE)), 1)
 
 
-def cluster_rows_for(num_tris: int) -> int:
-    """128-triangle rows per cluster: CLUSTER_ROWS for multi-cluster
+def cluster_rows_for(num_tris: int, cluster_rows: int = CLUSTER_ROWS) -> int:
+    """128-triangle rows per cluster: cluster_rows for multi-cluster
     meshes; a single-cluster mesh shrinks to ceil(P / 128) rows so it does
-    not sweep rows of padding."""
-    if num_tris > CLUSTER_ROWS * LANE:
-        return CLUSTER_ROWS
+    not sweep rows of padding (the JAX package's QTRT_CLUSTER_ROWS, with
+    QTRT_SMALL_MESH_ROWS at its default)."""
+    check_cluster_rows(cluster_rows)
+    if num_tris > cluster_rows * LANE:
+        return cluster_rows
     return max(-(-num_tris // LANE), 1)
 
 
@@ -91,43 +149,110 @@ class MeshClusters(NamedTuple):
     num_tris: int
     root_lo: torch.Tensor     # [3] f32 BVH root box (sort keys)
     root_hi: torch.Tensor     # [3] f32
+    row_boxes: torch.Tensor   # [6, P_pad / 128] f32 (prep_row_boxes)
+    # mt="mxu": [19, P_pad] f32 bilinear-form factors (build_mt_features).
+    mt_planes: Optional[torch.Tensor] = None
 
 
-def prep_mesh_clusters(mesh: TriangleMesh) -> MeshClusters:
-    """Padded triangle planes and epsilon-padded cluster boxes, with the
-    JAX package's operation order (bit for bit)."""
+def _padded_tris(mesh: TriangleMesh, p_pad: int, v0_fill: float):
+    """v0, e1, e2 [p_pad, 3], padded with degenerate triangles: v0 at
+    v0_fill, zero edges (det == 0: never hit)."""
+    pad = lambda x, fill: torch.nn.functional.pad(
+        x, (0, 0, 0, p_pad - mesh.num_triangles), value=fill)
+    return pad(mesh.v0, v0_fill), pad(mesh.e1, 0.0), pad(mesh.e2, 0.0)
+
+
+def _padded_boxes(v0, e1, e2, groups: int, eps):
+    """(lo, hi) [groups, 3]: the AABB of each run of consecutive triangles,
+    widened by eps."""
+    va = v0.reshape(groups, -1, 3)
+    vb = (v0 + e1).reshape(groups, -1, 3)
+    vc = (v0 + e2).reshape(groups, -1, 3)
+    lo = torch.minimum(torch.minimum(va.amin(1), vb.amin(1)), vc.amin(1))
+    hi = torch.maximum(torch.maximum(va.amax(1), vb.amax(1)), vc.amax(1))
+    return lo - eps, hi + eps
+
+
+def _box_eps(mesh: TriangleMesh):
+    """The boxes' padding, a scale taken from the real vertices: coplanar
+    axis-aligned clusters are zero-thickness, which the strict slab test
+    never passes."""
+    span = (mesh.v0.amax(0) - mesh.v0.amin(0)).amax()
+    return 1e-5 * torch.clamp_min(span, 1e-3)
+
+
+def prep_mesh_clusters(mesh: TriangleMesh, *,
+                       cluster_rows: int = CLUSTER_ROWS,
+                       mt: str = "vpu") -> MeshClusters:
+    """Padded triangle planes, epsilon-padded cluster boxes and row boxes,
+    with the JAX package's operation order (bit for bit). cluster_rows
+    sizes the clusters (cluster_rows_for); triangle ids stay the BVH-order
+    index whatever the size. mt="mxu" adds the bilinear-form factors that
+    that search reads (76 bytes a triangle)."""
+    check_search_options(mt)
     p = mesh.num_triangles
-    g = cluster_rows_for(p) * LANE
-    k = num_clusters(p)
+    g = cluster_rows_for(p, cluster_rows) * LANE
+    k = num_clusters(p, cluster_rows)
     p_pad = k * g
     k_pad = max(-(-k // LANE) * LANE, LANE)
 
-    def pad_tri(x, fill):
-        return torch.nn.functional.pad(x, (0, 0, 0, p_pad - p), value=fill)
-
     # Degenerate padding triangles: far away, zero edges -> det == 0 -> miss.
-    v0 = pad_tri(mesh.v0, 1.0e9)
-    e1 = pad_tri(mesh.e1, 0.0)
-    e2 = pad_tri(mesh.e2, 0.0)
-
-    va = v0.reshape(k, g, 3)
-    vb = (v0 + e1).reshape(k, g, 3)
-    vc = (v0 + e2).reshape(k, g, 3)
-    lo = torch.minimum(torch.minimum(va.amin(1), vb.amin(1)), vc.amin(1))
-    hi = torch.maximum(torch.maximum(va.amax(1), vb.amax(1)), vc.amax(1))
-    # Pad the boxes by a scale taken from the real vertices: coplanar
-    # axis-aligned clusters are zero-thickness, which the strict slab test
-    # never passes.
-    span = (mesh.v0.amax(0) - mesh.v0.amin(0)).amax()
-    eps = 1e-5 * torch.clamp_min(span, 1e-3)
-    lo = lo - eps
-    hi = hi + eps
+    v0, e1, e2 = _padded_tris(mesh, p_pad, 1.0e9)
+    lo, hi = _padded_boxes(v0, e1, e2, k, _box_eps(mesh))
     lo_p = torch.nn.functional.pad(lo, (0, 0, 0, k_pad - k), value=BIG)
     hi_p = torch.nn.functional.pad(hi, (0, 0, 0, k_pad - k), value=-BIG)
     tri_planes = torch.cat([v0.T, e1.T, e2.T]).contiguous()
     box_planes = torch.cat([lo_p.T, hi_p.T]).contiguous()
-    return MeshClusters(tri_planes, box_planes, k, g, p,
-                        mesh.bvh_min[0].clone(), mesh.bvh_max[0].clone())
+    return MeshClusters(
+        tri_planes, box_planes, k, g, p, mesh.bvh_min[0].clone(),
+        mesh.bvh_max[0].clone(), prep_row_boxes(mesh, p_pad),
+        build_mt_features(mesh, p_pad) if mt == "mxu" else None)
+
+
+def prep_row_boxes(mesh: TriangleMesh, p_pad: int) -> torch.Tensor:
+    """[6, p_pad / 128] f32: per 128-triangle row of the padded triangles,
+    its AABB (rows lo x, y, z, hi x, y, z: the JAX function's six arrays),
+    with the cluster boxes' epsilon padding; rows of padding triangles sit
+    at 1e9 (counterpart of prep_row_boxes, bit for bit)."""
+    v0, e1, e2 = _padded_tris(mesh, p_pad, 1.0e9)
+    lo, hi = _padded_boxes(v0, e1, e2, p_pad // LANE, _box_eps(mesh))
+    return torch.cat([lo.T, hi.T]).contiguous()
+
+
+def _fma_cross(a, b):
+    """a x b [P, 3] as XLA:CPU computes jnp.cross: each component
+    fma(a1, b2, -(a2 * b1)) with the second product rounded to f32, the
+    fused multiply-add emulated in float64 (the product a1 * b2 is exact
+    there; one double rounding in about 2^29 results could differ)."""
+    def fms(i, j):
+        return (a[:, i].double() * b[:, j].double()
+                - (a[:, j] * b[:, i]).double()).float()
+    return torch.stack([fms(1, 2), fms(2, 0), fms(0, 1)], dim=1)
+
+
+def build_mt_features(mesh: TriangleMesh, p_pad: int) -> torch.Tensor:
+    """[19, p_pad] f32: the per-triangle factors of the bilinear-form
+    Moller-Trumbore (counterpart of build_mt_features, each factor bit for
+    bit). With m = o x d, n = e1 x e2, c1 = v0 x e1, c2 = v0 x e2:
+
+        det = d . (-n),  det * u = (m, d) . (e2, c2),
+        det * v = (m, d) . (-e1, -c1),  det * t = (o, 1) . (n, -v0 . n).
+
+    Stored plane-major, one [p_pad] row per factor in the order -n | e2,
+    c2 | -e1, -c1 | n, -v0 . n, where the TPU interleaves them by 128-lane
+    row ([PR * q, 128]). The padding triangles are zero here, not 1e9, so
+    n = 0, det = 0, and they are rejected. The cross products round as
+    XLA:CPU's contracted jnp.cross (_fma_cross); v0 . n sums its three
+    products left to right onto +0.0, as XLA:CPU's jnp.sum does (so a sum
+    of zeros is +0.0)."""
+    v0, e1, e2 = _padded_tris(mesh, p_pad, 0.0)
+    n = _fma_cross(e1, e2)
+    c1 = _fma_cross(v0, e1)
+    c2 = _fma_cross(v0, e2)
+    w = v0 * n
+    v0n = ((0.0 + w[:, 0]) + w[:, 1]) + w[:, 2]
+    return torch.cat([-n, e2, c2, -e1, -c1, n, -v0n[:, None]],
+                     dim=1).T.contiguous()
 
 
 def _part1by2(x):
@@ -308,23 +433,48 @@ def first_crossed_cluster_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
 
 
 # --------------------------------------------------------------- A3
+def _check_tables(mc: MeshClusters, mt: str, visit: str) -> None:
+    """The extra table that A3's instance for (mt, visit) reads is there."""
+    inst = _instance(mt, visit)
+    if inst == _VPU:
+        return
+    name, x, rows, cols = (
+        ("mt_planes", mc.mt_planes, MT_FEATURES, mc.k * mc.tris_per_cluster)
+        if inst == _MXU else
+        ("row_boxes", mc.row_boxes, 6, mc.k * mc.tris_per_cluster // LANE))
+    if x is None:
+        raise ValueError(f"mt={mt!r} reads the mesh's {name}: build it with "
+                         f"prep_mesh_clusters(mesh, mt={mt!r})")
+    if (x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != rows
+            or x.shape[1] < cols or not x.is_contiguous()
+            or x.device != mc.tri_planes.device):
+        raise ValueError(f"{name} must come from prep_mesh_clusters on the "
+                         f"rays' device")
+
+
 def mesh_hits(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
               alive=None, t_cap=None, *, interpret: bool = False,
-              exclude=None):
+              exclude=None, mt: str = "vpu", visit: str = "full"):
     """Kernel A3 on the rays as given (no sort): (t [N] f32, idx [N] i32),
     the closest triangle hit strictly below t_cap (default BIG), ties to
     the lowest BVH-order id; (BIG, 0) where none beats the cap and on dead
     lanes. exclude: optional [N] integer BVH-order triangle id the lane
-    never accepts (-1 for none)."""
-    global launches, exclude_launches
+    never accepts (-1 for none). mt and visit pick the instance (module
+    docstring); "subtile" and "sliced" launch the "full" one."""
+    global launches, exclude_launches, rowgate_launches, mxu_launches
+    check_search_options(mt, visit)
     rays = (ox, oy, oz, dx, dy, dz)
     alive, t_cap = _defaults(ox, alive, t_cap)
     _check(mc, rays, alive, t_cap)
+    _check_tables(mc, mt, visit)
     exclude = check_exclude(exclude, ox)
     dev = ox.device
     if not _route(dev, interpret):
         return mesh_search_plain(mc, *rays, t_min, alive, t_cap,
-                                 exclude=exclude)
+                                 exclude=exclude, mt=mt, visit=visit)
+    inst = _instance(mt, visit)
+    tris = mc.mt_planes if inst == _MXU else mc.tri_planes
+    rows = mc.row_boxes if inst == _ROWGATE else None
     lib = cuda_build.load_library()
     n = ox.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=dev)
@@ -332,101 +482,164 @@ def mesh_hits(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     with torch.cuda.device(dev):
         err = lib.qtrt_mesh_search(
             *(x.data_ptr() for x in rays), alive.data_ptr(),
-            t_cap.data_ptr(), excl_ptr(exclude), mc.tri_planes.data_ptr(),
-            mc.tri_planes.shape[1], mc.box_planes.data_ptr(), mc.k,
-            mc.box_planes.shape[1], mc.tris_per_cluster, float(t_min), n,
-            t.data_ptr(), idx.data_ptr(), _stream(dev))
+            t_cap.data_ptr(), excl_ptr(exclude), tris.data_ptr(),
+            tris.shape[1], None if rows is None else rows.data_ptr(),
+            0 if rows is None else rows.shape[1], mc.box_planes.data_ptr(),
+            mc.k, mc.box_planes.shape[1], mc.tris_per_cluster, inst,
+            float(t_min), n, t.data_ptr(), idx.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"mesh search kernel launch failed: "
                            f"cudaError_t {err}")
     launches += 1
     exclude_launches += exclude is not None
+    rowgate_launches += inst == _ROWGATE
+    mxu_launches += inst == _MXU
     return t, idx
 
 
+def _ray_moment(o, d):
+    """m = o x d, the ray-side factor of the bilinear forms, single-rounded
+    in the JAX package's order (o1 * d2 - o2 * d1, ...)."""
+    return (o[1] * d[2] - o[2] * d[1],
+            o[2] * d[0] - o[0] * d[2],
+            o[0] * d[1] - o[1] * d[0])
+
+
+def _sweep(mc: MeshClusters, mt: str, o, d, m, p0: int, p1: int,
+           t_min: float):
+    """(t, accept) of rays o, d ([m, 1] components; m = o x d for "mxu")
+    against the triangles [p0, p1): [m, p1 - p0] each, by the engine mt."""
+    if mt == "mxu":
+        return _moller_trumbore_bilinear(o, d, m, mc.mt_planes[:, p0:p1],
+                                         t_min)
+    tp = mc.tri_planes
+    return _moller_trumbore(o, d, tuple(tp[a, p0:p1] for a in range(3)),
+                            tuple(tp[3 + a, p0:p1] for a in range(3)),
+                            tuple(tp[6 + a, p0:p1] for a in range(3)), t_min)
+
+
 def mesh_search_gated_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
-                            t_min: float, alive, t_cap):
+                            t_min: float, alive, t_cap, *, mt: str = "vpu",
+                            visit: str = "full", exclude=None):
     """The kernel's gated sweep in plain PyTorch, cluster by cluster, with a
     count of its work: (t, idx, visits), where visits is the number of
     (ray, cluster) pairs that pass the kernel's per-lane gate (the slab test
     with an entry at most min(t_best * 1.0001 + 1e-4, 1e37) of the lane's
     running hit), each of which costs one Moller-Trumbore row of
     tris_per_cluster triangles. (t, idx) equal mesh_search_plain's: the
-    gate never drops a winner. A measuring aid; no path runs it."""
+    gate never drops a winner. Under the row-gated instance (visit
+    "rowgate", mt "vpu") each 128-triangle row of a visited cluster is gated
+    the same way on its own box before it is swept, and the result is
+    (t, idx, visits, row_visits), row_visits counting the (ray, row) pairs
+    swept; it is that instance's plain version. A measuring aid otherwise;
+    no path runs it."""
+    check_search_options(mt, visit)
+    _check_tables(mc, mt, visit)
+    rowgate = _instance(mt, visit) == _ROWGATE
     n = ox.shape[0]
     dev = ox.device
     live = torch.nonzero(alive).squeeze(1)
     o = tuple(c[live] for c in (ox, oy, oz))
     d = tuple(c[live] for c in (dx, dy, dz))
     inv = tuple(slab_inv(c) for c in d)
+    m = _ray_moment(o, d) if mt == "mxu" else (None,) * 3
+    ex = None if exclude is None else exclude[live]
     cap = t_cap[live]
     t_best = cap.clone()
     best = torch.zeros(live.shape[0], dtype=torch.int32, device=dev)
     g = mc.tris_per_cluster
-    tp = mc.tri_planes
-    visits = 0
-    for j in range(mc.k):
-        enter, exit_ = _slab(mc.box_planes, j, j + 1, o, inv, float(t_min))
-        gate = torch.clamp_max(t_best * 1.0001 + 1e-4, 1e37)
-        ids = torch.nonzero((exit_[:, 0] > enter[:, 0])
-                            & (enter[:, 0] <= gate)).squeeze(1)
-        visits += int(ids.shape[0])
-        if not ids.shape[0]:
-            continue
-        sl = slice(j * g, (j + 1) * g)
-        t, ok = _moller_trumbore(
-            tuple(c[ids][:, None] for c in o),
-            tuple(c[ids][:, None] for c in d),
-            tuple(tp[a, sl] for a in range(3)),
-            tuple(tp[3 + a, sl] for a in range(3)),
-            tuple(tp[6 + a, sl] for a in range(3)), float(t_min))
+    visits = row_visits = 0
+
+    def gate(boxes, j, ids):
+        """The lanes of ids whose slab test of box j passes under their
+        running cap."""
+        enter, exit_ = _slab(boxes, j, j + 1,
+                             tuple(c[ids] for c in o),
+                             tuple(c[ids] for c in inv), float(t_min))
+        cap_now = torch.clamp_max(t_best[ids] * 1.0001 + 1e-4, 1e37)
+        return ids[(exit_[:, 0] > enter[:, 0]) & (enter[:, 0] <= cap_now)]
+
+    def sweep(ids, p0, p1):
+        t, ok = _sweep(mc, mt, tuple(c[ids][:, None] for c in o),
+                       tuple(c[ids][:, None] for c in d),
+                       tuple(None if c is None else c[ids][:, None]
+                             for c in m), p0, p1, float(t_min))
+        gid = torch.arange(p0, p1, dtype=torch.int32, device=dev)
+        if ex is not None:
+            ok = ok & (gid[None, :] != ex[ids][:, None])
         tcand = torch.where(ok & (t < t_best[ids][:, None]), t, BIG)
         tmin_c = tcand.amin(dim=1)
-        gid = torch.arange(j * g, (j + 1) * g, dtype=torch.int32, device=dev)
         idx_c = torch.where(tcand == tmin_c[:, None], gid,
                             mc.k * g).amin(dim=1)
         better = tmin_c < t_best[ids]
         t_best[ids] = torch.where(better, tmin_c, t_best[ids])
         best[ids] = torch.where(better, idx_c, best[ids])
+
+    everyone = torch.arange(live.shape[0], device=dev)
+    for j in range(mc.k):
+        ids = gate(mc.box_planes, j, everyone)
+        visits += int(ids.shape[0])
+        if not ids.shape[0]:
+            continue
+        if not rowgate:
+            sweep(ids, j * g, (j + 1) * g)
+            continue
+        # t_best only shrinks, so a row that fails its gate now could not
+        # pass it later in the cluster: skipping it drops no winner.
+        for row in range(j * g // LANE, (j + 1) * g // LANE):
+            ids_r = gate(mc.row_boxes, row, ids)
+            row_visits += int(ids_r.shape[0])
+            if ids_r.shape[0]:
+                sweep(ids_r, row * LANE, (row + 1) * LANE)
     won = t_best < cap
     t_out = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     idx_out = torch.zeros(n, dtype=torch.int32, device=dev)
     t_out[live] = torch.where(won, t_best, BIG)
     idx_out[live] = torch.where(won, best, 0)
+    if rowgate:
+        return t_out, idx_out, visits, row_visits
     return t_out, idx_out, visits
 
 
 def mesh_search_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
                       t_min: float, alive, t_cap,
                       slice_rays: int = PLAIN_SLICE_RAYS,
-                      slice_tris: int = PLAIN_SLICE_TRIS, exclude=None):
+                      slice_tris: int = PLAIN_SLICE_TRIS, exclude=None, *,
+                      mt: str = "vpu", visit: str = "full"):
     """Plain PyTorch version of A3: the ungated sweep over every triangle,
     in [slice_rays, slice_tris] blocks of live rays. Within a block the
     minimum t, then the lowest id reaching it; across blocks, in ascending
     order, a strict '<' update. The kernel's gate must not change this.
-    exclude ([N] i32 or None): the triangle id each lane never accepts."""
+    exclude ([N] i32 or None): the triangle id each lane never accepts.
+    mt="mxu" sweeps with the bilinear-form Moller-Trumbore, rounded op by
+    op in the kernel's order; the row-gated instance's plain version is
+    the row-gated sweep of mesh_search_gated_plain, which must give these
+    same bits."""
+    check_search_options(mt, visit)
+    _check_tables(mc, mt, visit)
+    if _instance(mt, visit) == _ROWGATE:
+        return mesh_search_gated_plain(mc, ox, oy, oz, dx, dy, dz, t_min,
+                                       alive, t_cap, mt=mt, visit=visit,
+                                       exclude=exclude)[:2]
     n = ox.shape[0]
     dev = ox.device
     t_out = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     idx_out = torch.zeros(n, dtype=torch.int32, device=dev)
     live = torch.nonzero(alive).squeeze(1)
     p = mc.k * mc.tris_per_cluster
-    tp = mc.tri_planes
     t_min = float(t_min)
     for lo in range(0, live.shape[0], slice_rays):
         ids = live[lo:lo + slice_rays]
         o = tuple(c[ids][:, None] for c in (ox, oy, oz))          # [m, 1]
         d = tuple(c[ids][:, None] for c in (dx, dy, dz))
+        m = _ray_moment(o, d) if mt == "mxu" else None
         cap = t_cap[ids]
         ex = None if exclude is None else exclude[ids][:, None]
         t_best = cap.clone()
         best = torch.zeros(ids.shape[0], dtype=torch.int32, device=dev)
         for p0 in range(0, p, slice_tris):
             p1 = min(p, p0 + slice_tris)
-            v0 = tuple(tp[a, p0:p1] for a in range(3))            # [T]
-            e1 = tuple(tp[3 + a, p0:p1] for a in range(3))
-            e2 = tuple(tp[6 + a, p0:p1] for a in range(3))
-            t, ok = _moller_trumbore(o, d, v0, e1, e2, t_min)
+            t, ok = _sweep(mc, mt, o, d, m, p0, p1, t_min)
             ok = ok & (t < t_best[:, None])
             gid = torch.arange(p0, p1, dtype=torch.int32, device=dev)
             if ex is not None:
@@ -443,6 +656,18 @@ def mesh_search_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
     return t_out, idx_out
 
 
+def _accept(det, num_u, num_v, num_t, t_min):
+    """(t, accept) from the determinant and the numerators of u, v and t:
+    visit_vpu's accept test."""
+    ok_det = torch.abs(det) > 1e-12
+    inv_det = torch.where(ok_det, 1.0, 0.0) / torch.where(ok_det, det, 1.0)
+    u = num_u * inv_det
+    v = num_v * inv_det
+    t = num_t * inv_det
+    ok = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= t_min))
+    return t, ok
+
+
 def _moller_trumbore(o, d, v0, e1, e2, t_min):
     """(t, accept) of rays o, d ([m, 1] components) against triangles v0,
     e1, e2 ([T] components): [m, T] each, with the expression tree of the
@@ -457,16 +682,29 @@ def _moller_trumbore(o, d, v0, e1, e2, t_min):
         return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
     pv = cross(d, e2)
-    det = dot3(pv, e1)
-    ok_det = torch.abs(det) > 1e-12
-    inv_det = torch.where(ok_det, 1.0, 0.0) / torch.where(ok_det, det, 1.0)
     s = (o[0] - v0[0], o[1] - v0[1], o[2] - v0[2])
-    u = dot3(s, pv) * inv_det
     qv = cross(s, e1)
-    v = dot3(qv, d) * inv_det
-    t = dot3(qv, e2) * inv_det
-    ok = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= t_min))
-    return t, ok
+    return _accept(dot3(pv, e1), dot3(s, pv), dot3(qv, d), dot3(qv, e2),
+                   t_min)
+
+
+def _moller_trumbore_bilinear(o, d, m, f, t_min):
+    """(t, accept) of rays o, d with m = o x d ([m, 1] components) against
+    the triangles of the factor planes f ([19, T], build_mt_features):
+    det = d . f[0:3], u det = (m, d) . f[3:9], v det = (m, d) . f[9:15],
+    t det = o . f[15:18] + f[18], each product rounded, each sum left to
+    right, as the kernel's moller_trumbore_bilinear; then visit_vpu's
+    accept test."""
+
+    def dot(r, rows):
+        acc = r[0] * rows[0]
+        for a, b in zip(r[1:], rows[1:]):
+            acc = acc + a * b
+        return acc
+
+    md = (*m, *d)
+    return _accept(dot(d, f[0:3]), dot(md, f[3:9]), dot(md, f[9:15]),
+                   dot(o, f[15:18]) + f[18], t_min)
 
 
 # --------------------------------------------------------------- pipeline
@@ -524,7 +762,7 @@ def mesh_search(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
                 alive=None, t_cap=None, *, sort: bool = True,
                 interpret: bool = False, mt: str = "vpu",
                 visit: str = "full", sort_mode: str = "crossing",
-                exclude=None):
+                exclude=None, pipe: str = "gather"):
     """Closest hit over the mesh: (t [N] f32, BIG = miss; idx [N] i32, the
     BVH-order triangle id), strictly below t_cap (default BIG). With
     sort=True, n >= 2048 and more than one cluster, the wavefront is sorted
@@ -532,29 +770,33 @@ def mesh_search(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     crossing_order) before A3 and the results are put back; live lanes get
     the same result either way. Both outputs are detached.
     exclude: optional [N] integer BVH-order triangle id that the lane never
-    accepts (-1 for none); it is sorted with its ray."""
-    if mt != "vpu":
-        raise NotImplementedError(f"mt={mt!r} {_LATER}")
-    if visit != "full":
-        raise NotImplementedError(f"visit={visit!r} {_LATER}")
+    accepts (-1 for none); it is sorted with its ray.
+    mt ("vpu", "mxu") and visit ("full", "subtile", "sliced", "rowgate")
+    pick A3's instance (module docstring; mt="mxu" reads the factors that
+    prep_mesh_clusters(mt="mxu") adds). pipe: "gather" or "fused", the JAX
+    package's names for how the operands move through the sort; both take
+    the one gather-and-scatter step here (module docstring)."""
+    check_search_options(mt, visit, pipe)
     if sort_mode not in SORT_MODES:
         raise ValueError(f"sort_mode must be one of {SORT_MODES}, got "
                          f"{sort_mode!r}")
     rays = (ox, oy, oz, dx, dy, dz)
     alive, t_cap = _defaults(ox, alive, t_cap)
     _check(mc, rays, alive, t_cap)
+    _check_tables(mc, mt, visit)
     exclude = check_exclude(exclude, ox)
     n = ox.shape[0]
+    body = dict(interpret=interpret, mt=mt, visit=visit)
     if not (sort and n >= SORT_MIN_RAYS and mc.k > 1):
-        return mesh_hits(mc, *rays, t_min, alive, t_cap, interpret=interpret,
-                         exclude=exclude)
+        return mesh_hits(mc, *rays, t_min, alive, t_cap, exclude=exclude,
+                         **body)
     perm = crossing_order(mc, *rays, t_min, alive, t_cap, interpret=interpret,
                           sort_mode=sort_mode)
     g = lambda x: x[perm]
     # The exclude id belongs to its ray: it takes the same permutation.
     t_s, idx_s = mesh_hits(mc, *map(g, rays), t_min, g(alive), g(t_cap),
-                           interpret=interpret,
-                           exclude=None if exclude is None else g(exclude))
+                           exclude=None if exclude is None else g(exclude),
+                           **body)
     t = torch.empty_like(t_s)
     idx = torch.empty_like(idx_s)
     t[perm] = t_s

@@ -47,7 +47,8 @@ from .fused_hit import BIG
 from .mesh_intersect import (LANE, PLAIN_SLICE_CLUSTERS, PLAIN_SLICE_RAYS,
                              MeshClusters, _check, _defaults,
                              _moller_trumbore, _route, _stream,
-                             crossing_mask, mesh_search, slab_inv)
+                             check_search_options, crossing_mask,
+                             mesh_search, slab_inv)
 
 GROUPS = 8                # the slot count is a multiple of GROUPS * LANE
 PLAIN_SLICE_TILES = 16    # 128-pair tiles per block of the plain A8
@@ -300,7 +301,8 @@ def reduce_pairs(ray_buf, t_pair, idx_pair, n: int, num_tris: int):
 def mesh_search_pairs(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
                       alive=None, t_cap=None, *, pair_budget: int = 0,
                       pair_c: int = 6, sort_mode: str = "crossing",
-                      interpret: bool = False):
+                      interpret: bool = False, mt: str = "vpu",
+                      visit: str = "full"):
     """Closest hit over the mesh by the pair-wavefront search: (t [N] f32,
     BIG = miss; idx [N] i32), a drop-in for mesh_search with the same cap
     semantics (a lane reports a hit only when a triangle strictly beats
@@ -309,8 +311,13 @@ def mesh_search_pairs(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     pair_budget: the total (ray, cluster) pair capacity, read as a per-ray
     list width C = pair_budget // N clamped to [1, k]; 0 means pair_c pairs
     per ray. Rays with more than C crossings go through the clustered
-    search instead (under sort_mode), which is launched every time: asking
-    whether any ray overflowed would stall the host on the device."""
+    search instead (under sort_mode, mt and visit, which reach that
+    fallback alone: A8 has the one Moller-Trumbore, as in the JAX package),
+    which is launched every time: asking whether any ray overflowed would
+    stall the host on the device. With mt="mxu" the fallback's rays round
+    as the bilinear form does, so the bits may differ from mesh_search's
+    there."""
+    check_search_options(mt, visit)
     rays = (ox, oy, oz, dx, dy, dz)
     alive, t_cap = _defaults(ox, alive, t_cap)
     _check(mc, rays, alive, t_cap)
@@ -331,5 +338,5 @@ def mesh_search_pairs(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     # few blocks and the rest of the wavefront costs next to nothing.
     t_fb, i_fb = mesh_search(mc, *rays, t_min, alive=unsafe, t_cap=t_cap,
                              sort=True, sort_mode=sort_mode,
-                             interpret=interpret)
+                             interpret=interpret, mt=mt, visit=visit)
     return torch.where(unsafe, t_fb, t_res), torch.where(unsafe, i_fb, i_res)

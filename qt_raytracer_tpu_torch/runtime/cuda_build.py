@@ -153,11 +153,12 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.qtrt_mesh_first_cluster.restype = i
     lib.qtrt_mesh_first_cluster.argtypes = [p] * 9 + [i, i, f, i] + [p] * 3
     # qtrt_mesh_search(ox, oy, oz, dx, dy, dz, alive, t_cap, excl, tris,
-    #                  p_stride, boxes, k, k_stride, g, t_min, n, t_out,
-    #                  idx_out, stream)
+    #                  p_stride, rows, r_stride, boxes, k, k_stride, g, mode,
+    #                  t_min, n, t_out, idx_out, stream)
+    # rows is a device pointer, or None where the instance reads none.
     lib.qtrt_mesh_search.restype = i
-    lib.qtrt_mesh_search.argtypes = ([p] * 10 + [i, p, i, i, i, f, i]
-                                     + [p] * 3)
+    lib.qtrt_mesh_search.argtypes = ([p] * 10 + [i, p, i, p, i, i, i, i, f,
+                                                 i] + [p] * 3)
     # qtrt_mesh_crossing_lists(ox, oy, oz, dx, dy, dz, alive, t_cap, boxes,
     #                          k, k_stride, t_min, n, c_max, lists, ncross,
     #                          stream)

@@ -18,7 +18,11 @@ Tolerances: the kernels round op by op as the plain versions do. Full mode
 the first crossed cluster (A4) and the mesh search (A3): bitwise on live
 lanes, BIG/0 (A4: k) on dead lanes; the sphere search (A5) and the
 cluster-culled sphere search (A6) likewise. The exclude operand of A1, A2,
-A3 and A5 is held the same way, each ray excluding its own winner.
+A3 and A5 is held the same way, each ray excluding its own winner. A3's
+row-gated and bilinear-form instances equal their plain versions on every
+lane; the row gate, smaller clusters and the slice visits equal A3's
+default on live lanes, and the bilinear form agrees with it on 99.9% of
+live lanes (its candidates round otherwise).
 Renders: at most 1% of channels beyond 2e-3 + 2e-3 |ref|, as in
 ``tests/test_torch_render.py``; render gradients within 2e-3 of the
 largest entry, the flip budget of a few rays.
@@ -671,3 +675,111 @@ def test_world_render_options_on_card_are_bit_identical(card, option):
         assert counts == (10, 0, 10, 0, 0)
     else:
         assert counts == (10, 10, 0, 0, 0)
+
+
+# ------------- A3's row-gated and bilinear-form instances, cluster sizes
+@pytest.fixture(scope="module")
+def mesh_bodies(card):
+    """The two meshes with the row boxes and the factor planes, and the
+    terrain in clusters of one and two 128-triangle rows."""
+    worlds = {"terrain48": meshes.terrain_world(48, 48, device="cpu"),
+              "cornell_mesh": meshes.cornell_box_world(device="cpu")}
+    out = {k: mi.prep_mesh_clusters(w.mesh.to(card), mt="mxu")
+           for k, w in worlds.items()}
+    for rows in (1, 2):
+        out[f"terrain48_rows{rows}"] = mi.prep_mesh_clusters(
+            worlds["terrain48"].mesh.to(card), cluster_rows=rows, mt="mxu")
+    return out
+
+
+@pytest.mark.parametrize("exclude", [False, True])
+@pytest.mark.parametrize("n", [1, 255, 4097])
+@pytest.mark.parametrize("body", ["rowgate", "mxu"])
+@pytest.mark.parametrize("name", ["terrain48", "cornell_mesh",
+                                  "terrain48_rows1"])
+def test_mesh_bodies_match_plain_versions(card, mesh_bodies, name, body, n,
+                                          exclude):
+    # Each instance, with and without the exclude operand, bitwise equal to
+    # its plain version on every lane; the row gate also to A3's default
+    # instance, the bilinear form in agreement with it.
+    mc = mesh_bodies[name]
+    rays, alive, cap = _mesh_rays(mc, n, seed=n + 17, device=card)
+    kw = dict(visit="rowgate") if body == "rowgate" else dict(mt="mxu")
+    base = mi.mesh_hits(mc, *rays, T_MIN, alive, cap)
+    excl = _own_winner(base[1], base[0], alive) if exclude else None
+    before = (mi.launches, mi.rowgate_launches, mi.mxu_launches,
+              mi.exclude_launches)
+    got = mi.mesh_hits(mc, *rays, T_MIN, alive, cap, exclude=excl, **kw)
+    assert (mi.launches, mi.rowgate_launches, mi.mxu_launches,
+            mi.exclude_launches) == (before[0] + 1,
+                                     before[1] + (body == "rowgate"),
+                                     before[2] + (body == "mxu"),
+                                     before[3] + exclude)
+    plain = mi.mesh_hits(mc, *rays, T_MIN, alive, cap, exclude=excl,
+                         interpret=True, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain):
+        assert torch.equal(a.cpu(), b.cpu())
+    live = alive.cpu()
+    ref = mi.mesh_hits(mc, *rays, T_MIN, alive, cap, exclude=excl)
+    if body == "rowgate":
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu()[live], b.cpu()[live])
+    elif n > 1000:
+        # The same winner, or a tie at the same t: the Cornell boxes stand
+        # on the floor's plane, and rounding decides between coplanar
+        # triangles.
+        tie = (got[0] - ref[0]).abs() <= 1e-4 * ref[0].abs()
+        agree = ((got[1] == ref[1]) | tie).cpu()[live].float().mean()
+        assert float(agree) >= 0.999
+    if exclude:
+        named = alive & (excl >= 0) & (got[0] < fh.BIG)
+        assert not bool((named & (got[1] == excl)).any())
+
+
+@pytest.mark.parametrize("sort_mode", ["crossing", "crossing2"])
+@pytest.mark.parametrize("rows", [1, 2])
+def test_cluster_sizes_on_card_keep_live_lanes(card, mesh_worlds, mesh_bodies,
+                                               rows, sort_mode):
+    # A smaller cluster, under each body and sort key, gives the default
+    # search's bits on live lanes; the bilinear form its own bits under
+    # every sort key.
+    mc = mesh_bodies[f"terrain48_rows{rows}"]
+    rays, alive, cap = _mesh_rays(mc, 4097, seed=37 + rows, device=card)
+    ref = mi.mesh_search(mesh_worlds["terrain48"], *rays, T_MIN, alive=alive,
+                         t_cap=cap)
+    for visit in ("full", "rowgate", "sliced"):
+        got = mi.mesh_search(mc, *rays, T_MIN, alive=alive, t_cap=cap,
+                             visit=visit, sort_mode=sort_mode)
+        for a, b in zip(got, ref):
+            assert torch.equal(a[alive], b[alive]), visit
+    mxu = [mi.mesh_search(mc, *rays, T_MIN, alive=alive, t_cap=cap, mt="mxu",
+                          sort_mode=m) for m in ("crossing", sort_mode)]
+    for a, b in zip(*mxu):
+        assert torch.equal(a[alive], b[alive])
+
+
+@pytest.mark.parametrize("option", [
+    dict(mesh_visit="rowgate"), dict(mesh_cluster_rows=1),
+    dict(mesh_visit="subtile"), dict(mesh_visit="sliced"),
+    dict(mesh_mt="mxu")])
+def test_world_render_search_bodies_on_card(card, option):
+    # The row gate, the cluster size and the subtile and sliced visits
+    # give the default frame bit for bit; the bilinear form stays within
+    # the flip budget. Launches: 2 samples x 5 bounces of one chunk.
+    import dataclasses
+    world = meshes.terrain_world(48, 48, device="cpu").to(card)
+    cfg = RenderConfig(width=48, height=48, spp=2, max_depth=5, rng="hash",
+                       pixel_chunk=-1)
+    cam = meshes.terrain_camera(cfg.aspect_ratio, device="cpu").to(card)
+    want = render_linear(world, cam, cfg, 5)
+    mi.launches = mi.rowgate_launches = mi.mxu_launches = 0
+    got = render_linear(world, cam, dataclasses.replace(cfg, **option), 5)
+    assert (mi.launches, mi.rowgate_launches, mi.mxu_launches) == (
+        10, 10 * (option.get("mesh_visit") == "rowgate"),
+        10 * (option.get("mesh_mt") == "mxu"))
+    if "mesh_mt" in option:
+        bad = (got - want).abs() > 2e-3 + 2e-3 * want.abs()
+        assert float(bad.float().mean()) <= 0.01
+    else:
+        assert torch.equal(got, want)

@@ -1,7 +1,8 @@
 """The port stands apart from JAX, and never hides a missing device or
 kernel: importing it loads no JAX; on a machine without CUDA a CUDA render,
 the kernel's route and its build raise instead of returning; features not
-yet ported raise NotImplementedError naming their ROADMAP item."""
+yet ported raise NotImplementedError naming their ROADMAP item, and those
+ported since run."""
 
 import pathlib
 import subprocess
@@ -242,24 +243,29 @@ def _runs_pair_first_cluster():
     assert c1.shape == c2.shape == (4,)
 
 
-def _raises_rowgate():
-    mi, mc = _mesh_clusters()
-    mi.mesh_search(mc, *_flat4(), 1e-3, visit="rowgate")
+def _mesh_search_runs(**kw):
+    from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
+    from qt_raytracer_tpu_torch.models import meshes
+    world = meshes.icosphere_world(1, builder="numpy", device="cpu")
+    mc = mi.prep_mesh_clusters(world.mesh, mt="mxu")   # with every table
+    t, idx = mi.mesh_search(mc, *_flat4(), 1e-3, **kw)
+    assert t.shape == idx.shape == (4,)
 
 
-def _raises_subtile():
-    mi, mc = _mesh_clusters()
-    mi.mesh_search(mc, *_flat4(), 1e-3, visit="subtile")
+def _runs_rowgate():
+    _mesh_search_runs(visit="rowgate")
 
 
-def _raises_sliced():
-    mi, mc = _mesh_clusters()
-    mi.mesh_search(mc, *_flat4(), 1e-3, visit="sliced")
+def _runs_subtile():
+    _mesh_search_runs(visit="subtile")
 
 
-def _raises_mxu():
-    mi, mc = _mesh_clusters()
-    mi.mesh_search(mc, *_flat4(), 1e-3, mt="mxu")
+def _runs_sliced():
+    _mesh_search_runs(visit="sliced")
+
+
+def _runs_mxu():
+    _mesh_search_runs(mt="mxu")
 
 
 def _runs_pairs_kernel():
@@ -284,10 +290,6 @@ def _runs_sort_modes():
 @pytest.mark.parametrize("run,item", [
     (_raises_xla, "item 13"),
     (_raises_sharded_mesh, "item 11"),
-    (_raises_rowgate, "Queue B"),
-    (_raises_subtile, "Queue B"),
-    (_raises_sliced, "Queue B"),
-    (_raises_mxu, "Queue B"),
 ])
 def test_unported_features_raise(run, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -298,7 +300,9 @@ def test_unported_features_raise(run, item):
 @pytest.mark.parametrize("run", [_runs_edge_aware, _runs_a5_exclude,
                                  _runs_a6_clustered, _runs_exclude_prim0,
                                  _runs_compact, _runs_pair_first_cluster,
-                                 _runs_pairs_kernel, _runs_sort_modes])
+                                 _runs_pairs_kernel, _runs_sort_modes,
+                                 _runs_rowgate, _runs_subtile, _runs_sliced,
+                                 _runs_mxu])
 def test_ported_features_run(run):
     run()
 

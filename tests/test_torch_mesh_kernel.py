@@ -186,13 +186,20 @@ def test_plain_blocks_do_not_change_results(case):
 
 def test_wrappers_refuse_what_is_not_ported(case):
     mc, rays = case["mc"], case["t_rays"]
-    # Still to port: the other Moller-Trumbore engine and visit modes.
-    for kw, what in ((dict(mt="mxu"), "mxu"), (dict(visit="rowgate"), "rowgate"),
-                     (dict(visit="subtile"), "subtile"),
-                     (dict(visit="sliced"), "sliced")):
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-            tmi.mesh_search(mc, *rays, T_MIN, **kw)
-        assert what in str(err.value)
+    # Ported since: the other Moller-Trumbore engine and visit modes run
+    # (on clusters built with the tables they read), and unknown values of
+    # those options raise.
+    tables = tmi.prep_mesh_clusters(
+        mesh_from_arrays(_arrays(case["jm"]), device="cpu"), mt="mxu")
+    few = [r[:64] for r in rays]
+    for kw in (dict(mt="mxu"), dict(visit="rowgate"), dict(visit="subtile"),
+               dict(visit="sliced")):
+        t, idx = tmi.mesh_search(tables, *few, T_MIN, **kw)
+        assert t.shape == idx.shape == (64,)
+    for kw, what in ((dict(mt="tpu"), "mt"), (dict(visit="rows"), "visit"),
+                     (dict(pipe="sort"), "pipe")):
+        with pytest.raises(ValueError, match=what):
+            tmi.mesh_search(tables, *rays, T_MIN, **kw)
     # Ported since: the sort keys and A4's second output run.
     for mode in ("crossing2", "morton"):
         t, idx = tmi.mesh_search(mc, *rays, T_MIN, sort_mode=mode)

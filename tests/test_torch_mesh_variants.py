@@ -178,9 +178,13 @@ def test_sort_mode_refusals(case):
                       tri_planes=torch.zeros((9, 255 * mc.tris_per_cluster)))
     with pytest.raises(ValueError, match="254"):
         tmi.mesh_search(big, *rays, T_MIN, sort_mode="crossing2")
+    # The limit is checked where the key is built: 254 clusters take it
+    # (the permutation alone, not a sweep of 254 clusters of padding).
     ok = big._replace(k=254)
-    t, _ = tmi.mesh_search(ok, *rays, T_MIN, sort_mode="crossing2")
-    assert t.shape == (N,)
+    perm = tmi.crossing_order(ok, *rays, T_MIN,
+                              torch.ones(N, dtype=torch.bool),
+                              torch.full((N,), BIG), sort_mode="crossing2")
+    assert perm.shape == (N,)
 
 
 OPTION_DEFAULTS = dict(mesh_kernel="clustered", mesh_pair_c=6,

@@ -105,9 +105,11 @@ def test_render_config_clamps_match(kw):
     # package reads from the environment, at its defaults.
     own = {k: got.pop(k) for k in sorted(set(got) - set(want))}
     assert own == {"edge_kernel_order": 1, "edge_kernel_px": 1.0,
-                   "edge_shadow": True, "mesh_compact": False,
-                   "mesh_kernel": "clustered", "mesh_pair_c": 6,
-                   "mesh_sort0": True, "mesh_sort_mode": "crossing"}
+                   "edge_shadow": True, "mesh_cluster_rows": 4,
+                   "mesh_compact": False, "mesh_kernel": "clustered",
+                   "mesh_mt": "vpu", "mesh_pair_c": 6, "mesh_sort0": True,
+                   "mesh_sort_mode": "crossing", "mesh_sort_pipe": "gather",
+                   "mesh_visit": "full"}
     assert got == want
     assert t.num_pixels == j.num_pixels and t.aspect_ratio == j.aspect_ratio
 
@@ -145,10 +147,9 @@ def test_pixel_grid_matches():
 
 
 def test_mesh_scene_not_ported():
-    # Mesh scenes are ported: a World and its camera, with compaction and
-    # the pair-wavefront kernels. What of the mesh path is not ported yet
-    # (the other visit modes and Moller-Trumbore engine) raises, naming
-    # ROADMAP.
+    # Mesh scenes are ported: a World and its camera, with compaction, the
+    # pair-wavefront kernels, the row gate and the bilinear-form engine. A
+    # search whose factors the clusters were built without raises.
     world, cam = tscenes.get_scene("cornell_mesh", 16 / 9, device="cpu")
     assert isinstance(world, World) and world.mesh is not None
     assert world.mesh.num_triangles == 36 and world.mesh.num_lights == 2
@@ -159,13 +160,15 @@ def test_mesh_scene_not_ported():
                        plain)
     assert torch.equal(trace_flat_world(world, *rays, keys, 1,
                                         mesh_kernel="pairs"), plain)
+    flat = (*rays[0].T.contiguous(), *rays[1].T.contiguous())
     mc = prep_mesh_clusters(world.mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh_search(mc, *rays[0].T.contiguous(), *rays[1].T.contiguous(),
-                    1e-3, mt="mxu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh_search(mc, *rays[0].T.contiguous(), *rays[1].T.contiguous(),
-                    1e-3, visit="rowgate")
+    with pytest.raises(ValueError, match="mt_planes"):
+        mesh_search(mc, *flat, 1e-3, mt="mxu")
+    full = prep_mesh_clusters(world.mesh, mt="mxu")
+    want = mesh_search(mc, *flat, 1e-3)
+    for tables, kw in ((full, dict(mt="mxu")), (mc, dict(visit="rowgate"))):
+        got = mesh_search(tables, *flat, 1e-3, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), kw
     with pytest.raises(KeyError):
         tscenes.get_scene("nope", 16 / 9, device="cpu")
 
