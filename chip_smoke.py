@@ -99,6 +99,7 @@ CLUSTER_ROWS = (1, 2, 4)   # cluster sizes timed on the bounce wavefront
 PEAK_FP32 = 67e12          # FLOP/s outside the tensor cores (H100 SXM)
 PEAK_BYTES = 3.35e12       # bytes/s of HBM3
 SWEEP_FLOPS = 25           # per (ray, sphere) pair of a sphere sweep
+SWEEP_DEPTHS = (2, 3, 5)   # bounce wavefronts of the sphere sweep phase
 REFINE_FLOPS = 100         # per ray: A1's refinement and geometry
 SLAB_FLOPS = 20            # per (ray, box) slab test
 MT_FLOPS = 45              # per (ray, triangle) Moller-Trumbore and accept
@@ -286,15 +287,45 @@ def bound(flops: float, nbytes: float) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
-def sweep_bound(n: int, live: int, slots: int, out_words: int,
-                full: bool = False, exclude: bool = False) -> dict:
-    """Bound of a sphere sweep (A1, A2, A5): 25 operations per (live ray,
-    slot), A1's refinement per live ray; rays in (6 floats and a flag, the
-    exclude id where given), the table once, out_words per ray out."""
-    flops = live * (slots * SWEEP_FLOPS + (REFINE_FLOPS if full else 0))
+def sweep_work(fh, spheres, boxes, rays, alive, t_min,
+               exclude=None) -> tuple[int, int]:
+    """(pairs, gate tests) that the gated sweep of A1, A2 and A5 needs on
+    these rays, counted by fused_hit.sweep_gated_plain: per live ray, one
+    gate test per group and the slots of each group its gate opens (a
+    whole GROUP_S per group: exact where GROUP_S divides the slots, as in
+    every table here). Its (t, idx) must be the ungated sweep's."""
+    live = torch.nonzero(alive).squeeze(1)
+    groups = boxes.shape[0]
+    pairs = 0
+    for lo in range(0, live.shape[0], 65536):
+        ids = live[lo:lo + 65536]
+        part = [x[ids] for x in rays]
+        ex = None if exclude is None else exclude[ids]
+        t, i, visits = fh.sweep_gated_plain(spheres, boxes, fh.GROUP_S,
+                                            *part, t_min, ex)
+        t_ref, i_ref, _ = fh._sweep(spheres, *part, t_min, ex)
+        if not (torch.equal(t, t_ref) and torch.equal(i, i_ref)):
+            raise AssertionError("the gated sweep differs from the ungated "
+                                 "one")
+        pairs += int(visits.sum()) * fh.GROUP_S
+    return pairs, int(live.shape[0]) * groups
+
+
+def sweep_bound(n: int, live: int, work: tuple[int, int], slots: int,
+                out_words: int, full: bool = False,
+                exclude: bool = False) -> dict:
+    """Bound of a sphere sweep (A1, A2, A5) on n rays, live of them alive:
+    25 operations per (ray, slot) pair and 20 per group gate test of work
+    (sweep_work), A1's refinement per live ray; rays in (6 floats and a
+    flag, the exclude id where given), the table and its group boxes once,
+    out_words per ray out."""
+    pairs, tests = work
+    flops = pairs * SWEEP_FLOPS + tests * SLAB_FLOPS \
+        + live * (REFINE_FLOPS if full else 0)
     nbytes = n * (25 + 4 * exclude + 4 * out_words) \
-        + slots * 16 * (5 if full else 1)
-    return bound(flops, nbytes)
+        + slots * 16 * (5 if full else 1) + tests // max(live, 1) * 32
+    return {"pairs_per_live_ray": pairs / max(live, 1),
+            **bound(flops, nbytes)}
 
 
 def with_dead_lanes(alive: torch.Tensor, seed: int) -> torch.Tensor:
@@ -321,16 +352,21 @@ def compare_search(si, scene, o, d, alive, t_min, exclude=None) -> dict:
     if not st["bitwise"]:
         raise AssertionError(f"A5 is not bitwise equal to its plain version "
                              f"on live lanes: {st}")
+    from qt_raytracer_tpu_torch.kernels import fused_hit as fh
     tables = si.prep_sphere_search(scene)
     rays = [x[:, k].contiguous() for x in (o, d) for k in range(3)]
+    work = sweep_work(fh, tables.spheres, tables.boxes, rays, alive, t_min,
+                      None if exclude is None else
+                      exclude.to(torch.int32))
     st.update(rays=o.shape[0], dead_lanes=int((~alive).sum()),
               ms=cuda_ms(lambda: si.sphere_search_flat(
                   tables, *rays, alive, t_min, exclude=exclude)),
               plain_ms=cuda_ms(lambda: si.sphere_search_flat(
                   tables, *rays, alive, t_min, interpret=True,
                   exclude=exclude)),
-              **sweep_bound(o.shape[0], st["live"], tables.spheres.shape[0],
-                            2, exclude=exclude is not None))
+              **sweep_bound(o.shape[0], st["live"], work,
+                            tables.spheres.shape[0], 2,
+                            exclude=exclude is not None))
     return st
 
 
@@ -648,7 +684,8 @@ def main() -> None:
     print(f"built and loaded {cuda_build.library_path().name} in "
           f"{time.perf_counter() - t0:.3f} s ({lib._name})")
     for line in cuda_build.build_log.splitlines():
-        if "Compiling entry" in line or "registers" in line:
+        if "Compiling entry" in line or "registers" in line or \
+                "spill" in line:
             print(line.strip())
 
     def primary(camera, cfg, spb=1, index=0):
@@ -684,28 +721,61 @@ def main() -> None:
     if scene.device != dev or camera.device != dev:
         raise AssertionError("get_scene did not build on the card")
 
-    phase("A1 fused_hit vs plain version (book cover)")
+    phase("A1, A2 and A5 vs plain versions (book cover, primary and "
+          "bounce wavefronts of chunk 0)")
     tables = fh.prep_fused_spheres(scene)
+    si = _sphere_search_module()
     s0 = primary(camera, cfg)
-    bounced = s0
-    for depth_idx in range(3):
+    sweep_fronts, bounced = {"primary_chunk0": s0}, s0
+    for depth_idx in range(max(SWEEP_DEPTHS)):
         bounced = itg.bounce(tables, bounced, depth_idx, cfg.t_min,
                              interpret=True)
-    a1 = {}
-    for name, s in {"primary_chunk0": s0, "bounce3": bounced}.items():
-        args = (tables, *rays_of(s), s.alive, cfg.t_min)
+        if depth_idx + 1 in SWEEP_DEPTHS:
+            sweep_fronts[f"bounce{depth_idx + 1}"] = bounced
+    a1, a2f, a5 = {}, {}, {}
+    for name, s in sweep_fronts.items():
+        rays = rays_of(s)
+        args = (tables, *rays, s.alive, cfg.t_min)
         kern = fh.fused_hit(*args)
         plain = fh.fused_hit_plain(*args)
         torch.cuda.synchronize()
         st = compare_hits(fh, kern, plain, s.alive)
+        if not st["bitwise"]:
+            raise AssertionError(f"A1 is not bitwise equal to its plain "
+                                 f"version ({name}): {st}")
         # In turns, on the same card and inputs.
         st["ms"] = cuda_ms(lambda: fh.fused_hit(*args))
         st["plain_ms"] = cuda_ms(lambda: fh.fused_hit_plain(*args))
         st["rays"] = s.ox.shape[0]
-        st.update(sweep_bound(st["rays"], st["live"],
+        work = sweep_work(fh, tables.spheres, tables.boxes, rays, s.alive,
+                          cfg.t_min)
+        st.update(sweep_bound(st["rays"], st["live"], work,
                               tables.spheres.shape[0], 19, full=True))
         a1[name] = st
-        print(f"{name}: {json.dumps(st)}", flush=True)
+        print(f"A1 {name}: {json.dumps(st)}", flush=True)
+        # A2 on the same rays: the same sweep, (t, idx) out.
+        k2 = fh.fused_hit(*args, shadow_only=True)
+        p2 = fh.fused_hit_plain(*args, shadow_only=True)
+        sh = compare_t_idx(fh.BIG, (k2["t"], k2["idx"]), (p2["t"], p2["idx"]),
+                           s.alive)
+        if not sh["bitwise"]:
+            raise AssertionError(f"A2 is not bitwise equal to its plain "
+                                 f"version ({name}): {sh}")
+        sh.update(rays=st["rays"],
+                  ms=cuda_ms(lambda: fh.fused_hit(*args, shadow_only=True)),
+                  plain_ms=cuda_ms(lambda: fh.fused_hit_plain(
+                      *args, shadow_only=True)),
+                  **sweep_bound(st["rays"], st["live"], work,
+                                tables.spheres.shape[0], 2))
+        a2f[name] = sh
+        print(f"A2 {name}: {json.dumps(sh)}", flush=True)
+        o_s = torch.stack(rays[:3], dim=1)
+        d_s = torch.stack(rays[3:], dim=1)
+        al = with_dead_lanes(s.alive, 1) if name == "primary_chunk0" \
+            else s.alive
+        a5[name] = compare_search(si, scene, o_s, d_s, al, cfg.t_min)
+        print(f"A5 {name}: {json.dumps(a5[name])}", flush=True)
+        del kern, plain, k2, p2, o_s, d_s
     results["fused_hit"] = (max(st["max_abs_err"] for st in a1.values()),
                             a1["primary_chunk0"])
 
@@ -723,12 +793,14 @@ def main() -> None:
                              f"plain version: {a1x}")
     a1x.update(check_excluded(kern["t"], kern["idx"], excl, s0.alive, fh.BIG,
                               "A1"))
+    work_x = sweep_work(fh, tables.spheres, tables.boxes, rays_of(s0),
+                        s0.alive, cfg.t_min, excl)
     a1x.update(rays=s0.ox.shape[0],
                ms=cuda_ms(lambda: fh.fused_hit(*args, exclude=excl)),
                no_exclude_ms=cuda_ms(lambda: fh.fused_hit(*args)),
                plain_ms=cuda_ms(lambda: fh.fused_hit_plain(*args,
                                                            exclude=excl)),
-               **sweep_bound(s0.ox.shape[0], a1x["live"],
+               **sweep_bound(s0.ox.shape[0], a1x["live"], work_x,
                              tables.spheres.shape[0], 19, full=True,
                              exclude=True))
     print(f"A1 exclude: {json.dumps(a1x)}", flush=True)
@@ -748,20 +820,10 @@ def main() -> None:
                    *args, shadow_only=True)),
                plain_ms=cuda_ms(lambda: fh.fused_hit_plain(
                    *args, shadow_only=True, exclude=excl)),
-               **sweep_bound(s0.ox.shape[0], a2x["live"],
+               **sweep_bound(s0.ox.shape[0], a2x["live"], work_x,
                              tables.spheres.shape[0], 2, exclude=True))
     print(f"A2 exclude: {json.dumps(a2x)}", flush=True)
     del first, excl, kern, plain
-
-    phase("A5 sphere_search vs plain version (book cover)")
-    si = _sphere_search_module()
-    o0 = torch.stack([s0.ox, s0.oy, s0.oz], dim=1)
-    d0 = torch.stack([s0.dx, s0.dy, s0.dz], dim=1)
-    a5 = {"primary_chunk0": compare_search(
-        si, scene, o0, d0, with_dead_lanes(s0.alive, 1), cfg.t_min)}
-    print(f"A5 primary_chunk0: {json.dumps(a5['primary_chunk0'])}",
-          flush=True)
-    del o0, d0
 
     phase("book-cover 1080p frame through render_linear")
     chunks = chunk_count(cfg)
@@ -857,10 +919,14 @@ def main() -> None:
         kern_sub = mi.mesh_hits(mc, *r_sub, t_min, al_sub, cap_sub)
         plain_sub = mi.mesh_search_plain(mc, *r_sub, t_min, al_sub, cap_sub)
         st["subset"] = compare_t_idx(fh.BIG, kern_sub, plain_sub, al_sub)
+        if not st["subset"]["bitwise"] or not st.get(
+                "full", {"bitwise": True})["bitwise"]:
+            raise AssertionError(f"A3 is not bitwise equal to its plain "
+                                 f"version ({name}): {st}")
         st["subset_rays"] = int(sub.shape[0])
-        st["ms"] = cuda_ms(lambda: mi.mesh_hits(mc, *r_sub, t_min, al_sub,
-                                                cap_sub))
-        st["plain_ms"] = cuda_ms(lambda: mi.mesh_search_plain(
+        st["subset_ms"] = cuda_ms(lambda: mi.mesh_hits(
+            mc, *r_sub, t_min, al_sub, cap_sub))
+        st["subset_plain_ms"] = cuda_ms(lambda: mi.mesh_search_plain(
             mc, *r_sub, t_min, al_sub, cap_sub), 3)
         # The work the gate lets through on the subset: its bound.
         tg, ig, visits = mi.mesh_search_gated_plain(mc, *r_sub, t_min, al_sub,
@@ -869,10 +935,26 @@ def main() -> None:
                                                               plain_sub[1])):
             raise AssertionError("the gated plain sweep differs from the "
                                  "ungated one")
-        st.update(a3_bound(mc, "a3", st["subset_rays"], int(al_sub.sum()),
-                           visits))
+        st["subset_bound"] = a3_bound(mc, "a3", st["subset_rays"],
+                                      int(al_sub.sum()), visits)
+        # And on the whole sorted wavefront, from the row-gated plain sweep
+        # (the cluster visits are those of the VPU instance): the bounds of
+        # A3 and A3r at the shape timed. Its bits must be the kernel's.
+        gated, gated_s = wall_s(lambda: mi.mesh_search_gated_plain(
+            mc, *srays, t_min, salive, scap, visit="rowgate"))
+        whole = mi.mesh_hits(mc, *srays, t_min, salive, scap)
+        if not all(torch.equal(a, b) for a, b in zip(gated[:2], whole)):
+            raise AssertionError(f"A3 differs from the gated plain sweep on "
+                                 f"the whole wavefront ({name})")
+        st.update(a3_bound(mc, "a3", n, st["live"], gated[2]),
+                  ms=st["kernel_ms_sorted"],
+                  plain_ms=st["plain_s_full"] * 1e3 if "plain_s_full" in st
+                  else None)
         st["pairs_per_live_ray"] = st["visits_per_live_ray"] \
             * mc.tris_per_cluster
+        rowgate_whole = {"plain_ms": gated_s * 1e3, **a3_bound(
+            mc, "rowgate", n, st["live"], gated[2], gated[3])}
+        del gated, whole
         if name != "primary_chunk0":
             # The row-gated and bilinear-form instances on the same subset,
             # and on the whole sorted wavefront beside A3.
@@ -885,6 +967,13 @@ def main() -> None:
                     a3_kernel_ms_sorted=st["kernel_ms_sorted"],
                     pipeline_ms=cuda_ms(lambda: mi.mesh_search(
                         mc, *rays, t_min, alive=alive, t_cap=cap, **kw)))
+                if body == "rowgate":
+                    # Timed and bounded on the whole sorted wavefront, as
+                    # A3; the subset's numbers kept beside.
+                    bt.update({f"subset_{k}": bt[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by")
+                        if k in bt})
+                    bt.update(rowgate_whole, ms=bt["kernel_ms_sorted"])
                 a3b[body][name] = bt
                 print(f"A3 {body} {name}: {json.dumps(bt)}", flush=True)
         if name == "primary_chunk2":
@@ -915,7 +1004,8 @@ def main() -> None:
                     mc, *r_sub, t_min, al_sub, cap_sub,
                     exclude=sexcl[sub]), 3))
             # The second hit lies behind the first: at least as much work.
-            sx.update({k: st[k] for k in ("bound_ms", "bound_by")})
+            sx.update({k: st["subset_bound"][k]
+                       for k in ("bound_ms", "bound_by")})
             print(f"A3 exclude {name}: {json.dumps(sx)}", flush=True)
             results["mesh_search[exclude]"] = (sx["max_abs_err"], sx)
             # The other instances with the exclude operand, on the subset.
@@ -1150,11 +1240,16 @@ def main() -> None:
     plain = fh.fused_hit_plain(*args, shadow_only=True)
     a2 = compare_t_idx(fh.BIG, (kern["t"], kern["idx"]),
                        (plain["t"], plain["idx"]), cand)
+    if not a2["bitwise"]:
+        raise AssertionError(f"A2 is not bitwise equal to its plain version "
+                             f"(Cornell shadow rays): {a2}")
+    work = sweep_work(fh, wt.spheres.spheres, wt.spheres.boxes, srays, cand,
+                      t_min)
     a2.update(rays=srays[0].shape[0], depth_idx=1,
               ms=cuda_ms(lambda: fh.fused_hit(*args, shadow_only=True)),
               plain_ms=cuda_ms(lambda: fh.fused_hit_plain(
                   *args, shadow_only=True)),
-              **sweep_bound(srays[0].shape[0], a2["live"],
+              **sweep_bound(srays[0].shape[0], a2["live"], work,
                             wt.spheres.spheres.shape[0], 2))
     print(f"A2 shadow wavefront: {json.dumps(a2)}", flush=True)
     results["fused_hit_shadow"] = (a2["max_abs_err"], a2)
@@ -1163,6 +1258,9 @@ def main() -> None:
     k3 = mi.mesh_search(wt.mesh, *srays, t_min, alive=cand, t_cap=kern["t"])
     p3 = mi.mesh_search_plain(wt.mesh, *srays, t_min, cand, kern["t"])
     a3_sh = compare_t_idx(fh.BIG, k3, p3, cand)
+    if not a3_sh["bitwise"]:
+        raise AssertionError(f"A3 is not bitwise equal to its plain version "
+                             f"(Cornell shadow rays): {a3_sh}")
     a3_sh.update(
         ms=cuda_ms(lambda: mi.mesh_search(wt.mesh, *srays, t_min, alive=cand,
                                           t_cap=kern["t"])),
@@ -1221,7 +1319,7 @@ def main() -> None:
                        vfov=40.0, aspect_ratio=cfg6.aspect_ratio)
     tab6 = si.prep_sphere_search(many)
     mono6 = si.prep_sphere_search(many, min_chunks=10 ** 6)
-    if tab6.boxes is None or mono6.boxes is not None:
+    if tab6.num_chunks == 0 or mono6.num_chunks > 0:
         raise AssertionError("the clustered table was not built")
     print(f"clustered scene: {many.num_spheres} slots, {tab6.num_chunks} "
           f"chunks of {si.CHUNK_S}", flush=True)
@@ -1270,8 +1368,10 @@ def main() -> None:
             plain_ms=cuda_ms(lambda: run(tab6, interpret=True), 3),
             a5_ms=cuda_ms(lambda: run(mono6)),
             a5_plain_ms=cuda_ms(lambda: run(mono6, interpret=True), 3),
-            a5_bound_ms=sweep_bound(n6, st["live"], tab6.spheres.shape[0],
-                                    2)["bound_ms"],
+            a5_bound_ms=sweep_bound(
+                n6, st["live"], sweep_work(fh, mono6.spheres, mono6.boxes,
+                                           rays, al, cfg6.t_min),
+                mono6.spheres.shape[0], 2)["bound_ms"],
             **bound(pairs * SWEEP_FLOPS
                     + st["live"] * tab6.num_chunks * SLAB_FLOPS,
                     n6 * 33 + tab6.spheres.numel() * 4

@@ -48,29 +48,52 @@
 // (live ray, slot of an opened chunk); the gate itself costs 6 loads and
 // some 20 FLOPs per (ray, chunk).
 //
-// What bounds it on the H100. The sweep costs about 25 FLOPs per ray-sphere
-// pair, and one IEEE square root. At the main path's 414,720 rays x 512
-// spheres that is about 5.3 GFLOP per launch, against about 100 B of ray I/O
-// per ray (6 floats and a flag in, 19 words out: 41 MB per launch). That is
-// some 130 FLOPs per byte, far above the card's balance point of about 20
-// for FP32 outside the tensor cores, so the sweep's arithmetic is the bound,
-// not memory. The candidates need a square root and a compare per pair, so
-// no tensor-core form applies.
+// What bounds it on the H100. A swept pair costs about 25 single-rounded
+// FP32 operations, and where its discriminant is not negative an IEEE
+// square root, two roots and their compares: the instruction rate, not
+// memory (a 414,720-ray launch moves some 41 MB). Every add and multiply
+// is its own instruction (no FMA, for the bits), so the instruction rate
+// sets the floor; the one lever is to test fewer pairs. On the book-cover
+// scene a ray's segment meets few of the 487 spheres, the slots are in grid
+// order (runs of consecutive slots are compact in space), and the bounce
+// wavefronts are mostly dead lanes (the sphere path does not compact them).
 //
-// What the design does about it. One thread per ray keeps the running
-// minimum in registers: the [N,S] candidate matrix that the TPU kernel wrote
-// to VMEM scratch never exists. Each block stages the sweep columns
-// (cx, cy, cz, |c|^2 - r^2) in shared memory as float4, in tiles of TILE_S
-// spheres so any S fits; all threads of a warp read the same sphere, a
-// broadcast without bank conflicts. The winner's row of the [S,16] table is
-// four 16-byte loads from a 32 KB table that stays in cache (the TPU's
-// one-hot MXU extraction has no use here). Ray I/O is one coalesced word per
-// thread per component. A block with no live ray skips the sweep. Beyond
-// this, tiling and occupancy are untuned. Shadow mode shares the sweep
-// through a template flag: it writes 2 words per ray instead of 19 and skips
-// the parameter loads and the refinement, so the same arithmetic bound holds
-// with less I/O (measured on an H100 80GB HBM3 at 700 W: 0.18-0.19 ms for
-// 524,288 Cornell-mesh shadow rays against 128 sphere slots).
+// What the design does about it. Four things, none of which changes a bit:
+//   - Group gate. prep_fused_spheres builds, per group of GROUP_S = 32
+//     consecutive slots, the AABB of its active spheres and ext, the
+//     largest |c|_1 + |r| among them (sweep_boxes; the sweep sees only
+//     r^2, so a hollow sphere's negative r bounds the same sphere). A lane
+//     opens a group when its segment [t_min, t_best] meets the box widened
+//     by 2^-8 (|o|_1 + ext); a warp sweeps the group when one of its lanes
+//     opens it. In f32 a root of the expanded form lies within |r| + 1.1e-3
+//     (|o| + |c| + |r|) of its sphere's centre (the rounding of disc, some
+//     20 ulps of a (|o| + |c| + |r|)^2, and of the root's own terms), so a
+//     group the gate skips holds no candidate below t_best; slots stay in
+//     ascending order, so the strict '<' keeps the lowest id on ties.
+//   - Root skip. A warp takes the square root, the roots and their compares
+//     of a slot only when one of its live lanes has disc >= 0
+//     (__any_sync); the others' candidate is BIG, as before.
+//   - Compaction. A block's live lanes are packed (a ballot and a prefix
+//     over the warps in shared memory), so ceil(live / 32) warps sweep, each
+//     with 32 live rays, and write their rays' outputs; the dead lanes get
+//     their defaults first.
+//   - No block barrier in the sweep. Sphere rows and group boxes are read
+//     with __ldg at warp-uniform addresses (one broadcast from L1), so each
+//     warp gates, skips and finishes on its own.
+// Shadow mode (A2) and A5 run this sweep too: A2 writes 2 words a ray
+// instead of 19 and skips the refinement; A5's table is padded to a
+// multiple of 64 slots, and its group boxes leave the padding out.
+// Measured, with chip_ab.py against the parent's one-thread-a-ray sweep on
+// the same inputs (H100 80GB HBM3 at 700 W): A1 on the 414,720 primary rays
+// of book-cover chunk 0 0.127 ms against 0.502 (74 of 512 slots swept per
+// live ray); on its bounce-2 wavefront (7% live) 0.119 against 0.215; A5
+// 0.111 against 0.489; A2 on the Cornell-mesh shadow rays 0.073 against
+// 0.190. A sparse bounce wavefront leaves few warps with work, and those
+// run one slot after another: latency, not the instruction rate, bounds it
+// there. Tried and not kept (PERF.md §6): groups of 16 and 64 slots, blocks
+// of 64 and 128 rays (no gain), and a power-of-two set of lanes per ray in
+// sparse blocks, each lane taking every L-th slot of a group (faster on
+// the sparsest wavefronts, 6-9% slower on the primary one).
 //
 // Numerics. Every add and multiply is rounded on its own (__fmul_rn and
 // friends stop nvcc from contracting them into FMAs), and divides and square
@@ -88,8 +111,13 @@
 namespace {
 
 constexpr float BIG = 3.0e38f;
-constexpr int BLOCK = 256;   // rays per block, one per thread
-constexpr int TILE_S = 256;  // spheres per shared-memory tile (4 KB)
+constexpr int BLOCK = 256;     // rays per block
+constexpr int WARPS = BLOCK / 32;
+constexpr unsigned FULL = 0xffffffffu;
+// The group gate's padding: 2^-8 of |o|_1 + max(|c|_1 + |r|) over the group,
+// some 3.5 times the widest the expanded-form root can stray from its
+// sphere in f32 (the header comment).
+constexpr float GATE_PAD = 1.0f / 256.0f;
 
 // Rows of the [16, n] float and [3, n] int outputs, in the order of the
 // wrapper's NAMES.
@@ -107,30 +135,100 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az,
   return add(add(mul(ax, bx), mul(ay, by)), mul(az, bz));
 }
 
-// The body of every kernel in this file. SHADOW: stop after the sweep and
-// write only rows F_T and I_IDX (the outputs are then [1, n] each, and
+// Slab reciprocal of one direction component, as the TPU kernels take it:
+// 1 / (|d| < 1e-30 ? (d < 0 ? -1e-30 : 1e-30) : d).
+__device__ __forceinline__ float slab_inv(float d) {
+  const float c = fabsf(d) < 1e-30f ? (d < 0.f ? -1e-30f : 1e-30f) : d;
+  return __fdiv_rn(1.f, c);
+}
+
+// The group gate of one lane: true unless the ray's segment [t_min, t_best]
+// misses the group's box widened by GATE_PAD * (|o|_1 + ext) (lo.w = ext, -1
+// for a group without an active sphere, which is never opened).
+__device__ __forceinline__ bool group_open(float4 lo, float4 hi,
+                                           const float o[3],
+                                           const float inv[3], float o_l1,
+                                           float t_min, float t_best) {
+  if (!(lo.w >= 0.f)) return false;
+  const float pad = mul(add(o_l1, lo.w), GATE_PAD);
+  const float l[3] = {sub(lo.x, pad), sub(lo.y, pad), sub(lo.z, pad)};
+  const float h[3] = {add(hi.x, pad), add(hi.y, pad), add(hi.z, pad)};
+  float en = t_min, ex = INFINITY;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float t0 = mul(sub(l[a], o[a]), inv[a]);
+    const float t1 = mul(sub(h[a], o[a]), inv[a]);
+    en = fmaxf(en, fminf(t0, t1));
+    ex = fminf(ex, fmaxf(t0, t1));
+  }
+  return ex >= en && en <= t_best;
+}
+
+// Dead-lane values of full mode (the TPU kernel's dead-row defaults).
+__device__ __forceinline__ void write_defaults(float* f, int* g, size_t row) {
+  const float fdef[N_FROWS] = {BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 0.f,
+                               0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < N_FROWS; ++r) f[r * row] = fdef[r];
+#pragma unroll
+  for (int r = 0; r < N_IROWS; ++r) g[r * row] = 0;
+}
+
+// The body of every kernel in this file but A6. SHADOW: stop after the sweep
+// and write only rows F_T and I_IDX (the outputs are then [1, n] each, and
 // params is not read); a winner id at or above num_ids (a padding slot of
-// the sphere-search table) is written as 0. Every thread of the block must
-// call it: it synchronises the block.
+// the sphere-search table) is written as 0. spheres: [s] float4 sweep rows;
+// boxes: [ceil(s / group)] pairs of float4, the group boxes. Every thread
+// of the block must call it: it synchronises the block.
 template <bool SHADOW, bool EXCL>
 __device__ __forceinline__ void fused_hit_body(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const bool* __restrict__ alive, const int* __restrict__ excl,
-    const float4* __restrict__ spheres, const float4* __restrict__ params,
-    int s, int num_ids, float t_min, int n, float* __restrict__ fout,
-    int* __restrict__ iout) {
-  __shared__ float4 tile[TILE_S];
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  const bool live = i < n && alive[i];
-  const bool block_live = __syncthreads_or(live);
+    const float4* __restrict__ spheres, const float4* __restrict__ boxes,
+    const float4* __restrict__ params, int s, int group, int num_ids,
+    float t_min, int n, float* __restrict__ fout, int* __restrict__ iout) {
+  __shared__ int lanes[BLOCK];
+  __shared__ int warp_live[WARPS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t row = static_cast<size_t>(n);
+
+  // --- dead lanes get their defaults; live lanes are compacted ---
+  const int i0 = blockIdx.x * BLOCK + threadIdx.x;
+  const bool live0 = i0 < n && alive[i0];
+  if (i0 < n && !live0) {
+    if constexpr (SHADOW) {
+      fout[i0] = BIG;
+      iout[i0] = 0;
+    } else {
+      write_defaults(fout + i0, iout + i0, row);
+    }
+  }
+  const unsigned ballot = __ballot_sync(FULL, live0);
+  if (lane == 0) warp_live[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int c = warp_live[w];
+    before += w < warp ? c : 0;
+    total += c;
+  }
+  if (live0) lanes[before + __popc(ballot & ((1u << lane) - 1u))] = i0;
+  __syncthreads();
+  // Warp w sweeps the live rays [32 w, 32 w + 32) of the block, in lane
+  // order; a warp past them has nothing to do.
+  if (warp * 32 >= total) return;
+  const bool live = threadIdx.x < total;
+  const int i = live ? lanes[threadIdx.x] : 0;
+
   // The lane's excluded sphere id (-1: none); read only when EXCL.
   int ex = -1;
   if constexpr (EXCL) {
     if (live) ex = excl[i];
   }
-
   float o_x = 0.f, o_y = 0.f, o_z = 0.f, d_x = 0.f, d_y = 0.f, d_z = 1.f;
   if (live) {
     o_x = ox[i]; o_y = oy[i]; o_z = oz[i];
@@ -140,64 +238,57 @@ __device__ __forceinline__ void fused_hit_body(
   const float o_dot_d = dot3(o_x, o_y, o_z, d_x, d_y, d_z);
   const float o2 = dot3(o_x, o_y, o_z, o_x, o_y, o_z);
   const float inv_a = __fdiv_rn(1.f, a);
+  const float o3[3] = {o_x, o_y, o_z};
+  const float inv3[3] = {slab_inv(d_x), slab_inv(d_y), slab_inv(d_z)};
+  const float o_l1 = add(add(fabsf(o_x), fabsf(o_y)), fabsf(o_z));
 
   // --- closest-hit sweep (expanded-form quadratic, as the TPU sweep) ---
   float t_best = BIG;
   int best = 0;
-  if (block_live) {
-    for (int base = 0; base < s; base += TILE_S) {
-      const int m = min(TILE_S, s - base);
-      __syncthreads();
-      for (int k = threadIdx.x; k < m; k += BLOCK) tile[k] = spheres[base + k];
-      __syncthreads();
-      if (!live) continue;
+  for (int base = 0; base < s; base += group) {
+    const int gi = base / group;
+    const bool open = live && group_open(__ldg(boxes + 2 * gi),
+                                         __ldg(boxes + 2 * gi + 1), o3, inv3,
+                                         o_l1, t_min, t_best);
+    if (!__any_sync(FULL, open)) continue;
+    const int end = min(s, base + group);
 #pragma unroll 4
-      for (int k = 0; k < m; ++k) {
-        const float4 c = tile[k];
-        const float d_dot_c = dot3(c.x, c.y, c.z, d_x, d_y, d_z);
-        const float o_dot_c = dot3(c.x, c.y, c.z, o_x, o_y, o_z);
-        const float half_b = sub(o_dot_d, d_dot_c);
-        const float cterm = add(sub(o2, mul(2.f, o_dot_c)), c.w);
-        const float disc = sub(mul(half_b, half_b), mul(a, cterm));
-        const float sq = __fsqrt_rn(fmaxf(disc, 0.f));
-        const float near = mul(sub(-half_b, sq), inv_a);
-        const float far = mul(add(-half_b, sq), inv_a);
-        const bool near_ok = near >= t_min && near <= BIG;
-        const bool far_ok = far >= t_min && far <= BIG;
-        const float root = near_ok ? near : far;
-        bool valid = disc >= 0.f && (near_ok || far_ok);
-        if constexpr (EXCL) valid = valid && (base + k) != ex;
-        const float cand = valid ? root : BIG;
-        if (cand < t_best) {
-          t_best = cand;
-          best = base + k;
-        }
+    for (int k = base; k < end; ++k) {
+      const float4 c = __ldg(spheres + k);
+      const float d_dot_c = dot3(c.x, c.y, c.z, d_x, d_y, d_z);
+      const float o_dot_c = dot3(c.x, c.y, c.z, o_x, o_y, o_z);
+      const float half_b = sub(o_dot_d, d_dot_c);
+      const float cterm = add(sub(o2, mul(2.f, o_dot_c)), c.w);
+      const float disc = sub(mul(half_b, half_b), mul(a, cterm));
+      // A lane with disc < 0 has no candidate (BIG), whatever the roots:
+      // the warp skips the root unless one of its lanes needs it.
+      if (!__any_sync(FULL, live && disc >= 0.f)) continue;
+      const float sq = __fsqrt_rn(fmaxf(disc, 0.f));
+      const float near = mul(sub(-half_b, sq), inv_a);
+      const float far = mul(add(-half_b, sq), inv_a);
+      const bool near_ok = near >= t_min && near <= BIG;
+      const bool far_ok = far >= t_min && far <= BIG;
+      const float root = near_ok ? near : far;
+      bool valid = disc >= 0.f && (near_ok || far_ok);
+      if constexpr (EXCL) valid = valid && k != ex;
+      const float cand = valid ? root : BIG;
+      if (cand < t_best) {
+        t_best = cand;
+        best = k;
       }
     }
   }
-  if (i >= n) return;
+  if (!live) return;
 
   float* f = fout + i;
   int* g = iout + i;
   if constexpr (SHADOW) {
-    // Unrefined t_best and the lowest winning id (0 on a miss); a dead lane
-    // gets BIG/0, the TPU kernel's dead-row values.
-    f[0] = live ? t_best : BIG;
-    g[0] = (live && best < num_ids) ? best : 0;
-    return;
-  }
-  const size_t row = static_cast<size_t>(n);
-  if (!live) {
-    const float fdef[N_FROWS] = {BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 0.f,
-                                 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < N_FROWS; ++r) f[r * row] = fdef[r];
-#pragma unroll
-    for (int r = 0; r < N_IROWS; ++r) g[r * row] = 0;
+    // Unrefined t_best and the lowest winning id (0 on a miss).
+    f[0] = t_best;
+    g[0] = best < num_ids ? best : 0;
     return;
   }
   const int idx = best;  // 0 on a miss: sphere 0's parameters, as in JAX
-
   // --- winner parameters: cx cy cz r | ax ay az fuzz | ior mat ex ey | ez ---
   const float4 p0 = params[4 * idx + 0];
   const float4 p1 = params[4 * idx + 1];
@@ -265,11 +356,12 @@ __global__ void __launch_bounds__(BLOCK) fused_hit_kernel(
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const bool* __restrict__ alive, const int* __restrict__ excl,
-    const float4* __restrict__ spheres, const float4* __restrict__ params,
-    int s, float t_min, int n, float* __restrict__ fout,
-    int* __restrict__ iout) {
+    const float4* __restrict__ spheres, const float4* __restrict__ boxes,
+    const float4* __restrict__ params, int s, int group, float t_min, int n,
+    float* __restrict__ fout, int* __restrict__ iout) {
   fused_hit_body<SHADOW, EXCL>(ox, oy, oz, dx, dy, dz, alive, excl, spheres,
-                               params, s, s, t_min, n, fout, iout);
+                               boxes, params, s, group, s, t_min, n, fout,
+                               iout);
 }
 
 // A5: the sweep over a table padded to a multiple of 64 slots (padding ids
@@ -280,24 +372,17 @@ __global__ void __launch_bounds__(BLOCK) sphere_search_kernel(
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const bool* __restrict__ alive, const int* __restrict__ excl,
-    const float4* __restrict__ spheres, int s_pad, int num_spheres,
-    float t_min, int n, float* __restrict__ t_out,
-    int* __restrict__ idx_out) {
+    const float4* __restrict__ spheres, const float4* __restrict__ boxes,
+    int s_pad, int group, int num_spheres, float t_min, int n,
+    float* __restrict__ t_out, int* __restrict__ idx_out) {
   fused_hit_body<true, EXCL>(ox, oy, oz, dx, dy, dz, alive, excl, spheres,
-                             nullptr, s_pad, num_spheres, t_min, n, t_out,
-                             idx_out);
+                             boxes, nullptr, s_pad, group, num_spheres, t_min,
+                             n, t_out, idx_out);
 }
 
 // ------------------------------------------------------------------ A6
 constexpr int ROW = 128;    // rays per block: one TPU ray row, the gate's unit
 constexpr int CHUNK_S = 64;  // spheres per Morton chunk
-
-// Slab reciprocal of one direction component, as the TPU kernel takes it:
-// 1 / (|d| < 1e-30 ? (d < 0 ? -1e-30 : 1e-30) : d).
-__device__ __forceinline__ float slab_inv(float d) {
-  const float c = fabsf(d) < 1e-30f ? (d < 0.f ? -1e-30f : 1e-30f) : d;
-  return __fdiv_rn(1.f, c);
-}
 
 __global__ void __launch_bounds__(ROW) sphere_search_clustered_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
@@ -390,55 +475,64 @@ __global__ void __launch_bounds__(ROW) sphere_search_clustered_kernel(
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // excl: [n] i32 excluded sphere id per lane (-1: none), or null for no
 // exclude operand; spheres: [s, 4] f32 rows (cx, cy, cz,
-// |c|^2 - r^2 + BIG*inactive); params: [s, 16] f32 rows of
-// packed_param_table; fout: [16, n] f32; iout: [3, n] i32. All pointers are
-// device pointers; spheres, params, fout and iout 16-byte aligned.
+// |c|^2 - r^2 + BIG*inactive); boxes: [ceil(s / group), 8] f32 group boxes
+// (lo xyz, ext | hi xyz, 0; ext = max |c|_1 + |r| over the group's active
+// spheres, -1 for none); params: [s, 16] f32 rows of packed_param_table;
+// fout: [16, n] f32; iout: [3, n] i32. All pointers are device pointers;
+// spheres, boxes, params, fout and iout 16-byte aligned.
 extern "C" int qtrt_fused_hit(const float* ox, const float* oy,
                               const float* oz, const float* dx,
                               const float* dy, const float* dz,
                               const bool* alive, const int* excl,
-                              const float* spheres, const float* params,
-                              int s, float t_min, int n, float* fout,
-                              int* iout, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                              const float* spheres, const float* boxes,
+                              const float* params, int s, int group,
+                              float t_min, int n, float* fout, int* iout,
+                              void* stream) {
+  if (n <= 0 || s <= 0 || group <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int grid = n / BLOCK + (n % BLOCK != 0);
   const auto st = static_cast<cudaStream_t>(stream);
   const float4* sp = reinterpret_cast<const float4*>(spheres);
+  const float4* bx = reinterpret_cast<const float4*>(boxes);
   const float4* pa = reinterpret_cast<const float4*>(params);
   if (excl != nullptr) {
     fused_hit_kernel<false, true><<<grid, BLOCK, 0, st>>>(
-        ox, oy, oz, dx, dy, dz, alive, excl, sp, pa, s, t_min, n, fout, iout);
+        ox, oy, oz, dx, dy, dz, alive, excl, sp, bx, pa, s, group, t_min, n,
+        fout, iout);
   } else {
     fused_hit_kernel<false, false><<<grid, BLOCK, 0, st>>>(
-        ox, oy, oz, dx, dy, dz, alive, nullptr, sp, pa, s, t_min, n, fout,
-        iout);
+        ox, oy, oz, dx, dy, dz, alive, nullptr, sp, bx, pa, s, group, t_min,
+        n, fout, iout);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shadow mode (kernel A2). Same ray, exclude and sphere operands as
-// qtrt_fused_hit, no parameter table; t_out: [n] f32 (unrefined sweep minimum, BIG on a miss
-// or a dead lane); idx_out: [n] i32 (lowest winning id, 0 on a miss or a
-// dead lane). Returns the cudaError_t of the launch.
+// Shadow mode (kernel A2). Same ray, exclude, sphere and box operands as
+// qtrt_fused_hit, no parameter table; t_out: [n] f32 (unrefined sweep
+// minimum, BIG on a miss or a dead lane); idx_out: [n] i32 (lowest winning
+// id, 0 on a miss or a dead lane). Returns the cudaError_t of the launch.
 extern "C" int qtrt_fused_hit_shadow(const float* ox, const float* oy,
                                      const float* oz, const float* dx,
                                      const float* dy, const float* dz,
                                      const bool* alive, const int* excl,
-                                     const float* spheres, int s, float t_min,
-                                     int n, float* t_out, int* idx_out,
+                                     const float* spheres, const float* boxes,
+                                     int s, int group, float t_min, int n,
+                                     float* t_out, int* idx_out,
                                      void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || s <= 0 || group <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int grid = n / BLOCK + (n % BLOCK != 0);
   const auto st = static_cast<cudaStream_t>(stream);
   const float4* sp = reinterpret_cast<const float4*>(spheres);
+  const float4* bx = reinterpret_cast<const float4*>(boxes);
   if (excl != nullptr) {
     fused_hit_kernel<true, true><<<grid, BLOCK, 0, st>>>(
-        ox, oy, oz, dx, dy, dz, alive, excl, sp, nullptr, s, t_min, n, t_out,
-        idx_out);
+        ox, oy, oz, dx, dy, dz, alive, excl, sp, bx, nullptr, s, group, t_min,
+        n, t_out, idx_out);
   } else {
     fused_hit_kernel<true, false><<<grid, BLOCK, 0, st>>>(
-        ox, oy, oz, dx, dy, dz, alive, nullptr, sp, nullptr, s, t_min, n,
-        t_out, idx_out);
+        ox, oy, oz, dx, dy, dz, alive, nullptr, sp, bx, nullptr, s, group,
+        t_min, n, t_out, idx_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -446,7 +540,8 @@ extern "C" int qtrt_fused_hit_shadow(const float* ox, const float* oy,
 // Sphere search (kernel A5). excl: [n] i32 excluded slot id per lane (-1:
 // none) or null; spheres: [s_pad, 4] f32 rows from
 // prep_sphere_search (inactive slots biased by +BIG, padding slots at
-// center 1e9 with |c|^2 - r^2 = BIG); t_out: [n] f32 (unrefined sweep
+// center 1e9 with |c|^2 - r^2 = BIG); boxes: [ceil(s_pad / group), 8] f32
+// group boxes as for qtrt_fused_hit; t_out: [n] f32 (unrefined sweep
 // minimum, BIG on a miss or a dead lane); idx_out: [n] i32 (lowest winning
 // id below num_spheres, 0 on a miss or a dead lane). Returns the
 // cudaError_t of the launch.
@@ -454,21 +549,24 @@ extern "C" int qtrt_sphere_search(const float* ox, const float* oy,
                                   const float* oz, const float* dx,
                                   const float* dy, const float* dz,
                                   const bool* alive, const int* excl,
-                                  const float* spheres, int s_pad,
-                                  int num_spheres, float t_min, int n,
-                                  float* t_out, int* idx_out, void* stream) {
-  if (n <= 0 || s_pad <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                  const float* spheres, const float* boxes,
+                                  int s_pad, int group, int num_spheres,
+                                  float t_min, int n, float* t_out,
+                                  int* idx_out, void* stream) {
+  if (n <= 0 || s_pad <= 0 || group <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int grid = n / BLOCK + (n % BLOCK != 0);
   const auto st = static_cast<cudaStream_t>(stream);
   const float4* sp = reinterpret_cast<const float4*>(spheres);
+  const float4* bx = reinterpret_cast<const float4*>(boxes);
   if (excl != nullptr) {
     sphere_search_kernel<true><<<grid, BLOCK, 0, st>>>(
-        ox, oy, oz, dx, dy, dz, alive, excl, sp, s_pad, num_spheres, t_min, n,
-        t_out, idx_out);
+        ox, oy, oz, dx, dy, dz, alive, excl, sp, bx, s_pad, group,
+        num_spheres, t_min, n, t_out, idx_out);
   } else {
     sphere_search_kernel<false><<<grid, BLOCK, 0, st>>>(
-        ox, oy, oz, dx, dy, dz, alive, nullptr, sp, s_pad, num_spheres, t_min,
-        n, t_out, idx_out);
+        ox, oy, oz, dx, dy, dz, alive, nullptr, sp, bx, s_pad, group,
+        num_spheres, t_min, n, t_out, idx_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,8 @@
 // lane's excluded triangle (a BVH-order id, -1 for none; the edge-aware
 // background re-trace of diff/edge.py) fails the accept test of every
 // visit, as on the TPU (mesh_intersect.py:345-346, :470). The operand and
-// the body are template parameters (mesh_search_kernel<EXCL, MODE>), so the
-// default instance's code is what it was before either existed:
+// the body are template parameters (mesh_search_kernel<EXCL, MODE>); all
+// three bodies run on the one warp-per-ray search described below:
 //   - VPU (mt="vpu", visit "full"; "subtile" and "sliced" too, see below):
 //     Moller-Trumbore on the triangle planes (visit_vpu, :360).
 //   - ROWGATE (visit="rowgate"; _mesh_kernel_rowgate :233, visit_rowgate
@@ -19,20 +19,19 @@
 //     skipped when it fails. t_best only shrinks, so a row that fails could
 //     never pass later: the same bits as VPU. Row boxes are 6 flat arrays
 //     read from global memory (scalar prefetch to SMEM on the TPU), tested
-//     by the very slab function that tests the shared cluster tile.
+//     by the very slab function that tests the cluster boxes.
 //   - MXU (mt="mxu"; visit_mxu :324, build_mt_features :190): det, u*det,
 //     v*det and t*det as bilinear forms of the ray's (d, o x d, o, 1) and
 //     19 per-triangle factors (76 bytes a triangle against 36). The
 //     candidates round otherwise than VPU's, so it agrees with VPU without
 //     being bitwise equal. The TPU runs four [128, q] @ [q, 128] MXU
-//     products per triangle row; here it is scalar FP32 without FMA, one
-//     thread per ray: a depth of K <= 6 underfills an mma tile (a TF32x3
-//     tensor-core form is later speed work), and a simple kernel that is
-//     right comes first.
+//     products per triangle row; here it is scalar FP32 without FMA: a depth
+//     of K <= 6 underfills an mma tile (a TF32x3 tensor-core form is later
+//     speed work).
 // The TPU's visit_subtile (:484) and visit_sliced (:412) re-tile the visit
 // into (SUBTILE_ROWS rays, 128 triangles) slices with the same expression
 // tree, sliced also skipping slices that no lane's gate opened; both give
-// full's bits. One thread per ray gating each cluster on its own cap is at
+// full's bits. A warp gating each cluster on its one ray's own cap is at
 // least as fine as any slice, so both run the VPU instance. A4,
 // qtrt_mesh_first_cluster, replaces _c1_kernel: per ray, the lowest id of a
 // cluster whose slacked, capped slab test passes (k when none), which keys
@@ -50,45 +49,55 @@
 // f32 (lo xyz, hi xyz), the epsilon-padded cluster AABBs; rows (ROWGATE) is
 // [6, r_stride] f32, the epsilon-padded AABB of each 128-triangle row.
 //
-// What bounds it on the H100. Moller-Trumbore is some 40 single-rounded
-// FP32 operations and 9 loads per ray-triangle pair. A ray visits the
-// clusters whose box its ray segment enters before its running hit; a warp
-// runs the union of its 32 lanes' visits, 512 triangles each. On the 1080p
-// terrain (99,458 triangles, 195 clusters) that is estimated at some 10
-// clusters, 5,000 pairs and 2e5 instructions per ray, so instruction issue
-// should bound it, as it bounds A1 (the visits are not counted). The 3.6 MB
-// of triangle planes stay in the 50 MB L2, and the lanes of a warp that
-// visit a cluster read the same triangle at once (one broadcast transaction
-// per load), so memory should not bound it. Measured on an H100 80GB HBM3
-// at 700 W: 8.0 ms for the 414,720 primary rays of the terrain frame's
-// middle chunk, 13.5 ms for its sorted bounce-2 wavefront (23.9 ms
-// unsorted), some 83% of that frame's device time. The pair search's
-// fallback later showed what sets that time: with all but the 0.4% of the
-// bounce wavefront's live rays that cross more than 24 clusters masked out,
-// the sorted sweep takes as long as on the whole wavefront (chip_smoke.py's
-// pair-search phase). So the time is that of the longest visit list of one
-// warp (the union of its 32 lanes' lists; a grazing ray alone crosses up to
-// 41 of the 195 clusters, 512 triangles each, one after the other), not of
-// the sum of the work.
+// What bounds it on the H100. Moller-Trumbore is some 45 single-rounded
+// FP32 operations (a divide among them) and 9 loads per ray-triangle pair.
+// A ray visits the clusters whose box its segment enters before its
+// running hit: on the 1080p terrain (99,458 triangles, 195 clusters of
+// 512) some 7 a primary ray, and a grazing ray up to 41. The parent kernel
+// ran one thread per ray, so a warp ran the union of its 32 lanes' visits,
+// 512 triangles each, one after the other: a warp with one grazing lane
+// paid for 41 clusters while the other lanes idled (PERF.md §6: masking
+// out all but the 0.4% of bounce rays that cross more than 24 clusters
+// left the sorted sweep's time as it was). With that gone, what remains is
+// the pairs themselves: instructions, and the bytes of the triangles each pair
+// reads (36 a triangle, from L2 when L1 misses).
 //
-// What the design does about it. One thread per ray keeps its running
-// (t_best, idx) in registers. Each block stages the cluster boxes in shared
-// memory (TILE_K boxes at a time, so any k fits) and each lane gates every
-// cluster on its own running cap: it skips a cluster whose slab entry lies
-// beyond t_best * 1.0001 + 1e-4 (clamped below 1e37), the TPU kernel's
-// gate (mesh_intersect.py:568-602) taken per lane instead of per 128-ray
-// group with a cap that lags one 32-cluster block. The slack and the
-// epsilon-padded boxes keep the gate conservative: a triangle that the ray
-// hits lies inside its cluster's box by the padding on every axis, so the
-// gate never drops a winner, and the result is the ungated sweep's. The
-// cost that remains is the union of the lanes' visits in a warp: the
-// crossing-key sort before A3 (its key from A4) groups rays by their first
-// crossed cluster so that neighbouring lanes visit the same clusters. No
-// tensor-core form applies: the accept test needs compares and a divide per
-// pair. Triangles are not staged in shared memory yet; tiling, occupancy
-// and staging are untuned. The row gate and a smaller cluster size
-// (prep_mesh_clusters(cluster_rows=)) both shorten the visit list that
-// sets the time; chip_smoke.py times them beside VPU.
+// What the design does about it. One warp per ray, the parallelism inside
+// a visited cluster moved from rays to the (ray, triangle) pairs:
+//   - The cluster gate. Lane j slab-tests cluster base + j, 32 clusters at
+//     a time, under the ray's cap at the start of those 32 (a ballot); the
+//     warp then visits the passing ones in ascending order, each tested
+//     again under the cap of its turn, so the warp visits exactly the
+//     clusters the parent's per-lane gate visited: the slab entry at most
+//     t_best * 1.0001 + 1e-4 (clamped below 1e37), the TPU kernel's gate
+//     (mesh_intersect.py:568-602) taken per ray. The slack and the
+//     epsilon-padded boxes keep it conservative: a triangle the ray hits
+//     lies inside its cluster's box by the padding on every axis, so the
+//     gate never drops a winner.
+//   - The visit. Lane l tests triangles lo + l, lo + l + 32, ... of the
+//     cluster (under ROWGATE, of each row whose own gate passes at its
+//     turn; lanes 0-3 test the row boxes at once): neighbouring lanes read
+//     neighbouring triangles, 128 coalesced bytes a plane. Each lane keeps
+//     its own strict-'<' (t, id) from the ray's cap; a butterfly of
+//     __shfl_xor_sync takes the lexicographic minimum, which becomes the
+//     ray's hit when it beats the cap. A candidate's t does not depend on
+//     the cap, so this is the serial sweep's result, ties to the lowest id
+//     (tests/test_torch_hit_order.py holds the argument on the CPU).
+//   - A warp's time is its own ray's visits; a heavy ray costs 16
+//     iterations a cluster (4 a row) instead of 512 (128). Blocks of 4
+//     warps take 4 consecutive rays, and the block scheduler hands the
+//     blocks out as SMs free up, so heavy rays do not hold an SM idle.
+// Measured, with chip_ab.py against the parent's kernel on the same inputs
+// (H100 80GB HBM3 at 700 W): the sorted primary wavefront of terrain chunk 2
+// (414,720 rays) VPU 5.46 ms against 8.45, ROWGATE 2.73 against 3.50; its
+// sorted bounce-2 wavefront (193,363 live) VPU 2.11 against 14.8, ROWGATE
+// 1.13 against 8.85. On the primary wavefront every pair reads its own
+// triangle, 18 KB a visit a ray where the parent read it once a warp: the
+// L1 and L2 traffic of some 47 million warp-iterations is what takes the
+// time there. Tried and not kept (PERF.md §6): a warp taking 4 or 16
+// consecutive rays in turn, blocks of 8 warps, and a warp-wide skip of v,
+// t and the accept test when no lane's u lies in [0, 1] (none faster on
+// both wavefronts).
 //
 // Numerics: mesh_common.cuh (every op rounded on its own, the TPU kernel's
 // expression tree). In ascending triangle order, the strict '<' update of
@@ -154,55 +163,156 @@ __global__ void __launch_bounds__(BLOCK) first_cluster_kernel(
 // A3's bodies (the header comment).
 enum SearchMode : int { VPU = 0, ROWGATE = 1, MXU = 2 };
 
-// Moller-Trumbore over triangles [lo, hi) of the planes tris: the strict
-// '<' update of the lane's running hit, in ascending id order.
-template <bool EXCL>
-__device__ __forceinline__ void sweep_vpu(const float* __restrict__ tris,
-                                          size_t p_stride, int lo, int hi,
-                                          const Ray& r, const float d[3],
-                                          float t_min, int ex, float& t_best,
-                                          int& best) {
-  for (int p = lo; p < hi; ++p) {
-    float v0[3], e1[3], e2[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      v0[a] = __ldg(tris + a * p_stride + p);
-      e1[a] = __ldg(tris + (3 + a) * p_stride + p);
-      e2[a] = __ldg(tris + (6 + a) * p_stride + p);
-    }
-    float t;
-    bool ok = moller_trumbore(r.o, d, v0, e1, e2, t_min, t_best, t);
-    if constexpr (EXCL) ok = ok && p != ex;
-    if (ok) {
-      t_best = t;
-      best = p;
-    }
-  }
-}
+constexpr int WARP = 32;
+constexpr int SEARCH_WARPS = 4;  // rays per block of A3, one warp each
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NO_ID = 0x7fffffff;
 
-// The same with the bilinear form over the factor planes f.
-template <bool EXCL>
-__device__ __forceinline__ void sweep_mxu(const float* __restrict__ f,
-                                          size_t p_stride, int lo, int hi,
-                                          const Ray& r, const float d[3],
-                                          const float m[3], float t_min,
-                                          int ex, float& t_best, int& best) {
-  for (int p = lo; p < hi; ++p) {
-    float fp[MT_FEATURES];
-#pragma unroll
-    for (int a = 0; a < MT_FEATURES; ++a) fp[a] = __ldg(f + a * p_stride + p);
-    float t;
-    bool ok = moller_trumbore_bilinear(r.o, d, m, fp, t_min, t_best, t);
-    if constexpr (EXCL) ok = ok && p != ex;
-    if (ok) {
-      t_best = t;
-      best = p;
-    }
-  }
-}
-
+// One lane's share of triangles [lo, hi): lo + lane, lo + lane + 32, ...,
+// in ascending order, with the strict '<' update of the lane's own (t, id),
+// which starts at (the ray's t_best, NO_ID). It ends on the lexicographic
+// minimum of (t, id) over the lane's triangles accepted below t_best.
 template <bool EXCL, int MODE>
-__global__ void __launch_bounds__(BLOCK) mesh_search_kernel(
+__device__ __forceinline__ void lane_sweep(const float* __restrict__ tris,
+                                           size_t ps, int lo, int hi,
+                                           int lane, const Ray& r,
+                                           const float d[3], const float m[3],
+                                           float t_min, int ex, float& t,
+                                           int& id) {
+#pragma unroll 4
+  for (int p = lo + lane; p < hi; p += WARP) {
+    float t_hit;
+    bool ok;
+    if constexpr (MODE == MXU) {
+      float f[MT_FEATURES];
+#pragma unroll
+      for (int a = 0; a < MT_FEATURES; ++a) f[a] = __ldg(tris + a * ps + p);
+      ok = moller_trumbore_bilinear(r.o, d, m, f, t_min, t, t_hit);
+    } else {
+      float v0[3], e1[3], e2[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        v0[a] = __ldg(tris + a * ps + p);
+        e1[a] = __ldg(tris + (3 + a) * ps + p);
+        e2[a] = __ldg(tris + (6 + a) * ps + p);
+      }
+      ok = moller_trumbore(r.o, d, v0, e1, e2, t_min, t, t_hit);
+    }
+    if constexpr (EXCL) ok = ok && p != ex;
+    if (ok) {
+      t = t_hit;
+      id = p;
+    }
+  }
+}
+
+// Triangles [lo, hi) for the warp's ray: each lane sweeps its share, the
+// warp takes the lexicographic minimum of the lanes' (t, id), and that
+// becomes the ray's running hit when it beats t_best. A candidate's t does
+// not depend on the cap, so this is the serial strict-'<' sweep's result.
+// Every lane of the warp calls it and leaves with the same (t_best, best).
+template <bool EXCL, int MODE>
+__device__ __forceinline__ void warp_sweep(const float* __restrict__ tris,
+                                           size_t ps, int lo, int hi,
+                                           int lane, const Ray& r,
+                                           const float d[3], const float m[3],
+                                           float t_min, int ex, float& t_best,
+                                           int& best) {
+  float t = t_best;
+  int id = NO_ID;
+  lane_sweep<EXCL, MODE>(tris, ps, lo, hi, lane, r, d, m, t_min, ex, t, id);
+#pragma unroll
+  for (int off = WARP / 2; off > 0; off >>= 1) {
+    const float t2 = __shfl_xor_sync(FULL, t, off);
+    const int id2 = __shfl_xor_sync(FULL, id, off);
+    if (t2 < t || (t2 == t && id2 < id)) {
+      t = t2;
+      id = id2;
+    }
+  }
+  if (t < t_best) {
+    t_best = t;
+    best = id;
+  }
+}
+
+// A3 for ray i, on the warp that calls it (the header comment). Lane j
+// slab-tests clusters base + j; the warp visits, in ascending order, each
+// cluster whose test passes under the ray's running cap at that moment,
+// and under ROWGATE each of its rows whose own test passes so.
+template <bool EXCL, int MODE>
+__device__ __forceinline__ void search_ray(
+    int i, int lane, const float* __restrict__ ox,
+    const float* __restrict__ oy, const float* __restrict__ oz,
+    const float* __restrict__ dx, const float* __restrict__ dy,
+    const float* __restrict__ dz, const float* __restrict__ t_cap,
+    const int* __restrict__ excl, const float* __restrict__ tris, size_t ps,
+    const float* __restrict__ rows, size_t rs,
+    const float* __restrict__ boxes, int k, size_t ks, int g, float t_min,
+    float* __restrict__ t_out, int* __restrict__ idx_out) {
+  float d[3];
+  const Ray r = load_ray(i, ox, oy, oz, dx, dy, dz, d);
+  const float cap0 = t_cap[i];
+  int ex = -1;  // the ray's excluded triangle id; read only when EXCL
+  if constexpr (EXCL) ex = excl[i];
+  float m[3] = {0.f, 0.f, 0.f};  // o x d, read only by MXU
+  if constexpr (MODE == MXU) ray_moment(r.o, d, m);
+  float t_best = cap0;
+  int best = 0;
+  for (int base = 0; base < k; base += WARP) {
+    const int j = base + lane;
+    float enter = 0.f;
+    // Under the cap at the start of these 32 clusters, which only shrinks:
+    // each is tested again under the cap of its turn.
+    const bool pass =
+        j < k &&
+        slab_box(__ldg(boxes + j), __ldg(boxes + ks + j),
+                 __ldg(boxes + 2 * ks + j), __ldg(boxes + 3 * ks + j),
+                 __ldg(boxes + 4 * ks + j), __ldg(boxes + 5 * ks + j), r,
+                 t_min, enter) &&
+        enter <= gate_cap(t_best);
+    for (unsigned todo = __ballot_sync(FULL, pass); todo; todo &= todo - 1) {
+      const int b = __ffs(todo) - 1;
+      if (!(__shfl_sync(FULL, enter, b) <= gate_cap(t_best))) continue;
+      const int lo = (base + b) * g;
+      if constexpr (MODE == ROWGATE) {
+        const int nrows = g / ROW;
+        for (int rb = 0; rb < nrows; rb += WARP) {
+          const int row = lo / ROW + rb + lane;
+          float row_enter = 0.f;
+          const bool row_pass =
+              rb + lane < nrows &&
+              slab_box(__ldg(rows + row), __ldg(rows + rs + row),
+                       __ldg(rows + 2 * rs + row), __ldg(rows + 3 * rs + row),
+                       __ldg(rows + 4 * rs + row), __ldg(rows + 5 * rs + row),
+                       r, t_min, row_enter);
+          for (unsigned rows_todo = __ballot_sync(FULL, row_pass); rows_todo;
+               rows_todo &= rows_todo - 1) {
+            const int c = __ffs(rows_todo) - 1;
+            if (!(__shfl_sync(FULL, row_enter, c) <= gate_cap(t_best)))
+              continue;
+            const int p0 = lo + (rb + c) * ROW;
+            warp_sweep<EXCL, MODE>(tris, ps, p0, p0 + ROW, lane, r, d, m,
+                                   t_min, ex, t_best, best);
+          }
+        }
+      } else {
+        warp_sweep<EXCL, MODE>(tris, ps, lo, lo + g, lane, r, d, m, t_min,
+                               ex, t_best, best);
+      }
+    }
+  }
+  if (lane == 0) {
+    // A mesh hit counts only when some triangle beat the ray's cap.
+    const bool won = t_best < cap0;
+    t_out[i] = won ? t_best : BIG;
+    idx_out[i] = won ? best : 0;
+  }
+}
+
+// A3: warp w of block b takes ray b * SEARCH_WARPS + w.
+template <bool EXCL, int MODE>
+__global__ void __launch_bounds__(SEARCH_WARPS * WARP) mesh_search_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
@@ -211,84 +321,39 @@ __global__ void __launch_bounds__(BLOCK) mesh_search_kernel(
     const float* __restrict__ rows, int r_stride,
     const float* __restrict__ boxes, int k, int k_stride, int g, float t_min,
     int n, float* __restrict__ t_out, int* __restrict__ idx_out) {
-  __shared__ float tile[6][TILE_K];
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  const bool live = i < n && alive[i];
-  const bool block_live = __syncthreads_or(live);
-
-  Ray r = {};
-  float d[3] = {0.f, 0.f, 1.f};
-  float cap0 = BIG;
-  int ex = -1;  // the lane's excluded triangle id; read only when EXCL
-  if (live) {
-    r = load_ray(i, ox, oy, oz, dx, dy, dz, d);
-    cap0 = t_cap[i];
-    if constexpr (EXCL) ex = excl[i];
-  }
-  float m[3] = {0.f, 0.f, 0.f};  // o x d, read only by MXU
-  if constexpr (MODE == MXU) ray_moment(r.o, d, m);
-  float t_best = cap0;
-  int best = 0;
-  const size_t ps = static_cast<size_t>(p_stride);
-  const size_t rs = static_cast<size_t>(r_stride);
-
-  if (block_live) {
-    for (int base = 0; base < k; base += TILE_K) {
-      const int m_tile = min(TILE_K, k - base);
-      __syncthreads();
-      stage_boxes(tile, boxes, k_stride, base, m_tile);
-      __syncthreads();
-      if (!live) continue;
-      for (int j = 0; j < m_tile; ++j) {
-        float enter;
-        if (!slab(tile, j, r, t_min, enter) || !(enter <= gate_cap(t_best)))
-          continue;
-        const int lo = (base + j) * g;
-        if constexpr (MODE == ROWGATE) {
-          for (int row = lo / ROW; row < (lo + g) / ROW; ++row) {
-            float row_enter;
-            if (!slab_box(__ldg(rows + row), __ldg(rows + rs + row),
-                          __ldg(rows + 2 * rs + row),
-                          __ldg(rows + 3 * rs + row),
-                          __ldg(rows + 4 * rs + row),
-                          __ldg(rows + 5 * rs + row), r, t_min, row_enter) ||
-                !(row_enter <= gate_cap(t_best)))
-              continue;
-            sweep_vpu<EXCL>(tris, ps, row * ROW, (row + 1) * ROW, r, d, t_min,
-                            ex, t_best, best);
-          }
-        } else if constexpr (MODE == MXU) {
-          sweep_mxu<EXCL>(tris, ps, lo, lo + g, r, d, m, t_min, ex, t_best,
-                          best);
-        } else {
-          sweep_vpu<EXCL>(tris, ps, lo, lo + g, r, d, t_min, ex, t_best,
-                          best);
-        }
-      }
-    }
-  }
+  const int lane = threadIdx.x & (WARP - 1);
+  const int i = blockIdx.x * SEARCH_WARPS + threadIdx.x / WARP;
   if (i >= n) return;
-  // A mesh hit counts only when some triangle beat the lane's cap.
-  const bool won = live && t_best < cap0;
-  t_out[i] = won ? t_best : BIG;
-  idx_out[i] = won ? best : 0;
+  if (!alive[i]) {
+    if (lane == 0) {
+      t_out[i] = BIG;
+      idx_out[i] = 0;
+    }
+    return;
+  }
+  search_ray<EXCL, MODE>(i, lane, ox, oy, oz, dx, dy, dz, t_cap, excl, tris,
+                         static_cast<size_t>(p_stride), rows,
+                         static_cast<size_t>(r_stride), boxes, k,
+                         static_cast<size_t>(k_stride), g, t_min, t_out,
+                         idx_out);
 }
 
 // Launch instance MODE of A3, with the exclude operand when excl is set.
 template <int MODE>
-void launch_search(int grid, cudaStream_t st, const float* ox,
-                   const float* oy, const float* oz, const float* dx,
-                   const float* dy, const float* dz, const bool* alive,
-                   const float* t_cap, const int* excl, const float* tris,
-                   int p_stride, const float* rows, int r_stride,
-                   const float* boxes, int k, int k_stride, int g,
-                   float t_min, int n, float* t_out, int* idx_out) {
+void launch_search(cudaStream_t st, const float* ox, const float* oy,
+                   const float* oz, const float* dx, const float* dy,
+                   const float* dz, const bool* alive, const float* t_cap,
+                   const int* excl, const float* tris, int p_stride,
+                   const float* rows, int r_stride, const float* boxes, int k,
+                   int k_stride, int g, float t_min, int n, float* t_out,
+                   int* idx_out) {
+  const int grid = n / SEARCH_WARPS + (n % SEARCH_WARPS != 0);
   if (excl != nullptr) {
-    mesh_search_kernel<true, MODE><<<grid, BLOCK, 0, st>>>(
+    mesh_search_kernel<true, MODE><<<grid, SEARCH_WARPS * WARP, 0, st>>>(
         ox, oy, oz, dx, dy, dz, alive, t_cap, excl, tris, p_stride, rows,
         r_stride, boxes, k, k_stride, g, t_min, n, t_out, idx_out);
   } else {
-    mesh_search_kernel<false, MODE><<<grid, BLOCK, 0, st>>>(
+    mesh_search_kernel<false, MODE><<<grid, SEARCH_WARPS * WARP, 0, st>>>(
         ox, oy, oz, dx, dy, dz, alive, t_cap, nullptr, tris, p_stride, rows,
         r_stride, boxes, k, k_stride, g, t_min, n, t_out, idx_out);
   }
@@ -350,23 +415,22 @@ extern "C" int qtrt_mesh_search(const float* ox, const float* oy,
       (rows == nullptr || g % ROW != 0 ||
        static_cast<long long>(k) * (g / ROW) > r_stride))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = n / BLOCK + (n % BLOCK != 0);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case VPU:
-      launch_search<VPU>(grid, st, ox, oy, oz, dx, dy, dz, alive, t_cap, excl,
-                         tris, p_stride, nullptr, 0, boxes, k, k_stride, g,
-                         t_min, n, t_out, idx_out);
+      launch_search<VPU>(st, ox, oy, oz, dx, dy, dz, alive, t_cap, excl, tris,
+                         p_stride, nullptr, 0, boxes, k, k_stride, g, t_min,
+                         n, t_out, idx_out);
       break;
     case ROWGATE:
-      launch_search<ROWGATE>(grid, st, ox, oy, oz, dx, dy, dz, alive, t_cap,
-                             excl, tris, p_stride, rows, r_stride, boxes, k,
+      launch_search<ROWGATE>(st, ox, oy, oz, dx, dy, dz, alive, t_cap, excl,
+                             tris, p_stride, rows, r_stride, boxes, k,
                              k_stride, g, t_min, n, t_out, idx_out);
       break;
     case MXU:
-      launch_search<MXU>(grid, st, ox, oy, oz, dx, dy, dz, alive, t_cap, excl,
-                         tris, p_stride, nullptr, 0, boxes, k, k_stride, g,
-                         t_min, n, t_out, idx_out);
+      launch_search<MXU>(st, ox, oy, oz, dx, dy, dz, alive, t_cap, excl, tris,
+                         p_stride, nullptr, 0, boxes, k, k_stride, g, t_min,
+                         n, t_out, idx_out);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -42,6 +42,8 @@ BIG = float(np.float32(3.0e38))
 # match the JAX package; the CUDA kernel itself takes any N.
 TILE = 1024
 PLAIN_SLICE = 65536   # rays per [slice, S] block of the plain version
+GROUP_S = 32          # sweep slots per group of the kernel's group gate
+GATE_PAD = 2.0 ** -8  # the group gate's padding per unit of |o|_1 + ext
 
 FLOAT_NAMES = ("t", "px", "py", "pz", "nx", "ny", "nz", "ax", "ay", "az",
                "fuzz", "ior", "ex", "ey", "ez", "rw")
@@ -68,19 +70,52 @@ class FusedSpheres(NamedTuple):
 
     spheres: torch.Tensor  # [S, 4] f32: cx cy cz |c|^2-r^2 (+BIG if inactive)
     params: torch.Tensor   # [S, 16] f32: packed_param_table rows
+    boxes: torch.Tensor    # [ceil(S / GROUP_S), 8] f32: sweep_boxes
 
 
 def prep_fused_spheres(scene: SphereScene) -> FusedSpheres:
-    """Sweep rows and parameter table (prep_fused_spheres in JAX; the
-    kernel takes any S, so the rows are not padded). The sweep rows are
-    detached; the parameter table keeps the scene's autograd graph, for
-    the re-derivation of the gradient path."""
+    """Sweep rows, parameter table and group boxes (prep_fused_spheres in
+    JAX, with the boxes of the kernel's group gate; the kernel takes any S,
+    so the rows are not padded). The sweep rows and boxes are detached; the
+    parameter table keeps the scene's autograd graph, for the re-derivation
+    of the gradient path."""
     with torch.no_grad():
         c = scene.center
         c2r2 = (vm.length_squared(c) - scene.radius * scene.radius
                 + torch.where(scene.active, 0.0, BIG))
         spheres = torch.cat([c, c2r2[:, None]], dim=1).contiguous()
-    return FusedSpheres(spheres, packed_param_table(scene).contiguous())
+        boxes = sweep_boxes(c, scene.radius, scene.active, c.shape[0],
+                            GROUP_S)
+    return FusedSpheres(spheres, packed_param_table(scene).contiguous(),
+                        boxes)
+
+
+def sweep_boxes(center, radius, active, slots: int, group: int
+                ) -> torch.Tensor:
+    """[ceil(slots / group), 8] f32: per group of `group` consecutive sweep
+    slots, the AABB of its active spheres (c -+ |r|) and ext, the largest
+    |c|_1 + |r| among them: rows (lo x, y, z, ext, hi x, y, z, 0); ext = -1
+    for a group without an active sphere. The sweep sees only r^2, so a
+    negative radius (a hollow sphere's inward normals) bounds the same
+    sphere. Slots at and above the scene's sphere count (the sphere
+    search's padding) belong to no box."""
+    with torch.no_grad():
+        g = -(-slots // group)
+        pad = g * group - center.shape[0]
+        rows = lambda x, v: torch.nn.functional.pad(x, (0, 0, 0, pad),
+                                                    value=v)
+        act = torch.nn.functional.pad(active, (0, pad), value=False)[:, None]
+        r = radius.abs()[:, None]
+        lo = torch.where(act, rows(center - r, 0.0), BIG).view(g, group, 3)
+        hi = torch.where(act, rows(center + r, 0.0), -BIG).view(g, group, 3)
+        ext = torch.where(act, rows(center.abs().sum(1, keepdim=True) + r,
+                                    0.0), -1.0).view(g, group)
+        ext = ext.amax(1, keepdim=True)
+        empty = ext < 0
+        lo = torch.where(empty, 0.0, lo.amin(1))
+        hi = torch.where(empty, 0.0, hi.amax(1))
+        return torch.cat([lo, ext, hi, torch.zeros_like(ext)],
+                         dim=1).contiguous()
 
 
 @torch.no_grad()
@@ -148,8 +183,9 @@ def _check(tables: FusedSpheres, rays, alive) -> None:
     if not alive.is_contiguous():
         raise ValueError("alive must be contiguous")
     s = tables.spheres.shape[0]
-    for x, w in ((tables.spheres, 4), (tables.params, 16)):
-        if (x.dtype != torch.float32 or x.shape != (s, w)
+    for x, shape in ((tables.spheres, (s, 4)), (tables.params, (s, 16)),
+                     (tables.boxes, (-(-s // GROUP_S), 8))):
+        if (x.dtype != torch.float32 or x.shape != shape
                 or not x.is_contiguous() or x.device != dev):
             raise ValueError("tables must come from prep_fused_spheres on the "
                              "rays' device")
@@ -166,7 +202,7 @@ def _launch(tables: FusedSpheres, rays, alive, t_min: float,
     n = rays[0].shape[0]
     fout = torch.empty((len(FLOAT_NAMES), n), dtype=torch.float32, device=dev)
     iout = torch.empty((len(INT_NAMES), n), dtype=torch.int32, device=dev)
-    for x in (tables.spheres, tables.params, fout, iout):
+    for x in (tables.spheres, tables.boxes, tables.params, fout, iout):
         if x.data_ptr() % 16:
             raise ValueError("kernel operands must be 16-byte aligned")
     with torch.cuda.device(dev):
@@ -174,8 +210,8 @@ def _launch(tables: FusedSpheres, rays, alive, t_min: float,
         err = lib.qtrt_fused_hit(
             *(x.data_ptr() for x in rays), alive.data_ptr(),
             excl_ptr(exclude), tables.spheres.data_ptr(),
-            tables.params.data_ptr(),
-            tables.spheres.shape[0], t_min, n,
+            tables.boxes.data_ptr(), tables.params.data_ptr(),
+            tables.spheres.shape[0], GROUP_S, t_min, n,
             fout.data_ptr(), iout.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_hit kernel launch failed: cudaError_t {err}")
@@ -192,15 +228,15 @@ def _launch_shadow(tables: FusedSpheres, rays, alive, t_min: float,
     n = rays[0].shape[0]
     t = torch.empty(n, dtype=torch.float32, device=dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
-    if tables.spheres.data_ptr() % 16:
+    if tables.spheres.data_ptr() % 16 or tables.boxes.data_ptr() % 16:
         raise ValueError("kernel operands must be 16-byte aligned")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.qtrt_fused_hit_shadow(
             *(x.data_ptr() for x in rays), alive.data_ptr(),
             excl_ptr(exclude), tables.spheres.data_ptr(),
-            tables.spheres.shape[0], t_min, n,
-            t.data_ptr(), idx.data_ptr(), stream)
+            tables.boxes.data_ptr(), tables.spheres.shape[0], GROUP_S, t_min,
+            n, t.data_ptr(), idx.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"fused_hit shadow kernel launch failed: cudaError_t {err}")
@@ -300,6 +336,58 @@ def _sweep(spheres, ox, oy, oz, dx, dy, dz, t_min, exclude=None):
         tcand = torch.where(rows[None, :] != exclude[:, None], tcand, BIG)
     t_best, idx = min_then_match(tcand)
     return t_best, idx, a
+
+
+def group_gate(box, ox, oy, oz, dx, dy, dz, t_min, t_best):
+    """[m] bool: the kernel's group gate of rays [m] against one group box
+    (its row of sweep_boxes) under their running minima t_best: the ray's
+    segment [t_min, t_best] meets the box widened by GATE_PAD * (|o|_1 +
+    ext); never for a group without an active sphere."""
+    ext = box[3]
+    o_l1 = (ox.abs() + oy.abs()) + oz.abs()
+    pad = (o_l1 + ext) * GATE_PAD
+    enter = torch.full_like(ox, t_min)
+    exit_ = torch.full_like(ox, float("inf"))
+    for a, (o, d) in enumerate(((ox, dx), (oy, dy), (oz, dz))):
+        inv = torch.reciprocal(torch.where(
+            torch.abs(d) < 1e-30, torch.where(d < 0, -1e-30, 1e-30), d))
+        t0 = ((box[a] - pad) - o) * inv
+        t1 = ((box[4 + a] + pad) - o) * inv
+        enter = torch.maximum(enter, torch.minimum(t0, t1))
+        exit_ = torch.minimum(exit_, torch.maximum(t0, t1))
+    return (ext >= 0) & (exit_ >= enter) & (enter <= t_best)
+
+
+def sweep_gated_plain(spheres, boxes, group: int, ox, oy, oz, dx, dy, dz,
+                      t_min: float, exclude=None):
+    """The kernel's gated sweep in plain PyTorch, group by group, with a
+    count of its work: (t_best, lowest winning id, group visits [m] i32).
+    A lane sweeps a group of `group` consecutive slots only when group_gate
+    passes under its running minimum; within a group the minimum, then the
+    lowest id reaching it, and a strict '<' update across groups. The gate
+    is conservative, so (t_best, id) equal _sweep's. A measuring aid and the
+    subject of the CPU tests; no path runs it."""
+    s = spheres.shape[0]
+    m = ox.shape[0]
+    t_best = torch.full((m,), BIG, dtype=torch.float32, device=ox.device)
+    best = torch.zeros(m, dtype=torch.int32, device=ox.device)
+    visits = torch.zeros(m, dtype=torch.int32, device=ox.device)
+    for gi, base in enumerate(range(0, s, group)):
+        opened = group_gate(boxes[gi], ox, oy, oz, dx, dy, dz, t_min, t_best)
+        visits += opened
+        if not bool(opened.any()):
+            continue
+        end = min(s, base + group)
+        tcand, _ = sweep_candidates(spheres[base:end], ox, oy, oz, dx, dy,
+                                    dz, t_min)
+        ids = torch.arange(base, end, dtype=torch.int32, device=ox.device)
+        if exclude is not None:
+            tcand = torch.where(ids[None, :] != exclude[:, None], tcand, BIG)
+        t_g, i_g = min_then_match(tcand)
+        better = opened & (t_g < t_best)
+        t_best = torch.where(better, t_g, t_best)
+        best = torch.where(better, i_g + base, best)
+    return t_best, best, visits
 
 
 def _plain_block(tables, ox, oy, oz, dx, dy, dz, alive, t_min, exclude=None):

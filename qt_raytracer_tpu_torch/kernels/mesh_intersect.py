@@ -31,10 +31,10 @@ package chooses them (``mt`` first, then ``visit``):
   - ``visit="subtile"`` and ``"sliced"`` re-tile the TPU's (128 rays, 128
     triangles) visit into (``SUBTILE_ROWS``, 128) slices with the same
     expression tree, "sliced" also skipping slices whose gate popcount is 0;
-    both are bitwise equal to "full" there. On the card one thread runs one
-    ray and gates every cluster on its own cap, which is at least as fine
-    as any slice, with the same expression tree: both launch the "full"
-    instance. Neither is a fallback: they are the same function.
+    both are bitwise equal to "full" there. On the card one warp runs one
+    ray and gates every cluster on that ray's own cap, which is at least as
+    fine as any slice, with the same expression tree: both launch the
+    "full" instance. Neither is a fallback: they are the same function.
 
 ``mesh_search`` is the pipeline of ``mesh_search_pallas``: for n >= 2048
 rays and more than one cluster, a stable sort of the wavefront by the

@@ -31,15 +31,16 @@ rows.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
 from ..core import vecmath as vm
 from ..core.scene import SphereScene
 from ..runtime import cuda_build
-from .fused_hit import (BIG, PLAIN_SLICE, _sweep, check_exclude, excl_ptr,
-                        min_then_match, sweep_candidates)
+from .fused_hit import (BIG, GROUP_S, PLAIN_SLICE, _sweep, check_exclude,
+                        excl_ptr, min_then_match, sweep_boxes,
+                        sweep_candidates)
 from .mesh_intersect import slab_inv
 
 CHUNK_S = 64                 # the table is padded to a multiple of this
@@ -59,8 +60,10 @@ class SearchSpheres(NamedTuple):
 
     spheres: torch.Tensor  # [S_pad, 4] f32: cx cy cz |c|^2-r^2
     num_spheres: int
-    # Chunk AABBs of the clustered sweep, None for the monolithic one:
-    boxes: Optional[torch.Tensor] = None  # [6, K_pad] f32: lo xyz, hi xyz
+    # num_chunks > 0: the clustered sweep's chunk AABBs, [6, K_pad] f32 (lo
+    # xyz, hi xyz); num_chunks = 0: the monolithic sweep's group boxes,
+    # [ceil(S_pad / GROUP_S), 8] f32 (fused_hit.sweep_boxes).
+    boxes: torch.Tensor
     num_chunks: int = 0
 
 
@@ -71,7 +74,8 @@ def prep_sphere_search(scene: SphereScene,
     detached: inactive slots get a +BIG cterm bias (never hit); padding
     slots sit at 1e9 with a BIG cterm. With at least min_chunks chunks of 64
     slots, also the chunk AABBs over center +- radius of the active spheres
-    (BIG/-BIG where a chunk has none, and in the padding columns)."""
+    (BIG/-BIG where a chunk has none, and in the padding columns); below
+    that, the group boxes of the monolithic sweep's gate instead."""
     with torch.no_grad():
         c = scene.center
         s = c.shape[0]
@@ -83,7 +87,8 @@ def prep_sphere_search(scene: SphereScene,
                             pad(c[:, 2], 1.0e9), pad(c2r2, BIG)], dim=1)
         k = s_pad // CHUNK_S
         if k < min_chunks:
-            return SearchSpheres(rows.contiguous(), s)
+            return SearchSpheres(rows.contiguous(), s, sweep_boxes(
+                c, scene.radius, scene.active, s_pad, GROUP_S))
         act = scene.active[:, None]
         r_eff = torch.where(scene.active, scene.radius, 0.0)[:, None]
         pad_rows = lambda x, v: torch.nn.functional.pad(
@@ -146,7 +151,7 @@ def sphere_search_flat(tables: SearchSpheres, ox, oy, oz, dx, dy, dz, alive,
     if tables.spheres.device != dev:
         raise ValueError(f"scene is on {tables.spheres.device}, rays on "
                          f"{dev}")
-    clustered = tables.boxes is not None
+    clustered = tables.num_chunks > 0
     if clustered and exclude is not None:
         raise ValueError("per-lane exclusion is not implemented for the "
                          "clustered (S >= 1024) sphere sweep")
@@ -172,13 +177,13 @@ def _launch(tables: SearchSpheres, rays, alive, t_min: float, exclude):
         raise ValueError("kernel operands must be contiguous")
     t = torch.empty(n, dtype=torch.float32, device=dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
-    if tables.spheres.data_ptr() % 16:
+    if tables.spheres.data_ptr() % 16 or tables.boxes.data_ptr() % 16:
         raise ValueError("kernel operands must be 16-byte aligned")
     ray_ptrs = [x.data_ptr() for x in rays]
     outs = (t.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        if tables.boxes is not None:
+        if tables.num_chunks > 0:
             err = lib.qtrt_sphere_search_clustered(
                 *ray_ptrs, alive.data_ptr(), tables.spheres.data_ptr(),
                 tables.boxes.data_ptr(), tables.num_chunks,
@@ -186,12 +191,13 @@ def _launch(tables: SearchSpheres, rays, alive, t_min: float, exclude):
         else:
             err = lib.qtrt_sphere_search(
                 *ray_ptrs, alive.data_ptr(), excl_ptr(exclude),
-                tables.spheres.data_ptr(), tables.spheres.shape[0],
-                tables.num_spheres, t_min, n, *outs)
+                tables.spheres.data_ptr(), tables.boxes.data_ptr(),
+                tables.spheres.shape[0], GROUP_S, tables.num_spheres, t_min,
+                n, *outs)
     if err != 0:
         raise RuntimeError(f"sphere search kernel launch failed: "
                            f"cudaError_t {err}")
-    if tables.boxes is not None:
+    if tables.num_chunks > 0:
         clustered_launches += 1
     else:
         launches += 1

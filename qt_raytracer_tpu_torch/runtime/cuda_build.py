@@ -129,18 +129,19 @@ def load_library() -> ctypes.CDLL:
 def _configure(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # excl is a device pointer, or None (a null pointer) for no operand.
-    # qtrt_fused_hit(ox, oy, oz, dx, dy, dz, alive, excl, spheres, params,
-    #                s, t_min, n, fout, iout, stream)
+    # qtrt_fused_hit(ox, oy, oz, dx, dy, dz, alive, excl, spheres, boxes,
+    #                params, s, group, t_min, n, fout, iout, stream)
     lib.qtrt_fused_hit.restype = i
-    lib.qtrt_fused_hit.argtypes = [p] * 10 + [i, f, i] + [p] * 3
+    lib.qtrt_fused_hit.argtypes = [p] * 11 + [i, i, f, i] + [p] * 3
     # qtrt_fused_hit_shadow(ox, oy, oz, dx, dy, dz, alive, excl, spheres,
-    #                       s, t_min, n, t_out, idx_out, stream)
+    #                       boxes, s, group, t_min, n, t_out, idx_out, stream)
     lib.qtrt_fused_hit_shadow.restype = i
-    lib.qtrt_fused_hit_shadow.argtypes = [p] * 9 + [i, f, i] + [p] * 3
-    # qtrt_sphere_search(ox, oy, oz, dx, dy, dz, alive, excl, spheres, s_pad,
-    #                    num_spheres, t_min, n, t_out, idx_out, stream)
+    lib.qtrt_fused_hit_shadow.argtypes = [p] * 10 + [i, i, f, i] + [p] * 3
+    # qtrt_sphere_search(ox, oy, oz, dx, dy, dz, alive, excl, spheres, boxes,
+    #                    s_pad, group, num_spheres, t_min, n, t_out, idx_out,
+    #                    stream)
     lib.qtrt_sphere_search.restype = i
-    lib.qtrt_sphere_search.argtypes = [p] * 9 + [i, i, f, i] + [p] * 3
+    lib.qtrt_sphere_search.argtypes = [p] * 10 + [i, i, i, f, i] + [p] * 3
     # qtrt_sphere_search_clustered(ox, oy, oz, dx, dy, dz, alive, spheres,
     #                              boxes, num_chunks, k_stride, num_spheres,
     #                              t_min, n, t_out, idx_out, stream)

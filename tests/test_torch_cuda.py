@@ -783,3 +783,242 @@ def test_world_render_search_bodies_on_card(card, option):
         assert float(bad.float().mean()) <= 0.01
     else:
         assert torch.equal(got, want)
+
+
+# ----------------- adversarial cases of the redesigned sweeps (A1, A2, A5, A3)
+def _tie_spheres(num_spheres: int):
+    """num_spheres slots: the ground, then random spheres, with copies of
+    some of them at ids in another lane (+1), another 32-slot group (+33)
+    and another 64-slot group (+70) where S allows, and in slot 45 a sphere
+    of radius -0.5 (a hollow sphere's inner surface) far from the rest of
+    its group; built on the CPU. Returns (scene, the ids the rays aim at:
+    those whose copies tie with them, and the hollow one)."""
+    rng = np.random.default_rng(num_spheres)
+    rows = [((0.0, -1000.0, 0.0), 1000.0)]
+    while len(rows) < num_spheres:
+        rows.append(((rng.uniform(-6, 6), rng.uniform(0.3, 1.0),
+                      rng.uniform(-6, 6)), rng.uniform(0.1, 0.3)))
+    sources = []
+    for src in (3, 7, 20):
+        if src < num_spheres:
+            # Above the others, so that rays aimed at it reach it.
+            rows[src] = ((rng.uniform(-4, 4), 2.0, rng.uniform(-4, 4)), 0.4)
+        for off in (1, 33, 70):
+            if src + off < num_spheres:
+                rows[src + off] = rows[src]
+                sources.append(src)
+    if num_spheres > 45:
+        rows[45] = ((8.0, 3.2, -8.0), -0.5)
+        sources.append(45)
+    b = SceneBuilder()
+    for c, r in rows:
+        b.lambertian(c, r, (0.5, 0.5, 0.5))
+    return (b.build(pad_to=None, spatial_sort=False, device="cpu"),
+            sorted(set(sources)))
+
+
+def _aimed_rays(centers: np.ndarray, aim: list, n: int, seed: int, device,
+                dead: float = 0.1):
+    """n rays from above the spheres, half aimed at the centres of aim (the
+    tied spheres); about `dead` of the lanes dead."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-7.0, 7.0, (n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(3.0, 5.0, n)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    if aim:
+        k = rng.random(n) < 0.5
+        tgt = centers[rng.choice(aim, int(k.sum()))]
+        d[k] = tgt + rng.normal(scale=0.05, size=tgt.shape) - o[k]
+    alive = rng.random(n) >= dead
+    comps = [torch.from_numpy(np.ascontiguousarray(x[:, a])).to(device)
+             for x in (o, d) for a in range(3)]
+    return comps, torch.from_numpy(alive).to(device)
+
+
+def _bitwise(a, b):
+    """Every lane equal: live lanes' results and dead lanes' defaults."""
+    for x, y in zip(a, b):
+        x, y = x.cpu(), y.cpu()
+        assert torch.equal(x, y), int((x != y).sum())
+
+
+@pytest.mark.parametrize("exclude", [False, True])
+@pytest.mark.parametrize("n", [1, 257, 414721])
+@pytest.mark.parametrize("num_spheres", [1, 63, 512, 1152])
+def test_sweeps_bitwise_on_ties(card, num_spheres, n, exclude):
+    """A1, A2 and A5 (monolithic, whatever S) against their plain versions
+    on tied copies across lanes and groups; with exclude each ray leaves
+    out its own winner, the lowest id of a tie, so the next copy wins."""
+    from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
+    scene, aim = _tie_spheres(num_spheres)
+    on = scene.to(card)
+    tables = fh.prep_fused_spheres(on)
+    rays, alive = _aimed_rays(scene.center.numpy(), aim, n, seed=n + 1,
+                              device=card)
+    ex = None
+    if exclude:
+        first = fh.fused_hit(tables, *rays, alive, T_MIN, shadow_only=True)
+        ex = torch.where(alive & (first["t"] < fh.BIG), first["idx"],
+                         -1).to(torch.int32)
+    kern = fh.fused_hit(tables, *rays, alive, T_MIN, exclude=ex)
+    plain = fh.fused_hit(tables, *rays, alive, T_MIN, exclude=ex,
+                         interpret=True)
+    _bitwise([kern[k] for k in fh.NAMES], [plain[k] for k in fh.NAMES])
+    k2 = fh.fused_hit(tables, *rays, alive, T_MIN, exclude=ex,
+                      shadow_only=True)
+    p2 = fh.fused_hit(tables, *rays, alive, T_MIN, exclude=ex,
+                      shadow_only=True, interpret=True)
+    _bitwise((k2["t"], k2["idx"]), (p2["t"], p2["idx"]))
+    stab = si.prep_sphere_search(on, min_chunks=10 ** 6)
+    k5 = si.sphere_search_flat(stab, *rays, alive, T_MIN, exclude=ex)
+    p5 = si.sphere_search_flat(stab, *rays, alive, T_MIN, exclude=ex,
+                               interpret=True)
+    _bitwise(k5, p5)
+    if num_spheres >= 63 and n >= 257 and not exclude:
+        # Ties were made: some live lane's sweep minimum is reached by a
+        # copy too.
+        tcand, _ = fh.sweep_candidates(tables.spheres, *(r[:4096] for r in
+                                                          rays), T_MIN)
+        t = p2["t"][:4096]
+        assert bool((((tcand == t[:, None]).sum(1) > 1) & (t < fh.BIG)
+                     & alive[:4096]).any())
+
+
+@pytest.mark.parametrize("num_spheres", [63, 1152])
+def test_sweeps_one_live_lane_and_all_dead(card, num_spheres):
+    """A block with one live lane (the compaction's single-ray warp) and
+    blocks with none: A1, A2 and A5 against their plain versions."""
+    from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
+    scene, aim = _tie_spheres(num_spheres)
+    on = scene.to(card)
+    tables = fh.prep_fused_spheres(on)
+    stab = si.prep_sphere_search(on, min_chunks=10 ** 6)
+    rays, alive = _aimed_rays(scene.center.numpy(), aim, 1024, seed=3,
+                              device=card, dead=0.0)
+    for mask in (torch.arange(1024, device=card) == 300,
+                 torch.zeros(1024, dtype=torch.bool, device=card)):
+        kern = fh.fused_hit(tables, *rays, mask, T_MIN)
+        plain = fh.fused_hit(tables, *rays, mask, T_MIN, interpret=True)
+        _bitwise([kern[k] for k in fh.NAMES], [plain[k] for k in fh.NAMES])
+        k5 = si.sphere_search_flat(stab, *rays, mask, T_MIN)
+        p5 = si.sphere_search_flat(stab, *rays, mask, T_MIN, interpret=True)
+        _bitwise(k5, p5)
+
+
+def _with_copies(mc, mesh, pairs):
+    """mc with triangle src copied over dst for each (src, dst), the cluster
+    and row boxes rebuilt around the new planes."""
+    tp = mc.tri_planes.clone()
+    for src, dst in pairs:
+        tp[:, dst] = tp[:, src]
+    v0, e1, e2 = (tp[3 * a:3 * a + 3].T for a in range(3))
+    eps = mi._box_eps(mesh)
+    k, g = mc.k, mc.tris_per_cluster
+    lo, hi = mi._padded_boxes(v0, e1, e2, k, eps)
+    boxes = mc.box_planes.clone()
+    boxes[:3, :k], boxes[3:, :k] = lo.T, hi.T
+    lo_r, hi_r = mi._padded_boxes(v0, e1, e2, k * g // mi.LANE, eps)
+    return mc._replace(tri_planes=tp.contiguous(),
+                       box_planes=boxes.contiguous(),
+                       row_boxes=torch.cat([lo_r.T, hi_r.T]).contiguous())
+
+
+@pytest.fixture(scope="module")
+def tie_meshes(card):
+    """The 48x48 terrain at clusters of 1, 2 and 4 rows and the one-cluster
+    Cornell mesh (k = 1), each with copies of triangles in another lane,
+    the same lane one step on, and another cluster; and the sources."""
+    worlds = {"terrain48": meshes.terrain_world(48, 48, device="cpu"),
+              "cornell_mesh": meshes.cornell_box_world(device="cpu")}
+    out = {}
+    for name, rows in (("terrain48", 1), ("terrain48", 2), ("terrain48", 4),
+                       ("cornell_mesh", 4)):
+        mesh = worlds[name].mesh
+        mc = mi.prep_mesh_clusters(mesh, cluster_rows=rows)
+        g, p = mc.tris_per_cluster, mesh.num_triangles
+        if name == "cornell_mesh":
+            srcs, dsts = [0, 5, 17], [p + 1, p + 37, p + 45]
+        else:
+            srcs = [3, g + 40, 2 * g + 7]
+            dsts = [4, g + 72, mc.k * g - 3]
+        mc = _with_copies(mc, mesh, list(zip(srcs, dsts)))
+        mc = mc._replace(**{f: getattr(mc, f).to(card) for f in (
+            "tri_planes", "box_planes", "row_boxes", "root_lo", "root_hi")})
+        out[f"{name}_rows{rows}"] = (mc, srcs)
+    return out
+
+
+def _tie_mesh_rays(mc, srcs, n: int, seed: int, device):
+    """n rays over the mesh's root box, half aimed at the copied
+    triangles' centroids; 80% alive, half capped."""
+    rng = np.random.default_rng(seed)
+    lo, hi = mc.root_lo.cpu().numpy(), mc.root_hi.cpu().numpy()
+    o = rng.uniform(lo - 0.5, hi + 0.5, (n, 3)).astype(np.float32)
+    o[:, 1] = hi[1] + 1.0 if mc.k > 1 else o[:, 1]
+    tp = mc.tri_planes.cpu().numpy()
+    cen = (3 * tp[0:3] + tp[3:6] + tp[6:9]).T[srcs] / 3.0
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    k = rng.random(n) < 0.5
+    d[k] = cen[rng.integers(0, len(srcs), int(k.sum()))] \
+        + rng.normal(scale=0.01, size=(int(k.sum()), 3)) - o[k]
+    alive = rng.random(n) < 0.8
+    cap = np.where(rng.random(n) < 0.5, rng.uniform(0.3, 3.0, n),
+                   fh.BIG).astype(np.float32)
+    comps = [torch.from_numpy(np.ascontiguousarray(
+        x[:, a].astype(np.float32))).to(device) for x in (o, d)
+        for a in range(3)]
+    return (comps, torch.from_numpy(alive).to(device),
+            torch.from_numpy(cap).to(device))
+
+
+@pytest.mark.parametrize("exclude", [False, True])
+@pytest.mark.parametrize("visit", ["full", "rowgate"])
+@pytest.mark.parametrize("n", [1, 257, 414721])
+@pytest.mark.parametrize("name", ["terrain48_rows1", "terrain48_rows2",
+                                  "terrain48_rows4", "cornell_mesh_rows4"])
+def test_mesh_search_bitwise_on_ties(card, tie_meshes, name, n, visit,
+                                     exclude):
+    """A3's VPU and ROWGATE instances against their plain versions on
+    copies across lanes and clusters, at clusters of 1, 2 and 4 rows and
+    k = 1; with exclude each ray leaves out its own winner."""
+    mc, srcs = tie_meshes[name]
+    rays, alive, cap = _tie_mesh_rays(mc, srcs, n, seed=n, device=card)
+    ex = None
+    if exclude:
+        t0, i0 = mi.mesh_hits(mc, *rays, T_MIN, alive, cap)
+        ex = torch.where(alive & (t0 < fh.BIG), i0, -1).to(torch.int32)
+    kern = mi.mesh_hits(mc, *rays, T_MIN, alive, cap, exclude=ex, visit=visit)
+    plain = mi.mesh_hits(mc, *rays, T_MIN, alive, cap, exclude=ex,
+                         visit=visit, interpret=True)
+    _bitwise(kern, plain)
+    if n == 414721 and not exclude:
+        hits = plain[0].cpu() < fh.BIG
+        assert int(torch.isin(plain[1].cpu()[hits],
+                              torch.tensor(srcs)).sum()) > 100
+
+
+@pytest.mark.parametrize("visit", ["full", "rowgate"])
+def test_mesh_search_one_heavy_lane(card, visit):
+    """One live ray that grazes the terrain across most clusters, in a warp
+    of 31 dead lanes, and warps with no live ray: bitwise."""
+    world = meshes.terrain_world(48, 48, device="cpu")
+    mc = mi.prep_mesh_clusters(world.mesh.to(card), cluster_rows=1)
+    lo, hi = mc.root_lo.cpu().numpy(), mc.root_hi.cpu().numpy()
+    o = np.array([lo[0] - 0.1, hi[1] + 0.01, lo[2] - 0.1], np.float32)
+    d = np.array([hi[0] - lo[0], lo[1] - hi[1], hi[2] - lo[2]], np.float32)
+    n = 96
+    rays = [torch.full((n,), float(v), device=card) for v in (*o, *d)]
+    alive = torch.zeros(n, dtype=torch.bool, device=card)
+    alive[37] = True
+    c1 = mi.first_crossed_cluster(mc, *rays, T_MIN, alive, interpret=True,
+                                  pair=True)
+    assert int(c1[0][37]) < mc.k
+    for mask in (alive, torch.zeros_like(alive)):
+        kern = mi.mesh_hits(mc, *rays, T_MIN, mask, visit=visit)
+        plain = mi.mesh_hits(mc, *rays, T_MIN, mask, visit=visit,
+                             interpret=True)
+        _bitwise(kern, plain)
+    _, _, visits = mi.mesh_search_gated_plain(mc, *rays, T_MIN, alive,
+                                              torch.full((n,), fh.BIG,
+                                                         device=card))
+    assert visits > mc.k // 4      # the ray crosses many clusters

@@ -174,7 +174,7 @@ def test_lowered_threshold_reaches_the_clustered_sweep_on_a_small_scene():
     ts = scene_from_arrays(_arrays(js), device="cpu")
     o, d, alive = _rays(seed=5)
     to, td, ta = (torch.from_numpy(x) for x in (o, d, alive))
-    assert tsi.prep_sphere_search(ts).boxes is None
+    assert tsi.prep_sphere_search(ts).num_chunks == 0
     tables = tsi.prep_sphere_search(ts, min_chunks=1)
     assert tables.num_chunks == 3 and tables.boxes.shape == (6, 8)
     a = tsi.sphere_search(ts, to, td, T_MIN, alive=ta, min_chunks=1)
