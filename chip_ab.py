@@ -2,7 +2,7 @@
 """Time the port's kernels, frames and train steps against another
 checkout's, on the same inputs, in one process on one CUDA card.
 
-Usage: python3 chip_ab.py OTHER_DIR [--parts spheres,mesh,paths]
+Usage: python3 chip_ab.py OTHER_DIR [--parts spheres,mesh,pairs,a6,paths]
 
 OTHER_DIR holds another checkout of the repository, for example the parent
 commit unpacked by ``git archive <commit> qt_raytracer_tpu_torch | tar -x -C
@@ -18,12 +18,19 @@ bounces, A1 also with each ray excluding its own winner; A2 on the
 Cornell-mesh NEE shadow rays; A3's VPU and ROWGATE instances on the primary
 and bounce-2 wavefronts of chunk 2 of the 1080p terrain, sorted by the
 crossing key and unsorted, at clusters of 1, 2 and 4 rows, and with the
-exclude operand. Each pair of kernels must give the same bits on live lanes
-and dead lanes; then CUDA-event ms in turns (other, this, this, other).
+exclude operand; A8 (pair hits, on the slots of this package's crossing
+lists) and the whole pair search (``mesh_search_pairs``) on those two
+terrain wavefronts, and A8 on a wavefront of the true-Cornell train step
+(one cluster of one row); A6 (cluster-culled sphere search) on the primary and
+bounce-1 wavefronts of chunk 2 of the 1080p clustered-scene frame
+(chip_smoke.py's). Each pair of kernels must give the same bits on live
+lanes and dead lanes (A8: on every slot); then CUDA-event ms in turns
+(other, this, this, other).
 
 Paths: the 1080p book-cover frame, the 1080p terrain
-frame under the default options and under ``mesh_visit="rowgate"``, the
-512x512 64-spp Cornell-mesh NEE frame, and one config-5 train step on the
+frame under the default options, under ``mesh_visit="rowgate"`` and under
+``mesh_kernel="pairs"``, the 1080p clustered-scene frame, the 512x512
+64-spp Cornell-mesh NEE frame, and one config-5 train step on the
 sphere Cornell box (4 views at 1080p), pathwise and edge-aware; host
 seconds in turns, images and losses equal bit for bit.
 
@@ -44,7 +51,9 @@ import sys
 import torch
 
 from chip_smoke import (C5, C5_SPHERE_LR, C5_SPHERE_POSE_ERR, C5_SPHERE_VIEWS,
-                        CORNELL, SEED, TERRAIN, require_card, wall_s)
+                        CORNELL, PAIR_C, SEED, TERRAIN, clustered_scene,
+                        clustered_wavefronts, cornell_step_lanes,
+                        require_card, wall_s)
 
 OTHER = "qtrt_other"
 RUNS = 7
@@ -115,8 +124,9 @@ def report(name: str, entry: dict) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", type=pathlib.Path)
-    ap.add_argument("--parts", default="spheres,mesh,paths",
-                    help="which of spheres, mesh and paths to run")
+    ap.add_argument("--parts", default="spheres,mesh,pairs,a6,paths",
+                    help="which of spheres, mesh, pairs, a6 and paths to "
+                         "run")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
     dev = require_card()
@@ -128,7 +138,9 @@ def main() -> None:
     from qt_raytracer_tpu_torch.core.scene import LAMBERTIAN
     from qt_raytracer_tpu_torch.kernels import fused_hit as fh
     from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
+    from qt_raytracer_tpu_torch.kernels import mesh_pairs as mp
     from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
+    from qt_raytracer_tpu_torch.models import meshes
     from qt_raytracer_tpu_torch.runtime import cuda_build
 
     load_other(args.other.resolve())
@@ -239,6 +251,75 @@ def main() -> None:
                         **in_turns(lambda: run(mi, mc),
                                    lambda: run(o_mi, o_mc), event_ms)})
 
+    # ------------------------------------------------ A8, the pair search
+    o_mp = other_module("kernels.mesh_pairs")
+    for name, s in mesh_fronts if "pairs" in parts else ():
+        rays, alive = rays_of(s), s.alive
+        cap = fh.fused_hit(wt.spheres, *rays, alive, t_min)["t"]
+        mc = wt.mesh
+        o_mc = o_mi.prep_mesh_clusters(to_other(world.mesh))
+        lists, _ = mp.crossing_lists(mc, *rays, t_min, alive, cap, PAIR_C)
+        ray_buf, gmap = mp.pair_slots(lists, mc.k)
+        valid = ray_buf >= 0
+        run8 = lambda m, t: m.pair_hits(t, *rays, cap, ray_buf, gmap, t_min)
+        same_bits(run8(mp, mc), run8(o_mp, o_mc), valid, f"A8 {name}")
+        rows = mp.pair_hits_gated_plain(mc, *rays, cap, ray_buf, gmap,
+                                        t_min)[2]
+        report(f"A8 {name}", {
+            "pairs": int(valid.sum()), "slots": int(ray_buf.shape[0]),
+            "rows_per_valid_pair": float(rows[valid].float().mean()),
+            **in_turns(lambda: run8(mp, mc), lambda: run8(o_mp, o_mc),
+                       event_ms)})
+        runp = lambda m, t: m.mesh_search_pairs(t, *rays, t_min, alive, cap,
+                                                pair_c=PAIR_C)
+        same_bits(runp(mp, mc), runp(o_mp, o_mc), alive,
+                  f"pair search {name}")
+        report(f"pair search {name}", {
+            "rays": rays[0].shape[0], "live": int(alive.sum()),
+            **in_turns(lambda: runp(mp, mc), lambda: runp(o_mp, o_mc),
+                       event_ms)})
+
+    if "pairs" in parts:
+        # A8 on a wavefront of the true-Cornell train step (chip_smoke.py's:
+        # one cluster of one row, lists of width 1).
+        world_s = meshes.cornell_box_world().to(dev)
+        cfg5 = RenderConfig(**C5)
+        rays = rays_of(primary(meshes.cornell_box_mesh_camera(
+            cfg5.aspect_ratio).to(dev), cfg5))
+        alive, cap = cornell_step_lanes(fh, world_s, rays, cfg5.t_min)
+        mc = mi.prep_mesh_clusters(world_s.mesh)
+        o_mc = o_mi.prep_mesh_clusters(to_other(world_s.mesh))
+        lists, _ = mp.crossing_lists(mc, *rays, cfg5.t_min, alive, cap,
+                                     mp.pair_list_width(mc, rays[0].shape[0]))
+        ray_buf, gmap = mp.pair_slots(lists, mc.k)
+        valid = ray_buf >= 0
+        run8 = lambda m, t: m.pair_hits(t, *rays, cap, ray_buf, gmap,
+                                        cfg5.t_min)
+        same_bits(run8(mp, mc), run8(o_mp, o_mc), valid, "A8 cornell_step")
+        report("A8 cornell_step", {
+            "pairs": int(valid.sum()), "slots": int(ray_buf.shape[0]),
+            **in_turns(lambda: run8(mp, mc), lambda: run8(o_mp, o_mc),
+                       event_ms)})
+
+    # ------------------------------------------------ A6
+    if "a6" in parts:
+        many, cam6, cfg6 = clustered_scene()
+        tab6 = si.prep_sphere_search(many)
+        o_tab6 = o_si.prep_sphere_search(to_other(many))
+        fronts6 = clustered_wavefronts(many, primary(cam6, cfg6, index=2),
+                                       cfg6.t_min)
+        for name, (rays, alive) in fronts6.items():
+            run6 = lambda m, t: m.sphere_search_flat(t, *rays, alive,
+                                                     cfg6.t_min)
+            same_bits(run6(si, tab6), run6(o_si, o_tab6), alive, f"A6 {name}")
+            groups = si.sphere_search_clustered_gated_plain(
+                tab6, *rays, alive, cfg6.t_min)[2]
+            report(f"A6 {name}", {
+                "rays": rays[0].shape[0], "live": int(alive.sum()),
+                "groups_per_live_lane": float(groups[alive].float().mean()),
+                **in_turns(lambda: run6(si, tab6), lambda: run6(o_si, o_tab6),
+                           event_ms)})
+
     # Cornell-mesh shadow rays (A2) as chip_smoke.py builds them.
     if "spheres" in parts:
         wc = itg.prep_world(world_c)
@@ -285,6 +366,9 @@ def main() -> None:
     frame_pair("terrain_1080p", world, cam_t, cfg_t)
     frame_pair("terrain_1080p_rowgate", world, cam_t,
                dataclasses.replace(cfg_t, mesh_visit="rowgate"))
+    frame_pair("terrain_1080p_pairs", world, cam_t,
+               dataclasses.replace(cfg_t, mesh_kernel="pairs"))
+    frame_pair("clustered_1080p", *clustered_scene())
     frame_pair("cornell_mesh_nee", world_c, cam_c, cfg_c)
 
     from qt_raytracer_tpu_torch.diff import inverse as inv

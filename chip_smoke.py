@@ -43,7 +43,11 @@ Before the frames, the mesh search's row-gated and bilinear-form instances
 are held against their plain versions and against the default instance on
 the terrain's sorted wavefronts, with and without the exclude operand; the
 default and row-gated instances are timed at clusters of 1, 2 and 4 rows on
-a bounce wavefront.
+a bounce wavefront. The pair hits are held against their row-gated plain
+version too (on every slot), and the cluster-culled sphere search against
+its gated plain version and the monolithic one, also on tied copies with a
+hollow sphere in 2,112 slots; each prints the work its gates leave (rows
+per valid pair, groups per live lane).
 
 Each frame is checked for finite values and against the same frame with the
 plain versions (at a reduced size where the plain mesh search is too slow),
@@ -339,6 +343,78 @@ def with_dead_lanes(alive: torch.Tensor, seed: int) -> torch.Tensor:
     return out.to(alive.device)
 
 
+def clustered_scene():
+    """The clustered-scene frame's scene on the card (A6_SPHERES random
+    Lambertian spheres from seed 9, Morton-ordered at build: 1,152 slots,
+    18 chunks), its camera and its config."""
+    from qt_raytracer_tpu_torch import RenderConfig, SceneBuilder, make_camera
+    cfg6 = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, max_depth=DEPTH,
+                        rng="hash", intersector="pallas")
+    rng = np.random.default_rng(9)
+    b = SceneBuilder()
+    for _ in range(A6_SPHERES):
+        b.lambertian(rng.uniform(-10, 10, 3), rng.uniform(0.05, 0.4),
+                     0.2 + 0.7 * rng.random(3))
+    cam6 = make_camera(lookfrom=(0.0, 6.0, 34.0), lookat=(0.0, 0.0, 0.0),
+                       vfov=40.0, aspect_ratio=cfg6.aspect_ratio)
+    return b.build(pad_to=128), cam6, cfg6
+
+
+def clustered_wavefronts(many, s6, t_min) -> dict:
+    """A6's wavefronts on the clustered scene, name -> (6 flat ray
+    components, alive): the primary rays of the state s6 with about 10%
+    dead lanes, and a bounce-1 wavefront from their hits into the
+    hemisphere about each normal (seeded)."""
+    from qt_raytracer_tpu_torch.core.intersect import intersect_spheres
+    o6 = torch.stack([s6.ox, s6.oy, s6.oz], dim=1)
+    d6 = torch.stack([s6.dx, s6.dy, s6.dz], dim=1)
+    h6 = intersect_spheres(many, o6, d6, t_min, alive=s6.alive)
+    gen = torch.Generator(device=o6.device).manual_seed(6)
+    rnd = torch.randn(o6.shape, generator=gen, device=o6.device)
+    d6b = h6.normal + rnd / rnd.norm(dim=1, keepdim=True)
+    fronts = {"primary_chunk2": (o6, d6, with_dead_lanes(s6.alive, 6)),
+              "bounce1_chunk2": (h6.point, d6b, h6.hit & s6.alive)}
+    return {name: ([x[:, k].contiguous() for x in (o, d) for k in range(3)],
+                   al.contiguous()) for name, (o, d, al) in fronts.items()}
+
+
+def tie_wavefront(num_spheres: int, n: int, seed: int):
+    """A scene of num_spheres slots in slot order (no spatial sort, so the
+    ids stay where they are put): the ground, random spheres, copies of
+    spheres 3, 7 and 20 at ids in another lane (+1), another 32-slot group
+    (+33) and another 64-slot chunk (+70), and in slot 45 a sphere of
+    radius -0.5 far from the rest of its group; and n rays from above, half
+    aimed at the copied spheres and the hollow one, about 10% dead. Returns
+    (scene on the card, 6 flat ray components, alive)."""
+    from qt_raytracer_tpu_torch import SceneBuilder
+    rng = np.random.default_rng(num_spheres)
+    rows = [((0.0, -1000.0, 0.0), 1000.0)]
+    while len(rows) < num_spheres:
+        rows.append(((rng.uniform(-6, 6), rng.uniform(0.3, 1.0),
+                      rng.uniform(-6, 6)), rng.uniform(0.1, 0.3)))
+    for src in (3, 7, 20):
+        rows[src] = ((rng.uniform(-4, 4), 2.0, rng.uniform(-4, 4)), 0.4)
+        for off in (1, 33, 70):
+            rows[src + off] = rows[src]
+    rows[45] = ((8.0, 3.2, -8.0), -0.5)
+    b = SceneBuilder()
+    for c, r in rows:
+        b.lambertian(c, r, (0.5, 0.5, 0.5))
+    scene = b.build(pad_to=None, spatial_sort=False)
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-7.0, 7.0, (n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(3.0, 5.0, n)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    k = rng.random(n) < 0.5
+    centers = np.array([rows[j][0] for j in (3, 7, 20, 45)], np.float32)
+    tgt = centers[rng.integers(0, 4, int(k.sum()))]
+    d[k] = tgt + rng.normal(scale=0.05, size=tgt.shape) - o[k]
+    dev = scene.center.device
+    rays = [torch.from_numpy(np.ascontiguousarray(x[:, a])).to(dev)
+            for x in (o, d) for a in range(3)]
+    return scene, rays, torch.from_numpy(rng.random(n) >= 0.1).to(dev)
+
+
 def compare_search(si, scene, o, d, alive, t_min, exclude=None) -> dict:
     """A5 against its plain version on one wavefront: bitwise (t, idx) on
     live lanes, (BIG, 0) on dead lanes; CUDA-event ms of both on the
@@ -518,20 +594,27 @@ def against_plain_frame(render_linear, scene, camera, cfg, img=None,
     return out
 
 
-def pair_step_wavefront(fh, mi, mp, world, rays, t_min) -> None:
-    """A7 and A8 against their plain versions, and the pair search against
-    the clustered one, at the shape the true-Cornell train step gives them:
-    one chunk of primary rays with scattered dead lanes, capped by the
-    sphere hit as intersect_world caps them; one cluster of one 128-triangle
-    row, so lists of width 1. All bitwise."""
+def cornell_step_lanes(fh, world, rays, t_min):
+    """(alive, cap) of a wavefront of the true-Cornell train step: scattered
+    dead lanes, and the sphere hit as intersect_world caps the mesh search
+    with it."""
     from qt_raytracer_tpu_torch.core.intersect import intersect_spheres
-    mc = mi.prep_mesh_clusters(world.mesh)
     n = rays[0].shape[0]
     alive = with_dead_lanes(torch.ones(n, dtype=torch.bool,
                                        device=rays[0].device), 5)
     hs = intersect_spheres(world.spheres, torch.stack(rays[:3], dim=1),
                            torch.stack(rays[3:], dim=1), t_min, alive=alive)
-    cap = torch.where(hs.hit, hs.t, fh.BIG).detach().contiguous()
+    return alive, torch.where(hs.hit, hs.t, fh.BIG).detach().contiguous()
+
+
+def pair_step_wavefront(fh, mi, mp, world, rays, t_min) -> None:
+    """A7 and A8 against their plain versions, and the pair search against
+    the clustered one, at the shape the true-Cornell train step gives them:
+    one chunk of primary rays (cornell_step_lanes); one cluster of one
+    128-triangle row, so lists of width 1. All bitwise."""
+    mc = mi.prep_mesh_clusters(world.mesh)
+    n = rays[0].shape[0]
+    alive, cap = cornell_step_lanes(fh, world, rays, t_min)
     width = mp.pair_list_width(mc, n)
     a7 = lambda **kw: mp.crossing_lists(mc, *rays, t_min, alive, cap, width,
                                         **kw)
@@ -542,8 +625,10 @@ def pair_step_wavefront(fh, mi, mp, world, rays, t_min) -> None:
     ray_buf, gmap = mp.pair_slots(lists, mc.k)
     a8 = lambda **kw: mp.pair_hits(mc, *rays, cap, ray_buf, gmap, t_min, **kw)
     kern = a8()
-    if not all(torch.equal(a, b) for a, b in zip(kern, a8(interpret=True))):
-        raise AssertionError("A8 differs from its plain version (Cornell)")
+    gated = mp.pair_hits_gated_plain(mc, *rays, cap, ray_buf, gmap, t_min)
+    if not all(torch.equal(a, b) for a, b in zip(kern, a8(interpret=True))) \
+            or not all(torch.equal(a, b) for a, b in zip(kern, gated[:2])):
+        raise AssertionError("A8 differs from its plain versions (Cornell)")
     st = compare_t_idx(
         fh.BIG, mp.mesh_search_pairs(mc, *rays, t_min, alive, cap),
         mi.mesh_search(mc, *rays, t_min, alive=alive, t_cap=cap), alive)
@@ -552,6 +637,8 @@ def pair_step_wavefront(fh, mi, mp, world, rays, t_min) -> None:
                              f"clustered search (Cornell): {st}")
     st.update(rays=n, clusters=mc.k, tris_per_cluster=mc.tris_per_cluster,
               list_width=width, pairs=int(ncross.sum()),
+              rows_per_valid_pair=float(gated[2].sum())
+              / max(int((ray_buf >= 0).sum()), 1),
               slots=int(ray_buf.shape[0]), hits=int((kern[0] < fh.BIG).sum()),
               a7_ms=cuda_ms(a7), a7_plain_ms=cuda_ms(
                   lambda: a7(interpret=True), 3),
@@ -559,6 +646,23 @@ def pair_step_wavefront(fh, mi, mp, world, rays, t_min) -> None:
                   lambda: a8(interpret=True), 3))
     print(f"A7 and A8 on a wavefront of the true-Cornell step: "
           f"{json.dumps(st)}", flush=True)
+
+
+def a8_bound(mc, pairs: int, rows: int, slots: int) -> dict:
+    """Bound of A8 on `pairs` valid pairs in `slots` slots: 45 operations
+    per (valid pair, triangle of a row its gate opens; rows as
+    pair_hits_gated_plain counts them) and 20 per row gate test; bytes: the
+    pairs' rays in (28 each), the slots' ids and results (16 each), the
+    tile map, the triangle planes and the row boxes. Beside it the parent's
+    count, 45 per (valid pair, triangle of its cluster)."""
+    g = mc.tris_per_cluster
+    nbytes = pairs * 28 + slots * 16 + slots // 128 * 4 \
+        + mc.tri_planes.numel() * 4 + mc.row_boxes.numel() * 4
+    return {"rows_per_valid_pair": rows / max(pairs, 1),
+            "bound_all_rows_ms": bound(pairs * g * MT_FLOPS,
+                                       nbytes)["bound_ms"],
+            **bound(rows * 128 * MT_FLOPS
+                    + pairs * (g // 128) * SLAB_FLOPS, nbytes)}
 
 
 def a3_bound(mc, body: str, n: int, live: int, visits: int, rows: int = 0,
@@ -1131,16 +1235,18 @@ def main() -> None:
                 mc, *rays, t_min, alive=alive, t_cap=cap)))
         print(f"pair search {name}: {json.dumps(st)}", flush=True)
         # A8, whole wavefront, on the slots the pair search hands it:
-        # bitwise, per pair.
+        # bitwise on every slot against its plain version and against the
+        # row-gated plain sweep, which counts the rows its gate opens.
         tp_p, ip_p = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, t_min,
                                   interpret=True)
-        if not (torch.equal(tp, tp_p) and torch.equal(ip, ip_p)):
-            raise AssertionError(f"A8 differs from its plain version "
+        tp_g, ip_g, rows = mp.pair_hits_gated_plain(mc, *rays, cap, ray_buf,
+                                                    gmap, t_min)
+        if not all(torch.equal(a, b) for a, b in ((tp, tp_p), (ip, ip_p),
+                                                  (tp, tp_g), (ip, ip_g))):
+            raise AssertionError(f"A8 differs from its plain versions "
                                  f"({name})")
         a8[name] = {
-            **bound(float(pairs) * mc.tris_per_cluster * MT_FLOPS,
-                    pairs * 28 + ray_buf.shape[0] * 16 + gmap.numel() * 4
-                    + mc.tri_planes.numel() * 4),
+            **a8_bound(mc, pairs, int(rows.sum()), ray_buf.shape[0]),
             "rays": n, "pairs": pairs, "slots": st["slots"],
             "tiles": st["tiles"], "bitwise": True, "max_abs_err": 0.0,
             "hits": int((tp < fh.BIG).sum()), "ms": st["a8_ms"],
@@ -1148,6 +1254,7 @@ def main() -> None:
                 mc, *rays, cap, ray_buf, gmap, t_min, interpret=True), 3)}
         print(f"A8 {name}: {json.dumps(a8[name])}", flush=True)
         del lists, lists_p, ncross, ncross_p, ray_buf, tp, ip, tp_p, ip_p
+        del tp_g, ip_g, rows
         del got, ref
     results["mesh_first_cluster[pair]"] = (0.0, a4p["bounce2_chunk2"])
     results["mesh_crossing_lists"] = (0.0, a7["bounce2_chunk2"])
@@ -1303,84 +1410,85 @@ def main() -> None:
         raise AssertionError("sphere NEE on the card disagrees with the CPU")
 
     # -------------------------- clustered sphere search (A6) and its frame
-    from qt_raytracer_tpu_torch import SceneBuilder, make_camera
-    from qt_raytracer_tpu_torch.core.intersect import intersect_spheres
-    phase(f"A6 sphere_search_clustered vs plain version ({A6_SPHERES} "
-          f"spheres)")
-    cfg6 = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, max_depth=DEPTH,
-                        rng="hash", intersector="pallas")
-    rng = np.random.default_rng(9)
-    b = SceneBuilder()
-    for _ in range(A6_SPHERES):
-        b.lambertian(rng.uniform(-10, 10, 3), rng.uniform(0.05, 0.4),
-                     0.2 + 0.7 * rng.random(3))
-    many = b.build(pad_to=128)
-    cam6 = make_camera(lookfrom=(0.0, 6.0, 34.0), lookat=(0.0, 0.0, 0.0),
-                       vfov=40.0, aspect_ratio=cfg6.aspect_ratio)
+    phase(f"A6 sphere_search_clustered vs plain versions ({A6_SPHERES} "
+          f"spheres; tied copies and a hollow sphere in 2,112 slots)")
+    many, cam6, cfg6 = clustered_scene()
     tab6 = si.prep_sphere_search(many)
     mono6 = si.prep_sphere_search(many, min_chunks=10 ** 6)
     if tab6.num_chunks == 0 or mono6.num_chunks > 0:
         raise AssertionError("the clustered table was not built")
     print(f"clustered scene: {many.num_spheres} slots, {tab6.num_chunks} "
           f"chunks of {si.CHUNK_S}", flush=True)
-    s6 = primary(cam6, cfg6, index=2)
-    o6 = torch.stack([s6.ox, s6.oy, s6.oz], dim=1)
-    d6 = torch.stack([s6.dx, s6.dy, s6.dz], dim=1)
-    # A bounced wavefront: from the primary hits into the hemisphere.
-    h6 = intersect_spheres(many, o6, d6, cfg6.t_min, alive=s6.alive)
-    gen = torch.Generator(device=dev).manual_seed(6)
-    rnd = torch.randn(o6.shape, generator=gen, device=dev)
-    d6b = h6.normal + rnd / rnd.norm(dim=1, keepdim=True)
+    fronts6 = {name: (tab6, mono6, *front) for name, front in
+               clustered_wavefronts(many, primary(cam6, cfg6, index=2),
+                                    cfg6.t_min).items()}
+    ties, tie_rays, tie_alive = tie_wavefront(2112, 414720, 8)
+    fronts6["ties_2112_slots"] = (
+        si.prep_sphere_search(ties),
+        si.prep_sphere_search(ties, min_chunks=10 ** 6), tie_rays, tie_alive)
     a6 = {}
-    for name, (oo, dd, al) in {
-            "primary_chunk2": (o6, d6, with_dead_lanes(s6.alive, 6)),
-            "bounce1_chunk2": (h6.point, d6b, h6.hit & s6.alive)}.items():
-        rays = [x[:, k].contiguous() for x in (oo, dd) for k in range(3)]
-        al = al.contiguous()
-        run = lambda tab, **kw: si.sphere_search_flat(tab, *rays, al,
-                                                      cfg6.t_min, **kw)
+    for name, (tab, mono_tab, rays, al) in fronts6.items():
+        run = lambda tab_, **kw: si.sphere_search_flat(tab_, *rays, al,
+                                                       cfg6.t_min, **kw)
         before = si.clustered_launches
-        kern, plain, mono = run(tab6), run(tab6, interpret=True), run(mono6)
+        kern, plain, mono = run(tab), run(tab, interpret=True), run(mono_tab)
         if si.clustered_launches != before + 1:
             raise AssertionError("the clustered table did not take A6")
+        gated = si.sphere_search_clustered_gated_plain(tab, *rays, al,
+                                                       cfg6.t_min)
         torch.cuda.synchronize()
         st = compare_t_idx(si.BIG, kern, plain, al)
-        if not st["bitwise"] or not (
+        if not st["bitwise"] or not all(
+                torch.equal(a, b) for a, b in zip(kern, gated[:2])) or not (
                 torch.equal(kern[0][al], mono[0][al])
                 and torch.equal(kern[1][al], mono[1][al])):
             raise AssertionError(f"A6 is not bitwise equal to its plain "
-                                 f"version and to A5 on live lanes: {st}")
-        # The work the gate opens: (live lane, slot of an opened chunk).
-        pairs, opened, rows_live = 0, 0, 0
+                                 f"versions and to A5 on live lanes "
+                                 f"({name}): {st}")
+        # The work the gates leave: (live lane, slot of a group its own
+        # gate opens in a chunk its row opens), the group gate tests of the
+        # row's open chunks, the chunk tests; and the parent's count, every
+        # slot of the row's open chunks.
+        slots, opened, rows_live = 0, 0, 0
         for lo in range(0, al.shape[0], 65536):
             part = slice(lo, lo + 65536)
-            gate = si.chunk_gate(tab6, *(x[part] for x in rays), al[part],
+            gate = si.chunk_gate(tab, *(x[part] for x in rays), al[part],
                                  cfg6.t_min)
             live_row = al[part].reshape(-1, si.ROW).sum(dim=1)
-            pairs += int((gate.sum(dim=1) * live_row).sum()) * si.CHUNK_S
+            slots += int((gate.sum(dim=1) * live_row).sum()) * si.CHUNK_S
             opened += int(gate.sum())
             rows_live += int((live_row > 0).sum())
-        n6 = al.shape[0]
+        tests = slots // si.GROUP_S
+        groups = int(gated[2].sum())
+        n6, live6 = al.shape[0], st["live"]
+        nbytes = n6 * 33 + tab.spheres.numel() * 4 \
+            + tab.boxes.numel() * 4 + tab.chunk_boxes.numel() * 4
         st.update(
-            rays=n6, dead_lanes=int((~al).sum()),
+            rays=n6, dead_lanes=int((~al).sum()), chunks=tab.num_chunks,
             open_chunks_per_live_row=opened / max(rows_live, 1),
-            ms=cuda_ms(lambda: run(tab6)),
-            plain_ms=cuda_ms(lambda: run(tab6, interpret=True), 3),
-            a5_ms=cuda_ms(lambda: run(mono6)),
-            a5_plain_ms=cuda_ms(lambda: run(mono6, interpret=True), 3),
+            groups_per_live_lane=groups / max(live6, 1),
+            ms=cuda_ms(lambda: run(tab)),
+            plain_ms=cuda_ms(lambda: run(tab, interpret=True), 3),
+            a5_ms=cuda_ms(lambda: run(mono_tab)),
+            a5_plain_ms=cuda_ms(lambda: run(mono_tab, interpret=True), 3),
             a5_bound_ms=sweep_bound(
-                n6, st["live"], sweep_work(fh, mono6.spheres, mono6.boxes,
-                                           rays, al, cfg6.t_min),
-                mono6.spheres.shape[0], 2)["bound_ms"],
-            **bound(pairs * SWEEP_FLOPS
-                    + st["live"] * tab6.num_chunks * SLAB_FLOPS,
-                    n6 * 33 + tab6.spheres.numel() * 4
-                    + tab6.boxes.numel() * 4))
+                n6, live6, sweep_work(fh, mono_tab.spheres, mono_tab.boxes,
+                                      rays, al, cfg6.t_min),
+                mono_tab.spheres.shape[0], 2)["bound_ms"],
+            bound_chunks_ms=bound(
+                slots * SWEEP_FLOPS + live6 * tab.num_chunks * SLAB_FLOPS,
+                nbytes)["bound_ms"],
+            **bound(groups * si.GROUP_S * SWEEP_FLOPS
+                    + (tests + live6 * tab.num_chunks) * SLAB_FLOPS, nbytes))
+        if name.startswith("ties"):
+            st["hollow_hits"] = int((plain[1][al] == 45).sum())
+            if st["hollow_hits"] == 0:
+                raise AssertionError("no ray reached the hollow sphere")
         a6[name] = st
         print(f"A6 {name}: {json.dumps(st)}", flush=True)
     results["sphere_search_clustered"] = (
         max(st["max_abs_err"] for st in a6.values()), a6["primary_chunk2"])
-    del s6, o6, d6, h6, rnd, d6b, kern, plain, mono
+    del fronts6, kern, plain, mono, gated, ties, tie_rays, tie_alive
 
     phase("clustered-scene 1080p frame through render_linear "
           "(intersector 'pallas')")

@@ -34,19 +34,35 @@
 //
 // Kernel A6 (qtrt_sphere_search_clustered) replaces
 // sphere_intersect.py::_search_kernel, the cluster-culled sweep the TPU
-// takes from 16 chunks of 64 Morton-ordered spheres (1,024 slots) on. A
-// block of 128 threads is one TPU ray row. Per chunk, every live lane
-// slab-tests the chunk's AABB with the TPU kernel's arithmetic, and the
-// chunk is swept by the whole row when any live lane's test passes
-// (__syncthreads_or): the gate has the TPU's granularity, so the result is
-// the TPU kernel's lane for lane. Only then do 64 threads stage the chunk's
-// float4 rows in shared memory. The running (t_best, idx) starts at
-// (BIG, 0) and updates on a strict '<' in ascending slot order, which is
-// the TPU's per-chunk min-then-match followed by its strict 'better'. It
-// takes no exclude operand, as on the TPU. Its plain version is
-// sphere_search_clustered_plain. Bound: arithmetic again, 25 FLOPs per
-// (live ray, slot of an opened chunk); the gate itself costs 6 loads and
-// some 20 FLOPs per (ray, chunk).
+// takes from 16 chunks of 64 Morton-ordered spheres (1,024 slots) on. Its
+// result is the TPU kernel's lane for lane: a chunk is swept by a whole
+// 128-ray row when any live lane of the row crosses the chunk's AABB (the
+// TPU kernel's slab test, on boxes from the signed radius), so a lane's
+// result depends on its row. The running (t_best, idx) starts at (BIG, 0)
+// and updates on a strict '<' in ascending slot order, which is the TPU's
+// per-chunk min-then-match followed by its strict 'better'. It takes no
+// exclude operand, as on the TPU. Its plain version is
+// sphere_search_clustered_plain; sphere_search_clustered_gated_plain
+// runs its gates. A block is one row:
+//   - The row's chunk mask, once. Every live lane slab-tests every chunk
+//     box; each warp votes per chunk (__any_sync) and OR-s its bits into
+//     ceil(K / 32) words in shared memory, in tiles of 2,048 chunks: one
+//     barrier a tile, not one per chunk.
+//   - Inside the opened chunks, A5's sweep: a warp takes a 32-slot group
+//     when the group gate of one of its lanes passes under its running
+//     t_best (boxes from |r|, prep_sphere_search builds them beside the
+//     chunk boxes), with the root skip, __ldg broadcasts and no barrier.
+//     The group gate keeps every candidate below t_best, and the slots stay
+//     in ascending order, so the result is the row-gated sweep's bit for bit.
+// Bound: 25 FLOPs per (live ray, slot of a group that its own gate opens in
+// a chunk its row opens), 20 per group gate test and per chunk test.
+// Measured, with chip_ab.py against the parent kernel on the same inputs
+// (H100 80GB HBM3 at 700 W): the primary wavefront of chunk 2 of the 1080p
+// clustered-scene frame (1,152 slots, 319,724 of 414,720 rays live, 6.4 of
+// 36 groups swept a live lane) 0.18-0.21 ms against 0.43-0.47; a bounce-1
+// wavefront (82,338 live) 0.21-0.24 against 0.51-0.56. A5's sweep of the
+// same table takes 0.20-0.21 and 0.20-0.22 ms (chip_smoke.py): where few
+// lanes of a row live, a block has about one busy warp.
 //
 // What bounds it on the H100. A swept pair costs about 25 single-rounded
 // FP32 operations, and where its discriminant is not negative an IEEE
@@ -108,7 +124,11 @@
 
 #include <cuda_runtime.h>
 
+#include "block_pack.cuh"
+
 namespace {
+
+using qtrt_pack::block_pack;
 
 constexpr float BIG = 3.0e38f;
 constexpr int BLOCK = 256;     // rays per block
@@ -174,10 +194,81 @@ __device__ __forceinline__ void write_defaults(float* f, int* g, size_t row) {
   for (int r = 0; r < N_IROWS; ++r) g[r * row] = 0;
 }
 
-// The body of every kernel in this file but A6. SHADOW: stop after the sweep
-// and write only rows F_T and I_IDX (the outputs are then [1, n] each, and
-// params is not read); a winner id at or above num_ids (a padding slot of
-// the sphere-search table) is written as 0. spheres: [s] float4 sweep rows;
+// A ray as the sweep reads it: its origin and direction, and the terms of
+// the expanded-form quadratic and of the group gate that depend on the ray
+// alone. A lane without a ray gets o = 0, d = (0, 0, 1).
+struct SweepRay {
+  float o[3], d[3], inv[3];
+  float a, o_dot_d, o2, inv_a, o_l1;
+};
+
+__device__ __forceinline__ SweepRay sweep_ray(
+    bool live, int i, const float* __restrict__ ox,
+    const float* __restrict__ oy, const float* __restrict__ oz,
+    const float* __restrict__ dx, const float* __restrict__ dy,
+    const float* __restrict__ dz) {
+  SweepRay r = {{0.f, 0.f, 0.f}, {0.f, 0.f, 1.f}};
+  if (live) {
+    r.o[0] = ox[i]; r.o[1] = oy[i]; r.o[2] = oz[i];
+    r.d[0] = dx[i]; r.d[1] = dy[i]; r.d[2] = dz[i];
+  }
+  r.a = dot3(r.d[0], r.d[1], r.d[2], r.d[0], r.d[1], r.d[2]);
+  r.o_dot_d = dot3(r.o[0], r.o[1], r.o[2], r.d[0], r.d[1], r.d[2]);
+  r.o2 = dot3(r.o[0], r.o[1], r.o[2], r.o[0], r.o[1], r.o[2]);
+  r.inv_a = __fdiv_rn(1.f, r.a);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r.inv[k] = slab_inv(r.d[k]);
+  r.o_l1 = add(add(fabsf(r.o[0]), fabsf(r.o[1])), fabsf(r.o[2]));
+  return r;
+}
+
+// Group gi of the sweep (slots [gi * group, min(s, gi * group + group))),
+// on the warp that calls it: swept by every live lane when the group gate
+// of one of them passes under its running minimum, with the strict '<'
+// update of (t_best, best) in ascending slot order. EXCL: the slot ex is
+// never a candidate. Every lane of the warp must call it.
+template <bool EXCL>
+__device__ __forceinline__ void sweep_group(
+    const float4* __restrict__ spheres, const float4* __restrict__ boxes,
+    int gi, int group, int s, const SweepRay& r, bool live, float t_min,
+    int ex, float& t_best, int& best) {
+  const bool open = live && group_open(__ldg(boxes + 2 * gi),
+                                       __ldg(boxes + 2 * gi + 1), r.o, r.inv,
+                                       r.o_l1, t_min, t_best);
+  if (!__any_sync(FULL, open)) return;
+  const int base = gi * group;
+  const int end = min(s, base + group);
+#pragma unroll 4
+  for (int k = base; k < end; ++k) {
+    const float4 c = __ldg(spheres + k);
+    const float d_dot_c = dot3(c.x, c.y, c.z, r.d[0], r.d[1], r.d[2]);
+    const float o_dot_c = dot3(c.x, c.y, c.z, r.o[0], r.o[1], r.o[2]);
+    const float half_b = sub(r.o_dot_d, d_dot_c);
+    const float cterm = add(sub(r.o2, mul(2.f, o_dot_c)), c.w);
+    const float disc = sub(mul(half_b, half_b), mul(r.a, cterm));
+    // A lane with disc < 0 has no candidate (BIG), whatever the roots:
+    // the warp skips the root unless one of its lanes needs it.
+    if (!__any_sync(FULL, live && disc >= 0.f)) continue;
+    const float sq = __fsqrt_rn(fmaxf(disc, 0.f));
+    const float near = mul(sub(-half_b, sq), r.inv_a);
+    const float far = mul(add(-half_b, sq), r.inv_a);
+    const bool near_ok = near >= t_min && near <= BIG;
+    const bool far_ok = far >= t_min && far <= BIG;
+    const float root = near_ok ? near : far;
+    bool valid = disc >= 0.f && (near_ok || far_ok);
+    if constexpr (EXCL) valid = valid && k != ex;
+    const float cand = valid ? root : BIG;
+    if (cand < t_best) {
+      t_best = cand;
+      best = k;
+    }
+  }
+}
+
+// The body of A1, A2 and A5. SHADOW: stop after the sweep and write only
+// rows F_T and I_IDX (the outputs are then [1, n] each, and params is not
+// read); a winner id at or above num_ids (a padding slot of the
+// sphere-search table) is written as 0. spheres: [s] float4 sweep rows;
 // boxes: [ceil(s / group)] pairs of float4, the group boxes. Every thread
 // of the block must call it: it synchronises the block.
 template <bool SHADOW, bool EXCL>
@@ -191,7 +282,6 @@ __device__ __forceinline__ void fused_hit_body(
     float t_min, int n, float* __restrict__ fout, int* __restrict__ iout) {
   __shared__ int lanes[BLOCK];
   __shared__ int warp_live[WARPS];
-  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t row = static_cast<size_t>(n);
 
@@ -206,18 +296,7 @@ __device__ __forceinline__ void fused_hit_body(
       write_defaults(fout + i0, iout + i0, row);
     }
   }
-  const unsigned ballot = __ballot_sync(FULL, live0);
-  if (lane == 0) warp_live[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0, total = 0;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
-    const int c = warp_live[w];
-    before += w < warp ? c : 0;
-    total += c;
-  }
-  if (live0) lanes[before + __popc(ballot & ((1u << lane) - 1u))] = i0;
-  __syncthreads();
+  const int total = block_pack<BLOCK>(live0, i0, lanes, warp_live);
   // Warp w sweeps the live rays [32 w, 32 w + 32) of the block, in lane
   // order; a warp past them has nothing to do.
   if (warp * 32 >= total) return;
@@ -229,55 +308,14 @@ __device__ __forceinline__ void fused_hit_body(
   if constexpr (EXCL) {
     if (live) ex = excl[i];
   }
-  float o_x = 0.f, o_y = 0.f, o_z = 0.f, d_x = 0.f, d_y = 0.f, d_z = 1.f;
-  if (live) {
-    o_x = ox[i]; o_y = oy[i]; o_z = oz[i];
-    d_x = dx[i]; d_y = dy[i]; d_z = dz[i];
-  }
-  const float a = dot3(d_x, d_y, d_z, d_x, d_y, d_z);
-  const float o_dot_d = dot3(o_x, o_y, o_z, d_x, d_y, d_z);
-  const float o2 = dot3(o_x, o_y, o_z, o_x, o_y, o_z);
-  const float inv_a = __fdiv_rn(1.f, a);
-  const float o3[3] = {o_x, o_y, o_z};
-  const float inv3[3] = {slab_inv(d_x), slab_inv(d_y), slab_inv(d_z)};
-  const float o_l1 = add(add(fabsf(o_x), fabsf(o_y)), fabsf(o_z));
+  const SweepRay r = sweep_ray(live, i, ox, oy, oz, dx, dy, dz);
 
   // --- closest-hit sweep (expanded-form quadratic, as the TPU sweep) ---
   float t_best = BIG;
   int best = 0;
-  for (int base = 0; base < s; base += group) {
-    const int gi = base / group;
-    const bool open = live && group_open(__ldg(boxes + 2 * gi),
-                                         __ldg(boxes + 2 * gi + 1), o3, inv3,
-                                         o_l1, t_min, t_best);
-    if (!__any_sync(FULL, open)) continue;
-    const int end = min(s, base + group);
-#pragma unroll 4
-    for (int k = base; k < end; ++k) {
-      const float4 c = __ldg(spheres + k);
-      const float d_dot_c = dot3(c.x, c.y, c.z, d_x, d_y, d_z);
-      const float o_dot_c = dot3(c.x, c.y, c.z, o_x, o_y, o_z);
-      const float half_b = sub(o_dot_d, d_dot_c);
-      const float cterm = add(sub(o2, mul(2.f, o_dot_c)), c.w);
-      const float disc = sub(mul(half_b, half_b), mul(a, cterm));
-      // A lane with disc < 0 has no candidate (BIG), whatever the roots:
-      // the warp skips the root unless one of its lanes needs it.
-      if (!__any_sync(FULL, live && disc >= 0.f)) continue;
-      const float sq = __fsqrt_rn(fmaxf(disc, 0.f));
-      const float near = mul(sub(-half_b, sq), inv_a);
-      const float far = mul(add(-half_b, sq), inv_a);
-      const bool near_ok = near >= t_min && near <= BIG;
-      const bool far_ok = far >= t_min && far <= BIG;
-      const float root = near_ok ? near : far;
-      bool valid = disc >= 0.f && (near_ok || far_ok);
-      if constexpr (EXCL) valid = valid && k != ex;
-      const float cand = valid ? root : BIG;
-      if (cand < t_best) {
-        t_best = cand;
-        best = k;
-      }
-    }
-  }
+  for (int gi = 0; gi * group < s; ++gi)
+    sweep_group<EXCL>(spheres, boxes, gi, group, s, r, live, t_min, ex,
+                      t_best, best);
   if (!live) return;
 
   float* f = fout + i;
@@ -295,6 +333,9 @@ __device__ __forceinline__ void fused_hit_body(
   const float4 p2 = params[4 * idx + 2];
   const float4 p3 = params[4 * idx + 3];
   const float cw_x = p0.x, cw_y = p0.y, cw_z = p0.z, r_w = p0.w;
+  const float o_x = r.o[0], o_y = r.o[1], o_z = r.o[2];
+  const float d_x = r.d[0], d_y = r.d[1], d_z = r.d[2];
+  const float a = r.a;
 
   // --- refinement: well-conditioned oc form with stable roots ---
   const bool hit = t_best < BIG;
@@ -381,93 +422,103 @@ __global__ void __launch_bounds__(BLOCK) sphere_search_kernel(
 }
 
 // ------------------------------------------------------------------ A6
-constexpr int ROW = 128;    // rays per block: one TPU ray row, the gate's unit
-constexpr int CHUNK_S = 64;  // spheres per Morton chunk
+constexpr int ROW = 128;      // rays per block: one TPU ray row, the gate's unit
+constexpr int CHUNK_S = 64;   // spheres per Morton chunk
+constexpr int MASK_WORDS = 64;  // chunk-mask words per tile: 2,048 chunks
 
+// The TPU kernel's chunk gate of one lane: its segment crosses chunk ck's
+// AABB (enter clamped at t_min, exit > enter strict), in the TPU's order.
+__device__ __forceinline__ bool chunk_crossed(const float* __restrict__ cb,
+                                              int ks, int ck,
+                                              const SweepRay& r,
+                                              float t_min) {
+  const float t0x = mul(sub(__ldg(cb + ck), r.o[0]), r.inv[0]);
+  const float t1x = mul(sub(__ldg(cb + 3 * ks + ck), r.o[0]), r.inv[0]);
+  const float t0y = mul(sub(__ldg(cb + ks + ck), r.o[1]), r.inv[1]);
+  const float t1y = mul(sub(__ldg(cb + 4 * ks + ck), r.o[1]), r.inv[1]);
+  const float t0z = mul(sub(__ldg(cb + 2 * ks + ck), r.o[2]), r.inv[2]);
+  const float t1z = mul(sub(__ldg(cb + 5 * ks + ck), r.o[2]), r.inv[2]);
+  const float enter =
+      fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+            fmaxf(fminf(t0z, t1z), t_min));
+  const float exit_ =
+      fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  return exit_ > enter;
+}
+
+// A6: one block per 128-ray row (the header comment). Per tile of up to
+// 32 * MASK_WORDS chunks: the row's chunk mask (each warp's vote per
+// chunk, OR-ed into shared words), one barrier, then each warp sweeps the
+// opened chunks in ascending order with the gated sweep of A5.
 __global__ void __launch_bounds__(ROW) sphere_search_clustered_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const bool* __restrict__ alive, const float4* __restrict__ spheres,
-    const float* __restrict__ boxes, int num_chunks, int k_stride,
+    const float4* __restrict__ boxes, int group,
+    const float* __restrict__ chunk_boxes, int num_chunks, int k_stride,
     int num_spheres, float t_min, int n, float* __restrict__ t_out,
     int* __restrict__ idx_out) {
-  __shared__ float4 tile[CHUNK_S];
-  const int i = blockIdx.x * ROW + threadIdx.x;
-  const bool live = i < n && alive[i];
-  if (!__syncthreads_or(live)) {
-    // Dead row: no search, the miss values.
-    if (i < n) {
-      t_out[i] = BIG;
-      idx_out[i] = 0;
-    }
-    return;
-  }
+  __shared__ int lanes[ROW];
+  __shared__ int warp_live[ROW / 32];
+  __shared__ unsigned mask[MASK_WORDS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
-  float o_x = 0.f, o_y = 0.f, o_z = 0.f, d_x = 0.f, d_y = 0.f, d_z = 1.f;
-  if (live) {
-    o_x = ox[i]; o_y = oy[i]; o_z = oz[i];
-    d_x = dx[i]; d_y = dy[i]; d_z = dz[i];
+  // --- dead lanes get the miss values; live lanes are compacted ---
+  const int i0 = blockIdx.x * ROW + threadIdx.x;
+  const bool live0 = i0 < n && alive[i0];
+  if (i0 < n && !live0) {
+    t_out[i0] = BIG;
+    idx_out[i0] = 0;
   }
-  const float a = dot3(d_x, d_y, d_z, d_x, d_y, d_z);
-  const float o_dot_d = dot3(o_x, o_y, o_z, d_x, d_y, d_z);
-  const float o2 = dot3(o_x, o_y, o_z, o_x, o_y, o_z);
-  const float inv_a = __fdiv_rn(1.f, a);
-  const float ix = slab_inv(d_x), iy = slab_inv(d_y), iz = slab_inv(d_z);
-
-  const float* lo_x = boxes;
-  const float* lo_y = boxes + k_stride;
-  const float* lo_z = boxes + 2 * k_stride;
-  const float* hi_x = boxes + 3 * k_stride;
-  const float* hi_y = boxes + 4 * k_stride;
-  const float* hi_z = boxes + 5 * k_stride;
+  const int total = block_pack<ROW>(live0, i0, lanes, warp_live);
+  if (total == 0) return;  // a dead row: no search
+  // Warps past the live rays take part in the barriers only.
+  const bool busy = warp * 32 < total;
+  const bool live = threadIdx.x < total;
+  const int i = live ? lanes[threadIdx.x] : 0;
+  const SweepRay r = sweep_ray(live, i, ox, oy, oz, dx, dy, dz);
+  const int per_chunk = CHUNK_S / group;
+  const int s = num_chunks * CHUNK_S;
 
   float t_best = BIG;
   int best = 0;
-  for (int ck = 0; ck < num_chunks; ++ck) {
-    // Cluster AABB gate: enter clamped at t_min, exit > enter strict.
-    const float t0x = mul(sub(__ldg(lo_x + ck), o_x), ix);
-    const float t1x = mul(sub(__ldg(hi_x + ck), o_x), ix);
-    const float t0y = mul(sub(__ldg(lo_y + ck), o_y), iy);
-    const float t1y = mul(sub(__ldg(hi_y + ck), o_y), iy);
-    const float t0z = mul(sub(__ldg(lo_z + ck), o_z), iz);
-    const float t1z = mul(sub(__ldg(hi_z + ck), o_z), iz);
-    const float enter =
-        fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-              fmaxf(fminf(t0z, t1z), t_min));
-    const float exit_ =
-        fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-    // The barrier of the vote also keeps the tile of the chunk before from
-    // being overwritten while a lane still sweeps it.
-    if (!__syncthreads_or(live && exit_ > enter)) continue;
-    const int base = ck * CHUNK_S;
-    if (threadIdx.x < CHUNK_S) tile[threadIdx.x] = spheres[base + threadIdx.x];
+  for (int c0 = 0; c0 < num_chunks; c0 += 32 * MASK_WORDS) {
+    const int nc = min(num_chunks - c0, 32 * MASK_WORDS);
+    const int words = (nc + 31) / 32;
+    for (int w = threadIdx.x; w < words; w += ROW) mask[w] = 0u;
     __syncthreads();
-    if (!live) continue;
-#pragma unroll 4
-    for (int k = 0; k < CHUNK_S; ++k) {
-      const float4 c = tile[k];
-      const float d_dot_c = dot3(c.x, c.y, c.z, d_x, d_y, d_z);
-      const float o_dot_c = dot3(c.x, c.y, c.z, o_x, o_y, o_z);
-      const float half_b = sub(o_dot_d, d_dot_c);
-      const float cterm = add(sub(o2, mul(2.f, o_dot_c)), c.w);
-      const float disc = sub(mul(half_b, half_b), mul(a, cterm));
-      const float sq = __fsqrt_rn(fmaxf(disc, 0.f));
-      const float near = mul(sub(-half_b, sq), inv_a);
-      const float far = mul(add(-half_b, sq), inv_a);
-      const bool near_ok = near >= t_min && near <= BIG;
-      const bool far_ok = far >= t_min && far <= BIG;
-      const float root = near_ok ? near : far;
-      const float cand = (disc >= 0.f && (near_ok || far_ok)) ? root : BIG;
-      if (cand < t_best) {
-        t_best = cand;
-        best = base + k;
+    if (busy) {
+      for (int w = 0; w < words; ++w) {
+        unsigned bits = 0u;
+        const int m = min(32, nc - 32 * w);
+        for (int b = 0; b < m; ++b) {
+          const bool cross =
+              live && chunk_crossed(chunk_boxes, k_stride, c0 + 32 * w + b,
+                                    r, t_min);
+          bits |= (__any_sync(FULL, cross) ? 1u : 0u) << b;
+        }
+        if (lane == 0 && bits != 0u) atomicOr(mask + w, bits);
       }
     }
+    __syncthreads();
+    if (busy) {
+      for (int w = 0; w < words; ++w) {
+        for (unsigned todo = mask[w]; todo; todo &= todo - 1) {
+          const int ck = c0 + 32 * w + __ffs(todo) - 1;
+          for (int gi = ck * per_chunk; gi < (ck + 1) * per_chunk; ++gi)
+            sweep_group<false>(spheres, boxes, gi, group, s, r, live, t_min,
+                               -1, t_best, best);
+        }
+      }
+    }
+    // The mask is cleared for the next tile only when every warp is done.
+    __syncthreads();
   }
-  if (i >= n) return;
-  t_out[i] = live ? t_best : BIG;
-  idx_out[i] = (live && best < num_spheres) ? best : 0;
+  if (!live) return;
+  t_out[i] = t_best;
+  idx_out[i] = best < num_spheres ? best : 0;
 }
 
 }  // namespace
@@ -572,21 +623,25 @@ extern "C" int qtrt_sphere_search(const float* ox, const float* oy,
 }
 
 // Cluster-culled sphere search (kernel A6). spheres: [num_chunks * 64, 4]
-// f32 rows from prep_sphere_search; boxes: [6, k_stride] f32 (lo xyz, hi
-// xyz of each chunk's AABB over center +- radius of its active spheres;
-// BIG/-BIG where a chunk has none), k_stride >= num_chunks. Outputs as A5.
-// Returns the cudaError_t of the launch.
+// f32 rows from prep_sphere_search; boxes: [num_chunks * 64 / group, 8] f32
+// group boxes as for qtrt_sphere_search (group divides 64); chunk_boxes:
+// [6, k_stride] f32 (lo xyz, hi xyz of each chunk's AABB over center +-
+// radius of its active spheres; BIG/-BIG where a chunk has none), k_stride
+// >= num_chunks. Outputs as A5. Returns the cudaError_t of the launch.
 extern "C" int qtrt_sphere_search_clustered(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, const bool* alive, const float* spheres,
-    const float* boxes, int num_chunks, int k_stride, int num_spheres,
-    float t_min, int n, float* t_out, int* idx_out, void* stream) {
-  if (n <= 0 || num_chunks <= 0 || k_stride < num_chunks)
+    const float* boxes, int group, const float* chunk_boxes, int num_chunks,
+    int k_stride, int num_spheres, float t_min, int n, float* t_out,
+    int* idx_out, void* stream) {
+  if (n <= 0 || num_chunks <= 0 || k_stride < num_chunks || group <= 0 ||
+      CHUNK_S % group != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid = n / ROW + (n % ROW != 0);
   sphere_search_clustered_kernel<<<grid, ROW, 0,
                                    static_cast<cudaStream_t>(stream)>>>(
       ox, oy, oz, dx, dy, dz, alive, reinterpret_cast<const float4*>(spheres),
-      boxes, num_chunks, k_stride, num_spheres, t_min, n, t_out, idx_out);
+      reinterpret_cast<const float4*>(boxes), group, chunk_boxes, num_chunks,
+      k_stride, num_spheres, t_min, n, t_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

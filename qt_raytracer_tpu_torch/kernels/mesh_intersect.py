@@ -372,19 +372,27 @@ def slab_inv(d):
         torch.abs(d) < 1e-30, torch.where(d < 0, -1e-30, 1e-30), d))
 
 
-def _slab(box_planes, lo_c, hi_c, o, inv, t_min):
-    """(enter, exit) of rays [m] against boxes [lo_c, hi_c): [m, c] each,
-    with the TPU kernels' axis order."""
+def slab_boxes(box, o, inv, t_min):
+    """(enter, exit) of rays against boxes, broadcast: box is a sequence of
+    the six planes (lo x, y, z, hi x, y, z), o and inv the rays' three
+    components each, all broadcastable to one shape; the TPU kernels' axis
+    order."""
     enter = exit_ = None
     for a in range(3):
-        t0 = (box_planes[a, lo_c:hi_c] - o[a][:, None]) * inv[a][:, None]
-        t1 = (box_planes[3 + a, lo_c:hi_c] - o[a][:, None]) * inv[a][:, None]
+        t0 = (box[a] - o[a]) * inv[a]
+        t1 = (box[3 + a] - o[a]) * inv[a]
         near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
         enter = torch.clamp_min(near, t_min) if a == 0 \
             else torch.maximum(enter, near)
         exit_ = torch.clamp_max(far, BIG) if a == 0 \
             else torch.minimum(exit_, far)
     return enter, exit_
+
+
+def _slab(box_planes, lo_c, hi_c, o, inv, t_min):
+    """(enter, exit) of rays [m] against boxes [lo_c, hi_c): [m, c] each."""
+    return slab_boxes(box_planes[:, lo_c:hi_c], tuple(x[:, None] for x in o),
+                      tuple(x[:, None] for x in inv), t_min)
 
 
 def crossing_mask(mc: MeshClusters, o, inv, cap, alive, c0: int, c_hi: int,

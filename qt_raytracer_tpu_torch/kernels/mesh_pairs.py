@@ -45,10 +45,10 @@ import torch
 from ..runtime import cuda_build
 from .fused_hit import BIG
 from .mesh_intersect import (LANE, PLAIN_SLICE_CLUSTERS, PLAIN_SLICE_RAYS,
-                             MeshClusters, _check, _defaults,
+                             MeshClusters, _check, _check_tables, _defaults,
                              _moller_trumbore, _route, _stream,
                              check_search_options, crossing_mask,
-                             mesh_search, slab_inv)
+                             mesh_search, slab_boxes, slab_inv)
 
 GROUPS = 8                # the slot count is a multiple of GROUPS * LANE
 PLAIN_SLICE_TILES = 16    # 128-pair tiles per block of the plain A8
@@ -156,10 +156,13 @@ def pair_hits(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_cap, ray_buf, gmap,
     in [0, N), negative on a padding slot; gmap: [B / 128] i32, each tile's
     cluster id in [0, k). Per valid slot the closest triangle of the tile's
     cluster strictly below the ray's cap, ties to the lowest BVH-order id;
-    (BIG, 0) where none beats the cap and on padding slots."""
+    (BIG, 0) where none beats the cap and on padding slots. The kernel
+    sweeps a 128-triangle row of the cluster only where the pair's row gate
+    passes (pair_hits_gated_plain), which drops no winner."""
     global pair_hits_launches
     rays = (ox, oy, oz, dx, dy, dz)
     _check(mc, rays, None, t_cap)
+    _check_tables(mc, "vpu", "rowgate")
     _check_slots(rays, ray_buf, gmap)
     dev = ox.device
     if not _route(dev, interpret):
@@ -172,7 +175,8 @@ def pair_hits(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_cap, ray_buf, gmap,
         err = lib.qtrt_mesh_pairs(
             *(x.data_ptr() for x in rays), t_cap.data_ptr(),
             ray_buf.data_ptr(), gmap.data_ptr(), mc.tri_planes.data_ptr(),
-            mc.tri_planes.shape[1], mc.tris_per_cluster, float(t_min),
+            mc.tri_planes.shape[1], mc.row_boxes.data_ptr(),
+            mc.row_boxes.shape[1], mc.tris_per_cluster, float(t_min),
             ox.shape[0], b, t.data_ptr(), idx.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"mesh pairs kernel launch failed: "
@@ -221,6 +225,74 @@ def pair_hits_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_cap, ray_buf,
         t_out[slots] = torch.where(won, tmin_c, BIG).reshape(-1)
         idx_out[slots] = torch.where(won, idx_c, 0).reshape(-1)
     return t_out, idx_out
+
+
+def pair_hits_gated_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_cap,
+                          ray_buf, gmap, t_min: float,
+                          slice_tiles: int = PLAIN_SLICE_TILES):
+    """The kernel's row-gated sweep (A8) in plain PyTorch, with a count of
+    its work: (t [B], idx [B], rows [B] i32). A valid slot sweeps row r of
+    its tile's cluster (128 triangles, in ascending r) only when the slab
+    test of the row's box (``MeshClusters.row_boxes``) passes with an entry
+    at most min(t_best * 1.0001 + 1e-4, 1e37) of its running hit, which
+    starts at the ray's cap; within a row the minimum below the running
+    hit, then the lowest id reaching it, and a strict '<' update. t_best
+    only shrinks, so a row that fails its gate at its turn holds no winner:
+    (t, idx) equal pair_hits_plain's on every slot. rows counts the rows
+    each slot swept (0 on padding slots). A measuring aid and the subject
+    of the CPU tests; no path runs it."""
+    _check_tables(mc, "vpu", "rowgate")
+    b = ray_buf.shape[0]
+    dev = ox.device
+    g = mc.tris_per_cluster
+    nrows = g // LANE
+    t_out = torch.full((b,), BIG, dtype=torch.float32, device=dev)
+    idx_out = torch.zeros(b, dtype=torch.int32, device=dev)
+    rows_out = torch.zeros(b, dtype=torch.int32, device=dev)
+    table = torch.stack([ox, oy, oz, dx, dy, dz, t_cap], dim=1)     # [N, 7]
+    ray_rows = ray_buf.view(-1, LANE)
+    live_tiles = torch.nonzero((ray_rows >= 0).any(dim=1)).squeeze(1)
+    tris = mc.tri_planes[:, :mc.k * g].view(9, mc.k * nrows, LANE)
+    lanes = torch.arange(LANE, dtype=torch.int32, device=dev)
+    for lo in range(0, live_tiles.shape[0], slice_tiles):
+        tiles = live_tiles[lo:lo + slice_tiles]
+        ray = ray_rows[tiles]                                # [T, 128]
+        ok_pair = ray >= 0
+        r = table[torch.clamp_min(ray, 0)]                   # [T, 128, 7]
+        o = tuple(r[:, :, a] for a in range(3))              # [T, 128]
+        d = tuple(r[:, :, 3 + a] for a in range(3))
+        inv = tuple(slab_inv(x) for x in d)
+        cap = r[:, :, 6]
+        t_best = cap.clone()
+        best = torch.zeros_like(ray, dtype=torch.int32)
+        swept = torch.zeros_like(ray, dtype=torch.int32)
+        for k in range(nrows):
+            row = gmap[tiles].long() * nrows + k             # [T]
+            enter, exit_ = slab_boxes(mc.row_boxes[:, row][:, :, None], o,
+                                      inv, float(t_min))    # [T, 128]
+            slack = torch.clamp_max(t_best * 1.0001 + 1e-4, 1e37)
+            opened = ok_pair & (exit_ > enter) & (enter <= slack)
+            swept += opened
+            tri = tris[:, row][:, :, None, :]                # [9, T, 1, 128]
+            t, ok = _moller_trumbore(
+                tuple(x[:, :, None] for x in o),
+                tuple(x[:, :, None] for x in d), tuple(tri[0:3]),
+                tuple(tri[3:6]), tuple(tri[6:9]), float(t_min))
+            tcand = torch.where(ok & (t < t_best[:, :, None]), t, BIG)
+            tmin_r = tcand.amin(dim=2)
+            gid = (row.to(torch.int32) * LANE)[:, None, None] + lanes
+            idx_r = torch.where(tcand == tmin_r[:, :, None], gid,
+                                mc.k * g).amin(dim=2)
+            better = opened & (tmin_r < t_best)
+            t_best = torch.where(better, tmin_r, t_best)
+            best = torch.where(better, idx_r, best)
+        won = ok_pair & (t_best < cap)
+        slots = (tiles[:, None] * LANE
+                 + torch.arange(LANE, device=dev)).reshape(-1)
+        t_out[slots] = torch.where(won, t_best, BIG).reshape(-1)
+        idx_out[slots] = torch.where(won, best, 0).reshape(-1)
+        rows_out[slots] = swept.reshape(-1)
+    return t_out, idx_out, rows_out
 
 
 # --------------------------------------------------------------- pipeline

@@ -17,9 +17,11 @@ id), masked before the minimum. From 16 chunks (1,024 slots) on it is the
 cluster-culled sweep (A6, ``qtrt_sphere_search_clustered``): spheres are
 Morton-ordered at scene build, so each chunk of 64 consecutive slots is a
 tight cluster behind an AABB, and a 128-ray row sweeps a chunk only when
-some live lane's slab test crosses its box. The clustered sweep takes no
-exclude operand and raises ValueError when given one, as the TPU wrapper
-does.
+some live lane's slab test crosses its box; inside an opened chunk the
+kernel runs A5's group gate, which drops no candidate
+(``sphere_search_clustered_gated_plain`` runs both gates). The clustered
+sweep takes no exclude operand and raises ValueError when given one, as
+the TPU wrapper does.
 
 ``sphere_search`` launches the kernels for CUDA tensors, and takes
 ``sphere_search_plain`` / ``sphere_search_clustered_plain`` only for CPU
@@ -31,7 +33,7 @@ rows.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -39,7 +41,7 @@ from ..core import vecmath as vm
 from ..core.scene import SphereScene
 from ..runtime import cuda_build
 from .fused_hit import (BIG, GROUP_S, PLAIN_SLICE, _sweep, check_exclude,
-                        excl_ptr, min_then_match, sweep_boxes,
+                        excl_ptr, group_gate, min_then_match, sweep_boxes,
                         sweep_candidates)
 from .mesh_intersect import slab_inv
 
@@ -60,11 +62,15 @@ class SearchSpheres(NamedTuple):
 
     spheres: torch.Tensor  # [S_pad, 4] f32: cx cy cz |c|^2-r^2
     num_spheres: int
-    # num_chunks > 0: the clustered sweep's chunk AABBs, [6, K_pad] f32 (lo
-    # xyz, hi xyz); num_chunks = 0: the monolithic sweep's group boxes,
-    # [ceil(S_pad / GROUP_S), 8] f32 (fused_hit.sweep_boxes).
+    # The group boxes of both sweeps' group gate, [S_pad / GROUP_S, 8] f32
+    # (fused_hit.sweep_boxes: c -+ |r| of the active spheres).
     boxes: torch.Tensor
     num_chunks: int = 0
+    # num_chunks > 0: the clustered sweep's chunk AABBs, [6, K_pad] f32 (lo
+    # xyz, hi xyz: c -+ r of the active spheres, r signed as the TPU kernel
+    # takes it; BIG/-BIG for a chunk without one and in the padding
+    # columns); None for the monolithic sweep.
+    chunk_boxes: Optional[torch.Tensor] = None
 
 
 def prep_sphere_search(scene: SphereScene,
@@ -72,10 +78,9 @@ def prep_sphere_search(scene: SphereScene,
                        ) -> SearchSpheres:
     """The TPU kernel's sweep columns (prep_spheres), as float4 rows and
     detached: inactive slots get a +BIG cterm bias (never hit); padding
-    slots sit at 1e9 with a BIG cterm. With at least min_chunks chunks of 64
-    slots, also the chunk AABBs over center +- radius of the active spheres
-    (BIG/-BIG where a chunk has none, and in the padding columns); below
-    that, the group boxes of the monolithic sweep's gate instead."""
+    slots sit at 1e9 with a BIG cterm. The group boxes of the kernels'
+    group gate; with at least min_chunks chunks of 64 slots, also the chunk
+    AABBs of the clustered sweep."""
     with torch.no_grad():
         c = scene.center
         s = c.shape[0]
@@ -85,10 +90,10 @@ def prep_sphere_search(scene: SphereScene,
         pad = lambda x, v: torch.nn.functional.pad(x, (0, s_pad - s), value=v)
         rows = torch.stack([pad(c[:, 0], 1.0e9), pad(c[:, 1], 1.0e9),
                             pad(c[:, 2], 1.0e9), pad(c2r2, BIG)], dim=1)
+        groups = sweep_boxes(c, scene.radius, scene.active, s_pad, GROUP_S)
         k = s_pad // CHUNK_S
         if k < min_chunks:
-            return SearchSpheres(rows.contiguous(), s, sweep_boxes(
-                c, scene.radius, scene.active, s_pad, GROUP_S))
+            return SearchSpheres(rows.contiguous(), s, groups)
         act = scene.active[:, None]
         r_eff = torch.where(scene.active, scene.radius, 0.0)[:, None]
         pad_rows = lambda x, v: torch.nn.functional.pad(
@@ -100,8 +105,9 @@ def prep_sphere_search(scene: SphereScene,
         k_pad = max(-(-k // BOX_PAD) * BOX_PAD, BOX_PAD)
         pad_k = lambda x, v: torch.nn.functional.pad(
             x, (0, 0, 0, k_pad - k), value=v)
-        boxes = torch.cat([pad_k(clo, BIG).T, pad_k(chi, -BIG).T])
-    return SearchSpheres(rows.contiguous(), s, boxes.contiguous(), k)
+        chunk_boxes = torch.cat([pad_k(clo, BIG).T, pad_k(chi, -BIG).T])
+    return SearchSpheres(rows.contiguous(), s, groups, k,
+                         chunk_boxes.contiguous())
 
 
 def sphere_search(scene: SphereScene, origins: torch.Tensor,
@@ -179,6 +185,8 @@ def _launch(tables: SearchSpheres, rays, alive, t_min: float, exclude):
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     if tables.spheres.data_ptr() % 16 or tables.boxes.data_ptr() % 16:
         raise ValueError("kernel operands must be 16-byte aligned")
+    if tables.boxes.shape != (tables.spheres.shape[0] // GROUP_S, 8):
+        raise ValueError("tables must come from prep_sphere_search")
     ray_ptrs = [x.data_ptr() for x in rays]
     outs = (t.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -186,8 +194,10 @@ def _launch(tables: SearchSpheres, rays, alive, t_min: float, exclude):
         if tables.num_chunks > 0:
             err = lib.qtrt_sphere_search_clustered(
                 *ray_ptrs, alive.data_ptr(), tables.spheres.data_ptr(),
-                tables.boxes.data_ptr(), tables.num_chunks,
-                tables.boxes.shape[1], tables.num_spheres, t_min, n, *outs)
+                tables.boxes.data_ptr(), GROUP_S,
+                tables.chunk_boxes.data_ptr(), tables.num_chunks,
+                tables.chunk_boxes.shape[1], tables.num_spheres, t_min, n,
+                *outs)
         else:
             err = lib.qtrt_sphere_search(
                 *ray_ptrs, alive.data_ptr(), excl_ptr(exclude),
@@ -233,7 +243,7 @@ def chunk_gate(tables: SearchSpheres, ox, oy, oz, dx, dy, dz, alive,
     clamped at t_min, exit > enter strict), with the TPU kernel's
     arithmetic. N must be a multiple of 128."""
     k = tables.num_chunks
-    box = tables.boxes[:, :k]                                    # [6, K]
+    box = tables.chunk_boxes[:, :k]                              # [6, K]
     o = (ox[:, None], oy[:, None], oz[:, None])
     inv = tuple(slab_inv(d)[:, None] for d in (dx, dy, dz))
     t0 = [(box[a] - o[a]) * inv[a] for a in range(3)]            # [n, K]
@@ -280,3 +290,48 @@ def sphere_search_clustered_plain(tables: SearchSpheres, ox, oy, oz, dx, dy,
         t[sl] = torch.where(live, t_best, BIG)[:m]
         idx[sl] = torch.where(live, best, 0)[:m]
     return t, idx
+
+
+def sphere_search_clustered_gated_plain(tables: SearchSpheres, ox, oy, oz,
+                                        dx, dy, dz, alive, t_min: float):
+    """The kernel's gated sweep (A6) in plain PyTorch, group by group, with
+    a count of its work: (t, idx, group visits [N] i32). A lane sweeps a
+    group of GROUP_S slots only when its 128-ray row opens the group's
+    chunk (``chunk_gate``) and its own group gate (``fused_hit.group_gate``
+    on the group boxes) passes under its running minimum; within a group
+    the minimum, then the lowest id reaching it, and a strict '<' update
+    across groups. The group gate keeps every candidate below the running
+    minimum, so (t, idx) equal sphere_search_clustered_plain's on every
+    lane. A measuring aid and the subject of the CPU tests; no path runs
+    it."""
+    n = ox.shape[0]
+    dev = ox.device
+    extra = (-n) % ROW       # complete the last row with dead lanes
+    padn = lambda x, v: torch.nn.functional.pad(x, (0, extra), value=v)
+    rays = [padn(c, 1.0 if j == 5 else 0.0)
+            for j, c in enumerate((ox, oy, oz, dx, dy, dz))]
+    live = padn(alive, False)
+    rows = chunk_gate(tables, *rays, live, float(t_min))       # [rows, K]
+    per_chunk = CHUNK_S // GROUP_S
+    m = live.shape[0]
+    t_best = torch.full((m,), BIG, dtype=torch.float32, device=dev)
+    best = torch.zeros(m, dtype=torch.int32, device=dev)
+    visits = torch.zeros(m, dtype=torch.int32, device=dev)
+    for gi in range(tables.num_chunks * per_chunk):
+        row_open = rows[:, gi // per_chunk].repeat_interleave(ROW)
+        opened = row_open & live & group_gate(tables.boxes[gi], *rays,
+                                              float(t_min), t_best)
+        visits += opened
+        ids = torch.nonzero(opened).squeeze(1)
+        if not ids.shape[0]:
+            continue
+        base = gi * GROUP_S
+        tcand, _ = sweep_candidates(tables.spheres[base:base + GROUP_S],
+                                    *(c[ids] for c in rays), float(t_min))
+        t_g, i_g = min_then_match(tcand)
+        better = t_g < t_best[ids]
+        t_best[ids] = torch.where(better, t_g, t_best[ids])
+        best[ids] = torch.where(better, i_g + base, best[ids])
+    best = torch.where(best >= tables.num_spheres, 0, best)
+    return (torch.where(live, t_best, BIG)[:n],
+            torch.where(live, best, 0)[:n], visits[:n])

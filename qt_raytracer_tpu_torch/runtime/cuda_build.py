@@ -143,11 +143,12 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.qtrt_sphere_search.restype = i
     lib.qtrt_sphere_search.argtypes = [p] * 10 + [i, i, i, f, i] + [p] * 3
     # qtrt_sphere_search_clustered(ox, oy, oz, dx, dy, dz, alive, spheres,
-    #                              boxes, num_chunks, k_stride, num_spheres,
-    #                              t_min, n, t_out, idx_out, stream)
+    #                              boxes, group, chunk_boxes, num_chunks,
+    #                              k_stride, num_spheres, t_min, n, t_out,
+    #                              idx_out, stream)
     lib.qtrt_sphere_search_clustered.restype = i
-    lib.qtrt_sphere_search_clustered.argtypes = ([p] * 9 + [i, i, i, f, i]
-                                                 + [p] * 3)
+    lib.qtrt_sphere_search_clustered.argtypes = ([p] * 9 + [i, p, i, i, i, f,
+                                                            i] + [p] * 3)
     # qtrt_mesh_first_cluster(ox, oy, oz, dx, dy, dz, alive, t_cap, boxes,
     #                         k, k_stride, t_min, n, out, out2, stream)
     # out2 is a device pointer, or None for the first id alone.
@@ -167,6 +168,7 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.qtrt_mesh_crossing_lists.argtypes = ([p] * 9 + [i, i, f, i, i]
                                              + [p] * 3)
     # qtrt_mesh_pairs(ox, oy, oz, dx, dy, dz, t_cap, ray_buf, gmap, tris,
-    #                 p_stride, g, t_min, n, b, t_out, idx_out, stream)
+    #                 p_stride, rows, r_stride, g, t_min, n, b, t_out,
+    #                 idx_out, stream)
     lib.qtrt_mesh_pairs.restype = i
-    lib.qtrt_mesh_pairs.argtypes = [p] * 10 + [i, i, f, i, i] + [p] * 3
+    lib.qtrt_mesh_pairs.argtypes = [p] * 10 + [i, p, i, i, f, i, i] + [p] * 3

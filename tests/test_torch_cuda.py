@@ -451,7 +451,7 @@ def _many_spheres(num_spheres: int, seed: int):
     return b.build(pad_to=128, device="cpu")
 
 
-@pytest.mark.parametrize("num_spheres", [1024, 1062])
+@pytest.mark.parametrize("num_spheres", [1024, 1062, 2112])
 @pytest.mark.parametrize("n", [1, 255, 1000, 4097])
 def test_clustered_sphere_search_matches_plain_version(card, n, num_spheres):
     from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
@@ -482,6 +482,10 @@ def test_clustered_sphere_search_matches_plain_version(card, n, num_spheres):
         assert torch.equal(a.cpu()[live], c.cpu()[live])
     assert torch.all(kern[0].cpu()[~live] == si.BIG)
     assert torch.all(kern[1].cpu()[~live] == 0)
+    rays = [x[:, k].contiguous() for x in (o, d) for k in range(3)]
+    gated = si.sphere_search_clustered_gated_plain(
+        si.prep_sphere_search(scene), *rays, alive, T_MIN)
+    _bitwise(kern, gated[:2])
     with pytest.raises(ValueError, match="clustered"):
         si.sphere_search(scene, o, d, T_MIN, alive=alive,
                          exclude=torch.full((n,), -1, dtype=torch.int32,
@@ -1022,3 +1026,120 @@ def test_mesh_search_one_heavy_lane(card, visit):
                                               torch.full((n,), fh.BIG,
                                                          device=card))
     assert visits > mc.k // 4      # the ray crosses many clusters
+
+
+# -------------- adversarial cases of the redesigned A6 and A8 (row gates)
+@pytest.mark.parametrize("n", [1, 257, 414721])
+@pytest.mark.parametrize("num_spheres", [1152, 2112])
+def test_clustered_sweep_bitwise_on_ties(card, num_spheres, n):
+    """A6 against its plain version and its gated plain version on every
+    lane, on tied copies across lanes, groups and chunks and a hollow
+    sphere isolated in its group (K = 18 and 33 chunks), with dead lanes;
+    and against A5 on live lanes."""
+    from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
+    scene, aim = _tie_spheres(num_spheres)
+    on = scene.to(card)
+    tables = si.prep_sphere_search(on)
+    assert tables.num_chunks == num_spheres // 64
+    rays, alive = _aimed_rays(scene.center.numpy(), aim, n, seed=n + 5,
+                              device=card)
+    before = si.clustered_launches
+    kern = si.sphere_search_flat(tables, *rays, alive, T_MIN)
+    assert si.clustered_launches == before + 1
+    plain = si.sphere_search_flat(tables, *rays, alive, T_MIN,
+                                  interpret=True)
+    _bitwise(kern, plain)
+    gated = si.sphere_search_clustered_gated_plain(tables, *rays, alive,
+                                                   T_MIN)
+    _bitwise(kern, gated[:2])
+    mono = si.sphere_search_flat(si.prep_sphere_search(on, 10 ** 6), *rays,
+                                 alive, T_MIN)
+    live = alive.cpu()
+    for a, b in zip(kern, mono):
+        assert torch.equal(a.cpu()[live], b.cpu()[live])
+    if n == 414721:
+        # The hollow sphere and the tied copies are reached.
+        assert int((plain[1].cpu()[live] == 45).sum()) > 10
+
+
+def test_clustered_sweep_two_mask_tiles(card):
+    """More chunks than one shared tile of the row mask holds (2,188 of
+    2,048): bitwise against the plain version on every lane."""
+    from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
+    rng = np.random.default_rng(40)
+    b = SceneBuilder()
+    for _ in range(140000):
+        b.lambertian(rng.uniform(-40, 40, 3), rng.uniform(0.05, 0.4),
+                     rng.random(3))
+    scene = b.build(pad_to=128, device="cpu").to(card)
+    tables = si.prep_sphere_search(scene)
+    assert tables.num_chunks > 2048
+    n = 1000
+    o = rng.uniform(-45, 45, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    o[:500] = (5.0, 5.0, 50.0)
+    d[:500] = (0.0, 0.0, -1.0) + rng.uniform(-0.2, 0.2, (500, 3))
+    rays = [torch.from_numpy(np.ascontiguousarray(x[:, k])).to(card)
+            for x in (o, d) for k in range(3)]
+    alive = torch.from_numpy(rng.random(n) >= 0.1).to(card)
+    kern = si.sphere_search_flat(tables, *rays, alive, T_MIN)
+    plain = si.sphere_search_flat(tables, *rays, alive, T_MIN,
+                                  interpret=True)
+    _bitwise(kern, plain)
+    assert bool((plain[0][alive] < si.BIG).any())
+
+
+def _pair_slots_of(mp, mc, rays, alive, cap):
+    lists, _ = mp.crossing_lists(mc, *rays, T_MIN, alive, cap, min(6, mc.k))
+    return mp.pair_slots(lists, mc.k)
+
+
+@pytest.mark.parametrize("n", [1, 257, 414721])
+@pytest.mark.parametrize("name", ["terrain48_rows1", "terrain48_rows2",
+                                  "terrain48_rows4", "cornell_mesh_rows4"])
+def test_pair_kernel_bitwise_on_ties(card, tie_meshes, name, n):
+    """A8 against its plain version and its row-gated plain version on
+    every slot, on copies across lanes, rows and clusters, at clusters of
+    1, 2 and 4 rows and the one-row Cornell cluster."""
+    from qt_raytracer_tpu_torch.kernels import mesh_pairs as mp
+    mc, srcs = tie_meshes[name]
+    rays, alive, cap = _tie_mesh_rays(mc, srcs, n, seed=n + 2, device=card)
+    ray_buf, gmap = _pair_slots_of(mp, mc, rays, alive, cap)
+    before = mp.pair_hits_launches
+    kern = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, T_MIN)
+    assert mp.pair_hits_launches == before + 1
+    plain = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, T_MIN,
+                         interpret=True)
+    _bitwise(kern, plain)
+    gated = mp.pair_hits_gated_plain(mc, *rays, cap, ray_buf, gmap, T_MIN)
+    _bitwise(kern, gated[:2])
+    valid = (ray_buf >= 0).cpu()
+    assert bool((gated[2].cpu()[~valid] == 0).all())
+    if n == 414721:
+        hits = plain[0].cpu() < fh.BIG
+        assert int(torch.isin(plain[1].cpu()[hits],
+                              torch.tensor(srcs)).sum()) > 100
+
+
+@pytest.mark.parametrize("name", ["terrain48_rows4", "cornell_mesh_rows4"])
+def test_pair_kernel_single_valid_pair_tiles(card, tie_meshes, name):
+    """Tiles that hold one valid pair, at the first, a middle and the last
+    slot, beside tiles with none: bitwise on every slot."""
+    from qt_raytracer_tpu_torch.kernels import mesh_pairs as mp
+    mc, srcs = tie_meshes[name]
+    n = 4096
+    rays, alive, cap = _tie_mesh_rays(mc, srcs, n, seed=12, device=card)
+    ray_buf, gmap = _pair_slots_of(mp, mc, rays, alive, cap)
+    tiles = ray_buf.view(-1, 128).clone()
+    for t in range(tiles.shape[0]):
+        keep = (0, 77, 127)[t % 3]
+        row = torch.full((128,), -1, dtype=tiles.dtype, device=card)
+        if t % 4 != 3:
+            row[keep] = (t * 131) % n
+        tiles[t] = row
+    ray_buf = tiles.reshape(-1).contiguous()
+    kern = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, T_MIN)
+    plain = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, T_MIN,
+                         interpret=True)
+    _bitwise(kern, plain)
+    assert bool((plain[0] < fh.BIG).any())

@@ -179,12 +179,18 @@ def test_pair_search_all_dead(case):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-def test_pair_search_matches_jax(case, masked):
+def test_pair_search_matches_jax(case, masked, monkeypatch):
     ja, jc, ta, tc, live = _masks(case, masked)
     tj, ij = jmp.mesh_search_pairs(case["jm"], *case["j_rays"], T_MIN,
                                    interpret=True, alive=ja, t_cap=jc)
     tj, ij = np.asarray(tj), np.asarray(ij)
     tt, it = tmp.mesh_search_pairs(case["mc"], *case["t_rays"], T_MIN, ta, tc)
+    # With the kernel's per-pair row gate, run in plain PyTorch, in place of
+    # the pair sweep: the same bits on every lane.
+    monkeypatch.setattr(tmp, "pair_hits", lambda mc, *a, interpret=False:
+                        tmp.pair_hits_gated_plain(mc, *a)[:2])
+    tg, ig = tmp.mesh_search_pairs(case["mc"], *case["t_rays"], T_MIN, ta, tc)
+    assert torch.equal(tg, tt) and torch.equal(ig, it)
     tt, it = tt.numpy(), it.numpy()
     np.testing.assert_array_equal(it[live], ij[live])
     hit = live & (tj < BIG)

@@ -102,6 +102,12 @@ def test_clustered_search_matches_pallas_interpret(case):
                                alive=c["talive"])
     assert (tsi.launches, tsi.clustered_launches) == before   # CPU: plain
     assert tt.dtype == torch.float32 and ti.dtype == torch.int32
+    # The kernel's gates (the row's chunk mask, then the group gate), run in
+    # plain PyTorch, give the same bits on every lane.
+    rays = [x[:, k].contiguous() for x in (c["to"], c["td"]) for k in range(3)]
+    gated = tsi.sphere_search_clustered_gated_plain(tables, *rays,
+                                                    c["talive"], T_MIN)
+    assert torch.equal(gated[0], tt) and torch.equal(gated[1], ti)
     tt, ti = tt.numpy(), ti.numpy()
     live = c["alive"]
     np.testing.assert_array_equal((tt < BIG)[live], (jt < BIG)[live])
@@ -125,12 +131,12 @@ def test_box_table_is_the_tpu_kernels(case):
     tables = tsi.prep_sphere_search(case["ts"])
     assert tables.num_chunks == k
     want = np.concatenate([np.asarray(b).T for b in boxes])      # [6, K_pad]
-    np.testing.assert_array_equal(tables.boxes.numpy(), want)
+    np.testing.assert_array_equal(tables.chunk_boxes.numpy(), want)
     # A chunk without an active sphere has the empty box (BIG, -BIG).
     active = _arrays(case["js"])["active"].reshape(-1, 64).any(axis=1)
-    assert (tables.boxes[0, :k].numpy()[~active] == BIG).all()
-    assert (tables.boxes[3, :k].numpy()[~active] == -BIG).all()
-    assert (tables.boxes[0, k:].numpy() == BIG).all()
+    assert (tables.chunk_boxes[0, :k].numpy()[~active] == BIG).all()
+    assert (tables.chunk_boxes[3, :k].numpy()[~active] == -BIG).all()
+    assert (tables.chunk_boxes[0, k:].numpy() == BIG).all()
 
 
 def test_clustered_equals_monolithic_sweep(case):
@@ -176,7 +182,8 @@ def test_lowered_threshold_reaches_the_clustered_sweep_on_a_small_scene():
     to, td, ta = (torch.from_numpy(x) for x in (o, d, alive))
     assert tsi.prep_sphere_search(ts).num_chunks == 0
     tables = tsi.prep_sphere_search(ts, min_chunks=1)
-    assert tables.num_chunks == 3 and tables.boxes.shape == (6, 8)
+    assert tables.num_chunks == 3 and tables.chunk_boxes.shape == (6, 8)
+    assert tables.boxes.shape == (192 // tsi.GROUP_S, 8)
     a = tsi.sphere_search(ts, to, td, T_MIN, alive=ta, min_chunks=1)
     b = tsi.sphere_search(ts, to, td, T_MIN, alive=ta)
     for x, y in zip(a, b):
