@@ -2,7 +2,8 @@
 """Time the port's kernels, frames and train steps against another
 checkout's, on the same inputs, in one process on one CUDA card.
 
-Usage: python3 chip_ab.py OTHER_DIR [--parts spheres,mesh,pairs,a6,paths]
+Usage: python3 chip_ab.py OTHER_DIR
+           [--parts spheres,mesh,pairs,a6,boxes,paths]
 
 OTHER_DIR holds another checkout of the repository, for example the parent
 commit unpacked by ``git archive <commit> qt_raytracer_tpu_torch | tar -x -C
@@ -23,9 +24,13 @@ lists) and the whole pair search (``mesh_search_pairs``) on those two
 terrain wavefronts, and A8 on a wavefront of the true-Cornell train step
 (one cluster of one row); A6 (cluster-culled sphere search) on the primary and
 bounce-1 wavefronts of chunk 2 of the 1080p clustered-scene frame
-(chip_smoke.py's). Each pair of kernels must give the same bits on live
-lanes and dead lanes (A8: on every slot); then CUDA-event ms in turns
-(other, this, this, other).
+(chip_smoke.py's); A4, its pair variant and A7 (crossing lists, c_max 6)
+on the terrain's primary wavefront of chunk 0, its primary wavefront of
+chunk 2 as it comes and sorted by the crossing key, its bounce-2 wavefront
+of chunk 2 and the true-Cornell step wavefront (one cluster; A7 at its
+list width 1). Each pair of kernels must give the same bits on live lanes
+and dead lanes (A8: on every slot); then CUDA-event ms in turns (other,
+this, this, other).
 
 Paths: the 1080p book-cover frame, the 1080p terrain
 frame under the default options, under ``mesh_visit="rowgate"`` and under
@@ -124,9 +129,9 @@ def report(name: str, entry: dict) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", type=pathlib.Path)
-    ap.add_argument("--parts", default="spheres,mesh,pairs,a6,paths",
-                    help="which of spheres, mesh, pairs, a6 and paths to "
-                         "run")
+    ap.add_argument("--parts", default="spheres,mesh,pairs,a6,boxes,paths",
+                    help="which of spheres, mesh, pairs, a6, boxes and paths "
+                         "to run")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
     dev = require_card()
@@ -279,27 +284,74 @@ def main() -> None:
             **in_turns(lambda: runp(mp, mc), lambda: runp(o_mp, o_mc),
                        event_ms)})
 
-    if "pairs" in parts:
-        # A8 on a wavefront of the true-Cornell train step (chip_smoke.py's:
-        # one cluster of one row, lists of width 1).
+    def cornell_step_front():
+        """(world, rays, alive, cap, t_min) of a wavefront of the
+        true-Cornell train step (chip_smoke.py's: one cluster of one row,
+        lists of width 1)."""
         world_s = meshes.cornell_box_world().to(dev)
         cfg5 = RenderConfig(**C5)
         rays = rays_of(primary(meshes.cornell_box_mesh_camera(
             cfg5.aspect_ratio).to(dev), cfg5))
-        alive, cap = cornell_step_lanes(fh, world_s, rays, cfg5.t_min)
+        return (world_s, rays, *cornell_step_lanes(fh, world_s, rays,
+                                                   cfg5.t_min), cfg5.t_min)
+
+    if "pairs" in parts:
+        # A8 on a wavefront of the true-Cornell train step.
+        world_s, rays, alive, cap, t5 = cornell_step_front()
         mc = mi.prep_mesh_clusters(world_s.mesh)
         o_mc = o_mi.prep_mesh_clusters(to_other(world_s.mesh))
-        lists, _ = mp.crossing_lists(mc, *rays, cfg5.t_min, alive, cap,
+        lists, _ = mp.crossing_lists(mc, *rays, t5, alive, cap,
                                      mp.pair_list_width(mc, rays[0].shape[0]))
         ray_buf, gmap = mp.pair_slots(lists, mc.k)
         valid = ray_buf >= 0
-        run8 = lambda m, t: m.pair_hits(t, *rays, cap, ray_buf, gmap,
-                                        cfg5.t_min)
+        run8 = lambda m, t: m.pair_hits(t, *rays, cap, ray_buf, gmap, t5)
         same_bits(run8(mp, mc), run8(o_mp, o_mc), valid, "A8 cornell_step")
         report("A8 cornell_step", {
             "pairs": int(valid.sum()), "slots": int(ray_buf.shape[0]),
             **in_turns(lambda: run8(mp, mc), lambda: run8(o_mp, o_mc),
                        event_ms)})
+
+    # ------------------------------------------------ A4, A4 pair, A7
+    if "boxes" in parts:
+        s00 = primary(cam_t, cfg_t, index=0)
+        box_fronts = [("primary_chunk0", world.mesh, rays_of(s00), s00.alive,
+                       fh.fused_hit(wt.spheres, *rays_of(s00), s00.alive,
+                                    t_min)["t"], t_min)]
+        for name, s in mesh_fronts:
+            cap = fh.fused_hit(wt.spheres, *rays_of(s), s.alive, t_min)["t"]
+            box_fronts.append((name, world.mesh, rays_of(s), s.alive, cap,
+                               t_min))
+            if name == "primary_chunk2":
+                perm = mi.crossing_order(wt.mesh, *rays_of(s), t_min,
+                                         s.alive, cap)
+                box_fronts.append((
+                    "primary_chunk2_sorted", world.mesh,
+                    tuple(x[perm] for x in rays_of(s)), s.alive[perm],
+                    cap[perm], t_min))
+        world_s, *front5 = cornell_step_front()
+        box_fronts.append(("cornell_step", world_s.mesh, *front5))
+        for name, mesh, rays, alive, cap, tm in box_fronts:
+            mc = mi.prep_mesh_clusters(mesh)
+            o_mc = o_mi.prep_mesh_clusters(to_other(mesh))
+            width = min(PAIR_C, mc.k)
+            cases = {
+                "A4": lambda m, t: (m[0].first_crossed_cluster(
+                    t, *rays, tm, alive, cap),),
+                "A4[pair]": lambda m, t: m[0].first_crossed_cluster(
+                    t, *rays, tm, alive, cap, pair=True),
+                "A7": lambda m, t: (lambda lists, ncross: (
+                    lists.T, ncross))(*m[1].crossing_lists(
+                        t, *rays, tm, alive, cap, width)),
+            }
+            this, other = (mi, mp), (o_mi, o_mp)
+            base = {"rays": rays[0].shape[0], "live": int(alive.sum()),
+                    "clusters": mc.k}
+            for kname, run in cases.items():
+                same_bits(run(this, mc), run(other, o_mc), alive,
+                          f"{kname} {name}")
+                report(f"{kname} {name}", {**base, **in_turns(
+                    lambda: run(this, mc), lambda: run(other, o_mc),
+                    event_ms)})
 
     # ------------------------------------------------ A6
     if "a6" in parts:

@@ -47,7 +47,11 @@ a bounce wavefront. The pair hits are held against their row-gated plain
 version too (on every slot), and the cluster-culled sphere search against
 its gated plain version and the monolithic one, also on tied copies with a
 hollow sphere in 2,112 slots; each prints the work its gates leave (rows
-per valid pair, groups per live lane).
+per valid pair, groups per live lane). The first crossed cluster (and its
+pair variant) and the crossing lists are held against their ungated plain
+versions and against the two-level walk of their group gate
+(``crossing_walk_gated_plain``), which counts the group and member boxes a
+live ray tests.
 
 Each frame is checked for finite values and against the same frame with the
 plain versions (at a reduced size where the plain mesh search is too slow),
@@ -608,20 +612,37 @@ def cornell_step_lanes(fh, world, rays, t_min):
 
 
 def pair_step_wavefront(fh, mi, mp, world, rays, t_min) -> None:
-    """A7 and A8 against their plain versions, and the pair search against
-    the clustered one, at the shape the true-Cornell train step gives them:
-    one chunk of primary rays (cornell_step_lanes); one cluster of one
-    128-triangle row, so lists of width 1. All bitwise."""
+    """A4 (both outputs), A7 and A8 against their plain versions, and the
+    pair search against the clustered one, at the shape the true-Cornell
+    train step gives them: one chunk of primary rays (cornell_step_lanes);
+    one cluster of one 128-triangle row, so lists of width 1. All bitwise."""
     mc = mi.prep_mesh_clusters(world.mesh)
     n = rays[0].shape[0]
     alive, cap = cornell_step_lanes(fh, world, rays, t_min)
+    a4 = lambda **kw: mi.first_crossed_cluster(mc, *rays, t_min, alive, cap,
+                                               pair=True, **kw)
+    c12 = a4()
+    two = mi.crossing_walk_gated_plain(mc, *rays, t_min, alive, cap, 2,
+                                       stop=True)[0]
+    if not (all(torch.equal(a, b) for a, b in zip(c12, a4(interpret=True)))
+            and torch.equal(c12[0], two[:, 0])
+            and torch.equal(c12[1], two[:, 1])
+            and torch.equal(c12[0], mi.first_crossed_cluster(
+                mc, *rays, t_min, alive, cap))):
+        raise AssertionError("A4 differs from its plain versions (Cornell)")
     width = mp.pair_list_width(mc, n)
     a7 = lambda **kw: mp.crossing_lists(mc, *rays, t_min, alive, cap, width,
                                         **kw)
     lists, ncross = a7()
+    walk, a7_bound = walk_bound(mi, mc, rays, alive, cap, t_min, width, False,
+                                n * (33 + 4 * (width + 1))
+                                + mc.box_planes.numel() * 4,
+                                float(alive.sum()) * mc.k)
     if not all(torch.equal(a, b) for a, b in zip((lists, ncross),
-                                                 a7(interpret=True))):
-        raise AssertionError("A7 differs from its plain version (Cornell)")
+                                                 a7(interpret=True))) \
+            or not all(torch.equal(a, b) for a, b in zip((lists, ncross),
+                                                         walk)):
+        raise AssertionError("A7 differs from its plain versions (Cornell)")
     ray_buf, gmap = mp.pair_slots(lists, mc.k)
     a8 = lambda **kw: mp.pair_hits(mc, *rays, cap, ray_buf, gmap, t_min, **kw)
     kern = a8()
@@ -642,10 +663,32 @@ def pair_step_wavefront(fh, mi, mp, world, rays, t_min) -> None:
               slots=int(ray_buf.shape[0]), hits=int((kern[0] < fh.BIG).sum()),
               a7_ms=cuda_ms(a7), a7_plain_ms=cuda_ms(
                   lambda: a7(interpret=True), 3),
+              a7_bound=a7_bound,
               a8_ms=cuda_ms(a8), a8_plain_ms=cuda_ms(
                   lambda: a8(interpret=True), 3))
     print(f"A7 and A8 on a wavefront of the true-Cornell step: "
           f"{json.dumps(st)}", flush=True)
+
+
+def walk_bound(mi, mc, rays, alive, cap, t_min, c_max: int, stop: bool,
+               nbytes: float, parent_tests: float) -> tuple:
+    """((lists, ncross), bound) of the two-level walk of A4 (c_max 1 or 2,
+    stop) or A7 (c_max, no stop) on these rays, by
+    crossing_walk_gated_plain: 20 operations per group or member box
+    tested; bytes: nbytes and the group boxes. Beside it the parent's bound,
+    20 per box of the ungated walk (parent_tests), and the tests per live
+    ray."""
+    lists, ncross, groups, members = mi.crossing_walk_gated_plain(
+        mc, *rays, t_min, alive, cap, c_max, stop=stop)
+    live = max(int(alive.sum()), 1)
+    g, m = int(groups.sum()), int(members.sum())
+    return (lists, ncross), {
+        **bound((g + m) * SLAB_FLOPS, nbytes + mc.group_boxes.numel() * 4),
+        "parent_bound_ms": bound(parent_tests * SLAB_FLOPS,
+                                 nbytes)["bound_ms"],
+        "group_tests_per_live_ray": g / live,
+        "member_tests_per_live_ray": m / live,
+        "parent_tests_per_live_ray": parent_tests / live}
 
 
 def a8_bound(mc, pairs: int, rows: int, slots: int) -> dict:
@@ -986,9 +1029,14 @@ def main() -> None:
             raise AssertionError(f"A4 differs from its plain version on "
                                  f"{int((c1 != c1_p).sum())} lanes ({name})")
         tested = torch.where(c1 < mc.k, c1 + 1, mc.k)[alive].sum()
+        (walk, _), a4_bound = walk_bound(
+            mi, mc, rays, alive, cap, t_min, 1, True,
+            n * 33 + mc.box_planes.numel() * 4, float(tested))
+        if not torch.equal(c1, walk[:, 0]):
+            raise AssertionError(f"A4 differs from its gated plain version "
+                                 f"({name})")
         a4[name] = {
-            **bound(float(tested) * SLAB_FLOPS,
-                    n * 33 + mc.box_planes.numel() * 4),
+            **a4_bound,
             "rays": n, "live": int(alive.sum()), "bitwise": True,
             "crossing_share": float((c1[alive] < mc.k).float().mean()),
             "ms": cuda_ms(lambda: mi.first_crossed_cluster(
@@ -1149,7 +1197,7 @@ def main() -> None:
           "versions; the pair search vs the clustered search (terrain)")
     mp = _mesh_pairs_module()
     a4p, a7, a8 = {}, {}, {}
-    for name in ("primary_chunk2", "bounce2_chunk2"):
+    for name in ("primary_chunk0", "primary_chunk2", "bounce2_chunk2"):
         s = wavefronts[name]
         rays, alive = rays_of(s), s.alive
         cap = fh.fused_hit(wt.spheres, *rays, alive, t_min)["t"]
@@ -1164,8 +1212,15 @@ def main() -> None:
             raise AssertionError(f"the A4 pair differs from its plain "
                                  f"version ({name})")
         tested = torch.where(c12[1] < mc.k, c12[1] + 1, mc.k)[alive].sum()
+        (walk, _), a4p_bound = walk_bound(mi, mc, rays, alive, cap, t_min, 2,
+                                          True, n * 37 + box_bytes,
+                                          float(tested))
+        if not (torch.equal(c12[0], walk[:, 0])
+                and torch.equal(c12[1], walk[:, 1])):
+            raise AssertionError(f"the A4 pair differs from its gated plain "
+                                 f"version ({name})")
         a4p[name] = {
-            **bound(float(tested) * SLAB_FLOPS, n * 37 + box_bytes),
+            **a4p_bound,
             "rays": n, "live": live, "bitwise": True, "max_abs_err": 0.0,
             "second_crossing_share": float((c12[1][alive] < mc.k).float()
                                            .mean()),
@@ -1187,11 +1242,17 @@ def main() -> None:
         if not (torch.equal(lists[:, 0], c12[0])
                 and torch.equal(lists[:, 1], c12[1])):
             raise AssertionError("A7's first two ids are not A4's")
+        walk, a7_bound = walk_bound(mi, mc, rays, alive, cap, t_min, PAIR_C,
+                                    False, n * (33 + 4 * (PAIR_C + 1))
+                                    + box_bytes, float(live) * mc.k)
+        if not (torch.equal(lists, walk[0]) and torch.equal(ncross,
+                                                            walk[1])):
+            raise AssertionError(f"A7 differs from its gated plain version "
+                                 f"({name})")
         unsafe = ncross > PAIR_C
         pairs = int(torch.clamp_max(ncross, PAIR_C).sum())
         a7[name] = {
-            **bound(float(live) * mc.k * SLAB_FLOPS,
-                    n * (33 + 4 * (PAIR_C + 1)) + box_bytes),
+            **a7_bound,
             "rays": n, "live": live, "bitwise": True, "max_abs_err": 0.0,
             "crossings_per_live_ray": float(ncross[alive].float().mean()),
             "share_over_c": float(unsafe[alive].float().mean()),

@@ -1,10 +1,10 @@
 // What the mesh kernels share (mesh_intersect.cu: A3, A4; mesh_pairs.cu:
 // A7, A8): the single-rounded arithmetic, the slab test with its slacked
-// cap, the staging of cluster boxes in shared memory, and the
-// Moller-Trumbore accept tests. One copy, so that the pair-wavefront search
-// gates on the bits the clustered search gates on and accepts the triangles
-// it accepts (the two are held bitwise equal on live lanes), and so that
-// A3's row gate rounds as its cluster gate does.
+// cap, the two-level crossing walk of A4 and A7, and the Moller-Trumbore
+// accept tests. One copy, so that the pair-wavefront search gates on the
+// bits the clustered search gates on and accepts the triangles it accepts
+// (the two are held bitwise equal on live lanes), and so that A3's row gate
+// rounds as its cluster gate does.
 //
 // Numerics. Every add, multiply and divide is rounded on its own
 // (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn; no FMA contraction), with
@@ -18,13 +18,21 @@
 
 #include <cuda_runtime.h>
 
+#include "block_pack.cuh"
+
 namespace qtrt_mesh {
 
 constexpr float BIG = 3.0e38f;
 constexpr int BLOCK = 128;   // rays (or pairs) per block, one per thread
-constexpr int TILE_K = 256;  // cluster boxes per shared-memory tile (6 KB)
 constexpr int ROW = 128;     // triangles per row of A3's row gate
 constexpr int MT_FEATURES = 19;  // bilinear-form factors per triangle
+constexpr int WARP = 32;
+constexpr unsigned FULL = 0xffffffffu;
+// Clusters per group box of A4's and A7's walk (divides WARP); the group
+// boxes come from mesh_intersect.prep_group_boxes at its GROUP_C, which must
+// be this.
+constexpr int GROUP_C = 16;
+static_assert(WARP % GROUP_C == 0, "a group's members fit a warp evenly");
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -67,22 +75,100 @@ __device__ __forceinline__ bool slab_box(float lx, float ly, float lz,
   return ex > en;
 }
 
-// Slab test of box j of the shared tile.
-__device__ __forceinline__ bool slab(float (*box)[TILE_K], int j,
-                                     const Ray& r, float t_min,
-                                     float& enter) {
-  return slab_box(box[0][j], box[1][j], box[2][j], box[3][j], box[4][j],
-                  box[5][j], r, t_min, enter);
+// Capped slab test of column j of a [6, stride] box table read with
+// __ldg: exit > enter and enter <= cap. The address is the same on every
+// lane of a warp that tests one box, so each plane is one broadcast load.
+__device__ __forceinline__ bool gate_box(const float* __restrict__ planes,
+                                         size_t stride, int j, const Ray& r,
+                                         float t_min, float cap) {
+  float enter;
+  return slab_box(__ldg(planes + j), __ldg(planes + stride + j),
+                  __ldg(planes + 2 * stride + j),
+                  __ldg(planes + 3 * stride + j),
+                  __ldg(planes + 4 * stride + j),
+                  __ldg(planes + 5 * stride + j), r, t_min, enter) &&
+         enter <= cap;
 }
 
-// Stage boxes [base, base + m) into the shared tile.
-__device__ __forceinline__ void stage_boxes(float (*tile)[TILE_K],
-                                            const float* __restrict__ boxes,
-                                            int k_stride, int base, int m) {
-  for (int j = threadIdx.x; j < m; j += BLOCK) {
+// The two-level crossing walk of A4 and A7, one thread a ray: visit(c)
+// for each cluster c whose capped slab test passes, in ascending c, until
+// visit returns true. Group box j (groups, [6, ng]: the exact union of the
+// boxes of clusters [j * GROUP_C, min(j * GROUP_C + GROUP_C, k))) is tested
+// first, and its members only when it passes. Every sub and mul of the
+// slab test rounds monotonically, so a member's rounded interval lies
+// inside its group's on each axis: a member that passes makes its group
+// pass, and the walk visits exactly the ids the ungated walk over all k
+// boxes visits.
+//
+// The warp tests group j for its 32 rays at once (one box, a uniform
+// address), then the members for the lanes whose group opened, in one of
+// two ways that visit the same ids:
+//   - one member at a time, every lane on its own ray (a uniform address):
+//     a round a member, whatever the number of open lanes;
+//   - shared rounds: a round takes the next WARP / GROUP_C open lanes in
+//     lane order, lane l testing member l % GROUP_C of the
+//     (l / GROUP_C)-th on that lane's ray (fetched by shuffles); each owner
+//     reads its group's bits of the round's ballot and visits them in
+//     ascending order.
+// A shared round costs about two of the first kind (the shuffles and the
+// owner's search), so the warp takes shared rounds when fewer than half as
+// many of them do: on a coherent wavefront most lanes open the same
+// groups, on a scattered one each group opens for a few. Every lane of
+// the warp calls it, with want false where it has no ray. (With k = 1 the
+// one group box is the cluster's box: A4 and A7 take that one test
+// instead.)
+template <class Visit>
+__device__ __forceinline__ void crossing_walk(
+    bool want, const Ray& r, float t_min, float cap,
+    const float* __restrict__ groups, int ng,
+    const float* __restrict__ boxes, size_t ks, int k, Visit visit) {
+  const int lane = threadIdx.x & (WARP - 1);
+  constexpr int per = WARP / GROUP_C;    // owners a shared round
+  const int slot = lane / GROUP_C;       // this lane's owner in a round
+  const int member = lane % GROUP_C;     // and member of that owner's group
+  const unsigned below = (1u << lane) - 1u;
+  constexpr unsigned field = GROUP_C == WARP ? FULL : (1u << GROUP_C) - 1u;
+  for (int j = 0; j < ng; ++j) {
+    if (!__any_sync(FULL, want)) return;
+    const bool open =
+        gate_box(groups, static_cast<size_t>(ng), j, r, t_min, cap) && want;
+    unsigned todo = __ballot_sync(FULL, open);
+    if (!todo) continue;
+    const int lo = j * GROUP_C;
+    const int m = min(GROUP_C, k - lo);  // members of group j
+    if (m <= 2 * ((__popc(todo) + per - 1) / per)) {
+      for (int c = lo; c < lo + m; ++c) {
+        if (!__any_sync(FULL, open && want)) break;
+        if (gate_box(boxes, ks, c, r, t_min, cap) && open && want)
+          want = !visit(c);
+      }
+      continue;
+    }
+    while (todo) {
+      // Owner `slot` of this round: the slot-th lane left in todo.
+      unsigned rest = todo;
+      for (int s = 0; s < slot && rest; ++s) rest &= rest - 1u;
+      const int src = rest ? __ffs(rest) - 1 : lane;
+      Ray o;
 #pragma unroll
-    for (int r = 0; r < 6; ++r)
-      tile[r][j] = boxes[static_cast<size_t>(r) * k_stride + base + j];
+      for (int a = 0; a < 3; ++a) {
+        o.o[a] = __shfl_sync(FULL, r.o[a], src);
+        o.inv[a] = __shfl_sync(FULL, r.inv[a], src);
+      }
+      const float o_cap = __shfl_sync(FULL, cap, src);
+      const bool pass =
+          rest && member < m && gate_box(boxes, ks, lo + member, o, t_min,
+                                         o_cap);
+      const unsigned bits = __ballot_sync(FULL, pass);
+      // This lane's turn: its rank among the owners left.
+      const int rank = __popc(todo & below);
+      if (((todo >> lane) & 1u) && rank < per) {
+        for (unsigned mine = (bits >> (rank * GROUP_C)) & field; mine && want;
+             mine &= mine - 1u)
+          want = !visit(lo + __ffs(mine) - 1);
+      }
+      for (int s = 0; s < per && todo; ++s) todo &= todo - 1u;
+    }
   }
 }
 
@@ -99,6 +185,37 @@ __device__ __forceinline__ Ray load_ray(int i, const float* __restrict__ ox,
 #pragma unroll
   for (int a = 0; a < 3; ++a) r.inv[a] = slab_inv(d[a]);
   return r;
+}
+
+// The ray that thread t walks in A4 and A7, if any. With pack, the live
+// rays of the block's BLOCK are packed in lane order (block_pack.cuh) and
+// thread q takes the q-th, so that dead lanes hold no place in a warp;
+// without, thread t takes ray t of the block, live or not, where it lies.
+// Returns whether the thread has a live ray; if so sets ray (its index), r
+// and cap (gate_cap of its t_cap). Every thread of the block calls it with
+// the same pack.
+__device__ __forceinline__ bool take_ray(
+    bool pack, int n, const float* __restrict__ ox,
+    const float* __restrict__ oy, const float* __restrict__ oz,
+    const float* __restrict__ dx, const float* __restrict__ dy,
+    const float* __restrict__ dz, const bool* __restrict__ alive,
+    const float* __restrict__ t_cap, int& ray, Ray& r, float& cap) {
+  __shared__ int items[BLOCK];
+  __shared__ int warp_cnt[BLOCK / WARP];
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  bool mine = i < n && alive[i];
+  ray = i;
+  if (pack) {
+    const int total = qtrt_pack::block_pack<BLOCK>(mine, i, items, warp_cnt);
+    mine = static_cast<int>(threadIdx.x) < total;
+    ray = mine ? items[threadIdx.x] : 0;
+  }
+  if (mine) {
+    float d[3];
+    r = load_ray(ray, ox, oy, oz, dx, dy, dz, d);
+    cap = gate_cap(t_cap[ray]);
+  }
+  return mine;
 }
 
 // Moller-Trumbore of ray (o, d) against triangle (v0, e1, e2): true when

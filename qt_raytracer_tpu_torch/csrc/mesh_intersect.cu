@@ -32,14 +32,10 @@
 // into (SUBTILE_ROWS rays, 128 triangles) slices with the same expression
 // tree, sliced also skipping slices that no lane's gate opened; both give
 // full's bits. A warp gating each cluster on its one ray's own cap is at
-// least as fine as any slice, so both run the VPU instance. A4,
-// qtrt_mesh_first_cluster, replaces _c1_kernel: per ray, the lowest id of a
-// cluster whose slacked, capped slab test passes (k when none), which keys
-// the wavefront sort that runs before A3; with a second output (pair=True
-// on the TPU, a template flag here) also the lowest crossed id above it,
-// for the two-cluster sort key. The plain PyTorch versions are
-// mesh_search_plain and first_crossed_cluster_plain in
-// qt_raytracer_tpu_torch/kernels/mesh_intersect.py.
+// least as fine as any slice, so both run the VPU instance. The plain
+// PyTorch version is mesh_search_plain in
+// qt_raytracer_tpu_torch/kernels/mesh_intersect.py. A4 is described at the
+// end of this comment.
 //
 // Layout (prep_mesh_clusters): triangles are BVH-ordered and packed into k
 // clusters of g consecutive triangles (g = cluster_rows * 128, 512 by
@@ -104,6 +100,43 @@
 // the running minimum is the TPU's per-row min-then-match followed by its
 // strict 'better'. A dead lane gets t = BIG and idx = 0 (the TPU leaves dead
 // lanes unspecified; every caller masks them).
+//
+// A4, qtrt_mesh_first_cluster, replaces _c1_kernel
+// (qt_raytracer_tpu/kernels/mesh_intersect.py:619, first_crossed_cluster
+// :688): per ray, the lowest id of a cluster whose slacked, capped slab test
+// passes (k when none), which keys the wavefront sort that runs before A3;
+// with a second output (pair=True on the TPU, a template flag here) also
+// the lowest crossed id above it, for the two-cluster sort key. Its plain
+// versions are first_crossed_cluster_plain (ungated) and
+// crossing_walk_gated_plain (the walk below, counting its tests).
+//   - What bounded it. The parent kernel, one thread a ray, tested the
+//     cluster boxes in ascending id up to the first that passed: on the
+//     1080p terrain (195 clusters) that id averages about 100, and a ray
+//     that crosses nothing tests all 195; 20 single-rounded operations a
+//     test, so instructions, and a warp paid its slowest lane.
+//   - What the design does. The two-level walk of mesh_common.cuh
+//     (crossing_walk): the box of each run of GROUP_C = 16 clusters
+//     (MeshClusters.group_boxes, their exact union) first, its members only
+//     when it passes, which drops no id; the live lanes packed in lane
+//     order (take_ray, block_pack.cuh) where there is more than one group;
+//     with one cluster, its box is the one group's, and one test decides.
+//     A live terrain ray then tests some 18-21 boxes (chip_smoke.py counts
+//     them), and what bounds the kernel is its bytes: 33 a ray (37 with
+//     the second output).
+//   - Measured (chip_ab.py --parts boxes against the parent kernel on the
+//     same inputs, in turns, one call between two CUDA events, the
+//     wrapper's host time included; NVIDIA H100 80GB HBM3 at 700 W), ms
+//     against the parent's: terrain chunk 2, 414,720 rays, 0.099-0.100
+//     against 0.139-0.148 (sorted: 0.061-0.077 against 0.095-0.099);
+//     chunk 0, whose rays mostly cross nothing, 0.054-0.057 against
+//     0.146-0.149; the bounce-2 wavefront (193,363 live) 0.069 against
+//     0.127-0.130; with the second output 0.094-0.097 and 0.116-0.117
+//     against 0.143-0.156 and 0.182-0.187; a one-cluster Cornell
+//     wavefront 0.066-0.067 against 0.067-0.069, mostly host time. In
+//     turns over the four terrain wavefronts, groups of 16 took 5% less
+//     time than groups of 8 and 11% less than groups of 32. Not kept
+//     (PERF.md §6): one warp a ray, the walk with only one of its two
+//     kinds of member round.
 
 #include <cuda_runtime.h>
 
@@ -113,59 +146,57 @@ namespace {
 
 using namespace qtrt_mesh;
 
+// A4: thread t walks the ray take_ray gives it (the block's live rays
+// packed where there is more than one group); c1, and for PAIR c2, are the
+// first one or two ids the walk visits. A dead lane writes k where it
+// lies.
 template <bool PAIR>
 __global__ void __launch_bounds__(BLOCK) first_cluster_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const bool* __restrict__ alive, const float* __restrict__ t_cap,
-    const float* __restrict__ boxes, int k, int k_stride, float t_min, int n,
+    const float* __restrict__ boxes, int k, int k_stride,
+    const float* __restrict__ groups, int ng, float t_min, int n,
     int* __restrict__ out, int* __restrict__ out2) {
-  __shared__ float tile[6][TILE_K];
   const int i = blockIdx.x * BLOCK + threadIdx.x;
-  const bool live = i < n && alive[i];
-  const bool block_live = __syncthreads_or(live);
-
-  Ray r = {};
-  float d[3] = {0.f, 0.f, 1.f};
-  float cap = 0.f;
-  if (live) {
-    r = load_ray(i, ox, oy, oz, dx, dy, dz, d);
-    cap = gate_cap(t_cap[i]);
+  const bool pack = ng > 1;
+  if (pack && i < n && !alive[i]) {
+    out[i] = k;
+    if constexpr (PAIR) out2[i] = k;
   }
+  int ray;
+  Ray r = {};
+  float cap = 0.f;
+  const bool mine = take_ray(pack, n, ox, oy, oz, dx, dy, dz, alive, t_cap,
+                             ray, r, cap);
   int c1 = k;
   int c2 = k;  // the next crossed id above c1; sought only when PAIR
-  if (block_live) {
-    for (int base = 0; base < k; base += TILE_K) {
-      const int m = min(TILE_K, k - base);
-      __syncthreads();
-      stage_boxes(tile, boxes, k_stride, base, m);
-      __syncthreads();
-      if (!live || (PAIR ? c2 : c1) < k) continue;
-      for (int j = 0; j < m; ++j) {
-        float enter;
-        if (slab(tile, j, r, t_min, enter) && enter <= cap) {
-          if (PAIR && c1 == k) {
-            c1 = base + j;
-            continue;
-          }
-          if (PAIR) c2 = base + j; else c1 = base + j;
-          break;
-        }
-      }
-    }
+  if (k == 1) {
+    // One cluster, whose box is the one group's: one test decides.
+    if (mine && gate_box(boxes, static_cast<size_t>(k_stride), 0, r, t_min,
+                         cap))
+      c1 = 0;
+  } else {
+    crossing_walk(mine, r, t_min, cap, groups, ng, boxes,
+                  static_cast<size_t>(k_stride), k, [&](int c) {
+                    if (PAIR && c1 == k) {
+                      c1 = c;
+                      return false;
+                    }
+                    if (PAIR) c2 = c; else c1 = c;
+                    return true;
+                  });
   }
-  if (i >= n) return;
-  out[i] = c1;
-  if constexpr (PAIR) out2[i] = c2;
+  if (pack ? !mine : i >= n) return;  // unpacked, a dead lane writes k here
+  out[ray] = c1;
+  if constexpr (PAIR) out2[ray] = c2;
 }
 
 // A3's bodies (the header comment).
 enum SearchMode : int { VPU = 0, ROWGATE = 1, MXU = 2 };
 
-constexpr int WARP = 32;
 constexpr int SEARCH_WARPS = 4;  // rays per block of A3, one warp each
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int NO_ID = 0x7fffffff;
 
 // One lane's share of triangles [lo, hi): lo + lane, lo + lane + 32, ...,
@@ -362,29 +393,33 @@ void launch_search(cudaStream_t st, const float* ox, const float* oy,
 }  // namespace
 
 // Kernel A4. Ray operands: [n] f32 components, [n] bool alive, [n] f32
-// t_cap (BIG for no cap); boxes: [6, k_stride] f32; out: [n] i32, the first
-// passing cluster id or k (dead lanes: k); out2: null, or [n] i32 for the
-// next passing id above it (k when none). Launches on `stream`; returns the
+// t_cap (BIG for no cap); boxes: [6, k_stride] f32; groups: [6, ng] f32,
+// the union of the boxes of each run of GROUP_C consecutive clusters
+// (mesh_common.cuh), ng = ceil(k / GROUP_C); out: [n] i32, the first passing
+// cluster id or k (dead lanes: k); out2: null, or [n] i32 for the next
+// passing id above it (k when none). Launches on `stream`; returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int qtrt_mesh_first_cluster(const float* ox, const float* oy,
                                        const float* oz, const float* dx,
                                        const float* dy, const float* dz,
                                        const bool* alive, const float* t_cap,
                                        const float* boxes, int k,
-                                       int k_stride, float t_min, int n,
-                                       int* out, int* out2, void* stream) {
-  if (n <= 0 || k <= 0 || k_stride < k)
+                                       int k_stride, const float* groups,
+                                       int ng, float t_min, int n, int* out,
+                                       int* out2, void* stream) {
+  if (n <= 0 || k <= 0 || k_stride < k ||
+      ng != k / GROUP_C + (k % GROUP_C != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid = n / BLOCK + (n % BLOCK != 0);
   const auto st = static_cast<cudaStream_t>(stream);
   if (out2 != nullptr) {
     first_cluster_kernel<true><<<grid, BLOCK, 0, st>>>(
-        ox, oy, oz, dx, dy, dz, alive, t_cap, boxes, k, k_stride, t_min, n,
-        out, out2);
+        ox, oy, oz, dx, dy, dz, alive, t_cap, boxes, k, k_stride, groups, ng,
+        t_min, n, out, out2);
   } else {
     first_cluster_kernel<false><<<grid, BLOCK, 0, st>>>(
-        ox, oy, oz, dx, dy, dz, alive, t_cap, boxes, k, k_stride, t_min, n,
-        out, nullptr);
+        ox, oy, oz, dx, dy, dz, alive, t_cap, boxes, k, k_stride, groups, ng,
+        t_min, n, out, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,18 +11,37 @@
 // Moller-Trumbore from mesh_common.cuh.
 //
 // A7, qtrt_mesh_crossing_lists, replaces
-// qt_raytracer_tpu/kernels/mesh_pairs.py::_clists_kernel: per ray the
-// ascending list of the first c_max cluster ids whose slacked, capped slab
-// test passes (the gate bits of A4 and of A3's first look at a cluster),
-// filled with k, and the count of all such clusters. The TPU kernel writes
-// a (128, K_pad) id-or-sentinel scratch per ray row and extracts the list
-// in c_max masked-min passes, because it has no per-lane append; a CUDA
-// thread has one. One thread per ray walks the boxes in ascending id, staged
-// in shared tiles as in A4, appends while its list has room and counts on:
-// no early exit, the count needs every box. The list is plane-major
-// ([c_max, n]), so a warp's stores of one plane are coalesced. Bound: 20
-// operations per (live ray, box) against 33 + 4 (c_max + 1) bytes per ray:
-// operations from some 30 boxes on.
+// qt_raytracer_tpu/kernels/mesh_pairs.py::_clists_kernel (:136,
+// crossing_lists :200): per ray the ascending list of the first c_max
+// cluster ids whose slacked, capped slab test passes (the gate bits of A4
+// and of A3's first look at a cluster), filled with k, and the count of
+// all such clusters. The TPU kernel writes a (128, K_pad) id-or-sentinel
+// scratch per ray row and extracts the list in c_max masked-min passes,
+// because it has no per-lane append; a CUDA thread has one. Its plain
+// versions are crossing_lists_plain (ungated) and
+// mesh_intersect.crossing_walk_gated_plain (the walk below, counting its
+// tests).
+//   - What bounded it. The parent kernel, one thread a ray, tested all k
+//     boxes (the count needs every crossing): 195 tests a live ray on the
+//     1080p terrain, which crosses 5-7; instructions.
+//   - What the design does. A4's two-level walk (mesh_common.cuh,
+//     crossing_walk: group boxes of GROUP_C clusters, members only of the
+//     groups that pass, which drops no id; live lanes packed), counting
+//     every id it visits. The first STAGE ids of each ray wait in shared
+//     memory and go out plane by plane at the end, so the lanes of a warp
+//     store a plane ([c_max, n]) together. A live terrain ray tests some
+//     58-62 boxes, the 13 group boxes among them; what bounds the kernel is
+//     then its bytes, 33 + 4 (c_max + 1) a ray, or on the primary
+//     wavefront its operations.
+//   - Measured (chip_ab.py --parts boxes against the parent kernel on the
+//     same inputs, in turns, one call between two CUDA events, the
+//     wrapper's host time included; NVIDIA H100 80GB HBM3 at 700 W),
+//     c_max = 6, ms against the parent's: the terrain's bounce-2
+//     wavefront (193,363 live of 414,720) 0.145-0.147 against
+//     0.191-0.196; its primary wavefront of chunk 2 0.153-0.155 against
+//     0.168-0.176 (sorted 0.118-0.121 against 0.151-0.161), of chunk 0
+//     0.092-0.094 against 0.174-0.175; a one-cluster true-Cornell step
+//     wavefront 0.055-0.058 against 0.054-0.064, mostly host time.
 //
 // A8, qtrt_mesh_pairs, replaces _pairs_kernel: for each (ray, cluster) pair
 // the closest triangle of that cluster strictly below the pair's cap, ties
@@ -91,52 +110,62 @@ using qtrt_pack::block_pack;
 
 constexpr int MAX_G = 512;  // triangles per cluster the shared stage holds
 constexpr int PAIR_LANES = 8;  // lanes per pair in A8 (divides 32)
+constexpr int STAGE = 8;       // list entries per ray A7 stages in shared
 
+// A7: thread t walks the ray take_ray gives it (the block's live rays
+// packed where there is more than one group) and counts every id it
+// visits. Its first STAGE ids wait in shared memory and go out plane by
+// plane at the end, so the lanes of a warp store one plane together; ids
+// from STAGE on (c_max > STAGE) are stored as they come. A dead lane writes
+// its k's and count 0 where it lies.
 __global__ void __launch_bounds__(BLOCK) crossing_lists_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const bool* __restrict__ alive, const float* __restrict__ t_cap,
-    const float* __restrict__ boxes, int k, int k_stride, float t_min, int n,
+    const float* __restrict__ boxes, int k, int k_stride,
+    const float* __restrict__ groups, int ng, float t_min, int n,
     int c_max, int* __restrict__ lists, int* __restrict__ ncross) {
-  __shared__ float tile[6][TILE_K];
+  __shared__ int staged[STAGE][BLOCK];
   const int i = blockIdx.x * BLOCK + threadIdx.x;
-  const bool live = i < n && alive[i];
-  const bool block_live = __syncthreads_or(live);
-
+  const bool pack = ng > 1;
+  if (pack && i < n && !alive[i]) {
+    for (int j = 0; j < c_max; ++j) lists[static_cast<size_t>(j) * n + i] = k;
+    ncross[i] = 0;
+  }
+  int ray;
   Ray r = {};
-  float d[3] = {0.f, 0.f, 1.f};
   float cap = 0.f;
-  if (live) {
-    r = load_ray(i, ox, oy, oz, dx, dy, dz, d);
-    cap = gate_cap(t_cap[i]);
-  }
+  const bool mine = take_ray(pack, n, ox, oy, oz, dx, dy, dz, alive, t_cap,
+                             ray, r, cap);
   int count = 0;
-  if (block_live) {
-    for (int base = 0; base < k; base += TILE_K) {
-      const int m = min(TILE_K, k - base);
-      __syncthreads();
-      stage_boxes(tile, boxes, k_stride, base, m);
-      __syncthreads();
-      if (!live) continue;
-      for (int j = 0; j < m; ++j) {
-        float enter;
-        if (slab(tile, j, r, t_min, enter) && enter <= cap) {
-          if (count < c_max)
-            lists[static_cast<size_t>(count) * n + i] = base + j;
-          ++count;
-        }
-      }
+  if (k == 1) {
+    // One cluster, whose box is the one group's: one test decides.
+    if (mine && gate_box(boxes, static_cast<size_t>(k_stride), 0, r, t_min,
+                         cap)) {
+      staged[0][threadIdx.x] = 0;
+      count = 1;
     }
+  } else {
+    crossing_walk(mine, r, t_min, cap, groups, ng, boxes,
+                  static_cast<size_t>(k_stride), k, [&](int c) {
+                    if (count < STAGE)
+                      staged[count][threadIdx.x] = c;
+                    else if (count < c_max)
+                      lists[static_cast<size_t>(count) * n + ray] = c;
+                    ++count;
+                    return false;
+                  });
   }
-  if (i >= n) return;
-  for (int j = min(count, c_max); j < c_max; ++j)
-    lists[static_cast<size_t>(j) * n + i] = k;
-  ncross[i] = count;
+  if (pack ? !mine : i >= n) return;  // unpacked, a dead lane writes k here
+  for (int j = 0; j < c_max; ++j) {
+    if (j < STAGE || j >= count)
+      lists[static_cast<size_t>(j) * n + ray] =
+          j < count ? staged[j][threadIdx.x] : k;
+  }
+  ncross[ray] = count;
 }
 
-constexpr int WARP = 32;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int NO_ID = 0x7fffffff;
 
 // A8: one block of BLOCK threads per 128-slot tile, the tile's pairs taken
@@ -270,22 +299,25 @@ __global__ void __launch_bounds__(BLOCK) pair_hits_kernel(
 }  // namespace
 
 // Kernel A7. Ray operands: [n] f32 components, [n] bool alive, [n] f32
-// t_cap (BIG for no cap); boxes: [6, k_stride] f32. lists: [c_max, n] i32,
-// plane j holding each ray's j-th crossed cluster id in ascending order, k
-// beyond its last; ncross: [n] i32, the count of all crossed clusters (it
-// may exceed c_max). Dead lanes: count 0, list all k. Launches on `stream`;
+// t_cap (BIG for no cap); boxes: [6, k_stride] f32; groups: [6, ng] f32,
+// the union of the boxes of each run of GROUP_C consecutive clusters
+// (mesh_common.cuh), ng = ceil(k / GROUP_C). lists: [c_max, n] i32, plane j
+// holding each ray's j-th crossed cluster id in ascending order, k beyond
+// its last; ncross: [n] i32, the count of all crossed clusters (it may
+// exceed c_max). Dead lanes: count 0, list all k. Launches on `stream`;
 // returns the cudaError_t of the launch (0 = success).
 extern "C" int qtrt_mesh_crossing_lists(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, const bool* alive, const float* t_cap,
-    const float* boxes, int k, int k_stride, float t_min, int n, int c_max,
-    int* lists, int* ncross, void* stream) {
-  if (n <= 0 || k <= 0 || k_stride < k || c_max <= 0 || c_max > k)
+    const float* boxes, int k, int k_stride, const float* groups, int ng,
+    float t_min, int n, int c_max, int* lists, int* ncross, void* stream) {
+  if (n <= 0 || k <= 0 || k_stride < k || c_max <= 0 || c_max > k ||
+      ng != k / GROUP_C + (k % GROUP_C != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid = n / BLOCK + (n % BLOCK != 0);
   crossing_lists_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      ox, oy, oz, dx, dy, dz, alive, t_cap, boxes, k, k_stride, t_min, n,
-      c_max, lists, ncross);
+      ox, oy, oz, dx, dy, dz, alive, t_cap, boxes, k, k_stride, groups, ng,
+      t_min, n, c_max, lists, ncross);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,13 @@ epsilon-padded AABB (``prep_mesh_clusters``). Two kernels, both in
 
   - A4, ``first_crossed_cluster``: per ray, the lowest id of a cluster whose
     slacked, capped slab test passes (k when none), and with ``pair=True``
-    also the lowest such id above it. It keys the sort.
+    also the lowest such id above it. It keys the sort. Like A7
+    (``mesh_pairs.crossing_lists``) it walks the clusters through a
+    two-level gate: the box of each run of ``GROUP_C`` consecutive clusters
+    first (``prep_group_boxes``, the exact union of their boxes), their own
+    boxes only when it passes. A member that passes makes its group pass,
+    so the walk finds every id the ungated test finds
+    (``crossing_walk_gated_plain``).
   - A3, ``mesh_hits``: per ray, the closest triangle hit strictly below a
     per-lane cap ``t_cap``, ties to the lowest triangle id; (BIG, 0) where
     no triangle beats the cap, and on dead lanes. An optional per-lane
@@ -74,6 +80,8 @@ SORT_MIN_RAYS = 2048      # the sort runs from this many rays on
 PLAIN_SLICE_RAYS = 2048   # rays per block of the plain versions
 PLAIN_SLICE_TRIS = 4096   # triangles per block of the plain A3
 PLAIN_SLICE_CLUSTERS = 256
+GROUP_C = 16              # clusters per group box of A4's and A7's gate
+                          # (csrc/mesh_common.cuh's GROUP_C)
 SORT_MODES = ("crossing", "crossing2", "morton")   # the wavefront sort keys
 MT_MODES = ("vpu", "mxu")                          # Moller-Trumbore engines
 VISIT_MODES = ("full", "subtile", "sliced", "rowgate")
@@ -140,7 +148,12 @@ def cluster_rows_for(num_tris: int, cluster_rows: int = CLUSTER_ROWS) -> int:
 
 
 class MeshClusters(NamedTuple):
-    """Kernel-layout mesh data, built once per trace."""
+    """Kernel-layout mesh data, built once per trace. group_boxes must hold
+    box_planes: A4 and A7 on the card skip the members of a group whose box
+    a ray misses, so a cluster box that leaves its group's box loses its
+    crossings there, while the ungated plain versions on the CPU still find
+    them. Change the cluster boxes only through with_cluster_boxes, which
+    rebuilds the group boxes."""
 
     tri_planes: torch.Tensor  # [9, P_pad] f32: v0 xyz, e1 xyz, e2 xyz
     box_planes: torch.Tensor  # [6, K_pad] f32: lo xyz, hi xyz (pad BIG/-BIG)
@@ -150,8 +163,37 @@ class MeshClusters(NamedTuple):
     root_lo: torch.Tensor     # [3] f32 BVH root box (sort keys)
     root_hi: torch.Tensor     # [3] f32
     row_boxes: torch.Tensor   # [6, P_pad / 128] f32 (prep_row_boxes)
+    group_boxes: torch.Tensor  # [6, num_groups(k)] f32 (prep_group_boxes)
     # mt="mxu": [19, P_pad] f32 bilinear-form factors (build_mt_features).
     mt_planes: Optional[torch.Tensor] = None
+
+
+def num_groups(k: int) -> int:
+    """Group boxes of k clusters: one per GROUP_C, the last maybe shorter."""
+    return -(-k // GROUP_C)
+
+
+def prep_group_boxes(box_planes: torch.Tensor, k: int) -> torch.Tensor:
+    """[6, num_groups(k)] f32: per run of GROUP_C consecutive clusters (the
+    last run may be shorter), the exact union of their boxes, the minimum of
+    lo and the maximum of hi on each axis. Only the k real columns of
+    box_planes take part; their BIG/-BIG padding enters no union. Each sub
+    and mul of the slab test rounds monotonically, so a ray whose capped
+    slab test passes on a member box passes on its group box too."""
+    ng = num_groups(k)
+    fill = ng * GROUP_C - k
+    lo = torch.nn.functional.pad(box_planes[0:3, :k], (0, fill), value=BIG)
+    hi = torch.nn.functional.pad(box_planes[3:6, :k], (0, fill), value=-BIG)
+    return torch.cat([lo.view(3, ng, GROUP_C).amin(2),
+                      hi.view(3, ng, GROUP_C).amax(2)]).contiguous()
+
+
+def with_cluster_boxes(mc: MeshClusters,
+                       box_planes: torch.Tensor) -> MeshClusters:
+    """mc with new cluster boxes ([6, K_pad], padding columns BIG/-BIG) and
+    the group boxes rebuilt from them."""
+    return mc._replace(box_planes=box_planes,
+                       group_boxes=prep_group_boxes(box_planes, mc.k))
 
 
 def _padded_tris(mesh: TriangleMesh, p_pad: int, v0_fill: float):
@@ -185,7 +227,8 @@ def prep_mesh_clusters(mesh: TriangleMesh, *,
                        cluster_rows: int = CLUSTER_ROWS,
                        mt: str = "vpu") -> MeshClusters:
     """Padded triangle planes, epsilon-padded cluster boxes and row boxes,
-    with the JAX package's operation order (bit for bit). cluster_rows
+    with the JAX package's operation order (bit for bit), and the group
+    boxes of A4's and A7's gate (prep_group_boxes). cluster_rows
     sizes the clusters (cluster_rows_for); triangle ids stay the BVH-order
     index whatever the size. mt="mxu" adds the bilinear-form factors that
     that search reads (76 bytes a triangle)."""
@@ -206,6 +249,7 @@ def prep_mesh_clusters(mesh: TriangleMesh, *,
     return MeshClusters(
         tri_planes, box_planes, k, g, p, mesh.bvh_min[0].clone(),
         mesh.bvh_max[0].clone(), prep_row_boxes(mesh, p_pad),
+        prep_group_boxes(box_planes, k),
         build_mt_features(mesh, p_pad) if mt == "mxu" else None)
 
 
@@ -303,6 +347,12 @@ def _check(mc: MeshClusters, rays, alive, t_cap) -> None:
     if mc.box_planes.shape[1] < mc.k or \
             mc.tri_planes.shape[1] < mc.k * mc.tris_per_cluster:
         raise ValueError("mesh tables are smaller than their cluster count")
+    gb, ng = mc.group_boxes, num_groups(mc.k)
+    if (gb.dtype != torch.float32 or gb.shape != (6, ng)
+            or not gb.is_contiguous() or gb.device != dev):
+        raise ValueError(f"group_boxes must be the [6, {ng}] float32 "
+                         f"prep_group_boxes of the {mc.k} clusters, on the "
+                         f"rays' device")
     if n == 0 or n >= 2 ** 31:
         raise ValueError(f"the mesh kernels take 0 < N < 2^31 rays, got {n}")
 
@@ -336,7 +386,8 @@ def first_crossed_cluster(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
     """[N] i32: the lowest id of a cluster whose slab test passes with an
     entry at most min(t_cap * 1.0001 + 1e-4, 1e37); k when none and on dead
     lanes. pair=True returns (c1, c2): also the lowest such id above c1, k
-    when none."""
+    when none. The kernel walks the group boxes first
+    (crossing_walk_gated_plain), which changes no id."""
     global first_cluster_launches, first_cluster_pair_launches
     rays = (ox, oy, oz, dx, dy, dz)
     alive, t_cap = _defaults(ox, alive, t_cap)
@@ -353,7 +404,8 @@ def first_crossed_cluster(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
         err = lib.qtrt_mesh_first_cluster(
             *(x.data_ptr() for x in rays), alive.data_ptr(),
             t_cap.data_ptr(), mc.box_planes.data_ptr(), mc.k,
-            mc.box_planes.shape[1], float(t_min), n, out.data_ptr(),
+            mc.box_planes.shape[1], mc.group_boxes.data_ptr(),
+            mc.group_boxes.shape[1], float(t_min), n, out.data_ptr(),
             out2.data_ptr() if pair else None, _stream(dev))
     if err != 0:
         raise RuntimeError(f"mesh first-cluster kernel launch failed: "
@@ -438,6 +490,71 @@ def first_crossed_cluster_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
             out2[sl] = lowest(above=c1)
         out[sl] = c1
     return (out, out2) if pair else out
+
+
+def crossing_walk_gated_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
+                              t_min: float, alive, t_cap, c_max: int, *,
+                              stop: bool = False,
+                              slice_rays: int = PLAIN_SLICE_RAYS):
+    """The two-level walk of A4 and A7 in plain PyTorch, with a count of its
+    work: (lists [N, c_max] i32, ncross [N] i32, group_tests [N] i32,
+    member_tests [N] i32). Per live ray, in ascending order, group box j
+    (``MeshClusters.group_boxes``) takes the capped slab test of
+    crossing_mask; only when it passes are the boxes of its GROUP_C members
+    tested, in ascending id, and each member that passes is the ray's next
+    crossed id. lists holds the first c_max ids, filled with k; ncross
+    counts them all (A7). With stop=True the walk ends at the c_max-th id
+    (A4: c_max = 1; its pair variant: 2): ncross then stops at c_max, and
+    the tests are counted up to there. With one cluster, the one group box
+    is its box, and the kernels take that one test alone. Dead lanes: all
+    k, 0 everywhere. A member that passes makes its group pass, so lists
+    and ncross equal crossing_lists_plain's and
+    first_crossed_cluster_plain's. A measuring aid and the subject of the
+    CPU tests; no path runs it."""
+    n, k = ox.shape[0], mc.k
+    dev = ox.device
+    cid = torch.arange(k, dtype=torch.int32, device=dev)
+    grp = (cid // GROUP_C).long()
+    sizes = torch.bincount(grp, minlength=num_groups(k)).to(torch.int32)
+    tested = sizes if k > 1 else torch.zeros_like(sizes)  # an open group's
+    lists = torch.full((n, c_max), k, dtype=torch.int32, device=dev)
+    ncross = torch.zeros(n, dtype=torch.int32, device=dev)
+    tests = torch.zeros((2, n), dtype=torch.int32, device=dev)
+    cap_all = torch.clamp_max(t_cap * 1.0001 + 1e-4, 1e37)
+    for lo in range(0, n, slice_rays):
+        sl = slice(lo, min(n, lo + slice_rays))
+        o = (ox[sl], oy[sl], oz[sl])
+        inv = tuple(slab_inv(d) for d in (dx[sl], dy[sl], dz[sl]))
+        cap, live = cap_all[sl], alive[sl]
+        enter, exit_ = _slab(mc.group_boxes, 0, sizes.shape[0], o, inv,
+                             float(t_min))
+        opened = (exit_ > enter) & (enter <= cap[:, None]) & live[:, None]
+        passed = crossing_mask(mc, o, inv, cap, live, 0, k, t_min) \
+            & opened[:, grp]
+        rank = torch.cumsum(passed, dim=1)          # ids found up to here
+        if stop:
+            passed &= rank <= c_max
+        found = passed.sum(dim=1)
+        ids = torch.where(passed, cid, k)
+        ids = torch.nn.functional.pad(ids, (0, max(c_max - k, 0)), value=k)
+        lists[sl] = torch.sort(ids, dim=1).values[:, :c_max]
+        ncross[sl] = found.to(torch.int32)
+        # Where the walk stopped: the c_max-th id when stop, else nowhere.
+        last = torch.where(passed, cid, -1).amax(dim=1)
+        halted = live & (found >= c_max) if stop else torch.zeros_like(live)
+        end = torch.where(halted, last, k - 1)      # the last id tested
+        g_end = (end // GROUP_C).long()
+        before = torch.arange(sizes.shape[0], device=dev)[None, :] \
+            < g_end[:, None]
+        members = ((opened & before) * tested).sum(dim=1)
+        in_last = torch.where(halted, end - g_end * GROUP_C + 1,
+                              sizes[g_end])
+        in_last = in_last if k > 1 else torch.zeros_like(in_last)
+        members = members + torch.where(opened.gather(1, g_end[:, None])[:, 0],
+                                        in_last, 0)
+        tests[0, sl] = torch.where(live, g_end + 1, 0).to(torch.int32)
+        tests[1, sl] = torch.where(live, members, 0).to(torch.int32)
+    return lists, ncross, tests[0], tests[1]
 
 
 # --------------------------------------------------------------- A3

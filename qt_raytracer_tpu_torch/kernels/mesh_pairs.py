@@ -75,7 +75,9 @@ def crossing_lists(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     c_max clusters whose slab test passes with an entry at most
     min(t_cap * 1.0001 + 1e-4, 1e37), filled with k; and the count of all
     such clusters, which may exceed c_max. Dead lanes: all k, count 0. The
-    list is a transposed view of plane-major storage."""
+    list is a transposed view of plane-major storage. The kernel walks the
+    group boxes first (mesh_intersect.crossing_walk_gated_plain), which
+    changes no id and no count."""
     global crossing_lists_launches
     rays = (ox, oy, oz, dx, dy, dz)
     alive, t_cap = _defaults(ox, alive, t_cap)
@@ -94,7 +96,8 @@ def crossing_lists(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
         err = lib.qtrt_mesh_crossing_lists(
             *(x.data_ptr() for x in rays), alive.data_ptr(),
             t_cap.data_ptr(), mc.box_planes.data_ptr(), mc.k,
-            mc.box_planes.shape[1], float(t_min), n, c_max,
+            mc.box_planes.shape[1], mc.group_boxes.data_ptr(),
+            mc.group_boxes.shape[1], float(t_min), n, c_max,
             lists.data_ptr(), ncross.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"mesh crossing-lists kernel launch failed: "

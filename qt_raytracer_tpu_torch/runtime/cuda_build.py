@@ -150,10 +150,12 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.qtrt_sphere_search_clustered.argtypes = ([p] * 9 + [i, p, i, i, i, f,
                                                             i] + [p] * 3)
     # qtrt_mesh_first_cluster(ox, oy, oz, dx, dy, dz, alive, t_cap, boxes,
-    #                         k, k_stride, t_min, n, out, out2, stream)
+    #                         k, k_stride, groups, ng, t_min, n, out, out2,
+    #                         stream)
     # out2 is a device pointer, or None for the first id alone.
     lib.qtrt_mesh_first_cluster.restype = i
-    lib.qtrt_mesh_first_cluster.argtypes = [p] * 9 + [i, i, f, i] + [p] * 3
+    lib.qtrt_mesh_first_cluster.argtypes = ([p] * 9 + [i, i, p, i, f, i]
+                                            + [p] * 3)
     # qtrt_mesh_search(ox, oy, oz, dx, dy, dz, alive, t_cap, excl, tris,
     #                  p_stride, rows, r_stride, boxes, k, k_stride, g, mode,
     #                  t_min, n, t_out, idx_out, stream)
@@ -162,10 +164,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.qtrt_mesh_search.argtypes = ([p] * 10 + [i, p, i, p, i, i, i, i, f,
                                                  i] + [p] * 3)
     # qtrt_mesh_crossing_lists(ox, oy, oz, dx, dy, dz, alive, t_cap, boxes,
-    #                          k, k_stride, t_min, n, c_max, lists, ncross,
-    #                          stream)
+    #                          k, k_stride, groups, ng, t_min, n, c_max,
+    #                          lists, ncross, stream)
     lib.qtrt_mesh_crossing_lists.restype = i
-    lib.qtrt_mesh_crossing_lists.argtypes = ([p] * 9 + [i, i, f, i, i]
+    lib.qtrt_mesh_crossing_lists.argtypes = ([p] * 9 + [i, i, p, i, f, i, i]
                                              + [p] * 3)
     # qtrt_mesh_pairs(ox, oy, oz, dx, dy, dz, t_cap, ray_buf, gmap, tris,
     #                 p_stride, rows, r_stride, g, t_min, n, b, t_out,

@@ -34,6 +34,7 @@ from qt_raytracer_tpu_torch.models import meshes
 from qt_raytracer_tpu_torch.utils.convert import (camera_from_arrays,
                                                   world_from_arrays)
 from test_torch_world_render import ATOL, MAX_MISMATCH, RTOL, SEED, _arrays
+from torch_helpers import _one_thread  # noqa: F401
 
 TERRAIN = dict(width=48, height=48, spp=1, max_depth=3, rng="hash",
                pixel_chunk=-1)       # one chunk of 2,304 rays: the sort runs

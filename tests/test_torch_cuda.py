@@ -16,7 +16,9 @@ Tolerances: the kernels round op by op as the plain versions do. Full mode
 1e-5, the other float outputs within atol 1e-5 + rtol 1e-5 (the limits of
 ``chip_smoke.py``); dead lanes hold the defaults exactly. Shadow mode (A2),
 the first crossed cluster (A4) and the mesh search (A3): bitwise on live
-lanes, BIG/0 (A4: k) on dead lanes; the sphere search (A5) and the
+lanes, BIG/0 (A4: k) on dead lanes (A4 and the crossing lists of A7 also
+against their two-level gate's walk, on the gate's edge rays of
+``tests/test_torch_cluster_gate.py``); the sphere search (A5) and the
 cluster-culled sphere search (A6) likewise. The exclude operand of A1, A2,
 A3 and A5 is held the same way, each ray excluding its own winner. A3's
 row-gated and bilinear-form instances equal their plain versions on every
@@ -36,6 +38,8 @@ from qt_raytracer_tpu_torch import RenderConfig, SceneBuilder, render_linear, sc
 from qt_raytracer_tpu_torch.kernels import fused_hit as fh
 from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
 from qt_raytracer_tpu_torch.models import meshes
+from test_torch_cluster_gate import WORLDS as GATE_WORLDS
+from torch_helpers import with_copies
 
 pytestmark = pytest.mark.cuda
 
@@ -525,16 +529,35 @@ def _list_widths(k: int):
     return sorted({1, min(6, k), k})
 
 
+@pytest.fixture(scope="module")
+def gate_worlds(card):
+    """The cluster gate's meshes (tests/test_torch_cluster_gate.py), on the
+    card: k = 1, G - 1, G, G + 1, 2G + 3, 9 and 35."""
+    from test_torch_cluster_gate import gate_worlds as worlds
+    return worlds(card)
+
+
 @pytest.mark.parametrize("capped", [False, True])
-@pytest.mark.parametrize("n", [1, 127, 4097])
-@pytest.mark.parametrize("name", ["terrain48", "cornell_mesh"])
-def test_crossing_kernels_match_plain_versions(card, mesh_worlds, name, n,
-                                               capped):
-    # A7 at list widths 1, 6 and k, and A4's second output: integers,
-    # bitwise; dead lanes hold k and a count of 0.
+@pytest.mark.parametrize("rays_kind", ["1", "127", "4097", "adversarial"])
+@pytest.mark.parametrize("name", GATE_WORLDS)
+def test_crossing_kernels_match_plain_versions(card, gate_worlds, name,
+                                               rays_kind, capped):
+    # A7 at list widths 1, 6 and k, and A4 with and without its second
+    # output: integers, bitwise against the ungated plain versions and the
+    # two-level walk's (crossing_walk_gated_plain); dead lanes hold k and a
+    # count of 0. Seeded rays with dead lanes, and the rays of
+    # tests/test_torch_cluster_gate.py on the gate's edges.
     from qt_raytracer_tpu_torch.kernels import mesh_pairs as mp
-    mc = mesh_worlds[name]
-    rays, alive, cap = _mesh_rays(mc, n, seed=n + 17, device=card)
+    from test_torch_cluster_gate import adversarial_rays, check_walk
+    mc = gate_worlds[name]
+    if rays_kind == "adversarial":
+        rays, alive, cap = adversarial_rays(mc, seed=mc.k + 1)
+        rays, alive, cap = [r.to(card) for r in rays], alive.to(card), \
+            cap.to(card)
+    else:
+        n = int(rays_kind)
+        rays, alive, cap = _mesh_rays(mc, n, seed=n + 17, device=card)
+    n = rays[0].shape[0]
     cap = cap if capped else None
     before = (mi.first_cluster_launches, mi.first_cluster_pair_launches,
               mp.crossing_lists_launches)
@@ -548,6 +571,11 @@ def test_crossing_kernels_match_plain_versions(card, mesh_worlds, name, n,
                                                     cap))
     dead = ~alive.cpu()
     assert torch.all(c2.cpu()[dead] == mc.k)
+    full_cap = torch.full_like(rays[0], fh.BIG) if cap is None else cap
+    walk = check_walk(mc, rays, alive, full_cap, T_MIN)
+    pair = mi.crossing_walk_gated_plain(mc, *rays, T_MIN, alive, full_cap, 2,
+                                        stop=True)
+    assert torch.equal(c1, pair[0][:, 0]) and torch.equal(c2, pair[0][:, 1])
     for j, c_max in enumerate(_list_widths(mc.k)):
         lists, ncross = mp.crossing_lists(mc, *rays, T_MIN, alive, cap, c_max)
         assert mp.crossing_lists_launches == before[2] + j + 1
@@ -556,12 +584,43 @@ def test_crossing_kernels_match_plain_versions(card, mesh_worlds, name, n,
         assert lists.shape == (n, c_max) and lists.dtype == torch.int32
         assert torch.equal(lists.cpu(), pl.cpu())
         assert torch.equal(ncross.cpu(), pn.cpu())
+        assert torch.equal(lists, walk[0][:, :c_max])
+        assert torch.equal(ncross, walk[1])
         assert torch.equal(lists[:, 0], c1)
         if c_max > 1:
             assert torch.equal(lists[:, 1], c2)
         assert torch.all(lists.cpu()[dead] == mc.k)
         assert torch.all(ncross.cpu()[dead] == 0)
     assert mp.crossing_lists_launches == before[2] + len(_list_widths(mc.k))
+    # The walk's work: every group box of a live ray, members of open
+    # groups only.
+    assert torch.all(walk[2][alive] == mi.num_groups(mc.k))
+    assert int(walk[3].sum()) <= int(alive.sum()) * mc.k
+
+
+def test_crossing_kernels_need_rebuilt_group_boxes(card, gate_worlds):
+    # What MeshClusters asks of group_boxes, on the card: cluster 0's box
+    # moved past its group's box with the group boxes left stale, A4 and A7
+    # follow the stale gate (the gated walk's ids) and miss crossings the
+    # ungated plain versions find; rebuilt through with_cluster_boxes, they
+    # equal both again.
+    from qt_raytracer_tpu_torch.kernels import mesh_pairs as mp
+    from test_torch_cluster_gate import moved_box, seeded_rays
+    rays, alive, cap = seeded_rays(gate_worlds["terrain48_rows1"], 1500,
+                                   seed=7)
+    rays, alive, cap = [r.to(card) for r in rays], alive.to(card), \
+        cap.to(card)
+    for mc, stale in zip(moved_box(gate_worlds["terrain48_rows1"], 0),
+                         (True, False)):
+        c1 = mi.first_crossed_cluster(mc, *rays, T_MIN, alive, cap)
+        lists, ncross = mp.crossing_lists(mc, *rays, T_MIN, alive, cap, 6)
+        walk = mi.crossing_walk_gated_plain(mc, *rays, T_MIN, alive, cap, 6)
+        assert torch.equal(c1, walk[0][:, 0])
+        assert torch.equal(lists, walk[0]) and torch.equal(ncross, walk[1])
+        plain = mi.first_crossed_cluster_plain(mc, *rays, T_MIN, alive, cap)
+        assert torch.equal(c1, plain) != stale
+        assert torch.equal(ncross, mp.crossing_lists_plain(
+            mc, *rays, T_MIN, alive, cap, 6)[1]) != stale
 
 
 @pytest.mark.parametrize("n", [1, 127, 4097])
@@ -909,24 +968,6 @@ def test_sweeps_one_live_lane_and_all_dead(card, num_spheres):
         _bitwise(k5, p5)
 
 
-def _with_copies(mc, mesh, pairs):
-    """mc with triangle src copied over dst for each (src, dst), the cluster
-    and row boxes rebuilt around the new planes."""
-    tp = mc.tri_planes.clone()
-    for src, dst in pairs:
-        tp[:, dst] = tp[:, src]
-    v0, e1, e2 = (tp[3 * a:3 * a + 3].T for a in range(3))
-    eps = mi._box_eps(mesh)
-    k, g = mc.k, mc.tris_per_cluster
-    lo, hi = mi._padded_boxes(v0, e1, e2, k, eps)
-    boxes = mc.box_planes.clone()
-    boxes[:3, :k], boxes[3:, :k] = lo.T, hi.T
-    lo_r, hi_r = mi._padded_boxes(v0, e1, e2, k * g // mi.LANE, eps)
-    return mc._replace(tri_planes=tp.contiguous(),
-                       box_planes=boxes.contiguous(),
-                       row_boxes=torch.cat([lo_r.T, hi_r.T]).contiguous())
-
-
 @pytest.fixture(scope="module")
 def tie_meshes(card):
     """The 48x48 terrain at clusters of 1, 2 and 4 rows and the one-cluster
@@ -945,9 +986,10 @@ def tie_meshes(card):
         else:
             srcs = [3, g + 40, 2 * g + 7]
             dsts = [4, g + 72, mc.k * g - 3]
-        mc = _with_copies(mc, mesh, list(zip(srcs, dsts)))
+        mc = with_copies(mc, mesh, list(zip(srcs, dsts)))
         mc = mc._replace(**{f: getattr(mc, f).to(card) for f in (
-            "tri_planes", "box_planes", "row_boxes", "root_lo", "root_hi")})
+            "tri_planes", "box_planes", "row_boxes", "group_boxes", "root_lo",
+            "root_hi")})
         out[f"{name}_rows{rows}"] = (mc, srcs)
     return out
 

@@ -47,6 +47,7 @@ from qt_raytracer_tpu_torch.diff.inverse import image_loss, mean_image
 from qt_raytracer_tpu_torch.utils.convert import (camera_from_arrays,
                                                   scene_from_arrays,
                                                   world_from_arrays)
+from torch_helpers import _one_thread  # noqa: F401
 
 SIZE = dict(width=24, height=16, spp=2, max_depth=2, rng="hash")
 TARGET_LEVEL = 0.3

@@ -39,6 +39,7 @@ from qt_raytracer_tpu_torch.utils.convert import (mesh_from_arrays,
                                                   scene_from_arrays)
 from test_torch_mesh_kernel import _mt_rtol
 from test_torch_sphere_search import _t_tol
+from torch_helpers import _one_thread  # noqa: F401
 
 T_MIN = 1e-3
 BIG = tfh.BIG

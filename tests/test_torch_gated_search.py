@@ -34,21 +34,11 @@ from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
 from qt_raytracer_tpu_torch.kernels import mesh_pairs as mp
 from qt_raytracer_tpu_torch.kernels import sphere_intersect as si
 from qt_raytracer_tpu_torch.models import meshes
-from test_torch_hit_order import with_copies
+from torch_helpers import _one_thread, with_copies  # noqa: F401
 
 T_MIN = 1e-3
 BIG = si.BIG
 LANE = 128
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    # The tensors here are small: more threads gain nothing alone, and
-    # beside other test workers they only contend for the cores.
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ------------------------------------------------------------ A6

@@ -42,6 +42,7 @@ from qt_raytracer_tpu_torch.kernels import sphere_intersect as tsi
 from qt_raytracer_tpu_torch.utils.convert import (camera_from_arrays,
                                                   scene_from_arrays,
                                                   world_from_arrays)
+from torch_helpers import _one_thread  # noqa: F401
 
 ATOL = RTOL = 2e-3
 MAX_MISMATCH = 0.01

@@ -47,6 +47,7 @@ from qt_raytracer_tpu_torch.kernels import fused_hit as fh
 from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
 from qt_raytracer_tpu_torch.models import meshes
 from qt_raytracer_tpu_torch.utils.convert import scene_from_arrays
+from torch_helpers import _one_thread, with_copies  # noqa: F401
 
 LANES = 32
 NO_ID = 2 ** 31 - 1
@@ -352,25 +353,6 @@ def warp_search(mc, rays, cap, alive, exclude=None, rowgate=False):
     t_out[live] = torch.where(won, t_best, BIG)
     i_out[live] = torch.where(won, best, 0)
     return t_out, i_out
-
-
-def with_copies(mc, mesh, pairs):
-    """mc with triangle src copied over triangle dst for each (src, dst),
-    and the cluster and row boxes rebuilt around the new planes, with the
-    padding prep_mesh_clusters gives them."""
-    tp = mc.tri_planes.clone()
-    for src, dst in pairs:
-        tp[:, dst] = tp[:, src]
-    v0, e1, e2 = (tp[3 * a:3 * a + 3].T for a in range(3))
-    eps = mi._box_eps(mesh)
-    k, g = mc.k, mc.tris_per_cluster
-    lo, hi = mi._padded_boxes(v0, e1, e2, k, eps)
-    boxes = mc.box_planes.clone()
-    boxes[:3, :k], boxes[3:, :k] = lo.T, hi.T
-    lo_r, hi_r = mi._padded_boxes(v0, e1, e2, k * g // mi.LANE, eps)
-    rows = torch.cat([lo_r.T, hi_r.T]).contiguous()
-    return mc._replace(tri_planes=tp.contiguous(),
-                       box_planes=boxes.contiguous(), row_boxes=rows)
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,7 @@ from qt_raytracer_tpu_torch.utils.convert import (camera_from_arrays,
                                                   key_from_words,
                                                   scene_from_arrays,
                                                   train_state_from_arrays)
+from torch_helpers import _one_thread  # noqa: F401
 
 KEY = jax.random.PRNGKey(11)
 TOL = 1e-3

@@ -35,6 +35,7 @@ from qt_raytracer_tpu.models import meshes as jmeshes
 from qt_raytracer_tpu_torch import RenderConfig
 from qt_raytracer_tpu_torch.kernels import mesh_intersect as tmi
 from qt_raytracer_tpu_torch.utils.convert import mesh_from_arrays
+from torch_helpers import _one_thread  # noqa: F401
 
 N = 1024
 T_MIN = 1e-3

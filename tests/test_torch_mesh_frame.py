@@ -36,6 +36,7 @@ from qt_raytracer_tpu_torch.utils.convert import (camera_from_arrays,
                                                   world_from_arrays)
 from test_torch_fused_hit import _t_rtol
 from test_torch_world_render import ATOL, MAX_MISMATCH, RTOL, SEED, _arrays
+from torch_helpers import _one_thread  # noqa: F401
 
 FRAME = dict(width=48, height=27, spp=1, max_depth=3, rng="hash")
 T_MIN = 1e-3

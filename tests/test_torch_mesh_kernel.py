@@ -28,6 +28,7 @@ from qt_raytracer_tpu.kernels import mesh_intersect as jmi
 from qt_raytracer_tpu.models import meshes as jmeshes
 from qt_raytracer_tpu_torch.kernels import mesh_intersect as tmi
 from qt_raytracer_tpu_torch.utils.convert import mesh_from_arrays
+from torch_helpers import _one_thread  # noqa: F401
 
 N = 4096
 T_MIN = 1e-3
@@ -218,7 +219,8 @@ def test_wrappers_refuse_what_is_not_ported(case):
         tmi.mesh_hits(mc, *rays[:5], torch.ones(2 * N)[::2], T_MIN)
     with pytest.raises(ValueError, match="cpu or cuda"):
         tmi.mesh_hits(mc._replace(tri_planes=mc.tri_planes.to("meta"),
-                                  box_planes=mc.box_planes.to("meta")),
+                                  box_planes=mc.box_planes.to("meta"),
+                                  group_boxes=mc.group_boxes.to("meta")),
                       *(r.to("meta") for r in rays), T_MIN)
 
 

@@ -30,6 +30,7 @@ from qt_raytracer_tpu_torch.kernels import mesh_intersect as tmi
 from qt_raytracer_tpu_torch.kernels import mesh_pairs as tmp
 from qt_raytracer_tpu_torch.utils.convert import mesh_from_arrays
 from test_torch_mesh_kernel import _arrays, _mt_rtol, _rays
+from torch_helpers import _one_thread  # noqa: F401
 
 N = 4096
 T_MIN = 1e-3
@@ -130,7 +131,8 @@ def test_crossing_lists_plain_blocks_and_refusals(case):
         search_mesh(mc, *rays, T_MIN, alive, cap, mesh_kernel="bvh")
     with pytest.raises(ValueError, match="cpu or cuda"):
         tmp.crossing_lists(mc._replace(tri_planes=mc.tri_planes.to("meta"),
-                                       box_planes=mc.box_planes.to("meta")),
+                                       box_planes=mc.box_planes.to("meta"),
+                                       group_boxes=mc.group_boxes.to("meta")),
                            *(r.to("meta") for r in rays), T_MIN, c_max=1)
 
 

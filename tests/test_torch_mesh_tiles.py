@@ -20,6 +20,7 @@ import torch
 
 from test_torch_mesh_bodies import (_assert_agree, _jax_search,  # noqa: F401
                                     _search, case, meshes)
+from torch_helpers import _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -24,6 +24,7 @@ from qt_raytracer_tpu.kernels import mesh_intersect as jmi
 from qt_raytracer_tpu_torch import RenderConfig
 from qt_raytracer_tpu_torch.kernels import mesh_intersect as tmi
 from test_torch_mesh_kernel import N, T_MIN, _cap, case  # noqa: F401
+from torch_helpers import _one_thread  # noqa: F401
 
 BIG = tmi.BIG
 
@@ -175,12 +176,14 @@ def test_sort_mode_refusals(case):
     top = lambda k: (k * (k + 1) + k) << 15 | 0x7FFF
     assert top(254) < 2 ** 31 - 1 <= top(255)
     big = mc._replace(k=255, box_planes=torch.zeros((6, 256)),
-                      tri_planes=torch.zeros((9, 255 * mc.tris_per_cluster)))
+                      tri_planes=torch.zeros((9, 255 * mc.tris_per_cluster)),
+                      group_boxes=torch.zeros((6, tmi.num_groups(255))))
     with pytest.raises(ValueError, match="254"):
         tmi.mesh_search(big, *rays, T_MIN, sort_mode="crossing2")
     # The limit is checked where the key is built: 254 clusters take it
     # (the permutation alone, not a sweep of 254 clusters of padding).
-    ok = big._replace(k=254)
+    ok = big._replace(k=254,
+                      group_boxes=torch.zeros((6, tmi.num_groups(254))))
     perm = tmi.crossing_order(ok, *rays, T_MIN,
                               torch.ones(N, dtype=torch.bool),
                               torch.full((N,), BIG), sort_mode="crossing2")

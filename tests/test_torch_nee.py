@@ -33,6 +33,7 @@ from qt_raytracer_tpu_torch import render_linear as t_render_linear
 from qt_raytracer_tpu_torch.core import integrator_flat as tif
 from qt_raytracer_tpu_torch.kernels import fused_hit as tfh
 from qt_raytracer_tpu_torch.utils.convert import camera_from_arrays, scene_from_arrays
+from torch_helpers import _one_thread  # noqa: F401
 
 N = 2048
 DEAD_ROWS = (4, 5)          # lanes 512..767

@@ -29,6 +29,7 @@ from qt_raytracer_tpu_torch import render as t_render
 from qt_raytracer_tpu_torch import render_linear as t_render_linear
 from qt_raytracer_tpu_torch.core.integrator_flat import trace_flat as t_trace_flat
 from qt_raytracer_tpu_torch.utils.convert import camera_from_arrays, scene_from_arrays
+from torch_helpers import _one_thread  # noqa: F401
 
 ATOL = RTOL = 2e-3
 MAX_MISMATCH = 0.01

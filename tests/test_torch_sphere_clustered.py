@@ -33,6 +33,7 @@ from qt_raytracer_tpu_torch.core.intersect import intersect_spheres
 from qt_raytracer_tpu_torch.kernels import sphere_intersect as tsi
 from qt_raytracer_tpu_torch.utils.convert import scene_from_arrays
 from test_torch_sphere_search import _t_tol
+from torch_helpers import _one_thread  # noqa: F401
 
 N = 640                 # 5 rows of 128 rays
 DEAD_ROW = 2            # lanes 256..383

@@ -30,6 +30,7 @@ from qt_raytracer_tpu_torch.core.integrator_flat import trace_flat_world as t_tr
 from qt_raytracer_tpu_torch.kernels import fused_hit as tfh
 from qt_raytracer_tpu_torch.kernels import mesh_intersect as tmi
 from qt_raytracer_tpu_torch.utils.convert import camera_from_arrays, world_from_arrays
+from torch_helpers import _one_thread  # noqa: F401
 
 ATOL = RTOL = 2e-3
 MAX_MISMATCH = 0.01
