@@ -37,7 +37,15 @@ counts set to 0 just before it and read just after:
     against the CPU; and one pathwise step on the true Cornell box with
     ``mesh_kernel="pairs"``, whose loss equals the clustered step's (its
     crossing-list and pair kernels held against their plain versions on
-    one of its wavefronts: one cluster, lists of width 1).
+    one of its wavefronts: one cluster, lists of width 1);
+  - the app layer, through the entry points a user calls: ``python -m
+    qt_raytracer_tpu_torch.app.cli bench`` at the book-cover frame's size
+    in its own process; the reference panel's progressive render (400x225,
+    24 spp in steps of 4, a checkpoint at 12 spp resumed into a renderer
+    built with another seed), against the batch render within 1e-5, and
+    bit for bit in 1-spp steps; ``cli render`` of the terrain and of the
+    sphere Cornell box with NEE, each PNG the bytes of ``render``'s image;
+    and ``cli invert --steps 2`` (finite losses).
 
 Before the frames, the mesh search's row-gated and bilinear-form instances
 are held against their plain versions and against the default instance on
@@ -73,11 +81,15 @@ Output: the card's name and power limit (nvidia-smi), per-phase numbers, a
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -131,6 +143,17 @@ GRAD_PLAIN_WH = {"edge_aware": (1920, 1080),  # kernel vs plain gradients
 GRAD_CPU_WH = (96, 54)             # card vs CPU gradients
 GRAD_RTOL_PLAIN = 1e-4   # x max|g|: atomic-add order of the gather backward
 GRAD_RTOL_CPU = 2e-3     # x max|g|: the render flip budget
+# The CLI on the card: `bench` as a user runs it, the reference panel's
+# progressive render (Main.qml:10-13) with a checkpoint half way, small mesh,
+# NEE and inverse-rendering runs, each held against the same run on the
+# plain route (every kernel's plain version, on the card).
+CLI_BENCH = ["bench", "--scene", "random", "--width", "1920", "--height",
+             "1080", "--spp", "1", "--depth", "10", "--iters", "3"]
+PANEL = dict(width=400, height=225, spp=24, max_depth=10)
+PANEL_STEP, PANEL_CHECKPOINT = 4, 12
+CLI_SMALL = dict(width=192, height=108, spp=2, depth=3)
+PROGRESSIVE_ATOL = PROGRESSIVE_RTOL = 1e-5   # steps of n > 1 spp vs batch
+PLAIN_ROUTE = "fused_interpret"   # every kernel's plain version, on the card
 
 
 START = time.perf_counter()
@@ -809,6 +832,184 @@ def cluster_sizes(mi, world, rays, alive, cap, t_min, ref) -> dict:
                            visits, row_visits)}
         out[f"cluster_rows_{rows}"] = st
         print(f"cluster rows {rows}: {json.dumps(st)}", flush=True)
+    return out
+
+
+def run_cli(cli, argv: list[str]) -> tuple[int, str]:
+    """(exit code, standard output) of the port's CLI run in this process,
+    so that its kernel launches land in this process's counters."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
+
+
+def small_args(scene: str) -> list[str]:
+    return ["--scene", scene] + [a for k, v in CLI_SMALL.items()
+                                 for a in (f"--{k}", str(v))]
+
+
+def cli_phase(fh, mi, scenes, render_linear, RenderConfig) -> dict:
+    """The port's app layer on the card through the entry points a user
+    calls. Raises on any failure; returns the phase's numbers and the
+    launches of its counted runs."""
+    from qt_raytracer_tpu_torch import render
+    from qt_raytracer_tpu_torch.app import cli
+    from qt_raytracer_tpu_torch.app.png import encode_png
+    from qt_raytracer_tpu_torch.app.progressive import ProgressiveRenderer
+    from qt_raytracer_tpu_torch.core.sampling import fold_in
+
+    t0 = time.perf_counter()
+    out = {"launches": dict.fromkeys(KERNELS, 0)}
+
+    def count(what: str, expected: dict, at_least: tuple = ()) -> dict:
+        counts = read_counts(fh, mi)
+        for k, v in counts.items():
+            out["launches"][k] += v
+        want = {**dict.fromkeys(KERNELS, 0), **expected}
+        bad = {k: (counts[k], want[k]) for k in KERNELS
+               if (counts[k] == 0 if k in at_least else counts[k] != want[k])}
+        if bad:
+            raise AssertionError(f"{what}: launches (got, expected) {bad}")
+        return {k: v for k, v in counts.items() if v}
+
+    # (a) `bench` as a user runs it, in its own process.
+    proc = subprocess.run(
+        [sys.executable, "-m", "qt_raytracer_tpu_torch.app.cli", *CLI_BENCH],
+        cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli bench exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    bench = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not bench["msamples_per_s"] > 0 or bench["backend"] != "cuda":
+        raise AssertionError(f"cli bench: {bench}")
+    out["bench"] = bench
+    print(f"cli bench: {json.dumps(bench)}", flush=True)
+
+    # (b) The panel's progressive render, interrupted at 12 spp by a
+    # checkpoint, resumed into a renderer built with a wrong seed.
+    cfg = RenderConfig(**PANEL)
+    scene, cam = scenes.get_scene("random", cfg.aspect_ratio)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        reset_counts(fh, mi)
+        t1 = time.perf_counter()
+        pr = ProgressiveRenderer(scene, cam, cfg, seed=SEED)
+        while pr.frame_index < PANEL_CHECKPOINT:
+            pr.step(PANEL_STEP)
+        pr.save(tmp / "panel.pt")
+        resumed = ProgressiveRenderer(scene, cam, cfg, seed=SEED + 99)
+        resumed.load(tmp / "panel.pt")
+        if resumed.frame_index != PANEL_CHECKPOINT or resumed.seed != SEED:
+            raise AssertionError("the checkpoint did not restore its state")
+        while resumed.frame_index < cfg.spp:
+            resumed.step(PANEL_STEP)
+        torch.cuda.synchronize()
+        out["progressive_s"] = time.perf_counter() - t1
+        out["progressive_launches"] = count(
+            "progressive render", {"fused_hit": cfg.spp * cfg.max_depth})
+        # The same render on the plain route (the kernels' plain versions,
+        # on the card): the steps of 4 spp and the batch, bit for bit.
+        plain_cfg = dataclasses.replace(cfg, intersector=PLAIN_ROUTE)
+        plain_pr = ProgressiveRenderer(scene, cam, plain_cfg, seed=SEED)
+        while plain_pr.frame_index < cfg.spp:
+            plain_pr.step(PANEL_STEP)
+        out["progressive_bitwise_vs_plain"] = bool(
+            torch.equal(resumed.state.accum, plain_pr.state.accum))
+        batch = render_linear(scene, cam, cfg, SEED)
+        out["batch_bitwise_vs_plain"] = bool(torch.equal(
+            batch, render_linear(scene, cam, plain_cfg, SEED)))
+        if not (out["progressive_bitwise_vs_plain"]
+                and out["batch_bitwise_vs_plain"]):
+            raise AssertionError(f"the panel render differs from the plain "
+                                 f"route's: {out}")
+        err = (resumed.state.accum - batch).abs()
+        out["progressive_max_abs_err"] = float(err.max())
+        if not bool(torch.isfinite(resumed.state.accum).all()) or bool(
+                (err > PROGRESSIVE_ATOL
+                 + PROGRESSIVE_RTOL * batch.abs()).any()):
+            raise AssertionError(f"progressive render in steps of "
+                                 f"{PANEL_STEP} spp differs from the batch "
+                                 f"render: max abs err {float(err.max())}")
+        reset_counts(fh, mi)
+        ones = ProgressiveRenderer(scene, cam, cfg, seed=SEED)
+        for _ in range(cfg.spp):
+            ones.step(1)
+        count("progressive render in 1-spp steps",
+              {"fused_hit": cfg.spp * cfg.max_depth})
+        out["progressive_1spp_bitwise"] = bool(
+            torch.equal(ones.state.accum, batch))
+        if not out["progressive_1spp_bitwise"]:
+            raise AssertionError("progressive render in 1-spp steps is not "
+                                 "bitwise equal to the batch render")
+
+        # (c) Mesh and NEE renders, each PNG the bytes of the plain route's
+        # image, and the kernel route's linear image the plain route's.
+        for name, extra, expected in (
+                ("terrain", [], ("fused_hit", "mesh_first_cluster",
+                                 "mesh_search")),
+                ("cornell", ["--nee"], ("fused_hit", "fused_hit_shadow"))):
+            png = tmp / f"{name}.png"
+            reset_counts(fh, mi)
+            rc, text = run_cli(cli, ["render", *small_args(name), *extra,
+                                     "--out", str(png)])
+            per = CLI_SMALL["spp"] * CLI_SMALL["depth"]
+            out[f"{name}_launches"] = count(
+                f"cli render --scene {name}", dict.fromkeys(expected, per))
+            if rc != 0:
+                raise AssertionError(f"cli render --scene {name} exited {rc}")
+            c = RenderConfig(width=CLI_SMALL["width"],
+                             height=CLI_SMALL["height"], spp=CLI_SMALL["spp"],
+                             max_depth=CLI_SMALL["depth"], nee=bool(extra))
+            plain_c = dataclasses.replace(c, intersector=PLAIN_ROUTE)
+            sc, cm = scenes.get_scene(name, c.aspect_ratio)
+            if png.read_bytes() != encode_png(render(sc, cm, plain_c,
+                                                     SEED).cpu().numpy()):
+                raise AssertionError(f"cli render --scene {name} wrote "
+                                     f"another image than the plain route")
+            if not torch.equal(render_linear(sc, cm, c, SEED),
+                               render_linear(sc, cm, plain_c, SEED)):
+                raise AssertionError(f"--scene {name}: the kernel route's "
+                                     f"linear image is not the plain "
+                                     f"route's")
+            print(f"cli render --scene {name}: {text.strip()}", flush=True)
+
+    # (d) `invert`: the target render (A1), then train steps on the gradient
+    # path (A2 selects, autograd re-derives); with --edge-aware also the
+    # background re-trace (A1's exclude instance). Each run's first printed
+    # loss is the plain route's first step, printed the same way.
+    per = CLI_SMALL["spp"] * CLI_SMALL["depth"]
+    for extra, steps, expected, at_least in (
+            ([], 2, {"fused_hit": per}, ("fused_hit_shadow",)),
+            (["--edge-aware", "--train-camera"], 1, {},
+             ("fused_hit", "fused_hit_shadow", "fused_hit[exclude]"))):
+        what = " ".join(["cli invert", *extra])
+        argv = ["invert", *small_args("random"), "--steps", str(steps),
+                *extra]
+        reset_counts(fh, mi)
+        rc, text = run_cli(cli, argv)
+        printed = [line.split()[-1] for line in text.splitlines()
+                   if line.startswith("step")]
+        launched = count(what, expected, at_least=at_least)
+        losses = [float(x) for x in printed]
+        if rc != 0 or len(losses) != steps or not all(np.isfinite(losses)):
+            raise AssertionError(f"{what}: exit {rc}, losses {losses}")
+        if "--train-camera" in extra and "recovered camera origin" not in text:
+            raise AssertionError(f"{what} printed no camera origin")
+        args = cli.build_parser().parse_args(argv)
+        plain_cfg = dataclasses.replace(cli.invert_config(args),
+                                        intersector=PLAIN_ROUTE)
+        *_, key, target, init_state, step_fn, _ = cli.invert_problem(
+            args, plain_cfg, torch.device("cuda", 0))
+        _, plain_loss = step_fn(init_state(), target, fold_in(key, 1))
+        plain_loss = f"{float(plain_loss):.6f}"
+        out[what] = {"losses": losses, "plain_first_loss": plain_loss,
+                     "launches": launched}
+        if printed[0] != plain_loss:
+            raise AssertionError(f"{what}: first loss {printed[0]}, on the "
+                                 f"plain route {plain_loss}")
+    out["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1800,6 +2001,12 @@ def main() -> None:
             grad_cmp[name] = st
             print(f"gradients {name}: {json.dumps(st)}", flush=True)
 
+    phase("the CLI on the card: bench, a progressive render with a "
+          "checkpoint, mesh and NEE renders, invert; each against the "
+          "plain route")
+    cli_out = cli_phase(fh, mi, scenes, render_linear, RenderConfig)
+    print(f"cli phase: {json.dumps(cli_out)}", flush=True)
+
     sources = {
         "fused_hit": ("qt_raytracer_tpu_torch/csrc/fused_hit.cu",
                       "qt_raytracer_tpu/kernels/fused_hit.py:50"),
@@ -1834,9 +2041,10 @@ def main() -> None:
           flush=True)
     print(f"launches over the forward paths' counted frames: "
           f"{json.dumps(launches)}; over the nine train steps: "
-          f"{json.dumps(train_launches)}")
-    for k, v in train_launches.items():
-        launches[k] += v
+          f"{json.dumps(train_launches)}; over the CLI phase's runs: "
+          f"{json.dumps(cli_out['launches'])}")
+    for k in KERNELS:
+        launches[k] += train_launches[k] + cli_out["launches"][k]
     missing = [name for name in KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the paths: "

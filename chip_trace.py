@@ -24,6 +24,7 @@ import tempfile
 import torch
 
 from chip_smoke import C5, require_card, view_loss_and_grads, wall_s
+from qt_raytracer_tpu_torch.app.profiling import trace
 
 OURS = ("fused_hit_kernel", "sphere_search_kernel",
         "sphere_search_clustered_kernel", "mesh_search_kernel",
@@ -32,16 +33,11 @@ OURS = ("fused_hit_kernel", "sphere_search_kernel",
 
 def kernel_events(fn) -> list[dict]:
     """The device kernels of one call of fn, from the chrome trace."""
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
-        path = pathlib.Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-    return [e for e in events if e.get("cat") == "kernel"]
+        with trace(tmp) as prof:
+            fn()
+        events = json.loads(pathlib.Path(prof.trace_path).read_text())
+    return [e for e in events["traceEvents"] if e.get("cat") == "kernel"]
 
 
 def summarise(kernels: list[dict]) -> dict:

@@ -40,6 +40,9 @@ MAX_SPP = 1000
 MIN_DEPTH = 1
 MAX_DEPTH = 100
 
+# AA presets (resources/qml/Main.qml:91-102).
+AA_PRESETS = {"low": 8, "medium": 24, "high": 64}
+
 # Intersector values of the JAX package. Each runs the CUDA kernels on CUDA
 # tensors and their plain PyTorch versions on CPU tensors; the "*_interpret"
 # values run the plain versions on any device (the counterpart of Pallas

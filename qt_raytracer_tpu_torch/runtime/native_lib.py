@@ -1,5 +1,5 @@
 """ctypes loader of the repository's native runtime library,
-``native/libqtrt_native.so`` (the C++ SAH BVH builder), built on first use
+``native/libqtrt_native.so`` (the C++ SAH BVH builder and OBJ loader), built on first use
 with ``make -C native`` from the sources in the checkout.
 
 Counterpart of ``qt_raytracer_tpu.runtime.native_lib``, with the same
@@ -49,3 +49,7 @@ def _configure(lib) -> None:
         c_float_p, c_float_p, ctypes.c_int, ctypes.c_int,
         c_float_p, c_float_p, c_int_p, c_int_p, c_int_p, c_int_p,
     ]
+    lib.qtrt_obj_count.restype = ctypes.c_int
+    lib.qtrt_obj_count.argtypes = [ctypes.c_char_p, c_int_p, c_int_p]
+    lib.qtrt_obj_load.restype = ctypes.c_int
+    lib.qtrt_obj_load.argtypes = [ctypes.c_char_p, c_float_p, c_int_p]

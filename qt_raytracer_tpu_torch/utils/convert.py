@@ -1,5 +1,5 @@
-"""Carry scene, mesh, world, camera, key and training state across from
-the JAX package.
+"""Carry scene, mesh, world, camera, key, training state and progressive
+state across from the JAX package.
 
 Each takes the JAX package's values as numpy arrays (for example
 ``{f.name: np.asarray(getattr(scene, f.name)) for f in
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..accel.mesh import TriangleMesh
+from ..app.progressive import ProgressiveState
 from ..core.camera import Camera
 from ..core.scene import SphereScene
 from ..core.world import World
@@ -97,3 +98,18 @@ def train_state_from_arrays(params: dict, mu: dict, nu: dict, count: int,
         opt.state[t] = {"step": torch.tensor(float(count)),  # Adam keeps it on the host
                         "exp_avg": m[path], "exp_avg_sq": v[path]}
     return TrainState(p, opt, int(step))
+
+
+def progressive_state_from_arrays(accum, sample_count: int, seed: int,
+                                  device=None) -> ProgressiveState:
+    """The port's ProgressiveState from a JAX one: accum, the [H, W, 3]
+    linear radiance sum (``np.asarray(state.accum)``), its sample count and
+    seed. Set it as ``renderer.state`` and the next ``step`` continues the
+    JAX render with the same samples."""
+    accum = np.asarray(accum)
+    if accum.ndim != 3 or accum.shape[2] != 3:
+        raise ValueError(f"accum is [H, W, 3], got {accum.shape}")
+    return ProgressiveState(
+        accum=torch.from_numpy(np.array(accum, dtype=np.float32)).to(
+            resolve_device(device)),
+        sample_count=int(sample_count), seed=int(seed))

@@ -1185,3 +1185,89 @@ def test_pair_kernel_single_valid_pair_tiles(card, tie_meshes, name):
                          interpret=True)
     _bitwise(kern, plain)
     assert bool((plain[0] < fh.BIG).any())
+
+
+# ---------------------------------------------------------- the app layer
+APP_CFG = dict(width=96, height=54, spp=3, max_depth=4)
+
+
+def test_cli_render_equals_render_on_card(card, tmp_path):
+    """`cli render` on the card writes exactly the PNG of `render` on the
+    card (the file's bytes: one encoder, one image)."""
+    from qt_raytracer_tpu_torch import render
+    from qt_raytracer_tpu_torch.app import cli
+    from qt_raytracer_tpu_torch.app.png import encode_png
+    out = tmp_path / "card.png"
+    assert cli.main(["render", "--scene", "random", "--width", "96",
+                     "--height", "54", "--spp", "3", "--depth", "4",
+                     "--seed", "7", "--out", str(out)]) == 0
+    cfg = RenderConfig(**APP_CFG)
+    scene, cam = scenes.get_scene("random", cfg.aspect_ratio)
+    assert scene.device == card
+    want = render(scene, cam, cfg, 7).cpu().numpy()
+    assert out.read_bytes() == encode_png(want)
+
+
+@pytest.mark.parametrize("name", ["random", "cornell_mesh"])
+def test_progressive_1spp_steps_equal_batch_on_card(card, name):
+    from qt_raytracer_tpu_torch.app.progressive import ProgressiveRenderer
+    cfg = RenderConfig(**APP_CFG, nee=name == "cornell_mesh")
+    scene, cam = scenes.get_scene(name, cfg.aspect_ratio)
+    pr = ProgressiveRenderer(scene, cam, cfg, seed=4)
+    for _ in range(cfg.spp):
+        pr.step(1)
+    assert pr.state.accum.device == card
+    assert torch.equal(pr.state.accum, render_linear(scene, cam, cfg, 4))
+
+
+def test_checkpoint_moves_between_card_and_cpu(card, tmp_path):
+    """A checkpoint written on the card loads onto the CPU and continues
+    there, and the reverse; each lands on its renderer's device."""
+    from qt_raytracer_tpu_torch.app.progressive import ProgressiveRenderer
+    cfg = RenderConfig(**APP_CFG)
+    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio,
+                                  device="cpu")
+    on_card = ProgressiveRenderer(scene.to(card), cam.to(card), cfg, seed=2)
+    on_cpu = ProgressiveRenderer(scene, cam, cfg, seed=9)
+    on_card.step(2)
+    on_card.save(tmp_path / "card.pt")
+    on_cpu.load(tmp_path / "card.pt")
+    assert on_cpu.state.accum.device.type == "cpu" and on_cpu.seed == 2
+    assert torch.equal(on_cpu.state.accum, on_card.state.accum.cpu())
+    on_cpu.step(1)
+    on_cpu.save(tmp_path / "cpu.pt")
+    back = ProgressiveRenderer(scene.to(card), cam.to(card), cfg, seed=0)
+    back.load(tmp_path / "cpu.pt")
+    assert back.state.accum.device == card and back.frame_index == 3
+    assert torch.equal(back.state.accum.cpu(), on_cpu.state.accum)
+    back.step(1)
+    full = ProgressiveRenderer(scene, cam, cfg, seed=2)
+    full.step(4)
+    got, want = back.state.accum.cpu() / 4, full.state.accum / 4
+    bad = (got - want).abs() > 2e-3 + 2e-3 * want.abs()
+    assert float(bad.float().mean()) <= 0.01
+
+
+def test_device_memory_stats_on_card(card):
+    from qt_raytracer_tpu_torch.app.profiling import device_memory_stats
+    x = torch.ones(1 << 20, device=card)
+    stats = device_memory_stats()
+    assert len(stats) == torch.cuda.device_count() >= 1
+    assert stats[0]["allocated_bytes.all.current"] >= x.numel() * 4
+
+
+def test_trace_holds_the_annotated_span_and_kernels(card, tmp_path):
+    from qt_raytracer_tpu_torch.app.profiling import annotate, trace
+    cfg = RenderConfig(width=64, height=36, spp=1, max_depth=2)
+    scene, cam = scenes.get_scene("random", cfg.aspect_ratio)
+    render_linear(scene, cam, cfg, 0)          # build and warm up
+    with trace(str(tmp_path)) as prof:
+        with annotate("qtrt_card_span"):
+            render_linear(scene, cam, cfg, 0)
+    import json
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    assert "qtrt_card_span" in names
+    assert any("fused_hit_kernel" in k for k in kernels), sorted(kernels)[:20]

@@ -16,6 +16,10 @@ from qt_raytracer_tpu_torch.kernels import fused_hit as fh
 from qt_raytracer_tpu_torch.runtime import cuda_build
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
+APP_IMPORTS = "".join(
+    f"import qt_raytracer_tpu_torch.app.{m}\n"
+    for m in ("cli", "progressive", "preview", "interactive", "profiling",
+              "stats", "png"))
 
 
 def test_import_loads_no_jax():
@@ -37,6 +41,8 @@ def test_import_loads_no_jax():
         "import qt_raytracer_tpu_torch.diff.multiview\n"
         "import qt_raytracer_tpu_torch.diff.edge\n"
         "import qt_raytracer_tpu_torch.runtime.device\n"
+        "import qt_raytracer_tpu_torch.runtime.native_bvh\n"
+        + APP_IMPORTS +
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'qt_raytracer_tpu' or "
         "m.startswith('qt_raytracer_tpu.'))\n"
@@ -46,6 +52,26 @@ def test_import_loads_no_jax():
                           env={"PYTHONPATH": str(REPO), "PATH": ""},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_app_loads_no_pil(tmp_path):
+    # The app writes PNGs with the standard library alone: the card's
+    # machine has no imaging package.
+    code = (
+        "import sys\n"
+        + APP_IMPORTS +
+        "import numpy as np\n"
+        "from qt_raytracer_tpu_torch.app.png import write_png\n"
+        f"write_png({str(tmp_path / 'x.png')!r}, np.zeros((3, 5, 3), np.uint8))\n"
+        "bad = sorted(m for m in sys.modules if m == 'PIL' or "
+        "m.startswith('PIL.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={"PYTHONPATH": str(REPO), "PATH": ""},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert (tmp_path / "x.png").stat().st_size > 0
 
 
 def _no_cuda():
