@@ -45,7 +45,21 @@ counts set to 0 just before it and read just after:
     built with another seed), against the batch render within 1e-5, and
     bit for bit in 1-spp steps; ``cli render`` of the terrain and of the
     sphere Cornell box with NEE, each PNG the bytes of ``render``'s image;
-    and ``cli invert --steps 2`` (finite losses).
+    and ``cli invert --steps 2`` (finite losses);
+  - the portable route, ``intersector="xla"`` (the [N, S] sphere search in
+    PyTorch ops and the BVH walk kernel): the terrain and book-cover 1080p
+    frames, each against the default route's frame by the flip budget
+    (the walk and the clustered search break ties otherwise), and one
+    config-5 view-step on the true Cornell box, pathwise and edge-aware
+    (the walk's exclude instance in the background re-trace), against the
+    default route's view-step, the walk with and without exclude then
+    held bit for bit against its plain version on the background
+    re-trace's own wavefront, captured from that step; before them the walk against its plain
+    version on two terrain wavefronts (with dead lanes, an excluded
+    winner on a tenth of the lanes, a finite t_max), timed beside the
+    clustered search (A3) on the same rays; after them a 96x64
+    Cornell-mesh NEE frame on the card against the port's f64 vector
+    oracle.
 
 Before the frames, the mesh search's row-gated and bilinear-form instances
 are held against their plain versions and against the default instance on
@@ -113,7 +127,7 @@ KERNELS = ("fused_hit", "fused_hit_shadow", "mesh_first_cluster",
            "fused_hit[exclude]", "sphere_search[exclude]",
            "mesh_search[exclude]", "mesh_first_cluster[pair]",
            "mesh_crossing_lists", "mesh_pairs", "mesh_search[rowgate]",
-           "mesh_search[mxu]")
+           "mesh_search[mxu]", "bvh_walk", "bvh_walk[exclude]")
 PAIR_C = 6                 # crossing-list width of the pair search
 CLUSTER_ROWS = (1, 2, 4)   # cluster sizes timed on the bounce wavefront
 PEAK_FP32 = 67e12          # FLOP/s outside the tensor cores (H100 SXM)
@@ -154,6 +168,13 @@ PANEL_STEP, PANEL_CHECKPOINT = 4, 12
 CLI_SMALL = dict(width=192, height=108, spp=2, depth=3)
 PROGRESSIVE_ATOL = PROGRESSIVE_RTOL = 1e-5   # steps of n > 1 spp vs batch
 PLAIN_ROUTE = "fused_interpret"   # every kernel's plain version, on the card
+# The portable route (intersector="xla"): the BVH walk's node (two boxes,
+# escape, start, count) and triangle (v0, e1, e2) rows; the vector oracle's
+# frame and budget (tests/test_oracle_vec.py).
+NODE_BYTES = TRI_BYTES = 36
+XLA_ORACLE = dict(width=96, height=64, spp=4, max_depth=6, nee=True,
+                  rng="hash", intersector="xla")
+XLA_ORACLE_MISMATCH_MAX = 0.04
 
 
 START = time.perf_counter()
@@ -282,8 +303,15 @@ def _mesh_pairs_module():
     return mesh_pairs
 
 
+def _bvh_walk_module():
+    from qt_raytracer_tpu_torch.kernels import bvh_walk
+    return bvh_walk
+
+
 def reset_counts(fh, mi) -> None:
     si, mp = _sphere_search_module(), _mesh_pairs_module()
+    bw = _bvh_walk_module()
+    bw.launches = bw.exclude_launches = 0
     fh.launches = fh.shadow_launches = 0
     fh.exclude_launches = fh.shadow_exclude_launches = 0
     mi.launches = mi.first_cluster_launches = mi.exclude_launches = 0
@@ -295,6 +323,7 @@ def reset_counts(fh, mi) -> None:
 
 def read_counts(fh, mi) -> dict:
     si, mp = _sphere_search_module(), _mesh_pairs_module()
+    bw = _bvh_walk_module()
     return {"fused_hit": fh.launches, "fused_hit_shadow": fh.shadow_launches,
             "mesh_first_cluster": mi.first_cluster_launches,
             "mesh_search": mi.launches, "sphere_search": si.launches,
@@ -306,7 +335,9 @@ def read_counts(fh, mi) -> dict:
             "mesh_crossing_lists": mp.crossing_lists_launches,
             "mesh_pairs": mp.pair_hits_launches,
             "mesh_search[rowgate]": mi.rowgate_launches,
-            "mesh_search[mxu]": mi.mxu_launches}
+            "mesh_search[mxu]": mi.mxu_launches,
+            "bvh_walk": bw.launches,
+            "bvh_walk[exclude]": bw.exclude_launches}
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -1013,6 +1044,268 @@ def cli_phase(fh, mi, scenes, render_linear, RenderConfig) -> dict:
     return out
 
 
+def bvh_walk_bound(n: int, live: int, boxes: int, tris: int, mesh,
+                   exclude: bool) -> dict:
+    """Bound of the BVH walk on n rays (live of them alive): 20 operations
+    per node box and 45 per triangle the live rays test (as the plain walk
+    counts them); bytes: the rays, alive (and the exclude ids) in, (t, idx)
+    out, the node and triangle tables once. Beside it the bytes of every
+    node and triangle row the walk reads, each time it reads one."""
+    tables = mesh.bvh_escape.shape[0] * NODE_BYTES \
+        + mesh.num_triangles * TRI_BYTES
+    rays = n * (25 + 4 * exclude + 8)
+    return {"boxes_per_live_ray": boxes / max(live, 1),
+            "tris_per_live_ray": tris / max(live, 1),
+            "bytes_read_per_visit": boxes * NODE_BYTES + tris * TRI_BYTES,
+            **bound(boxes * SLAB_FLOPS + tris * MT_FLOPS, rays + tables)}
+
+
+def walk_wavefront(bw, mi, mc, mesh, o, d, alive, t_min, seed: int,
+                   time_plain: bool) -> dict:
+    """The walk against its plain version on one wavefront [N, 3]: with
+    alive, with each ray's own winner excluded on a random tenth of the
+    lanes, and under a finite t_max (the median hit t); live lanes bit for
+    bit, (BIG, 0) on dead lanes. Times the kernel, the plain walk (when
+    time_plain) and A3 (the clustered search, uncapped) on the same rays,
+    and counts the plain walk's work for the bound; with time_plain, the
+    exclude instance gets a plain time and a bound of its own."""
+    n = o.shape[0]
+    live = int(alive.sum())
+    t, idx = bw.bvh_walk(mesh, o, d, t_min, alive=alive)
+    plain, plain_s = wall_s(lambda: bw.bvh_walk_plain(
+        mesh, o, d, t_min, alive=alive, count=True))
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    tenth = (torch.rand(n, generator=g) < 0.1).to(o.device)
+    excl = torch.where(tenth, own_winner(idx, t, alive, bw.BIG), -1)
+    plain_x = bw.bvh_walk_plain(mesh, o, d, t_min, alive=alive, exclude=excl,
+                                count=time_plain)
+    hits = t[alive & (t < bw.BIG)]
+    t_max = float(hits.median()) if hits.numel() else bw.BIG
+    out = {"rays": n, "live": live, "finite_t_max": t_max,
+           "hits": int(hits.numel()), "plain_s": plain_s}
+    cases = {"alive": ((t, idx), plain[:2], {}),
+             "exclude": (None, plain_x[:2], dict(exclude=excl)),
+             "t_max": (None, None, dict(t_max=t_max))}
+    for name, (kern, ref, kw) in cases.items():
+        tm = kw.pop("t_max", bw.BIG)
+        if kern is None:
+            kern = bw.bvh_walk(mesh, o, d, t_min, tm, alive=alive, **kw)
+        if ref is None:
+            ref = bw.bvh_walk_plain(mesh, o, d, t_min, tm, alive=alive, **kw)
+        st = compare_t_idx(bw.BIG, kern, ref, alive)
+        if not st["bitwise"]:
+            raise AssertionError(f"the walk ({name}) is not bitwise equal "
+                                 f"to its plain version: {st}")
+        if name == "exclude":
+            st.update(check_excluded(kern[0], kern[1], excl, alive, bw.BIG,
+                                     "the walk"))
+        if name == "t_max" and bool((kern[0][alive] > tm).logical_and(
+                kern[0][alive] < bw.BIG).any()):
+            raise AssertionError("the walk returned a hit beyond t_max")
+        st["ms"] = cuda_ms(lambda: bw.bvh_walk(mesh, o, d, t_min, tm,
+                                               alive=alive, **kw))
+        out[name] = st
+    comps = [x[:, k].contiguous() for x in (o, d) for k in range(3)]
+    out.update(
+        bvh_walk_bound(n, live, plain[2], plain[3], mesh, False),
+        ms=out["alive"]["ms"], max_abs_err=0.0,
+        a3_ms=cuda_ms(lambda: mi.mesh_search(mc, *comps, t_min,
+                                             alive=alive)),
+        plain_ms=cuda_ms(lambda: bw.bvh_walk_plain(
+            mesh, o, d, t_min, alive=alive), 1) if time_plain else None)
+    if time_plain:
+        out["exclude"].update(
+            bvh_walk_bound(n, live, plain_x[2], plain_x[3], mesh, True),
+            plain_ms=cuda_ms(lambda: bw.bvh_walk_plain(
+                mesh, o, d, t_min, alive=alive, exclude=excl), 1))
+    return out
+
+
+@contextlib.contextmanager
+def capture_exclude_walk(bw):
+    """Record the operands of the first walk with exclude made inside the
+    block (the edge-aware step's bounce-0 background re-trace): a list that
+    holds (mesh, o, d, t_min, t_max, alive, exclude) after the block. The
+    walk itself runs unchanged and counts its launch as before."""
+    walk, seen = bw.bvh_walk, []
+
+    def spy(mesh, o, d, t_min, t_max=bw.BIG, **kw):
+        if not seen and kw.get("exclude") is not None:
+            n = o.shape[0]
+            alive = kw.get("alive")
+            alive = torch.ones(n, dtype=torch.bool, device=o.device) \
+                if alive is None else alive
+            seen.extend((mesh, o.detach().clone(), d.detach().clone(),
+                         float(t_min), float(t_max), alive.clone(),
+                         kw["exclude"].clone()))
+        return walk(mesh, o, d, t_min, t_max, **kw)
+
+    bw.bvh_walk = spy
+    try:
+        yield seen
+    finally:
+        bw.bvh_walk = walk
+
+
+def walk_step_wavefront(bw, mesh, o, d, t_min, t_max, alive, excl) -> dict:
+    """The walk, with and without exclude, against its plain version on the
+    wavefront the edge-aware true-Cornell step hands its exclude instance:
+    live lanes bit for bit, (BIG, 0) on dead lanes; each timed."""
+    out = {"rays": o.shape[0], "live": int(alive.sum()),
+           "excluded_lanes": int((alive & (excl >= 0)).sum()),
+           "triangles": mesh.num_triangles}
+    for name, kw in (("alive", {}), ("exclude", dict(exclude=excl))):
+        kern = lambda: bw.bvh_walk(mesh, o, d, t_min, t_max, alive=alive,
+                                   **kw)
+        plain = lambda: bw.bvh_walk_plain(mesh, o, d, t_min, t_max,
+                                          alive=alive, **kw)
+        st = compare_t_idx(bw.BIG, kern(), plain(), alive)
+        if not st["bitwise"]:
+            raise AssertionError(f"the walk ({name}) is not bitwise equal to "
+                                 f"its plain version on the Cornell step: "
+                                 f"{st}")
+        st.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, 1))
+        out[name] = st
+    return out
+
+
+def xla_phase(fh, mi, render_linear, RenderConfig, scenes, terrain, book,
+              world, camw, cfg5, key, results) -> dict:
+    """The portable route, intersector="xla", on the card: (a) the BVH walk
+    against its plain version on two terrain wavefronts; (b) the terrain
+    1080p frame (exact walk launches) against the default route's frame by
+    the flip budget; (c) the book-cover 1080p frame (the [N, S] sphere
+    search, no kernel) likewise, with its peak memory; (d) one config-5
+    true-Cornell view-step, pathwise and edge-aware (the walk's exclude
+    instance in the background re-trace), against the default route's by
+    the step criteria of PERF.md section 2, and the walk with and without
+    exclude against its plain version on the re-trace's wavefront; (e) a small Cornell-mesh NEE
+    frame against the port's vector oracle. Returns its numbers and the
+    launches of its counted frames and steps."""
+    from qt_raytracer_tpu_torch.core.render import resolve_pixel_chunk
+    from qt_raytracer_tpu_torch.testing.oracle_vec import render_oracle_vec
+    bw = _bvh_walk_module()
+    out = {"launches": dict.fromkeys(KERNELS, 0)}
+
+    def chunks(cfg):
+        chunk = resolve_pixel_chunk(cfg)
+        return -(-cfg.num_pixels // chunk) if 0 < chunk < cfg.num_pixels \
+            else 1
+
+    def count(counts):
+        for k, v in counts.items():
+            out["launches"][k] += v
+
+    # (a) the walk on the terrain's chunk-2 primary and bounce-2 wavefronts.
+    mesh, cfg_t = terrain["world"].mesh, terrain["cfg"]
+    walk = {}
+    for seed, (name, s) in enumerate(terrain["fronts"].items()):
+        o = torch.stack([s.ox, s.oy, s.oz], 1)
+        d = torch.stack([s.dx, s.dy, s.dz], 1)
+        alive = with_dead_lanes(s.alive, 11 + seed) if name.startswith(
+            "primary") else s.alive
+        walk[name] = walk_wavefront(bw, mi, terrain["mc"], mesh, o, d, alive,
+                                    cfg_t.t_min, seed,
+                                    time_plain=name.startswith("primary"))
+        print(f"bvh_walk {name}: {json.dumps(walk[name])}", flush=True)
+    prim = walk["primary_chunk2"]
+    results["bvh_walk"] = (0.0, prim)
+    results["bvh_walk[exclude]"] = (0.0, prim["exclude"])
+    out["walk"] = walk
+
+    # (b), (c) the frames, each against the default route's frame.
+    per = chunks(cfg_t) * cfg_t.max_depth
+    frames = {"terrain": (terrain, {"bvh_walk": per}),
+              "book_cover": (book, {})}
+    for name, (ref, expected) in frames.items():
+        scene = ref["world"] if "world" in ref else ref["scene"]
+        cfg = dataclasses.replace(ref["cfg"], intersector="xla")
+        torch.cuda.reset_peak_memory_stats()
+        img, fr = drive_frame(fh, mi, render_linear, scene, ref["camera"],
+                              cfg, expected)
+        bad = (img - ref["img"]).abs() > IMG_ATOL + IMG_RTOL * ref["img"].abs()
+        fr.update(default_steady_s=ref["frame_s"],
+                  mismatch_frac_vs_default=float(bad.float().mean()),
+                  bitwise_frac_vs_default=float((img == ref["img"]).float()
+                                                .mean()),
+                  max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+                  / 2 ** 30)
+        if fr["mismatch_frac_vs_default"] > IMG_MISMATCH_MAX:
+            raise AssertionError(f"the xla {name} frame differs from the "
+                                 f"default route's frame: {fr}")
+        count(fr["launches"])
+        out[f"{name}_frame"] = fr
+        print(f"xla {name} frame: {json.dumps(fr)}", flush=True)
+        del img
+
+    # (d) one config-5 view-step on the true Cornell box, both estimators.
+    evals = chunks(cfg5) * cfg5.spp * 2   # forward and its recompute
+    bounces = cfg5.max_depth
+    tgt = torch.full((cfg5.height, cfg5.width, 3), 0.3,
+                     device=camw.origin.device)
+    steps = {}
+    for est, per_eval, excl in (("pathwise", 2 * bounces, 0),
+                                ("edge_aware", 4 * bounces + 2, 1)):
+        cfg_e = dataclasses.replace(cfg5, edge_aware=est == "edge_aware")
+        default, default_s = wall_s(lambda: view_loss_and_grads(
+            world, camw, cfg_e, key, tgt, ("translate",)))
+        cfg_x = dataclasses.replace(cfg_e, intersector="xla")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fh, mi)
+        with capture_exclude_walk(bw) as seen:
+            got, sec = wall_s(lambda: view_loss_and_grads(
+                world, camw, cfg_x, key, tgt, ("translate",)))
+        counts = read_counts(fh, mi)
+        want = {**dict.fromkeys(KERNELS, 0), "bvh_walk": evals * per_eval,
+                "bvh_walk[exclude]": evals * excl}
+        if counts != want:
+            raise AssertionError(f"xla {est} view-step launched {counts}, "
+                                 f"expected {want}")
+        g = got[1]["translate"]
+        if not (torch.isfinite(got[0]) and bool(torch.isfinite(g).all())
+                and float(g.abs().max()) > 0):
+            raise AssertionError(f"xla {est} view-step: loss or gradient "
+                                 f"not finite and nonzero: {got}")
+        steps[est] = {
+            "s": sec, "default_s": default_s, "launches": counts,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
+            / 2 ** 30,
+            "vs_default": compare_grads(got, default, GRAD_RTOL_CPU,
+                                        f"xla {est} view-step vs default")}
+        count(counts)
+        print(f"xla view-step {est}: {json.dumps(steps[est])}", flush=True)
+        if seen:
+            st = walk_step_wavefront(bw, *seen)
+            print(f"bvh_walk on the Cornell step's background re-trace: "
+                  f"{json.dumps(st)}", flush=True)
+            steps[est]["walk_wavefront"] = st
+    if "walk_wavefront" not in steps["edge_aware"]:
+        raise AssertionError("the edge-aware xla view-step made no walk "
+                             "with exclude")
+    out["view_steps"] = steps
+
+    # (e) a small frame on the card against the f64 vector oracle.
+    cfg_o = RenderConfig(**XLA_ORACLE)
+    w_o, c_o = scenes.get_scene("cornell_mesh", cfg_o.aspect_ratio,
+                                device=camw.origin.device)
+    img = render_linear(w_o, c_o, cfg_o, SEED).double().cpu().numpy()
+    ref, oracle_s = wall_s(lambda: render_oracle_vec(w_o, c_o, cfg_o, SEED))
+    per_px = np.max(np.abs(img - ref), axis=-1) \
+        / (np.max(ref, axis=-1) + 1e-3)
+    out["oracle"] = {"size": [cfg_o.width, cfg_o.height, cfg_o.spp,
+                              cfg_o.max_depth],
+                     "mismatch_frac": float((per_px > 2e-3).mean()),
+                     "oracle_s": oracle_s, "finite": bool(np.isfinite(
+                         img).all())}
+    if not out["oracle"]["finite"] or \
+            out["oracle"]["mismatch_frac"] >= XLA_ORACLE_MISMATCH_MAX:
+        raise AssertionError(f"the xla frame differs from the f64 oracle: "
+                             f"{out['oracle']}")
+    print(f"xla frame vs the f64 oracle: {json.dumps(out['oracle'])}",
+          flush=True)
+    return out
+
+
 def main() -> None:
     dev = require_card()
 
@@ -1182,6 +1475,9 @@ def main() -> None:
     print(f"frame: {json.dumps(frame)}", flush=True)
     for k, v in frame["launches"].items():
         launches[k] += v
+    # Kept for the phase "intersector='xla'".
+    xla_book = dict(scene=scene, camera=camera, cfg=cfg, img=img,
+                    frame_s=frame["steady_s"])
 
     phase("small frame on the card vs the CPU")
     small = RenderConfig(width=64, height=36, spp=2, max_depth=6, rng="hash")
@@ -1582,6 +1878,11 @@ def main() -> None:
         print(f"terrain frame {name}: {json.dumps(fr)}", flush=True)
         for k, v in fr["launches"].items():
             launches[k] += v
+    # Kept for the phase "intersector='xla'".
+    xla_terrain = dict(world=world, camera=camera, cfg=cfg_t, img=img_t,
+                       frame_s=frame["steady_s"], mc=mc,
+                       fronts={k: wavefronts[k] for k in ("primary_chunk2",
+                                                          "bounce2_chunk2")})
     del world, wt, mc, s0, s0c2, s2, wavefronts, img_t, img_v
 
     # ------------------------------------- mesh-world path with NEE
@@ -2001,6 +2302,17 @@ def main() -> None:
             grad_cmp[name] = st
             print(f"gradients {name}: {json.dumps(st)}", flush=True)
 
+    phase("intersector='xla': the BVH walk vs its plain version (terrain), "
+          "terrain and book-cover 1080p frames, config-5 true-Cornell "
+          "view-steps, a small frame vs the f64 oracle")
+    xla_out = xla_phase(fh, mi, render_linear, RenderConfig, scenes,
+                        xla_terrain, xla_book, world, camw, cfg5, key11,
+                        results)
+    for k, v in xla_out["launches"].items():
+        launches[k] += v
+    print(f"xla phase: {json.dumps(xla_out)}", flush=True)
+    del xla_terrain, xla_book
+
     phase("the CLI on the card: bench, a progressive render with a "
           "checkpoint, mesh and NEE renders, invert; each against the "
           "plain route")
@@ -2033,13 +2345,17 @@ def main() -> None:
     sources["mesh_search[mxu]"] = (
         "qt_raytracer_tpu_torch/csrc/mesh_intersect.cu",
         "qt_raytracer_tpu/kernels/mesh_intersect.py:324")
+    # No TPU kernel: the counterpart of the JAX package's portable walk.
+    sources["bvh_walk"] = ("qt_raytracer_tpu_torch/csrc/bvh_walk.cu",
+                           "qt_raytracer_tpu/accel/traverse.py:56")
     # The exclude and pair variants are template instances of their kernels.
     for name in KERNELS:
         if name.endswith(("[exclude]", "[pair]")):
             sources[name] = sources[name[:name.index("[")]]
     print(f"chip_smoke.py phases done in {time.perf_counter() - START:.1f} s",
           flush=True)
-    print(f"launches over the forward paths' counted frames: "
+    print(f"launches over the forward paths' counted frames (the xla "
+          f"phase's frames and view-steps among them): "
           f"{json.dumps(launches)}; over the nine train steps: "
           f"{json.dumps(train_launches)}; over the CLI phase's runs: "
           f"{json.dumps(cli_out['launches'])}")

@@ -6,7 +6,8 @@ indices: a hit on node i continues to i + 1 (its first child), a miss jumps
 to escape[i] (the next subtree to the right). Leaves hold contiguous runs of
 reordered primitives. The numpy builder splits the largest-extent axis at the
 centroid median; the native C++ builder (``runtime/native_bvh``) uses binned
-SAH. Mesh building reads ``prim_order`` and the root box.
+SAH. Mesh building reads ``prim_order`` and the root box; ``validate_bvh``
+checks a built tree's invariants.
 """
 
 from __future__ import annotations
@@ -87,3 +88,22 @@ def build_bvh(bb_min: np.ndarray, bb_max: np.ndarray,
         prim_start=np.array([n[2] for n in nodes], np.int32),
         prim_count=np.array([n[3] for n in nodes], np.int32),
         prim_order=out_order.astype(np.int32))
+
+
+def validate_bvh(bvh: FlatBVH, bb_min: np.ndarray, bb_max: np.ndarray) -> None:
+    """Structural invariants (used by tests): every primitive in exactly one
+    leaf run, each leaf box holding its primitives' boxes, and every escape
+    pointing forward, at most M."""
+    m = len(bvh.escape)
+    p = len(bvh.prim_order)
+    assert sorted(bvh.prim_order.tolist()) == list(range(p))
+    covered = np.zeros(p, bool)
+    for i in np.nonzero(bvh.prim_count > 0)[0]:
+        s, c = int(bvh.prim_start[i]), int(bvh.prim_count[i])
+        assert not covered[s:s + c].any()
+        covered[s:s + c] = True
+        ids = bvh.prim_order[s:s + c]
+        assert (bb_min[ids] >= bvh.bbox_min[i] - 1e-5).all()
+        assert (bb_max[ids] <= bvh.bbox_max[i] + 1e-5).all()
+    assert covered.all()
+    assert (bvh.escape > np.arange(m)).all() and (bvh.escape <= m).all()

@@ -12,10 +12,12 @@ for bit; they land on the CUDA card unless the caller names another device.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..core import vecmath as vm
 from ..core.scene import EMISSIVE, tensors_to
 from ..runtime.device import resolve_device
 
@@ -143,6 +145,37 @@ def build_mesh(vertices: np.ndarray, faces: np.ndarray,
         mat_type=i32(mt), albedo=f32(alb), fuzz=f32(fz), ior=f32(io),
         emission=f32(em), light_tri=i32(lights),
     )
+
+
+class TriHit(NamedTuple):
+    t: torch.Tensor        # [N] f32 (BIG on a miss)
+    tri_idx: torch.Tensor  # [N] i32
+    hit: torch.Tensor      # [N] bool
+
+
+def moller_trumbore(v0, e1, e2, o, d, t_min, t_max):
+    """Batched Moller-Trumbore: triangles [K,3] against rays [N,3] -> t
+    [N,K], with backface culling off (both orientations hit) and BIG where
+    there is no valid hit."""
+    big = float(np.float32(3.0e38))
+    p = vm.cross(d[:, None, :], e2[None, :, :])           # [N,K,3]
+    det = _dot3(p, e1[None, :, :])                        # [N,K]
+    ok_det = torch.abs(det) > 1e-12
+    inv_det = torch.where(ok_det, 1.0 / det, 0.0)
+    s = o[:, None, :] - v0[None, :, :]                    # [N,K,3]
+    u = _dot3(s, p) * inv_det
+    q = vm.cross(s, e1[None, :, :])                       # [N,K,3]
+    v = _dot3(q, d[:, None, :]) * inv_det
+    t = _dot3(q, e2[None, :, :]) * inv_det
+    ok = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+          & (t >= t_min) & (t <= t_max))
+    return torch.where(ok, t, big)
+
+
+def _dot3(a, b):
+    """a . b over the last axis, summed left to right."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) \
+        + a[..., 2] * b[..., 2]
 
 
 class MeshBuilder:

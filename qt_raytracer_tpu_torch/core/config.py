@@ -2,9 +2,8 @@
 
 The same frozen dataclass as ``qt_raytracer_tpu.core.config``: the same
 fields, defaults and clamps, so one configuration describes the same frame in
-both packages. The config accepts every value the JAX package accepts;
-``require_ported`` is where the renderer refuses a value whose port has not
-landed yet, naming the ROADMAP item that brings it.
+both packages. The config accepts every value the JAX package accepts, and
+the renderer runs each of them.
 
 Twelve fields are the port's own. The JAX package reads them from the
 environment while it traces; here they are explicit, validated options with
@@ -46,15 +45,15 @@ AA_PRESETS = {"low": 8, "medium": 24, "high": 64}
 # Intersector values of the JAX package. Each runs the CUDA kernels on CUDA
 # tensors and their plain PyTorch versions on CPU tensors; the "*_interpret"
 # values run the plain versions on any device (the counterpart of Pallas
-# interpret mode). "auto" is "fused". "fused" is the forward-only flat path;
-# "fused_diff" the gradient-capable flat path on sphere scenes (mesh worlds
-# take "pallas" under it); "pallas" the [N,3] gradient integrator.
-_PORTED_INTERSECTORS = ("auto", "fused", "fused_interpret", "fused_diff",
-                        "fused_diff_interpret", "pallas", "pallas_interpret")
-_UNPORTED_INTERSECTORS = {
-    "xla": "ROADMAP Queue A item 13 (the XLA [N,S] search and "
-           "accel/traverse.py)",
-}
+# interpret mode). "fused" is the forward-only flat path; "fused_diff" the
+# gradient-capable flat path on sphere scenes (mesh worlds take "pallas"
+# under it); "pallas" the [N,3] gradient integrator; "xla" the same
+# integrator on the portable search: the [N,S] sphere search in PyTorch ops
+# and the BVH walk. "auto" is "fused": on the card, auto means the kernels.
+# The JAX package maps "auto" to "xla" off a TPU; the port deliberately does
+# not carry that mapping over.
+INTERSECTORS = ("auto", "fused", "fused_interpret", "fused_diff",
+                "fused_diff_interpret", "pallas", "pallas_interpret", "xla")
 MESH_KERNELS = ("clustered", "pairs", "hybrid")
 
 
@@ -111,8 +110,7 @@ class RenderConfig:
         object.__setattr__(self, "max_depth", _clamp(self.max_depth, MIN_DEPTH, MAX_DEPTH))
         if self.quantizer not in ("cpu", "gpu"):
             raise ValueError(f"quantizer must be 'cpu' or 'gpu', got {self.quantizer!r}")
-        if (self.intersector not in _PORTED_INTERSECTORS
-                and self.intersector not in _UNPORTED_INTERSECTORS):
+        if self.intersector not in INTERSECTORS:
             raise ValueError(f"unknown intersector {self.intersector!r}")
         if self.rng not in ("threefry", "hash"):
             raise ValueError(f"unknown rng {self.rng!r}")
@@ -173,14 +171,6 @@ def mesh_search_options(cfg: RenderConfig) -> dict:
     return dict(mesh_kernel=cfg.mesh_kernel, mesh_pair_c=cfg.mesh_pair_c,
                 mesh_sort_mode=cfg.mesh_sort_mode, mesh_visit=cfg.mesh_visit,
                 mesh_mt=cfg.mesh_mt, mesh_cluster_rows=cfg.mesh_cluster_rows)
-
-
-def require_ported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError if cfg asks for a feature not yet ported."""
-    if cfg.intersector in _UNPORTED_INTERSECTORS:
-        raise NotImplementedError(
-            f"intersector {cfg.intersector!r} is not ported yet: "
-            f"{_UNPORTED_INTERSECTORS[cfg.intersector]}")
 
 
 def _clamp(x: int, lo: int, hi: int) -> int:

@@ -3,8 +3,9 @@
 
 A Python loop over bounce depth on SoA ray state with an alive mask.
 Intersections go through ``world.intersect_world``: the kernels (A5, and on
-mesh worlds A3 with A4 or, by ``mesh_kernel``, A7 and A8) pick the winners
-detached, and every hit quantity is
+mesh worlds A3 with A4 or, by ``mesh_kernel``, A7 and A8; under "xla" the
+[N, S] sphere search and the BVH walk) pick the winners, and every hit
+quantity is
 re-derived differentiably, so autograd reaches scene, mesh and camera
 tensors. Every sampling decision is a function of the counter-based
 uniforms and is held fixed (pathwise gradients).
@@ -194,8 +195,10 @@ def trace(scene, origins: torch.Tensor, directions: torch.Tensor,
 
     scene: a SphereScene or a World. sample_keys: [N] hash states or [N,2]
     threefry keys; bounce b reads stream STREAM_BOUNCE0 + b. intersector:
-    "pallas" (kernels on CUDA tensors, plain versions on CPU tensors) or
-    "pallas_interpret" (plain versions). nee: MIS next-event estimation
+    "pallas" (kernels on CUDA tensors, plain versions on CPU tensors),
+    "pallas_interpret" (plain versions) or "xla" (the [N, S] sphere search
+    and the BVH walk), for every bounce and shadow ray. nee: MIS next-event
+    estimation
     over every light (off when the world has none). rr_start: Russian
     roulette from this bounce on (0 = off; slot 7), unbiased.
     exclude_prim0: optional [N] integer unified prim id left out of the

@@ -1,12 +1,14 @@
 """Ray-sphere intersection of the gradient integrator (counterpart of
 ``qt_raytracer_tpu.core.intersect``).
 
-The closest-hit search (kernel A5, or A6 from 1,024 slots on, both in
-``kernels.sphere_intersect``) is detached: it picks the winner. Every
-differentiable quantity is re-derived here from the winner's row of
+Two searches pick the winner. Under ``backend="pallas"`` it is the kernel
+(A5, or A6 from 1,024 slots on, both in ``kernels.sphere_intersect``),
+detached; under ``backend="xla"`` it is the JAX package's portable [N, S]
+search, ``sphere_hit_ts`` and an argmin, in PyTorch ops. Every
+differentiable quantity is re-derived from the winner's row of
 ``packed_param_table(scene)`` with the well-conditioned oc form and stable
-(Citardauq) roots, so autograd reaches the scene tensors through the
-refinement alone.
+(Citardauq) roots; under "xla" the search's own t also keeps its gradient
+where the refinement falls back to it, as in JAX.
 """
 
 from __future__ import annotations
@@ -58,16 +60,25 @@ def packed_param_table(scene: SphereScene) -> torch.Tensor:
 
 
 def sphere_hit_ts(scene: SphereScene, origins, directions, t_min,
-                  t_max=BIG) -> torch.Tensor:
+                  t_max=BIG, exclude=None) -> torch.Tensor:
     """Per-(ray, sphere) nearest valid root, [N, S]; BIG where no valid hit
-    (Sphere::hit root selection, RayTracer.h:289-305). The [N, S] form of
-    the search, kept as an independent reference for kernel A5's plain
-    version."""
+    (Sphere::hit root selection, RayTracer.h:289-305): the near root
+    (-half_b - sqrtd) / a, else the far one, in [t_min, t_max].
+
+    The cross terms d.c and o.c are the JAX package's two [N,3] @ [3,S]
+    products, written out over the three components and summed left to
+    right: full float32 whatever the global TF32 switch of the card's
+    matrix products says (reduced-precision products make phantom hits on
+    small spheres). exclude: optional [N] integer sphere id whose column is
+    masked for that ray (-1 for none), the edge-aware background re-trace.
+    """
     o, d = origins, directions
     c, r = scene.center, scene.radius
+    dot_c = lambda x: (x[:, 0:1] * c[:, 0] + x[:, 1:2] * c[:, 1]) \
+        + x[:, 2:3] * c[:, 2]                              # [N,S]
     a = vm.length_squared(d)[:, None]
-    half_b = vm.dot(o, d)[:, None] - d @ c.T
-    cterm = (vm.length_squared(o)[:, None] - 2.0 * (o @ c.T)
+    half_b = vm.dot(o, d)[:, None] - dot_c(d)
+    cterm = (vm.length_squared(o)[:, None] - 2.0 * dot_c(o)
              + (vm.length_squared(c) - r * r)[None, :])
     disc = half_b * half_b - a * cterm
     sqrtd = vm.safe_sqrt(disc)
@@ -79,6 +90,9 @@ def sphere_hit_ts(scene: SphereScene, origins, directions, t_min,
     root = torch.where(near_ok, root_near, root_far)
     valid = (disc >= 0.0) & (near_ok | in_range(root_far)) \
         & scene.active[None, :]
+    if exclude is not None:
+        ids = torch.arange(c.shape[0], device=c.device)
+        valid = valid & (ids[None, :] != exclude[:, None])
     return torch.where(valid, root, BIG)
 
 
@@ -88,20 +102,27 @@ def intersect_spheres(scene: SphereScene, origins, directions, t_min,
     """Closest hit over all spheres (HitableList::hit, RayTracer.h:339-353).
 
     backend: "pallas" (kernel A5 on CUDA tensors, its plain version on CPU
-    tensors) or "pallas_interpret" (the plain version on any device). The
-    search is detached; t, point and normal are re-derived differentiably.
-    Ties resolve to the lowest sphere index. exclude: optional [N] integer
-    sphere id left out of each lane's search (-1 for none; scenes below
-    1,024 slots only: the clustered sweep raises ValueError)."""
-    if backend not in ("pallas", "pallas_interpret"):
-        raise NotImplementedError(
-            f"intersect_spheres backend {backend!r} is not ported yet: "
-            "ROADMAP Queue A item 13 (the XLA [N, S] search)")
-    from ..kernels.sphere_intersect import sphere_search
+    tensors), "pallas_interpret" (the plain version on any device) or
+    "xla" (the [N, S] search of sphere_hit_ts and an argmin, on any device;
+    it ignores alive, as in JAX). The kernel search is detached; t, point
+    and normal are re-derived differentiably. Ties resolve to the lowest
+    sphere index. exclude: optional [N] integer sphere id left out of each
+    lane's search (-1 for none; under "pallas", scenes below 1,024 slots
+    only: the clustered sweep raises ValueError)."""
+    if backend == "xla":
+        ts = sphere_hit_ts(scene, origins, directions, t_min, t_max,
+                           exclude=exclude)                       # [N,S]
+        prim_idx = torch.argmin(ts, dim=1).to(torch.int32)        # [N]
+        t_coarse = torch.gather(ts, 1, prim_idx[:, None].long())[:, 0]
+    elif backend in ("pallas", "pallas_interpret"):
+        from ..kernels.sphere_intersect import sphere_search
 
-    t_coarse, prim_idx = sphere_search(
-        scene, origins, directions, float(t_min),
-        interpret=backend == "pallas_interpret", alive=alive, exclude=exclude)
+        t_coarse, prim_idx = sphere_search(
+            scene, origins, directions, float(t_min),
+            interpret=backend == "pallas_interpret", alive=alive,
+            exclude=exclude)
+    else:
+        raise ValueError(f"unknown intersect_spheres backend {backend!r}")
     hit = t_coarse < BIG
 
     params = vm.gather_rows(packed_param_table(scene), prim_idx)  # [N,16]

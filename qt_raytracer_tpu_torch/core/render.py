@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import camera as cam_mod
 from . import sampling, tonemap
-from .config import RenderConfig, mesh_search_options, require_ported
+from .config import RenderConfig, mesh_search_options
 from .integrator import trace
 from .integrator_flat import trace_flat, trace_flat_world
 from .scene import SphereScene
@@ -66,9 +66,10 @@ def _trace_dispatch(scene, origins, directions, samp_keys, cfg: RenderConfig):
     spheres. "fused*" on a SphereScene takes trace_flat (diff=True for
     "fused_diff*"); "fused"/"fused_interpret" on a mesh world take
     trace_flat_world; "fused_diff*" on a mesh world and "pallas*" anywhere
-    take the [N,3] integrator trace with "pallas[_interpret]". Both mesh
-    paths get cfg's mesh-search options; cfg.mesh_compact and
-    cfg.mesh_sort0 belong to the flat world path alone, as in JAX."""
+    take the [N,3] integrator trace with "pallas[_interpret]"; "xla" takes
+    it with "xla", on sphere scenes and mesh worlds alike. Both mesh paths
+    get cfg's mesh-search options (which "xla" ignores); cfg.mesh_compact
+    and cfg.mesh_sort0 belong to the flat world path alone, as in JAX."""
     backend = resolve_intersector(cfg)
     kw = dict(nee=cfg.nee, rr_start=cfg.rr_start)
     mesh_kw = mesh_search_options(cfg)
@@ -167,7 +168,6 @@ def render_linear(scene, camera, cfg: RenderConfig, key) -> torch.Tensor:
     the scene's device. Divide by cfg.spp (or use tonemap.resolve) for the
     mean image. Differentiable when a scene or camera tensor requires grad
     (with a grad-capable intersector, see diff.inverse.grad_capable_config)."""
-    require_ported(cfg)
     dev = _check_devices(scene, camera)
     grad = needs_grad(scene, camera)
     with torch.set_grad_enabled(grad):
@@ -223,7 +223,6 @@ def render_sample_batch(scene, camera, cfg: RenderConfig, key,
     """Linear radiance sum [H, W, 3] of samples [start, start + num), one
     wavefront per sample over the whole image (the progressive building
     block; no chunking, as in the JAX package)."""
-    require_ported(cfg)
     dev = _check_devices(scene, camera)
     with torch.set_grad_enabled(needs_grad(scene, camera)):
         i, j, pixel_index = pixel_grid(cfg, dev)

@@ -11,9 +11,10 @@ spheres, then emissive faces) drives NEE/MIS.
 integrator: the sphere search (kernel A5, or A6 from 1,024 slots on), then
 the mesh search (A3, with A4 and the crossing sort on multi-cluster meshes;
 or, with ``mesh_kernel="pairs"``, the pair-wavefront search A7 and A8)
-capped by the sphere winner, both detached; the winning triangle's t is
-re-derived differentiably (``_tri_t_diff``) and its face row supplies the
-rest.
+capped by the sphere winner, both detached; under ``backend="xla"`` the
+[N, S] sphere search and the BVH walk (``accel.traverse``), uncapped. The
+winning triangle's t is re-derived differentiably (``_tri_t_diff``) and its
+face row supplies the rest.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..accel.mesh import TriangleMesh
+from ..accel.traverse import intersect_mesh
 from . import vecmath as vm
 from ..kernels.mesh_intersect import CLUSTER_ROWS
 from .config import MESH_KERNELS
@@ -186,7 +188,9 @@ def intersect_world(world: World, origins, directions, t_min,
     one id space (triangle j is prim num_spheres + j), on a strict '<'.
 
     backend: "pallas" (the kernels on CUDA tensors, their plain versions on
-    CPU tensors) or "pallas_interpret" (the plain versions).
+    CPU tensors), "pallas_interpret" (the plain versions) or "xla" (the
+    [N, S] sphere search and the BVH walk, whose kernel runs on CUDA
+    tensors and its plain version on CPU tensors).
 
     exclude: optional [N] integer unified prim id to leave out of each
     lane's search (-1 for none): an id below num_spheres excludes that
@@ -199,7 +203,9 @@ def intersect_world(world: World, origins, directions, t_min,
     mesh_sort_mode. mesh_visit and mesh_mt pick the clustered search's
     body, mesh_cluster_rows its cluster size (RenderConfig's fields of
     those names). Live lanes get the same
-    bits under every choice but mesh_mt="mxu"."""
+    bits under every choice but mesh_mt="mxu". Under "xla" none of these
+    options changes anything: the mesh search is the walk, as the JAX
+    package switches mesh kernels only under Pallas."""
     ns = world.spheres.num_spheres
     excl_s = excl_m = None
     if exclude is not None:
@@ -211,25 +217,30 @@ def intersect_world(world: World, origins, directions, t_min,
     mesh = world.mesh
     if mesh is None:
         return hs
-    from ..kernels.mesh_intersect import prep_mesh_clusters
+    if backend == "xla":
+        th = intersect_mesh(mesh, origins, directions, t_min, alive=alive,
+                            exclude=excl_m)
+        t_m, idx_m = th.t, th.tri_idx
+    else:
+        from ..kernels.mesh_intersect import prep_mesh_clusters
 
-    # The sphere winner caps the mesh search: clusters beyond it prune, and
-    # lanes whose winner is a sphere come back as a mesh miss.
-    with torch.no_grad():
-        comps = [x[:, k].contiguous() for x in (origins, directions)
-                 for k in range(3)]
-        n = origins.shape[0]
-        live = alive if alive is not None else \
-            torch.ones(n, dtype=torch.bool, device=origins.device)
-        mc = prep_mesh_clusters(mesh, cluster_rows=mesh_cluster_rows,
-                                mt=mesh_mt)
-        t_m, idx_m = search_mesh(
-            mc, *comps, float(t_min), live.contiguous(),
-            torch.where(hs.hit, hs.t, BIG).contiguous(),
-            mesh_kernel=mesh_kernel, pair_c=mesh_pair_c,
-            sort_mode=mesh_sort_mode, visit=mesh_visit, mt=mesh_mt,
-            exclude=excl_m,
-            interpret=backend == "pallas_interpret")
+        # The sphere winner caps the mesh search: clusters beyond it prune,
+        # and lanes whose winner is a sphere come back as a mesh miss.
+        with torch.no_grad():
+            comps = [x[:, k].contiguous() for x in (origins, directions)
+                     for k in range(3)]
+            n = origins.shape[0]
+            live = alive if alive is not None else \
+                torch.ones(n, dtype=torch.bool, device=origins.device)
+            mc = prep_mesh_clusters(mesh, cluster_rows=mesh_cluster_rows,
+                                    mt=mesh_mt)
+            t_m, idx_m = search_mesh(
+                mc, *comps, float(t_min), live.contiguous(),
+                torch.where(hs.hit, hs.t, BIG).contiguous(),
+                mesh_kernel=mesh_kernel, pair_c=mesh_pair_c,
+                sort_mode=mesh_sort_mode, visit=mesh_visit, mt=mesh_mt,
+                exclude=excl_m,
+                interpret=backend == "pallas_interpret")
     tri_hit = t_m < BIG
     t_d, ok_d = _tri_t_diff(mesh, idx_m, origins, directions, t_min, BIG)
     t_tri = torch.where(tri_hit & ok_d, t_d, t_m)

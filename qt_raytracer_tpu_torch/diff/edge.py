@@ -170,12 +170,14 @@ def sample_radiance_edge_aware(scene, camera, cfg: RenderConfig,
     # the flat path: l_full through the gradient-capable trace_flat, the
     # bounce-0 winner through the same fused kernel (the same selection),
     # the background re-trace through its exclude operand. Anything else
-    # takes the [N,3] integrator, with one intersector for all three so the
-    # bounce-0 selection is consistent.
+    # takes the [N,3] integrator, with one intersector for all three and
+    # the shadow block so the bounce-0 selection is consistent: "xla" under
+    # "xla", else "pallas[_interpret]".
     resolved = resolve_intersector(cfg)
     interp = resolved.endswith("interpret")
     use_fused = isinstance(scene, SphereScene) and resolved.startswith("fused")
-    backend = "pallas_interpret" if interp else "pallas"
+    backend = "xla" if resolved == "xla" else \
+        "pallas_interpret" if interp else "pallas"
 
     if use_fused:
         from ..core.integrator_flat import trace_flat

@@ -41,7 +41,8 @@ def grad_capable_config(cfg: RenderConfig) -> RenderConfig:
     """Pin a differentiable intersector: the plain fused flat path is
     forward-only (differentiating it raises), so gradient renders take
     "fused_diff" (the shadow-mode kernel selects, PyTorch re-derives; mesh
-    worlds go on to the [N,3] integrator with "pallas")."""
+    worlds go on to the [N,3] integrator with "pallas"). "pallas*" and
+    "xla" pass through."""
     resolved = resolve_intersector(cfg)
     if resolved in ("fused", "fused_interpret"):
         pinned = "fused_diff" if resolved == "fused" else "fused_diff_interpret"

@@ -69,7 +69,11 @@ class SearchSpheres(NamedTuple):
     # num_chunks > 0: the clustered sweep's chunk AABBs, [6, K_pad] f32 (lo
     # xyz, hi xyz: c -+ r of the active spheres, r signed as the TPU kernel
     # takes it; BIG/-BIG for a chunk without one and in the padding
-    # columns); None for the monolithic sweep.
+    # columns); None for the monolithic sweep. A sphere of negative radius
+    # (a hollow sphere's inner surface) gives an inverted box: alone in its
+    # chunk, no row opens the chunk and the clustered sweep never hits it,
+    # as on the TPU, where the monolithic sweep (group boxes from |r|) and
+    # the f64 oracle do (tests/test_torch_hollow_chunk.py).
     chunk_boxes: Optional[torch.Tensor] = None
 
 

@@ -174,3 +174,9 @@ def _configure(lib: ctypes.CDLL) -> None:
     #                 idx_out, stream)
     lib.qtrt_mesh_pairs.restype = i
     lib.qtrt_mesh_pairs.argtypes = [p] * 10 + [i, p, i, i, f, i, i] + [p] * 3
+    # qtrt_bvh_walk(origins, directions, alive, excl, bmin, bmax, escape,
+    #               start, count, m, v0, e1, e2, num_tris, max_leaf, t_min,
+    #               t_max, n, t_out, idx_out, stream)
+    lib.qtrt_bvh_walk.restype = i
+    lib.qtrt_bvh_walk.argtypes = [p] * 9 + [i] + [p] * 3 + [i, i, f, f, i] \
+        + [p] * 3

@@ -24,7 +24,10 @@ A3 and A5 is held the same way, each ray excluding its own winner. A3's
 row-gated and bilinear-form instances equal their plain versions on every
 lane; the row gate, smaller clusters and the slice visits equal A3's
 default on live lanes, and the bilinear form agrees with it on 99.9% of
-live lanes (its candidates round otherwise).
+live lanes (its candidates round otherwise). The BVH walk of
+``intersector="xla"`` equals its plain version bitwise on live lanes, with
+alive, exclude and a finite t_max, on the card and against the CPU; the
+[N, S] sphere search gives the same bits under the global TF32 switch.
 Renders: at most 1% of channels beyond 2e-3 + 2e-3 |ref|, as in
 ``tests/test_torch_render.py``; render gradients within 2e-3 of the
 largest entry, the flip budget of a few rays.
@@ -1271,3 +1274,121 @@ def test_trace_holds_the_annotated_span_and_kernels(card, tmp_path):
     kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     assert "qtrt_card_span" in names
     assert any("fused_hit_kernel" in k for k in kernels), sorted(kernels)[:20]
+
+
+@pytest.fixture(scope="module")
+def walk_meshes(card):
+    """The terrain crop, the Cornell mesh and the icosphere, on the card."""
+    return {"terrain48": meshes.terrain_world(48, 48, device="cpu").mesh,
+            "cornell_mesh": meshes.cornell_box_world(device="cpu").mesh,
+            "icosphere": meshes.icosphere_world(2, device="cpu").mesh}
+
+
+def _walk_rays(mesh, n: int, seed: int):
+    """n rays [N, 3] from around the mesh's root box, 80% alive, an
+    excluded triangle on a tenth of the lanes; on the CPU."""
+    rng = np.random.default_rng(seed)
+    lo, hi = mesh.bvh_min[0].numpy(), mesh.bvh_max[0].numpy()
+    o = rng.uniform(lo - 0.5, hi + 0.5, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    alive = rng.random(n) < 0.8
+    excl = np.where(rng.random(n) < 0.1,
+                    rng.integers(0, mesh.num_triangles, n), -1)
+    return (torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(alive), torch.from_numpy(excl.astype(np.int32)))
+
+
+@pytest.mark.parametrize("opts", ["none", "alive", "exclude", "t_max"])
+@pytest.mark.parametrize("n", [1, 127, 1000, 4097])
+@pytest.mark.parametrize("name", ["terrain48", "cornell_mesh", "icosphere"])
+def test_bvh_walk_matches_plain_version(card, walk_meshes, name, n, opts):
+    # Bitwise on live lanes, (BIG, 0) on dead lanes; the exclude instance
+    # has its own counter.
+    from qt_raytracer_tpu_torch.kernels import bvh_walk as bw
+    mesh = walk_meshes[name]
+    o, d, alive, excl = _walk_rays(mesh, n, seed=n + len(name))
+    kw = {}
+    if opts != "none":
+        kw["alive"] = alive
+    if opts == "exclude":
+        kw["exclude"] = excl
+    t_max = 1.5 if opts == "t_max" else bw.BIG
+    plain = bw.bvh_walk(mesh, o, d, T_MIN, t_max, **kw)
+    on = mesh.to(card)
+    before = (bw.launches, bw.exclude_launches)
+    got = bw.bvh_walk(on, o.to(card), d.to(card), T_MIN, t_max,
+                      **{k: v.to(card) for k, v in kw.items()})
+    assert (bw.launches, bw.exclude_launches) == (
+        before[0] + 1, before[1] + (opts == "exclude"))
+    on_card = bw.bvh_walk(on, o.to(card), d.to(card), T_MIN, t_max,
+                          interpret=True,
+                          **{k: v.to(card) for k, v in kw.items()})
+    live = kw.get("alive", torch.ones(n, dtype=torch.bool))
+    for a, b, c in zip(got, plain, on_card):
+        a, c = a.cpu(), c.cpu()
+        assert torch.equal(a[live], c[live])
+        assert torch.equal(a[live], b[live])
+    assert torch.all(got[0].cpu()[~live] == bw.BIG)
+    assert torch.all(got[1].cpu()[~live] == 0)
+    if opts == "t_max":
+        t = got[0].cpu()[live]
+        assert bool(((t <= 1.5) | (t == bw.BIG)).all())
+
+
+def test_xla_sphere_ts_ignore_the_tf32_switch(card):
+    # The [N, S] search writes its products out in full float32: the
+    # global TF32 switch of matrix products changes no bit.
+    from qt_raytracer_tpu_torch.core.intersect import intersect_spheres
+    scene = _scene(300, seed=4).to(card)
+    rays, _ = _rays(4097, seed=8, device=card)
+    o, d = torch.stack(rays[:3], 1), torch.stack(rays[3:], 1)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        want = intersect_spheres(scene, o, d, T_MIN, backend="xla")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got = intersect_spheres(scene, o, d, T_MIN, backend="xla")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    cpu = intersect_spheres(_scene(300, seed=4), o.cpu(), d.cpu(), T_MIN,
+                            backend="xla")
+    assert float((got.prim_idx.cpu() == cpu.prim_idx).float().mean()) > 0.999
+
+
+def test_bvh_walk_raises_when_the_library_cannot_build(card, walk_meshes,
+                                                       monkeypatch):
+    # A CUDA tensor takes the kernel or raises; it never falls back to the
+    # plain walk.
+    from qt_raytracer_tpu_torch.kernels import bvh_walk as bw
+    from qt_raytracer_tpu_torch.runtime import cuda_build
+
+    def unbuildable():
+        raise RuntimeError("nvcc failed: the library cannot be built")
+
+    monkeypatch.setattr(cuda_build, "load_library", unbuildable)
+    mesh = walk_meshes["terrain48"].to(card)
+    o, d, _, _ = _walk_rays(walk_meshes["terrain48"], 64, seed=2)
+    before = bw.launches
+    with pytest.raises(RuntimeError, match="cannot be built"):
+        bw.bvh_walk(mesh, o.to(card), d.to(card), T_MIN)
+    assert bw.launches == before
+
+
+@pytest.mark.parametrize("name", ["cornell_mesh_nee", "terrain48"])
+def test_xla_world_render_on_card_matches_cpu(card, name):
+    from qt_raytracer_tpu_torch.kernels import bvh_walk as bw
+    cfg = RenderConfig(width=48, height=32, spp=2, max_depth=4, rng="hash",
+                       nee=name.endswith("nee"), intersector="xla")
+    world = meshes.cornell_box_world(device="cpu") if name.startswith(
+        "cornell") else meshes.terrain_world(48, 48, device="cpu")
+    cam = (meshes.cornell_box_mesh_camera if name.startswith("cornell")
+           else meshes.terrain_camera)(cfg.aspect_ratio, device="cpu")
+    before = bw.launches
+    got = render_linear(world.to(card), cam.to(card), cfg, 3).cpu()
+    assert bw.launches > before
+    want = render_linear(world, cam, cfg, 3)
+    bad = (got - want).abs() > 2e-3 + 2e-3 * want.abs()
+    assert bool(torch.isfinite(got).all())
+    assert float(bad.float().mean()) <= 0.01

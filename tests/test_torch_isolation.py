@@ -42,6 +42,10 @@ def test_import_loads_no_jax():
         "import qt_raytracer_tpu_torch.diff.edge\n"
         "import qt_raytracer_tpu_torch.runtime.device\n"
         "import qt_raytracer_tpu_torch.runtime.native_bvh\n"
+        "import qt_raytracer_tpu_torch.accel.traverse\n"
+        "import qt_raytracer_tpu_torch.kernels.bvh_walk\n"
+        "import qt_raytracer_tpu_torch.testing.oracle\n"
+        "import qt_raytracer_tpu_torch.testing.oracle_vec\n"
         + APP_IMPORTS +
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'qt_raytracer_tpu' or "
@@ -138,7 +142,7 @@ def test_library_is_named_after_sources_and_flags():
     assert path.name.startswith("libqtrt_torch_kernels_") and path.suffix == ".so"
     assert path == cuda_build.library_path()
     for name in ("fused_hit.cu", "mesh_intersect.cu", "mesh_pairs.cu",
-                 "mesh_common.cuh"):
+                 "bvh_walk.cu", "mesh_common.cuh"):
         assert (cuda_build.CSRC_DIR / name).is_file(), name
     assert "--use_fast_math" not in cuda_build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
@@ -189,12 +193,13 @@ def _runs_edge_aware():
     assert torch.equal(img, plain)
 
 
-def _raises_xla():
-    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1, rng="hash",
+def _runs_xla():
+    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=2, rng="hash",
                        intersector="xla")
-    scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio,
+    scene, cam = scenes.get_scene("cornell_mesh", cfg.aspect_ratio,
                                   device="cpu")
-    render_linear(scene, cam, cfg, 0)
+    img = render_linear(scene, cam, cfg, 0)
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 
 
 def _rays4():
@@ -314,7 +319,6 @@ def _runs_sort_modes():
 # Each case names a feature that is still not ported, and the ROADMAP item
 # or queue that brings it.
 @pytest.mark.parametrize("run,item", [
-    (_raises_xla, "item 13"),
     (_raises_sharded_mesh, "item 11"),
 ])
 def test_unported_features_raise(run, item):
@@ -328,7 +332,7 @@ def test_unported_features_raise(run, item):
                                  _runs_compact, _runs_pair_first_cluster,
                                  _runs_pairs_kernel, _runs_sort_modes,
                                  _runs_rowgate, _runs_subtile, _runs_sliced,
-                                 _runs_mxu])
+                                 _runs_mxu, _runs_xla])
 def test_ported_features_run(run):
     run()
 
