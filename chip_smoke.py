@@ -30,7 +30,7 @@ counts set to 0 just before it and read just after:
     through ``diff.multiview``: multi-view train steps on the sphere
     Cornell box (4 views; albedo, emission and pose) and per-view train
     steps on the true Cornell box (2 views; pose), one step of each with
-    the pathwise estimator and three with the edge-aware one
+    the pathwise estimator and two with the edge-aware one
     (``edge_aware=True``: the boundary term of ``diff.edge``, whose
     background re-trace runs the kernels' exclude operands), with a
     view-step's gradients held against the plain versions' on the card and
@@ -59,7 +59,21 @@ counts set to 0 just before it and read just after:
     winner on a tenth of the lanes, a finite t_max), timed beside the
     clustered search (A3) on the same rays; after them a 96x64
     Cornell-mesh NEE frame on the card against the port's f64 vector
-    oracle.
+    oracle;
+  - the sharded render and training (``parallel/``): the book-cover frame
+    through ``render_linear_sharded`` over a world of one on NCCL, bit for
+    bit ``render_linear``'s; then two ranks spawned on the one card over
+    gloo (NCCL refuses two ranks on one GPU; the ranks share the card, so
+    no scaling is measured): the frame at (sp, px) = (1, 2) bit for bit,
+    at spp 2 over (2, 1) within 3e-7, the terrain 1080p frame at (1, 2)
+    bit for bit the single-process terrain frame (A1, A4, A3 on a rank's
+    pixel range), the three parts of the JAX package's
+    ``dryrun_multichip`` (a three-sphere step, a true-Cornell NEE pose
+    step, a terrain forward) held against the same parts in one process on
+    the kernels and on the plain route, and a 1080p config-5 view-step over
+    (1, 2) whose loss equals the single-process step's, whose gradients lie
+    within 1e-4 x max|g| of it, and whose parameters are equal on both
+    ranks.
 
 Before the frames, the mesh search's row-gated and bilinear-form instances
 are held against their plain versions and against the default instance on
@@ -97,6 +111,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import io
 import json
 import pathlib
@@ -121,7 +136,8 @@ OUT_ATOL = OUT_RTOL = 1e-5    # every other float output
 IDX_AGREE_MIN = 0.9999        # live lanes whose winner ids agree
 IMG_ATOL = IMG_RTOL = 2e-3    # frame vs plain frame, per channel
 IMG_MISMATCH_MAX = 0.01
-TIMED_RUNS = 7
+TIMED_RUNS = 7             # the medians of the kernels line's ms, plain_ms
+EXPLORE_RUNS = 3           # the medians of timings outside the kernels line
 KERNELS = ("fused_hit", "fused_hit_shadow", "mesh_first_cluster",
            "mesh_search", "sphere_search", "sphere_search_clustered",
            "fused_hit[exclude]", "sphere_search[exclude]",
@@ -150,7 +166,7 @@ C5_SPHERE_LR = {"scene/albedo": 0.03, "scene/emission": 0.6,
                 "camera/translate": 2.5e-2}
 C5_MESH_VIEWS = [(0.0, 0.0, 0.0), (0.4, 0.15, 0.0)]
 C5_MESH_POSE_ERR = (0.1, -0.07, 0.05)
-C5_STEPS = 3               # edge-aware steps per scene
+C5_STEPS = 2               # edge-aware steps per scene: first, steady
 C5_PATHWISE_STEPS = 1      # pathwise steps per scene
 GRAD_PLAIN_WH = {"edge_aware": (1920, 1080),  # kernel vs plain gradients
                  "pathwise": (960, 540)}      # on the card
@@ -175,6 +191,13 @@ NODE_BYTES = TRI_BYTES = 36
 XLA_ORACLE = dict(width=96, height=64, spp=4, max_depth=6, nee=True,
                   rng="hash", intersector="xla")
 XLA_ORACLE_MISMATCH_MAX = 0.04
+# The sharded phase: a world of one over NCCL in this process, then two
+# ranks spawned on the one card over gloo (NCCL refuses two ranks on one
+# GPU). Two ranks sharing a card measure no scaling.
+SHARD_RANKS = 2
+SHARD_JOIN_S = 300                 # the spawned ranks' whole run
+SHARD_GROUP_TIMEOUT = datetime.timedelta(seconds=120)
+SHARD_RTOL = SHARD_ATOL = 3e-7     # "sp" reassociates the spp sum
 
 
 START = time.perf_counter()
@@ -1306,6 +1329,353 @@ def xla_phase(fh, mi, render_linear, RenderConfig, scenes, terrain, book,
     return out
 
 
+def book_cover(dev, spp: int = 1):
+    """The main-path frame: (scene, camera, cfg)."""
+    from qt_raytracer_tpu_torch import RenderConfig, scenes
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=spp, max_depth=DEPTH,
+                       rng="hash")
+    scene, camera = scenes.get_scene("random", cfg.aspect_ratio, device=dev)
+    return scene, camera, cfg
+
+
+def shard_chunks(cfg, mesh) -> int:
+    """Pixel chunks of one rank of a sharded render of cfg."""
+    from qt_raytracer_tpu_torch.core import render as render_mod
+    from qt_raytracer_tpu_torch.parallel import sharding
+    shard = sharding._padded_pixels(cfg, mesh.px) // mesh.px
+    chunk = render_mod.resolve_pixel_chunk(cfg) or shard
+    return -(-shard // chunk)
+
+
+def c5_view_step(dev, mesh) -> dict:
+    """One pathwise config-5 train step on one 1080p view of the sphere
+    Cornell box (albedo, emission, pose), sharded over mesh when one is
+    given: the loss, the gradients and the parameters after it, the
+    step's launches, seconds and peak memory."""
+    from qt_raytracer_tpu_torch import RenderConfig, scenes
+    from qt_raytracer_tpu_torch.core import sampling
+    from qt_raytracer_tpu_torch.diff import inverse as inv
+    from qt_raytracer_tpu_torch.kernels import fused_hit as fh
+    from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
+    cfg5 = RenderConfig(**C5)
+    sph = scenes.cornell_box_spheres(device=dev)
+    cam = scenes.cornell_box_camera(cfg5.aspect_ratio, device=dev)
+    key = sampling.prng_key(7, dev)
+    with torch.no_grad():
+        target = inv.mean_image(sph, cam, cfg5, sampling.fold_in(key, 1),
+                                mesh)
+    albedo = sph.albedo.clone()
+    albedo[6] = torch.tensor([0.2, 0.6, 0.8], device=dev)
+    emission = sph.emission.clone()
+    emission[5] = 8.0
+    wrong = dataclasses.replace(sph, albedo=albedo, emission=emission)
+    start = inv.translate_camera(
+        cam, torch.tensor(C5_SPHERE_POSE_ERR, device=dev))
+    init, step, _, _ = inv.make_train_step(
+        wrong, start, cfg5, inv.adam(C5_SPHERE_LR),
+        trainable=("albedo", "emission"), train_camera="pose", mesh=mesh)
+    state = init()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fh, mi)
+    (state, loss), sec = wall_s(lambda: step(state, target, key))
+    counts = read_counts(fh, mi)
+    leaves = dict(inv.leaves(state.params))
+    return {"loss": loss.cpu(),
+            "grads": {p: t.grad.detach().cpu() for p, t in leaves.items()},
+            "params": {p: t.detach().cpu() for p, t in leaves.items()},
+            "launches": counts, "s": sec,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def dryrun_parts(dev, mesh, tworld, sp: int = 2,
+                 intersector: str = "auto") -> dict:
+    """The three parts of the JAX package's dryrun_multichip
+    (__graft_entry__.py) at its sizes, on the given route, sharded over mesh
+    (in one process when mesh is None; sp sets the sample counts either
+    way): a three-sphere step on albedo, emission and every camera field; a
+    true-Cornell NEE pose step; a forward render of the terrain world tworld
+    (99,458 triangles). Returns each step's loss and gradients and the
+    terrain image, on the host; raises unless all are finite."""
+    from qt_raytracer_tpu_torch import RenderConfig, scenes
+    from qt_raytracer_tpu_torch.core import sampling
+    from qt_raytracer_tpu_torch.diff import inverse as inv
+    from qt_raytracer_tpu_torch.models import meshes
+    key = sampling.prng_key(0, dev)
+
+    def step_once(scene, camera, cfg, target_key, **kw):
+        with torch.no_grad():
+            target = inv.mean_image(scene, camera, cfg, target_key, mesh)
+        init, step, _, _ = inv.make_train_step(scene, camera, cfg,
+                                               inv.adam(1e-2), mesh=mesh,
+                                               **kw)
+        state, loss = step(init(), target, key)
+        return {"loss": loss.detach().cpu(),
+                "grads": {p: t.grad.detach().cpu()
+                          for p, t in inv.leaves(state.params)}}
+
+    t0 = time.perf_counter()
+    cfg = RenderConfig(width=16, height=12, spp=2 * sp, max_depth=3,
+                       samples_per_batch=1, intersector=intersector)
+    scene, camera = scenes.get_scene("three_sphere", cfg.aspect_ratio,
+                                     device=dev)
+    out = {"three_sphere": step_once(
+        scene, camera, cfg, sampling.fold_in(key, 1),
+        trainable=("albedo", "emission"), train_camera=True)}
+    t1 = time.perf_counter()
+    wcfg = RenderConfig(width=16, height=12, spp=sp, max_depth=3, nee=True,
+                        samples_per_batch=1, intersector=intersector)
+    world = meshes.cornell_box_world(device=dev)
+    wcam = meshes.cornell_box_mesh_camera(wcfg.aspect_ratio, device=dev)
+    out["cornell_nee"] = step_once(world, wcam, wcfg,
+                                   sampling.fold_in(key, 2), trainable=(),
+                                   train_camera="pose")
+    t2 = time.perf_counter()
+    tcfg = RenderConfig(width=16, height=12, spp=sp, max_depth=2, rng="hash",
+                        intersector=intersector)
+    tcam = meshes.terrain_camera(tcfg.aspect_ratio, device=dev)
+    with torch.no_grad():
+        out["terrain"] = inv.mean_image(tworld, tcam, tcfg,
+                                        sampling.fold_in(key, 3), mesh).cpu()
+    out["part_s"] = [t1 - t0, t2 - t1, time.perf_counter() - t2]
+    finite = [out["terrain"]] + [x for part in ("three_sphere", "cornell_nee")
+                                 for x in (out[part]["loss"],
+                                           *out[part]["grads"].values())]
+    if not all(bool(torch.isfinite(x).all()) for x in finite):
+        raise AssertionError(f"dryrun parts not finite "
+                             f"({intersector}, mesh {mesh})")
+    return out
+
+
+def dryrun_against(got: dict, one: dict, plain: dict, what: str) -> dict:
+    """A rank's dryrun parts against one process's on the kernels and on
+    the plain route. One sample a rank makes the true-Cornell step's loss
+    and the terrain image bit for bit one process's; "sp" reassociates the
+    three-sphere step's four samples. Losses and gradients within
+    GRAD_RTOL_PLAIN x max|g| of both; the terrain image against the plain
+    route's by the flip budget."""
+    out = {}
+    for part in ("three_sphere", "cornell_nee"):
+        g = (got[part]["loss"], got[part]["grads"])
+        out[part] = {}
+        for ref_name, ref in (("one_process", one), ("plain", plain)):
+            cmp = compare_grads(g, (ref[part]["loss"], ref[part]["grads"]),
+                                GRAD_RTOL_PLAIN, f"{what} {part} vs "
+                                f"{ref_name}")
+            # The worst leaf, as a share of its max|g|.
+            out[part][f"vs_{ref_name}_rel"] = max(
+                v["max_abs_err"] / v["max_abs"] if v["max_abs"] else 0.0
+                for k, v in cmp.items() if k != "loss")
+    if not torch.equal(got["cornell_nee"]["loss"], one["cornell_nee"]["loss"]):
+        raise AssertionError(f"{what}: the true-Cornell loss is not one "
+                             f"process's bit for bit: {out['cornell_nee']}")
+    img, ref = got["terrain"], plain["terrain"]
+    mismatch = float(((img - ref).abs() > IMG_ATOL + IMG_RTOL * ref.abs())
+                     .float().mean())
+    out["terrain"] = {"bitwise_vs_one_process": torch.equal(
+        img, one["terrain"]), "mismatch_frac_vs_plain": mismatch,
+        "bitwise_vs_plain": torch.equal(img, ref)}
+    if not out["terrain"]["bitwise_vs_one_process"] or \
+            mismatch > IMG_MISMATCH_MAX:
+        raise AssertionError(f"{what}: the terrain image differs: "
+                             f"{out['terrain']}")
+    out["part_s"] = got["part_s"]
+    return out
+
+
+def sharded_rank(rank: int, tmp: str) -> None:
+    """One of the two ranks of the sharded phase, on the one card over gloo:
+    the main-path frame at (sp, px) = (1, 2) and at spp 2 over (2, 1), the
+    terrain 1080p frame at (1, 2), the dryrun parts over (2, 1), and the
+    config-5 view-step over (1, 2). Saves its images and numbers under
+    tmp."""
+    import torch.distributed as dist
+    from qt_raytracer_tpu_torch import RenderConfig, scenes
+    from qt_raytracer_tpu_torch.kernels import fused_hit as fh
+    from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
+    from qt_raytracer_tpu_torch.parallel import distributed, sharding
+    dev = distributed.initialize(f"file://{tmp}/store", SHARD_RANKS, rank,
+                                 backend="gloo", timeout=SHARD_GROUP_TIMEOUT)
+    try:
+        out = {}
+        cfg_t = RenderConfig(**TERRAIN, rng="hash")
+        tworld, tcam = scenes.get_scene("terrain", cfg_t.aspect_ratio,
+                                        device=dev)
+        frames = {"frame_1x2": (1, *book_cover(dev, 1)),
+                  "frame_2x1_spp2": (2, *book_cover(dev, 2)),
+                  "terrain_1x2": (1, tworld, tcam, cfg_t)}
+        for name, (sp, scene, camera, cfg) in frames.items():
+            mesh = sharding.make_mesh(sp=sp)
+            reset_counts(fh, mi)
+            img, sec = wall_s(lambda: sharding.render_linear_sharded(
+                scene, camera, cfg, SEED, mesh))
+            out[name] = {"launches": read_counts(fh, mi), "s": sec,
+                         "chunks": shard_chunks(cfg, mesh),
+                         "depth": cfg.max_depth}
+            torch.save(img.cpu(), pathlib.Path(tmp) / f"{name}_{rank}.pt")
+            del img
+        reset_counts(fh, mi)
+        out["dryrun"], out["dryrun_s"] = wall_s(
+            lambda: dryrun_parts(dev, sharding.make_mesh(sp=2), tworld))
+        out["dryrun_launches"] = read_counts(fh, mi)
+        mesh = sharding.make_mesh(sp=1)
+        out["c5"] = c5_view_step(dev, mesh)
+        out["c5"]["chunks"] = shard_chunks(RenderConfig(**C5), mesh)
+        torch.save(out, pathlib.Path(tmp) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(fh, mi, render_linear, dev, terrain: dict) -> dict:
+    """The sharded render and training (``parallel/``): (1) the main-path
+    frame through render_linear_sharded over a world of one on NCCL, bit
+    for bit render_linear's, 50 A1 launches; (2) two ranks spawned on the
+    card over gloo: the frame at (1, 2) bit for bit (1)'s, at spp 2 over
+    (2, 1) within 3e-7 of render_linear's, and the terrain 1080p frame at
+    (1, 2) bit for bit terrain["img"], the single-process frame; (3) on the
+    same ranks, the dryrun_multichip parts, held against the same parts in
+    this process on the kernels and on the plain route (dryrun_against),
+    and a config-5 view-step over (1, 2) whose loss equals the
+    single-process step's, whose gradients lie within GRAD_RTOL_PLAIN x
+    max|g| of it, and whose parameters are equal on both ranks. Every
+    rank's launches must be its pixel range's. Raises on any failure."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from qt_raytracer_tpu_torch.parallel import distributed, sharding
+    out, launches = {}, dict.fromkeys(KERNELS, 0)
+    scene, camera, cfg = book_cover(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(f"file://{tmp}/nccl_store", 1, 0,
+                               timeout=SHARD_GROUP_TIMEOUT)
+        try:
+            mesh = sharding.make_mesh()
+            ref = render_linear(scene, camera, cfg, SEED)
+            reset_counts(fh, mi)
+            img, sec = wall_s(lambda: sharding.render_linear_sharded(
+                scene, camera, cfg, SEED, mesh))
+            counts = read_counts(fh, mi)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+        want = {**dict.fromkeys(KERNELS, 0),
+                "fused_hit": shard_chunks(cfg, mesh) * DEPTH}
+        if counts != want or not torch.equal(img, ref):
+            raise AssertionError(f"world of one: launches {counts} (expected "
+                                 f"{want}), equal {torch.equal(img, ref)}")
+        out["world_of_one"] = {"backend": backend, "s": sec,
+                               "launches": counts["fused_hit"]}
+        for k, v in counts.items():
+            launches[k] += v
+        del img
+
+        ctx = mp.start_processes(sharded_rank, args=(tmp,),
+                                 nprocs=SHARD_RANKS, join=False,
+                                 start_method="spawn")
+        t0 = time.perf_counter()
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > SHARD_JOIN_S:
+                    raise TimeoutError(f"the sharded ranks did not finish in "
+                                       f"{SHARD_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        out["ranks_s"] = time.perf_counter() - t0
+        ranks = [torch.load(pathlib.Path(tmp) / f"rank{r}.pt",
+                            weights_only=False) for r in range(SHARD_RANKS)]
+        frames = ("frame_1x2", "frame_2x1_spp2", "terrain_1x2")
+        images = {name: [torch.load(pathlib.Path(tmp) / f"{name}_{r}.pt")
+                         for r in range(SHARD_RANKS)] for name in frames}
+    ref = ref.cpu()
+    _, _, cfg2 = book_cover(dev, 2)
+    ref2 = render_linear(scene, camera, cfg2, SEED).cpu()
+    # Sphere frames launch A1 at every bounce of every chunk; the terrain
+    # A1, A4 and A3.
+    kernels_of = {"frame_1x2": ("fused_hit",),
+                  "frame_2x1_spp2": ("fused_hit",),
+                  "terrain_1x2": ("fused_hit", "mesh_first_cluster",
+                                  "mesh_search")}
+    for name, want_img in (("frame_1x2", ref), ("frame_2x1_spp2", ref2),
+                           ("terrain_1x2", terrain["img"])):
+        for r, img in enumerate(images[name]):
+            if not torch.equal(img, images[name][0]):
+                raise AssertionError(f"{name}: rank {r} differs from rank 0")
+        img = images[name][0]
+        if name == "frame_2x1_spp2":
+            torch.testing.assert_close(img, want_img, rtol=SHARD_RTOL,
+                                       atol=SHARD_ATOL)
+        elif not torch.equal(img, want_img):
+            raise AssertionError(f"{name}: the frame at (1, 2) is not the "
+                                 f"single-process frame bit for bit")
+        out[name] = {"max_abs_err": float((img - want_img).abs().max()),
+                     "bitwise": torch.equal(img, want_img), "ranks": []}
+        for r, rk in enumerate(ranks):
+            st = rk[name]
+            per = st["chunks"] * st["depth"]
+            want = {**dict.fromkeys(KERNELS, 0),
+                    **dict.fromkeys(kernels_of[name], per)}
+            if st["launches"] != want:
+                raise AssertionError(f"{name} rank {r}: launches "
+                                     f"{st['launches']}, expected {want}")
+            out[name]["ranks"].append({"s": st["s"], "launches": {
+                k: want[k] for k in kernels_of[name]}})
+    del images, ref, ref2
+
+    # The dryrun parts in this process, on the kernels and on the plain
+    # route, for the ranks' parts to be held against.
+    one = dryrun_parts(dev, None, terrain["world"])
+    plain = dryrun_parts(dev, None, terrain["world"], intersector=PLAIN_ROUTE)
+
+    single = c5_view_step(dev, None)
+    c5 = {"single_s": single["s"], "single_launches":
+          single["launches"]["fused_hit_shadow"],
+          "single_max_memory_allocated_gib":
+              single["max_memory_allocated_gib"], "ranks": []}
+    for r, rk in enumerate(ranks):
+        st = rk["c5"]
+        # Pathwise: per (chunk, sample), forward and recompute, A2 selects
+        # and A2 shadows at every bounce.
+        want = {**dict.fromkeys(KERNELS, 0), "fused_hit_shadow":
+                st["chunks"] * C5["spp"] * 2 * 2 * C5["max_depth"]}
+        if st["launches"] != want:
+            raise AssertionError(f"config-5 view-step rank {r}: launches "
+                                 f"{st['launches']}, expected {want}")
+        if not torch.equal(st["loss"], single["loss"]):
+            raise AssertionError(f"config-5 view-step rank {r}: loss "
+                                 f"{float(st['loss'])} against "
+                                 f"{float(single['loss'])}")
+        cmp = compare_grads((st["loss"], st["grads"]),
+                            (single["loss"], single["grads"]),
+                            GRAD_RTOL_PLAIN, f"sharded view-step rank {r}")
+        for p, t in st["params"].items():
+            if not torch.equal(t, ranks[0]["c5"]["params"][p]):
+                raise AssertionError(f"config-5 view-step: {p} differs "
+                                     f"between rank {r} and rank 0")
+        c5["ranks"].append({"s": st["s"], "fused_hit_shadow":
+                            want["fused_hit_shadow"],
+                            "max_memory_allocated_gib":
+                                st["max_memory_allocated_gib"],
+                            "vs_single": cmp})
+        # The dryrun parts reach the mesh kernels: the mesh search of the
+        # terrain and of the Cornell step, the Cornell step's sphere search.
+        dry = rk["dryrun_launches"]
+        if not all(dry[k] > 0 for k in ("fused_hit", "fused_hit_shadow",
+                                        "mesh_search", "sphere_search")):
+            raise AssertionError(f"dryrun parts rank {r}: launches {dry}")
+        out.setdefault("dryrun", []).append({
+            **dryrun_against(rk["dryrun"], one, plain, f"dryrun rank {r}"),
+            "s": rk["dryrun_s"],
+            "launches": {k: v for k, v in dry.items() if v}})
+        for k in KERNELS:
+            launches[k] += sum(rk[name]["launches"][k] for name in frames) \
+                + st["launches"][k] + dry[k]
+    out["c5_view_step_1x2"] = c5
+    out["launches"] = launches
+    return out
+
+
 def main() -> None:
     dev = require_card()
 
@@ -1438,7 +1808,8 @@ def main() -> None:
                         s0.alive, cfg.t_min, excl)
     a1x.update(rays=s0.ox.shape[0],
                ms=cuda_ms(lambda: fh.fused_hit(*args, exclude=excl)),
-               no_exclude_ms=cuda_ms(lambda: fh.fused_hit(*args)),
+               no_exclude_ms=cuda_ms(lambda: fh.fused_hit(*args),
+                                     EXPLORE_RUNS),
                plain_ms=cuda_ms(lambda: fh.fused_hit_plain(*args,
                                                            exclude=excl)),
                **sweep_bound(s0.ox.shape[0], a1x["live"], work_x,
@@ -1458,7 +1829,7 @@ def main() -> None:
     a2x.update(ms=cuda_ms(lambda: fh.fused_hit(*args, shadow_only=True,
                                                exclude=excl)),
                no_exclude_ms=cuda_ms(lambda: fh.fused_hit(
-                   *args, shadow_only=True)),
+                   *args, shadow_only=True), EXPLORE_RUNS),
                plain_ms=cuda_ms(lambda: fh.fused_hit_plain(
                    *args, shadow_only=True, exclude=excl)),
                **sweep_bound(s0.ox.shape[0], a2x["live"], work_x,
@@ -1551,9 +1922,9 @@ def main() -> None:
               "kernel_ms_sorted": cuda_ms(lambda: mi.mesh_hits(
                   mc, *srays, t_min, salive, scap)),
               "kernel_ms_unsorted": cuda_ms(lambda: mi.mesh_hits(
-                  mc, *rays, t_min, alive, cap)),
+                  mc, *rays, t_min, alive, cap), EXPLORE_RUNS),
               "pipeline_ms": cuda_ms(lambda: mi.mesh_search(
-                  mc, *rays, t_min, alive=alive, t_cap=cap))}
+                  mc, *rays, t_min, alive=alive, t_cap=cap), EXPLORE_RUNS)}
         if name.startswith("primary"):
             # The ungated plain sweep over the whole wavefront, once.
             plain, st["plain_s_full"] = wall_s(lambda: mi.mesh_search_plain(
@@ -1615,7 +1986,8 @@ def main() -> None:
                     mc, *srays, t_min, salive, scap, **kw)),
                     a3_kernel_ms_sorted=st["kernel_ms_sorted"],
                     pipeline_ms=cuda_ms(lambda: mi.mesh_search(
-                        mc, *rays, t_min, alive=alive, t_cap=cap, **kw)))
+                        mc, *rays, t_min, alive=alive, t_cap=cap, **kw),
+                        EXPLORE_RUNS))
                 if body == "rowgate":
                     # Timed and bounded on the whole sorted wavefront, as
                     # A3; the subset's numbers kept beside.
@@ -1646,7 +2018,8 @@ def main() -> None:
                     mc, *srays, t_min, salive, scap, exclude=sexcl)),
                 kernel_ms_sorted_no_exclude=st["kernel_ms_sorted"],
                 pipeline_ms=cuda_ms(lambda: mi.mesh_search(
-                    mc, *rays, t_min, alive=alive, t_cap=cap, exclude=excl)),
+                    mc, *rays, t_min, alive=alive, t_cap=cap, exclude=excl),
+                    EXPLORE_RUNS),
                 ms=cuda_ms(lambda: mi.mesh_hits(
                     mc, *r_sub, t_min, al_sub, cap_sub, exclude=sexcl[sub])),
                 plain_ms=cuda_ms(lambda: mi.mesh_search_plain(
@@ -1784,13 +2157,13 @@ def main() -> None:
                                                t_min)),
             glue_ms=cuda_ms(lambda: (
                 mp.pair_slots(lists, mc.k),
-                mp.reduce_pairs(ray_buf, tp, ip, n, num_tris))),
+                mp.reduce_pairs(ray_buf, tp, ip, n, num_tris)), EXPLORE_RUNS),
             fallback_ms=cuda_ms(lambda: mi.mesh_search(
-                mc, *rays, t_min, alive=unsafe, t_cap=cap)),
+                mc, *rays, t_min, alive=unsafe, t_cap=cap), EXPLORE_RUNS),
             pair_search_ms=cuda_ms(lambda: mp.mesh_search_pairs(
-                mc, *rays, t_min, alive, cap, pair_c=PAIR_C)),
+                mc, *rays, t_min, alive, cap, pair_c=PAIR_C), EXPLORE_RUNS),
             clustered_search_ms=cuda_ms(lambda: mi.mesh_search(
-                mc, *rays, t_min, alive=alive, t_cap=cap)))
+                mc, *rays, t_min, alive=alive, t_cap=cap), EXPLORE_RUNS))
         print(f"pair search {name}: {json.dumps(st)}", flush=True)
         # A8, whole wavefront, on the slots the pair search hands it:
         # bitwise on every slot against its plain version and against the
@@ -2133,7 +2506,7 @@ def main() -> None:
     bounces = cfg5.max_depth
 
     phase("config 5, sphere Cornell box, 1920x1080, 4 views: 1 pathwise and "
-          "3 edge-aware train steps")
+          "2 edge-aware train steps")
     true_cams = mv.orbit_cameras(cam5, C5_SPHERE_VIEWS)
     key7 = sampling.prng_key(7, dev)
     targets, tgt_s = wall_s(lambda: torch.stack([
@@ -2191,7 +2564,7 @@ def main() -> None:
     del targets
 
     phase("config 5, true Cornell box (mesh), 1920x1080, 2 views: 1 pathwise "
-          "and 3 edge-aware per-view train steps")
+          "and 2 edge-aware per-view train steps")
     world = meshes.cornell_box_world().to(dev)
     camw = meshes.cornell_box_mesh_camera(cfg5.aspect_ratio).to(dev)
     true_w = mv.orbit_cameras(camw, C5_MESH_VIEWS)
@@ -2311,6 +2684,9 @@ def main() -> None:
     for k, v in xla_out["launches"].items():
         launches[k] += v
     print(f"xla phase: {json.dumps(xla_out)}", flush=True)
+    # Kept for the sharded phase: the terrain world and its 1080p frame.
+    shard_terrain = {"world": xla_terrain["world"],
+                     "img": xla_terrain["img"].cpu()}
     del xla_terrain, xla_book
 
     phase("the CLI on the card: bench, a progressive render with a "
@@ -2318,6 +2694,13 @@ def main() -> None:
           "plain route")
     cli_out = cli_phase(fh, mi, scenes, render_linear, RenderConfig)
     print(f"cli phase: {json.dumps(cli_out)}", flush=True)
+
+    phase("sharded render and training (parallel/): the main-path frame over "
+          "a world of one on NCCL, then two ranks on the one card over gloo "
+          "(they share the card: no scaling is measured)")
+    shard_out = sharded_phase(fh, mi, render_linear, dev, shard_terrain)
+    del shard_terrain
+    print(f"sharded phase: {json.dumps(shard_out)}", flush=True)
 
     sources = {
         "fused_hit": ("qt_raytracer_tpu_torch/csrc/fused_hit.cu",
@@ -2356,11 +2739,13 @@ def main() -> None:
           flush=True)
     print(f"launches over the forward paths' counted frames (the xla "
           f"phase's frames and view-steps among them): "
-          f"{json.dumps(launches)}; over the nine train steps: "
+          f"{json.dumps(launches)}; over the seven train steps: "
           f"{json.dumps(train_launches)}; over the CLI phase's runs: "
-          f"{json.dumps(cli_out['launches'])}")
+          f"{json.dumps(cli_out['launches'])}; over the sharded phase's "
+          f"ranks: {json.dumps(shard_out['launches'])}")
     for k in KERNELS:
-        launches[k] += train_launches[k] + cli_out["launches"][k]
+        launches[k] += train_launches[k] + cli_out["launches"][k] + \
+            shard_out["launches"][k]
     missing = [name for name in KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the paths: "

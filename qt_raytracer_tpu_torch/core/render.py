@@ -163,18 +163,26 @@ def needs_grad(scene, camera) -> bool:
         t.requires_grad for t in tensors_of(scene) + tensors_of(camera))
 
 
-def render_linear(scene, camera, cfg: RenderConfig, key) -> torch.Tensor:
-    """Sum of spp linear radiance samples, [H, W, 3] f32 (row 0 = top), on
-    the scene's device. Divide by cfg.spp (or use tonemap.resolve) for the
-    mean image. Differentiable when a scene or camera tensor requires grad
-    (with a grad-capable intersector, see diff.inverse.grad_capable_config)."""
+def accumulate_pixels(scene, camera, cfg: RenderConfig, key, pixel_index,
+                      first_sample: int, num_samples: int,
+                      spb: int) -> torch.Tensor:
+    """Sum of samples [first_sample, first_sample + num_samples) of the
+    flat pixels pixel_index (row*W + col), [N, 3] f32: spb samples a batch
+    (a merged wavefront when spb > 1; both counts multiples of spb), summed
+    in ascending batch order from zeros. The pixels go in chunks of
+    resolve_pixel_chunk(cfg), the last one padded to the chunk's shape by
+    replaying the first pixels (their keys are real; the results are sliced
+    off); each (chunk, batch) runs under ``torch.utils.checkpoint`` when a
+    scene or camera tensor requires grad. The building block of
+    ``render_linear`` and of the sharded render's pixel range."""
     dev = _check_devices(scene, camera)
     grad = needs_grad(scene, camera)
     with torch.set_grad_enabled(grad):
-        i, j, pixel_index = pixel_grid(cfg, dev)
+        i = (pixel_index % cfg.width).to(torch.float32)
+        j = (cfg.height - 1 - pixel_index // cfg.width).to(torch.float32)
         pix_keys = sampling.pixel_states(key, pixel_index, cfg.rng)
-        spb = cfg.samples_per_batch
-        num_batches = cfg.spp // spb
+        batches = range(first_sample // spb,
+                        (first_sample + num_samples) // spb)
 
         def one_batch(pk, ic, jc, b):
             if spb == 1:
@@ -185,7 +193,7 @@ def render_linear(scene, camera, cfg: RenderConfig, key) -> torch.Tensor:
         def render_chunk(pk, ic, jc):
             accum = torch.zeros((ic.shape[0], 3), dtype=torch.float32,
                                 device=dev)
-            for b in range(num_batches):
+            for b in batches:
                 if grad:
                     out = checkpoint(one_batch, pk, ic, jc, b,
                                      use_reentrant=False,
@@ -195,21 +203,29 @@ def render_linear(scene, camera, cfg: RenderConfig, key) -> torch.Tensor:
                 accum = accum + out
             return accum
 
-        n = cfg.num_pixels
+        n = pixel_index.shape[0]
         chunk = resolve_pixel_chunk(cfg)
         if chunk <= 0 or chunk >= n:
-            accum = render_chunk(pix_keys, i, j)
-        else:
-            # Pad to a whole number of chunks by replaying the first pixels
-            # (their keys are real; the results are sliced off).
-            n_pad = (-n) % chunk
-            pad = lambda x: torch.cat([x, x[:n_pad]]) if n_pad else x
-            pk, ip, jp = pad(pix_keys), pad(i), pad(j)
-            accum = torch.cat([
-                render_chunk(pk[lo:lo + chunk], ip[lo:lo + chunk],
-                             jp[lo:lo + chunk])
-                for lo in range(0, n + n_pad, chunk)])[:n]
-        return accum.reshape(cfg.height, cfg.width, 3)
+            return render_chunk(pix_keys, i, j)
+        n_pad = (-n) % chunk
+        pad = lambda x: torch.cat([x, x[:n_pad]]) if n_pad else x
+        pk, ip, jp = pad(pix_keys), pad(i), pad(j)
+        return torch.cat([
+            render_chunk(pk[lo:lo + chunk], ip[lo:lo + chunk],
+                         jp[lo:lo + chunk])
+            for lo in range(0, n + n_pad, chunk)])[:n]
+
+
+def render_linear(scene, camera, cfg: RenderConfig, key) -> torch.Tensor:
+    """Sum of spp linear radiance samples, [H, W, 3] f32 (row 0 = top), on
+    the scene's device. Divide by cfg.spp (or use tonemap.resolve) for the
+    mean image. Differentiable when a scene or camera tensor requires grad
+    (with a grad-capable intersector, see diff.inverse.grad_capable_config)."""
+    dev = _check_devices(scene, camera)
+    pixel_index = torch.arange(cfg.num_pixels, device=dev)
+    accum = accumulate_pixels(scene, camera, cfg, key, pixel_index, 0,
+                              cfg.spp, cfg.samples_per_batch)
+    return accum.reshape(cfg.height, cfg.width, 3)
 
 
 def render(scene, camera, cfg: RenderConfig, key) -> torch.Tensor:

@@ -32,6 +32,7 @@ from ..core import sampling
 from ..core.camera import Camera
 from ..core.config import RenderConfig
 from ..core.render import render_linear, resolve_intersector
+from ..parallel.sharding import check_mesh, render_linear_sharded
 
 # Scene fields exposed to the optimizer by default.
 DEFAULT_TRAINABLE = ("albedo", "emission")
@@ -60,18 +61,15 @@ def split_scene(scene, trainable=DEFAULT_TRAINABLE):
     return params, rebuild
 
 
-def refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (a render sharded over devices) is not ported yet: "
-            "ROADMAP Queue A item 11")
-
-
 def mean_image(scene, camera, cfg: RenderConfig, key, mesh=None):
     """Per-sample mean linear radiance image [H, W, 3]: the differentiable
-    target."""
-    refuse_mesh(mesh)
-    return render_linear(scene, camera, cfg, key) / cfg.spp
+    target. With a mesh (``parallel.sharding.make_mesh``) the render is
+    sharded over its ranks and every rank gets the whole image."""
+    if mesh is None:
+        acc = render_linear(scene, camera, cfg, key)
+    else:
+        acc = render_linear_sharded(scene, camera, cfg, key, mesh)
+    return acc / cfg.spp
 
 
 def image_loss(scene, camera, cfg: RenderConfig, key, target, mesh=None):
@@ -200,8 +198,8 @@ def value_and_grad(loss_fn, params: dict, *args):
 
 def step_setup(cfg: RenderConfig, mesh, edge_aware: bool, loss: str):
     """(cfg with a grad-capable intersector, the loss function) of a train
-    step; mesh= and an unknown loss raise."""
-    refuse_mesh(mesh)
+    step; a mesh= that is not a Mesh and an unknown loss raise."""
+    check_mesh(mesh)
     if loss not in ("l2", "dual"):
         raise ValueError(f"loss is 'l2' or 'dual', got {loss!r}")
     cfg = grad_capable_config(cfg)
@@ -224,7 +222,10 @@ def make_train_step(scene, camera, cfg: RenderConfig, optimizer,
     to [0, 1] and emission to >= 0. edge_aware=True renders with
     cfg.edge_aware (``diff.edge``; its kernel width, order and shadow term
     are cfg.edge_kernel_px, cfg.edge_kernel_order and cfg.edge_shadow).
-    mesh= (sharding) is not ported yet and raises."""
+    mesh: a ``parallel.sharding.Mesh``, over whose ranks every render of
+    the step is sharded; the gradients are summed over the mesh, so every
+    rank takes the same step and the parameters stay equal on all of
+    them."""
     cfg, loss_impl = step_setup(cfg, mesh, edge_aware, loss)
     scene_params, rebuild_scene = split_scene(scene, trainable)
     params = {"scene": scene_params}
@@ -245,7 +246,7 @@ def make_train_step(scene, camera, cfg: RenderConfig, optimizer,
 
     def loss_fn(p, target, key):
         return loss_impl(rebuild_scene(p["scene"]), rebuild_camera(p), cfg,
-                         key, target)
+                         key, target, mesh)
 
     def init_state() -> TrainState:
         return new_state(params, optimizer)

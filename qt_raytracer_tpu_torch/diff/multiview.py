@@ -76,7 +76,7 @@ def _setup(scene, cameras, cfg, trainable, train_camera, mesh, edge_aware,
         cam = rebuild_cameras(p)[v]
         words = sampling.key_words(key, target_v.device)
         return loss_impl(rebuild_scene(p["scene"]), cam, cfg,
-                         sampling.fold_in(words, v), target_v)
+                         sampling.fold_in(words, v), target_v, mesh)
 
     return m, params, rebuild_scene, rebuild_cameras, view_loss
 
@@ -92,7 +92,9 @@ def make_multiview_train_step(scene, cameras: Sequence, cfg: RenderConfig,
     {"scene": {...}, "camera": {"translate": [M,3]}} with the mean of the
     M view losses (view v rendered with key fold_in(key, v)). Scene
     gradients sum over views; pose gradients are per view. optimizer: a
-    factory params -> torch.optim.Optimizer (``inverse.adam``)."""
+    factory params -> torch.optim.Optimizer (``inverse.adam``). mesh: a
+    ``parallel.sharding.Mesh`` over whose ranks every view's render is
+    sharded, as in ``inverse.make_train_step``."""
     m, params, rebuild_scene, rebuild_cameras, view_loss = _setup(
         scene, cameras, cfg, trainable, train_camera, mesh, edge_aware, loss)
 

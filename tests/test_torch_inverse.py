@@ -282,7 +282,7 @@ def test_unported_training_options_raise():
     args = (scene_from_arrays(_arrays(wrong), device="cpu"),
     camera_from_arrays(_arrays(jc), device="cpu"),
             TConfig(**cfg), tinv.adam(1e-2))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         tinv.make_train_step(*args, mesh=object())
     with pytest.raises(ValueError, match="'l2' or 'dual'"):
         tinv.make_train_step(*args, loss="l1")

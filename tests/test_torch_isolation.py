@@ -1,8 +1,7 @@
 """The port stands apart from JAX, and never hides a missing device or
 kernel: importing it loads no JAX; on a machine without CUDA a CUDA render,
-the kernel's route and its build raise instead of returning; features not
-yet ported raise NotImplementedError naming their ROADMAP item, and those
-ported since run."""
+the kernel's route and its build raise instead of returning; the features
+that raised NotImplementedError until they were ported run."""
 
 import pathlib
 import subprocess
@@ -46,6 +45,8 @@ def test_import_loads_no_jax():
         "import qt_raytracer_tpu_torch.kernels.bvh_walk\n"
         "import qt_raytracer_tpu_torch.testing.oracle\n"
         "import qt_raytracer_tpu_torch.testing.oracle_vec\n"
+        "import qt_raytracer_tpu_torch.parallel.sharding\n"
+        "import qt_raytracer_tpu_torch.parallel.distributed\n"
         + APP_IMPORTS +
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'qt_raytracer_tpu' or "
@@ -230,12 +231,17 @@ def _runs_a6_clustered():
     assert t.shape == idx.shape == (4,)
 
 
-def _raises_sharded_mesh():
+def _runs_sharded_mesh():
+    # A world of one: a mesh without a process group.
     from qt_raytracer_tpu_torch.diff.inverse import adam, make_train_step
+    from qt_raytracer_tpu_torch.parallel.sharding import make_mesh
     cfg = RenderConfig(width=8, height=8, spp=1, max_depth=1, rng="hash")
     scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio,
                                   device="cpu")
-    make_train_step(scene, cam, cfg, adam(1e-2), mesh="sp,px")
+    init, step, _, _ = make_train_step(scene, cam, cfg, adam(1e-2),
+                                       mesh=make_mesh())
+    _, loss = step(init(), torch.zeros((8, 8, 3)), 0)
+    assert bool(torch.isfinite(loss))
 
 
 def _runs_exclude_prim0():
@@ -316,23 +322,13 @@ def _runs_sort_modes():
         assert t.shape == idx.shape == (4,)
 
 
-# Each case names a feature that is still not ported, and the ROADMAP item
-# or queue that brings it.
-@pytest.mark.parametrize("run,item", [
-    (_raises_sharded_mesh, "item 11"),
-])
-def test_unported_features_raise(run, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run()
-
-
 # What raised NotImplementedError until it was ported.
 @pytest.mark.parametrize("run", [_runs_edge_aware, _runs_a5_exclude,
                                  _runs_a6_clustered, _runs_exclude_prim0,
                                  _runs_compact, _runs_pair_first_cluster,
                                  _runs_pairs_kernel, _runs_sort_modes,
                                  _runs_rowgate, _runs_subtile, _runs_sliced,
-                                 _runs_mxu, _runs_xla])
+                                 _runs_mxu, _runs_xla, _runs_sharded_mesh])
 def test_ported_features_run(run):
     run()
 
