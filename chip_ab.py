@@ -2,8 +2,8 @@
 """Time the port's kernels, frames and train steps against another
 checkout's, on the same inputs, in one process on one CUDA card.
 
-Usage: python3 chip_ab.py OTHER_DIR
-           [--parts spheres,mesh,pairs,a6,boxes,paths]
+Usage: python3 chip_ab.py OTHER_DIR [--ablation]
+           [--parts spheres,mesh,mxu,pairs,a6,boxes,paths]
 
 OTHER_DIR holds another checkout of the repository, for example the parent
 commit unpacked by ``git archive <commit> qt_raytracer_tpu_torch | tar -x -C
@@ -19,7 +19,10 @@ bounces, A1 also with each ray excluding its own winner; A2 on the
 Cornell-mesh NEE shadow rays; A3's VPU and ROWGATE instances on the primary
 and bounce-2 wavefronts of chunk 2 of the 1080p terrain, sorted by the
 crossing key and unsorted, at clusters of 1, 2 and 4 rows, and with the
-exclude operand; A8 (pair hits, on the slots of this package's crossing
+exclude operand; A3's MXU instance (A3m) on the same two wavefronts,
+sorted and unsorted, and sorted with the exclude operand on the primary
+one, with this package's VPU instance (A3) timed beside it on the same
+rays; A8 (pair hits, on the slots of this package's crossing
 lists) and the whole pair search (``mesh_search_pairs``) on those two
 terrain wavefronts, and A8 on a wavefront of the true-Cornell train step
 (one cluster of one row); A6 (cluster-culled sphere search) on the primary and
@@ -38,6 +41,10 @@ frame under the default options, under ``mesh_visit="rowgate"`` and under
 64-spp Cornell-mesh NEE frame, and one config-5 train step on the
 sphere Cornell box (4 views at 1080p), pathwise and edge-aware; host
 seconds in turns, images and losses equal bit for bit.
+
+With ``--ablation`` OTHER_DIR is a copy with a part of a kernel taken out
+on purpose (the exact test, a product, a conversion), timed only: where
+its bits differ the script says so and goes on.
 
 Prints the card's name and power limit first and one JSON line per
 measurement. Raises without CUDA.
@@ -62,6 +69,7 @@ from chip_smoke import (C5, C5_SPHERE_LR, C5_SPHERE_POSE_ERR, C5_SPHERE_VIEWS,
 
 OTHER = "qtrt_other"
 RUNS = 7
+ABLATION = False   # --ablation
 
 
 def load_other(root: pathlib.Path):
@@ -119,6 +127,9 @@ def same_bits(a, b, alive, what: str) -> None:
     for x, y in zip(a, b):
         if not (torch.equal(x[..., alive], y[..., alive])
                 and torch.equal(x[..., ~alive], y[..., ~alive])):
+            if ABLATION:
+                print(f"{what}: the two kernels differ (ablation)")
+                return
             raise AssertionError(f"{what}: the two kernels differ")
 
 
@@ -129,10 +140,17 @@ def report(name: str, entry: dict) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", type=pathlib.Path)
-    ap.add_argument("--parts", default="spheres,mesh,pairs,a6,boxes,paths",
-                    help="which of spheres, mesh, pairs, a6, boxes and paths "
-                         "to run")
+    ap.add_argument("--ablation", action="store_true",
+                    help="OTHER_DIR's kernels have a part taken out on "
+                         "purpose and are timed only: differing bits are "
+                         "printed, not raised")
+    ap.add_argument("--parts",
+                    default="spheres,mesh,mxu,pairs,a6,boxes,paths",
+                    help="which of spheres, mesh, mxu, pairs, a6, boxes and "
+                         "paths to run")
     args = ap.parse_args()
+    global ABLATION
+    ABLATION = args.ablation
     parts = set(args.parts.split(","))
     dev = require_card()
 
@@ -255,6 +273,33 @@ def main() -> None:
                         "rays": r[0].shape[0], "live": int(a.sum()),
                         **in_turns(lambda: run(mi, mc),
                                    lambda: run(o_mi, o_mc), event_ms)})
+
+    # ------------------------------------------------ A3m
+    if "mxu" in parts:
+        mc = mi.prep_mesh_clusters(world.mesh, mt="mxu")
+        o_mc = o_mi.prep_mesh_clusters(to_other(world.mesh), mt="mxu")
+    for name, s in mesh_fronts if "mxu" in parts else ():
+        rays, alive = rays_of(s), s.alive
+        cap = fh.fused_hit(wt.spheres, *rays, alive, t_min)["t"]
+        perm = mi.crossing_order(mc, *rays, t_min, alive, cap)
+        sr = tuple(x[perm] for x in rays)
+        sa, sc = alive[perm], cap[perm]
+        kern = mi.mesh_hits(mc, *sr, t_min, sa, sc, mt="mxu")
+        ex = torch.where(sa & (kern[0] < fh.BIG), kern[1], -1).to(torch.int32)
+        variants = {"sorted": (sr, sa, sc, None),
+                    "unsorted": (rays, alive, cap, None)}
+        if name.startswith("primary"):
+            variants["sorted_exclude"] = (sr, sa, sc, ex)
+        for vname, (r, a, c, x) in variants.items():
+            run = lambda m, t: m.mesh_hits(t, *r, t_min, a, c, mt="mxu",
+                                           exclude=x)
+            same_bits(run(mi, mc), run(o_mi, o_mc), a, f"A3m {name} {vname}")
+            report(f"A3m {name} {vname}", {
+                "rays": r[0].shape[0], "live": int(a.sum()),
+                **in_turns(lambda: run(mi, mc), lambda: run(o_mi, o_mc),
+                           event_ms),
+                "a3_ms": event_ms(lambda: mi.mesh_hits(mc, *r, t_min, a, c,
+                                                       exclude=x))})
 
     # ------------------------------------------------ A8, the pair search
     o_mp = other_module("kernels.mesh_pairs")

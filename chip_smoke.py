@@ -78,6 +78,13 @@ counts set to 0 just before it and read just after:
 Before the frames, the mesh search's row-gated and bilinear-form instances
 are held against their plain versions and against the default instance on
 the terrain's sorted wavefronts, with and without the exclude operand; the
+bilinear-form instance (A3m: blocks of 64 rays, a TF32 filter on the tensor
+cores, an exact re-test) also against the gated exact sweep
+(``mesh_search_gated_plain(mt="mxu")``) on the whole sorted primary and
+bounce-2 wavefronts, which counts its packed 16-ray tiles, block visits and
+filter passes per live ray and holds the plain filter sound on every pair
+it sweeps; the HMMA instructions of its instances are counted in
+``cuobjdump -sass`` of the built library; the
 default and row-gated instances are timed at clusters of 1, 2 and 4 rows on
 a bounce wavefront. The pair hits are held against their row-gated plain
 version too (on every slot), and the cluster-culled sphere search against
@@ -96,10 +103,12 @@ card against the CPU bit for bit. Every phase raises on failure, so the
 script exits non-zero; without CUDA it raises before printing any result.
 
 Beside its time and its plain version's, each kernel gets its bound: the
-least time the card could take for the same work, the larger of its FP32
-operations over 67 TFLOP/s and its bytes (inputs once, outputs once) over
-3.35 TB/s, both counted from this run's inputs (live lanes, chunks and
-clusters that the gates open). No single PyTorch call computes any of these
+least time the card could take for the same work, the largest of its FP32
+operations over 67 TFLOP/s, its TF32 tensor-core operations over 495
+TFLOP/s (A3m's products) and its bytes (inputs once, outputs once) over
+3.35 TB/s, all counted from this run's inputs (live lanes, chunks and
+clusters that the gates open); ``peak`` names which. A3m also prints the
+bound of the FP32 form it replaced. No single PyTorch call computes any of these
 functions, so ``library_ms`` is null throughout.
 
 Output: the card's name and power limit (nvidia-smi), per-phase numbers, a
@@ -147,6 +156,7 @@ KERNELS = ("fused_hit", "fused_hit_shadow", "mesh_first_cluster",
 PAIR_C = 6                 # crossing-list width of the pair search
 CLUSTER_ROWS = (1, 2, 4)   # cluster sizes timed on the bounce wavefront
 PEAK_FP32 = 67e12          # FLOP/s outside the tensor cores (H100 SXM)
+PEAK_TF32 = 495e12         # FLOP/s of the tensor cores in TF32, dense
 PEAK_BYTES = 3.35e12       # bytes/s of HBM3
 SWEEP_FLOPS = 25           # per (ray, sphere) pair of a sphere sweep
 SWEEP_DEPTHS = (2, 3, 5)   # bounce wavefronts of the sphere sweep phase
@@ -155,6 +165,16 @@ SLAB_FLOPS = 20            # per (ray, box) slab test
 MT_FLOPS = 45              # per (ray, triangle) Moller-Trumbore and accept
 MXU_FLOPS = 45             # the same, bilinear form (mesh_common.cuh count)
 MXU_TRI_BYTES = 76         # 19 f32 factors per triangle
+# A3m (csrc/mesh_intersect.cu) per (ray, triangle) pair: det, u det, v det
+# and their three margins as tensor-core products, 2 * (3 + 6 + 6) * 2
+# TF32 operations; in FP32 the filter's epilogue (maybe_hit, 14), the FMA
+# that starts u's and v's margins (1) and the pair's share of the B
+# operands' TF32 rounding and sign masking (5 cvt and 5 AND a thread for
+# its 4 pairs, 2.5); the exact test (MXU_FLOPS) on each pair the filter
+# passes.
+MXU_PRODUCT_FLOPS = 60
+MXU_EPILOGUE_OPS = 17.5
+MXU_TILE_RAYS = 16         # rays a warp of A3m (mesh_intersect.MXU_RAYS)
 A6_SPHERES = 1061          # the clustered scene: 1,152 slots, 18 chunks
 # BASELINE config 5 (benchmarks/run_baselines.py:196-386).
 C5 = dict(width=1920, height=1080, spp=2, max_depth=4, rng="hash", nee=True,
@@ -363,13 +383,19 @@ def read_counts(fh, mi) -> dict:
             "bvh_walk[exclude]": bw.exclude_launches}
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of operations over
-    the FP32 peak and bytes over the HBM rate."""
-    ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "flops": flops, "bytes": nbytes}
+def bound(flops: float, nbytes: float, tf32_flops: float = 0.0) -> dict:
+    """The least time the card could take: the largest of FP32 operations
+    over the FP32 peak, TF32 operations over the tensor cores' TF32 peak
+    (the two units run side by side) and bytes over the HBM rate; peak
+    names which of the three it is."""
+    times = {"fp32": flops / PEAK_FP32 * 1e3,
+             "tf32": tf32_flops / PEAK_TF32 * 1e3,
+             "hbm": nbytes / PEAK_BYTES * 1e3}
+    peak = max(times, key=times.get)
+    return {"bound_ms": times[peak],
+            "bound_by": "bytes" if peak == "hbm" else "operations",
+            "peak": peak, "flops": flops, "bytes": nbytes,
+            **({"tf32_flops": tf32_flops} if tf32_flops else {})}
 
 
 def sweep_work(fh, spheres, boxes, rays, alive, t_min,
@@ -786,31 +812,76 @@ def a8_bound(mc, pairs: int, rows: int, slots: int) -> dict:
 
 
 def a3_bound(mc, body: str, n: int, live: int, visits: int, rows: int = 0,
-             exclude: bool = False) -> dict:
+             exclude: bool = False, work: dict | None = None) -> dict:
     """Bound of A3 (body "a3"), its row-gated ("rowgate") or bilinear-form
     ("mxu") instance on n rays (live of them alive): 20 operations per
     (live ray, cluster) slab test, 20 per row slab test of a visited
     cluster (the row gate), 45 per (ray, triangle) of a visited cluster, or
     of a row that passes the row gate; visits and rows as the gated plain
-    sweep counts them. Bytes: the rays (and the exclude ids) in, (t, idx)
-    out, the triangle planes (19 factors a triangle for "mxu"), the boxes
-    and the row boxes."""
+    sweep counts them. "mxu" (A3m) counts its own form: per (ray, triangle)
+    of a cluster the ray visits, MXU_PRODUCT_FLOPS on the tensor cores and
+    MXU_EPILOGUE_OPS in FP32, and 45 per pair of those that the filter
+    passes (work, from the gated plain sweep under mt="mxu"), with the
+    FP32 form's bound (45 a pair) beside it and the packed tile, block and
+    filter counts per live ray. Bytes: the rays (and the exclude ids) in,
+    (t, idx) out, the triangle planes (19 factors a triangle for "mxu"),
+    the boxes and the row boxes."""
     g = mc.tris_per_cluster
     flops = live * mc.k * SLAB_FLOPS
     nbytes = n * (37 + 4 * exclude) + mc.box_planes.numel() * 4
+    tf32, extra = 0.0, {}
     if body == "rowgate":
         flops += rows * 128 * MT_FLOPS + visits * (g // 128) * SLAB_FLOPS
         nbytes += mc.tri_planes.numel() * 4 + mc.row_boxes.numel() * 4
     elif body == "mxu":
-        flops += visits * g * MXU_FLOPS
         nbytes += mc.k * g * MXU_TRI_BYTES
+        per = max(live, 1)
+        extra = {"bound_fp32_form_ms": bound(flops + visits * g * MXU_FLOPS,
+                                             nbytes)["bound_ms"],
+                 "tile_visits_per_live_ray": work["tile_visits"] / per,
+                 "tile_rays_per_visit": work["tile_visits"] * MXU_TILE_RAYS
+                 / max(visits, 1),
+                 "block_visits": work["block_visits"],
+                 "block_visits_per_live_ray": work["block_visits"] / per,
+                 "filter_passes_per_live_ray": work["filter_passes"] / per,
+                 "filter_passes_per_visit":
+                     work["filter_passes"] / max(visits, 1)}
+        flops += visits * g * MXU_EPILOGUE_OPS \
+            + work["filter_passes"] * MXU_FLOPS
+        tf32 = visits * g * MXU_PRODUCT_FLOPS
     else:
         flops += visits * g * MT_FLOPS
         nbytes += mc.tri_planes.numel() * 4
     return {"visits_per_live_ray": visits / max(live, 1),
             **({"rows_per_live_ray": rows / max(live, 1)}
                if body == "rowgate" else {}),
-            **bound(flops, nbytes)}
+            **extra, **bound(flops, nbytes, tf32)}
+
+
+def tensor_core_instructions(cuda_build) -> dict:
+    """The HMMA (tensor-core) instructions in each instance of A3's kernels,
+    as cuobjdump -sass of the built library shows them: A3m's must have
+    some, the warp-per-ray kernel none."""
+    tool = pathlib.Path(cuda_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(cuda_build.library_path())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            name = fn[fn.index("mesh_search"):fn.index("EEv") + 2] \
+                if "mesh_search" in fn and "EEv" in fn else None
+            if name:
+                counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    mxu = {k: v for k, v in counts.items() if "mxu" in k}
+    if len(mxu) != 2 or min(mxu.values()) == 0 or any(
+            v for k, v in counts.items() if "mxu" not in k):
+        raise AssertionError(f"HMMA instructions not where expected: "
+                             f"{counts}")
+    return counts
 
 
 def compare_body(mi, mc, body, r_sub, al_sub, cap_sub, t_min, a3_sub,
@@ -825,7 +896,9 @@ def compare_body(mi, mc, body, r_sub, al_sub, cap_sub, t_min, a3_sub,
                                       exclude=exclude, **kw, **more)
     kern = run()
     # The row gate's plain version is the gated sweep that counts its work;
-    # the bilinear form's is the ungated sweep, which the gated one equals.
+    # the bilinear form's is the ungated sweep, which the gated one (the
+    # kernel's gate, its tiles and filter counted, the filter held sound)
+    # must equal.
     gated = mi.mesh_search_gated_plain(mc, *r_sub, t_min, al_sub, cap_sub,
                                        exclude=exclude, **kw)
     plain = gated[:2] if body == "rowgate" else run(interpret=True)
@@ -850,8 +923,12 @@ def compare_body(mi, mc, body, r_sub, al_sub, cap_sub, t_min, a3_sub,
     if exclude is not None:
         st.update(check_excluded(kern[0], kern[1], exclude, al_sub, mi.BIG,
                                  f"A3 {body}"))
+    elif body == "mxu":
+        st["subset_filter_passes"] = gated[3]["filter_passes"]
+    counts = dict(visits=gated[2], rows=gated[3]) if body == "rowgate" \
+        else dict(visits=gated[2], work=gated[3])
     st.update(a3_bound(mc, body, r_sub[0].shape[0], int(al_sub.sum()),
-                       *gated[2:], exclude=exclude is not None),
+                       exclude=exclude is not None, **counts),
               subset_rays=int(r_sub[0].shape[0]), ms=cuda_ms(run))
     if time_plain:
         st["plain_ms"] = cuda_ms(lambda: run(interpret=True), 1)
@@ -1698,6 +1775,8 @@ def main() -> None:
         if "Compiling entry" in line or "registers" in line or \
                 "spill" in line:
             print(line.strip())
+    print(f"HMMA instructions per A3 kernel instance (cuobjdump -sass): "
+          f"{json.dumps(tensor_core_instructions(cuda_build))}", flush=True)
 
     def primary(camera, cfg, spb=1, index=0):
         """Chunk `index` of cfg's first sample batch, as render_linear makes
@@ -1972,8 +2051,23 @@ def main() -> None:
                   else None)
         st["pairs_per_live_ray"] = st["visits_per_live_ray"] \
             * mc.tris_per_cluster
-        rowgate_whole = {"plain_ms": gated_s * 1e3, **a3_bound(
-            mc, "rowgate", n, st["live"], gated[2], gated[3])}
+        whole_body = {"rowgate": {"plain_ms": gated_s * 1e3, **a3_bound(
+            mc, "rowgate", n, st["live"], gated[2], gated[3])}}
+        if name != "primary_chunk0":
+            # A3m against the gated exact sweep on the whole sorted
+            # wavefront, which counts its tiles and filter passes and holds
+            # the plain filter sound on every pair: its bits, its counts,
+            # its bound.
+            kern_m = mi.mesh_hits(mc, *srays, t_min, salive, scap, mt="mxu")
+            gm, gm_s = wall_s(lambda: mi.mesh_search_gated_plain(
+                mc, *srays, t_min, salive, scap, mt="mxu"))
+            if not all(torch.equal(a, b) for a, b in zip(gm[:2], kern_m)):
+                raise AssertionError(f"A3 mxu differs from its gated plain "
+                                     f"sweep on the whole wavefront ({name})")
+            whole_body["mxu"] = {"plain_ms": gm_s * 1e3, **a3_bound(
+                mc, "mxu", n, st["live"], gm[2], work=gm[3])}
+            print(f"A3 mxu {name} work: {json.dumps(gm[3])}", flush=True)
+            del kern_m, gm
         del gated, whole
         if name != "primary_chunk0":
             # The row-gated and bilinear-form instances on the same subset,
@@ -1988,13 +2082,12 @@ def main() -> None:
                     pipeline_ms=cuda_ms(lambda: mi.mesh_search(
                         mc, *rays, t_min, alive=alive, t_cap=cap, **kw),
                         EXPLORE_RUNS))
-                if body == "rowgate":
-                    # Timed and bounded on the whole sorted wavefront, as
-                    # A3; the subset's numbers kept beside.
-                    bt.update({f"subset_{k}": bt[k] for k in (
-                        "ms", "plain_ms", "bound_ms", "bound_by")
-                        if k in bt})
-                    bt.update(rowgate_whole, ms=bt["kernel_ms_sorted"])
+                # Timed and bounded on the whole sorted wavefront, as A3;
+                # the subset's numbers kept beside.
+                bt.update({f"subset_{k}": bt[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_fp32_form_ms") if k in bt})
+                bt.update(whole_body[body], ms=bt["kernel_ms_sorted"])
                 a3b[body][name] = bt
                 print(f"A3 {body} {name}: {json.dumps(bt)}", flush=True)
         if name == "primary_chunk2":

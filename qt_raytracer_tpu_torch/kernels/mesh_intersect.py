@@ -33,7 +33,11 @@ package chooses them (``mt`` first, then ``visit``):
   - ``mt="mxu"``: Moller-Trumbore as bilinear forms of ray features (d,
     o x d, o, 1) and 19 per-triangle factors (``build_mt_features``). The
     candidates round differently, so it agrees with "vpu" without being
-    bitwise equal to it.
+    bitwise equal to it. On the card a block of 64 rays stages each visited
+    cluster's factors in shared memory and takes det, u det and v det on the
+    tensor cores in TF32 as a filter (``mxu_filter_plain``); the pairs it
+    cannot reject take the scalar bilinear form, which decides, so the bits
+    are those of the scalar form whatever block a ray lands in.
   - ``visit="subtile"`` and ``"sliced"`` re-tile the TPU's (128 rays, 128
     triangles) visit into (``SUBTILE_ROWS``, 128) slices with the same
     expression tree, "sliced" also skipping slices whose gate popcount is 0;
@@ -67,6 +71,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..accel.mesh import TriangleMesh
@@ -87,6 +92,20 @@ MT_MODES = ("vpu", "mxu")                          # Moller-Trumbore engines
 VISIT_MODES = ("full", "subtile", "sliced", "rowgate")
 SORT_PIPES = ("gather", "fused")
 MT_FEATURES = 19          # bilinear-form factors per triangle (mt="mxu")
+# The filter of A3's bilinear-form instance, as csrc/mesh_intersect.cu sets
+# it (a CPU test holds these equal to the source's): rays a warp and a
+# block, the margin's scale, floors and start, the underflow floor of u and
+# v, the det threshold and the u + v slack, and the bound taken on the
+# tensor core's accumulation error.
+MXU_RAYS = 16
+MXU_BLOCK_RAYS = 64
+MXU_C = 2.0 ** -9
+MXU_FLOOR = 2.0 ** -116
+MXU_ABS = 2.0 ** -125
+MXU_TAU = 2.0 ** -100
+DET_LO = float(np.float32(1e-12) * np.float32(1.0 - 2.0 ** -20))
+K_UV = 1.0 + 2.0 ** -19
+MXU_ACC = 2.0 ** -19
 # A3's template instances (csrc/mesh_intersect.cu, enum SearchMode).
 _VPU, _ROWGATE, _MXU = 0, 1, 2
 
@@ -656,11 +675,22 @@ def mesh_search_gated_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
     "rowgate", mt "vpu") each 128-triangle row of a visited cluster is gated
     the same way on its own box before it is swept, and the result is
     (t, idx, visits, row_visits), row_visits counting the (ray, row) pairs
-    swept; it is that instance's plain version. A measuring aid otherwise;
-    no path runs it."""
+    swept; it is that instance's plain version. Under mt "mxu" it runs the
+    kernel's work: the rays in blocks of MXU_BLOCK_RAYS as they lie (dead
+    lanes and all); at a cluster's turn the rays of a block that pass their
+    gate packed into tiles of MXU_RAYS, each of their pairs through
+    mxu_filter_plain. The result is (t, idx, visits, work), work counting
+    tile_visits and block_visits (the packed tiles and the (block, cluster)
+    pairs visited) and filter_passes (the pairs the filter passes on to the
+    exact test). (t, idx) stay the exact sweep's, independent of the
+    filter; it raises AssertionError where the filter rejects a pair that
+    the exact test accepts, so that a sound filter, and the kernel's
+    filter-then-exact-test with it, is checked at the caller's shapes. A
+    measuring aid otherwise; no path runs it."""
     check_search_options(mt, visit)
     _check_tables(mc, mt, visit)
     rowgate = _instance(mt, visit) == _ROWGATE
+    mxu = _instance(mt, visit) == _MXU
     n = ox.shape[0]
     dev = ox.device
     live = torch.nonzero(alive).squeeze(1)
@@ -674,6 +704,8 @@ def mesh_search_gated_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
     best = torch.zeros(live.shape[0], dtype=torch.int32, device=dev)
     g = mc.tris_per_cluster
     visits = row_visits = 0
+    work = dict(tile_visits=0, block_visits=0, filter_passes=0)
+    block = torch.div(live, MXU_BLOCK_RAYS, rounding_mode="floor")
 
     def gate(boxes, j, ids):
         """The lanes of ids whose slab test of box j passes under their
@@ -689,6 +721,17 @@ def mesh_search_gated_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
                        tuple(c[ids][:, None] for c in d),
                        tuple(None if c is None else c[ids][:, None]
                              for c in m), p0, p1, float(t_min))
+        if mxu:
+            # The kernel's filter: counted, and held sound against the
+            # exact test, which alone decides here.
+            maybe = mxu_filter_plain(
+                tuple(c[ids][:, None] for c in d),
+                tuple(c[ids][:, None] for c in m), mc.mt_planes[:, p0:p1])
+            if bool((ok & ~maybe).any()):
+                raise AssertionError(
+                    "the bilinear-form filter rejects a pair that the "
+                    "exact test accepts")
+            work["filter_passes"] += int(maybe.sum())
         gid = torch.arange(p0, p1, dtype=torch.int32, device=dev)
         if ex is not None:
             ok = ok & (gid[None, :] != ex[ids][:, None])
@@ -705,6 +748,15 @@ def mesh_search_gated_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
         ids = gate(mc.box_planes, j, everyone)
         visits += int(ids.shape[0])
         if not ids.shape[0]:
+            continue
+        if mxu:
+            per_block = torch.unique(block[ids], return_counts=True)[1]
+            work["tile_visits"] += int(torch.div(
+                per_block + MXU_RAYS - 1, MXU_RAYS,
+                rounding_mode="floor").sum())
+            work["block_visits"] += int(per_block.shape[0])
+            for lo in range(0, ids.shape[0], 4 * PLAIN_SLICE_RAYS):
+                sweep(ids[lo:lo + 4 * PLAIN_SLICE_RAYS], j * g, (j + 1) * g)
             continue
         if not rowgate:
             sweep(ids, j * g, (j + 1) * g)
@@ -723,6 +775,8 @@ def mesh_search_gated_plain(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
     idx_out[live] = torch.where(won, best, 0)
     if rowgate:
         return t_out, idx_out, visits, row_visits
+    if mxu:
+        return t_out, idx_out, visits, work
     return t_out, idx_out, visits
 
 
@@ -830,6 +884,101 @@ def _moller_trumbore_bilinear(o, d, m, f, t_min):
     md = (*m, *d)
     return _accept(dot(d, f[0:3]), dot(md, f[3:9]), dot(md, f[9:15]),
                    dot(o, f[15:18]) + f[18], t_min)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x (float32) rounded to TF32 as cvt.rna.tf32.f32 rounds it: to 10
+    explicit significand bits, to nearest, ties away from zero (add half a
+    unit of the 13 dropped bits to the magnitude, then drop them); inf and
+    NaN as they are."""
+    bits = x.contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def _fma32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c (float32; b a tensor or a float32-exact number) rounded
+    once to float32, as fmaf rounds it: the product is exact in float64,
+    the sum is taken to float64 rounded to odd (its error by TwoSum), from
+    which one rounding to float32 is the correctly rounded result."""
+    p = a.double() * b
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.inf, -torch.inf).double()
+    s = torch.where((err != 0) & even & torch.isfinite(err),
+                    torch.nextafter(s, away), s)
+    return s.float()
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Values below 2^-126 in magnitude to zero, as a tensor core may."""
+    return torch.where(x.abs() < 2.0 ** -126, 0.0, x)
+
+
+def _mma_form(a, b, acc: float, ftz: bool, floor_of=None):
+    """(value, margin) of the kernel's two tensor-core products for one
+    form, a [m, 1] ray features (float32, its K real ones) and b [K, T]
+    factors: the value from the TF32 operands, its K products exact and
+    their sum off by acc * MXU_ACC times the sum of their magnitudes (acc
+    in [-1, 1]: the worst cases at +-1); the margin from c * max(|a~|,
+    MXU_FLOOR) and |b~|, started at MXU_ABS * (sum |a| + 2K + 1) (sum |a|
+    over runs of three features, as the kernel adds them; plus floor_of *
+    MXU_TAU in one FMA, floor_of [m, T], where given) and taken MXU_ACC
+    low. With ftz, operands and products below 2^-126 count as zero. Both
+    [m, T] float32."""
+    k = len(a)
+    fl = _flush if ftz else (lambda x: x)
+    at = [fl(tf32_round(x)).double() for x in a]
+    bt = [fl(tf32_round(b[j])).double() for j in range(k)]
+    prods = [fl(x * y) for x, y in zip(at, bt)]
+    val = sum(prods[1:], prods[0])
+    mag = sum((p.abs() for p in prods[1:]), prods[0].abs())
+    val = (val + acc * MXU_ACC * mag).float()
+    sa = None
+    for j in range(0, k, 3):
+        run = a[j].abs()
+        for x in a[j + 1:j + 3]:
+            run = run + x.abs()
+        sa = run if sa is None else sa + run
+    start = MXU_ABS * (sa + float(2 * k + 1))
+    if floor_of is not None:
+        start = _fma32(floor_of, MXU_TAU, start)
+    start = start.double()
+    terms = [fl((MXU_C * torch.clamp_min(x.abs(), MXU_FLOOR)) * y.abs())
+             for x, y in zip(at, bt)]
+    margin = ((start + sum(terms[1:], terms[0])) * (1.0 - MXU_ACC)).float()
+    return val, margin
+
+
+def mxu_filter_plain(d, m, f, *, acc=(0.0, 0.0, 0.0),
+                     ftz: bool = True) -> torch.Tensor:
+    """[m, T] bool: the pairs that the bilinear-form kernel's TF32 filter
+    passes on to the exact test (csrc/mesh_intersect.cu, maybe_hit), for
+    rays of direction d with m = o x d ([m, 1] float32 components, as
+    _moller_trumbore_bilinear takes them) and the factor planes f ([19,
+    T]). The tensor core's products are modelled by _mma_form, acc giving
+    the sign (or fraction) of the accumulation error of det, u det and v
+    det; the epilogue then runs in float32, op by op as the kernel's (its
+    two FMAs rounded once, by _fma32). A pair is rejected only where |D| +
+    E_D < DET_LO, or where |D| > E_D and u or v is certainly negative, or
+    u + v certainly above 1; it never looks at t (a variant with t det and
+    tests on t ran slower on the card, PERF.md §6). NaN passes. The exact
+    test decides every pair that passes."""
+    md = (*m, *d)
+    D, ED = _mma_form(d, f[0:3], acc[0], ftz)
+    aD = D.abs()
+    # The floor of u and v rides in their margins' start, as in the kernel.
+    U, EU = _mma_form(md, f[3:9], acc[1], ftz, aD)
+    V, EV = _mma_form(md, f[9:15], acc[2], ftz, aD)
+    adE = aD + ED
+    neg = torch.signbit(D)
+    sU = torch.where(neg, -U, U)
+    sV = torch.where(neg, -V, V)
+    out = (sU < -EU) | (sV < -EV) | (_fma32(adE, K_UV, EU + EV) < sU + sV)
+    return ~((adE < DET_LO) | ((aD > ED) & out))
 
 
 # --------------------------------------------------------------- pipeline

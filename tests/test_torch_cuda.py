@@ -24,7 +24,10 @@ A3 and A5 is held the same way, each ray excluding its own winner. A3's
 row-gated and bilinear-form instances equal their plain versions on every
 lane; the row gate, smaller clusters and the slice visits equal A3's
 default on live lanes, and the bilinear form agrees with it on 99.9% of
-live lanes (its candidates round otherwise). The BVH walk of
+live lanes (its candidates round otherwise). The bilinear form's block
+kernel (A3m: packed tiles, a TF32 filter, the exact re-test) is also held
+bitwise on tied copies and on ``torch_helpers.mxu_adversarial``, at t_min
+1e-3, 0 and -0.5, wherever its rays land in the blocks. The BVH walk of
 ``intersector="xla"`` equals its plain version bitwise on live lanes, with
 alive, exclude and a finite t_max, on the card and against the CPU; the
 [N, S] sphere search gives the same bits under the global TF32 switch.
@@ -42,7 +45,7 @@ from qt_raytracer_tpu_torch.kernels import fused_hit as fh
 from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
 from qt_raytracer_tpu_torch.models import meshes
 from test_torch_cluster_gate import WORLDS as GATE_WORLDS
-from torch_helpers import with_copies
+from torch_helpers import mxu_adversarial, with_copies
 
 pytestmark = pytest.mark.cuda
 
@@ -982,7 +985,7 @@ def tie_meshes(card):
     for name, rows in (("terrain48", 1), ("terrain48", 2), ("terrain48", 4),
                        ("cornell_mesh", 4)):
         mesh = worlds[name].mesh
-        mc = mi.prep_mesh_clusters(mesh, cluster_rows=rows)
+        mc = mi.prep_mesh_clusters(mesh, cluster_rows=rows, mt="mxu")
         g, p = mc.tris_per_cluster, mesh.num_triangles
         if name == "cornell_mesh":
             srcs, dsts = [0, 5, 17], [p + 1, p + 37, p + 45]
@@ -992,7 +995,7 @@ def tie_meshes(card):
         mc = with_copies(mc, mesh, list(zip(srcs, dsts)))
         mc = mc._replace(**{f: getattr(mc, f).to(card) for f in (
             "tri_planes", "box_planes", "row_boxes", "group_boxes", "root_lo",
-            "root_hi")})
+            "root_hi", "mt_planes")})
         out[f"{name}_rows{rows}"] = (mc, srcs)
     return out
 
@@ -1044,6 +1047,63 @@ def test_mesh_search_bitwise_on_ties(card, tie_meshes, name, n, visit,
         hits = plain[0].cpu() < fh.BIG
         assert int(torch.isin(plain[1].cpu()[hits],
                               torch.tensor(srcs)).sum()) > 100
+
+
+@pytest.mark.parametrize("exclude", [False, True])
+@pytest.mark.parametrize("n", [1, 257, 414721])
+@pytest.mark.parametrize("name", ["terrain48_rows1", "terrain48_rows2",
+                                  "terrain48_rows4", "cornell_mesh_rows4"])
+def test_mxu_search_bitwise_on_ties(card, tie_meshes, name, n, exclude):
+    """A3m (mt="mxu": blocks of 64 rays, TF32 filter, exact re-test) against
+    its plain version on the tie meshes: copies across lanes, 8-triangle
+    tiles and clusters; with exclude each ray leaves out its own winner."""
+    mc, srcs = tie_meshes[name]
+    rays, alive, cap = _tie_mesh_rays(mc, srcs, n, seed=n + 3, device=card)
+    ex = None
+    if exclude:
+        t0, i0 = mi.mesh_hits(mc, *rays, T_MIN, alive, cap, mt="mxu")
+        ex = torch.where(alive & (t0 < fh.BIG), i0, -1).to(torch.int32)
+    kern = mi.mesh_hits(mc, *rays, T_MIN, alive, cap, exclude=ex, mt="mxu")
+    plain = mi.mesh_hits(mc, *rays, T_MIN, alive, cap, exclude=ex, mt="mxu",
+                         interpret=True)
+    _bitwise(kern, plain)
+    if n == 414721 and not exclude:
+        hits = plain[0].cpu() < fh.BIG
+        assert int(torch.isin(plain[1].cpu()[hits],
+                              torch.tensor(srcs)).sum()) > 100
+
+
+@pytest.mark.parametrize("t_min", [T_MIN, 0.0, -0.5])
+@pytest.mark.parametrize("shift", [0, 7, 40])
+@pytest.mark.parametrize("exclude", [False, True])
+def test_mxu_search_bitwise_on_adversarial_pairs(card, exclude, shift, t_min):
+    """A3m against its plain version on torch_helpers.mxu_adversarial (rays
+    through vertices and edges, grazing rays, |det| within ulps of 1e-12, t
+    at t_min, at 0 and at the cap, coordinates up to 1e4, a subnormal
+    direction, a u that underflows to -0.0), behind shift dead lanes so
+    that the rays land in other tiles and blocks; at t_min 0 and below,
+    hits at t = +-0 and behind the origin count, which the kernel's (t, id)
+    keys must order as the serial sweep does.
+    tests/test_torch_mxu_filter.py holds the filter sound on the same pairs
+    on the CPU."""
+    mesh, rays, cap = mxu_adversarial(seed=1)
+    mc = mi.prep_mesh_clusters(mesh.to(card), mt="mxu")
+    n = rays[0].shape[0] + shift
+    pad = lambda x, v: torch.cat([torch.full((shift,), v, dtype=x.dtype), x])
+    rays = [pad(x, 0.0).to(card) for x in rays]
+    cap = pad(cap, fh.BIG).to(card)
+    alive = torch.ones(n, dtype=torch.bool, device=card)
+    alive[:shift] = False
+    ex = None
+    if exclude:
+        t0, i0 = mi.mesh_hits(mc, *rays, t_min, alive, cap, mt="mxu",
+                              interpret=True)
+        ex = torch.where(alive & (t0 < fh.BIG), i0, -1).to(torch.int32)
+    kern = mi.mesh_hits(mc, *rays, t_min, alive, cap, exclude=ex, mt="mxu")
+    plain = mi.mesh_hits(mc, *rays, t_min, alive, cap, exclude=ex, mt="mxu",
+                         interpret=True)
+    _bitwise(kern, plain)
+    assert int((plain[0] < fh.BIG).sum()) > (20 if exclude else 300)
 
 
 @pytest.mark.parametrize("visit", ["full", "rowgate"])

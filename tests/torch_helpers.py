@@ -7,11 +7,15 @@
   contend for the cores.
 - ``with_copies``: a mesh's kernel tables with triangles copied over
   others, for ties made on purpose.
+- ``mxu_adversarial``: triangles and rays on the edges of the tests of the
+  bilinear-form search's TF32 filter.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from qt_raytracer_tpu_torch.accel.mesh import build_mesh
 from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
 
 
@@ -32,8 +36,11 @@ def with_copies(mc, mesh, pairs):
     and the cluster, row and group boxes rebuilt around the new planes,
     with the padding prep_mesh_clusters gives them."""
     tp = mc.tri_planes.clone()
+    mt = None if mc.mt_planes is None else mc.mt_planes.clone()
     for src, dst in pairs:
         tp[:, dst] = tp[:, src]
+        if mt is not None:   # a triangle's factors are its own
+            mt[:, dst] = mt[:, src]
     v0, e1, e2 = (tp[3 * a:3 * a + 3].T for a in range(3))
     eps = mi._box_eps(mesh)
     k, g = mc.k, mc.tris_per_cluster
@@ -43,5 +50,115 @@ def with_copies(mc, mesh, pairs):
     lo_r, hi_r = mi._padded_boxes(v0, e1, e2, k * g // mi.LANE, eps)
     rows = torch.cat([lo_r.T, hi_r.T]).contiguous()
     return mi.with_cluster_boxes(
-        mc._replace(tri_planes=tp.contiguous(), row_boxes=rows),
+        mc._replace(tri_planes=tp.contiguous(), row_boxes=rows,
+                    mt_planes=mt),
         boxes.contiguous())
+
+
+HUGE = 1e19          # the edge of the triangle whose u underflows to -0
+
+
+def _adversarial_triangles(rng):
+    """[F, 3, 3] float64 vertices: unit-scale triangles, a shared edge,
+    small triangles far from the origin (terrain-scale coordinates), tiny
+    ones (|det| near 1e-12 for unit directions) and one of edge HUGE."""
+    tris = []
+    for _ in range(24):
+        v0 = rng.uniform(-1.0, 1.0, 3)
+        tris.append([v0, v0 + rng.normal(size=3) * 0.5,
+                     v0 + rng.normal(size=3) * 0.5])
+    a, b, c, d = (np.array(x, float) for x in
+                  ([0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]))
+    tris += [[a + 3, b + 3, c + 3], [a + 3, c + 3, d + 3]]   # shared edge
+    for off in (1e2, 1e3, 1e4):
+        for _ in range(8):
+            v0 = rng.uniform(-1.0, 1.0, 3) * off
+            tris.append([v0, v0 + rng.normal(size=3) * 0.05,
+                         v0 + rng.normal(size=3) * 0.05])
+    for _ in range(8):
+        v0 = rng.uniform(-1.0, 1.0, 3)
+        tris.append([v0, v0 + rng.normal(size=3) * 1e-6,
+                     v0 + rng.normal(size=3) * 1e-6])
+    tris.append([[0.0, 0.0, 0.0], [HUGE, 0.0, 0.0], [0.0, HUGE, 0.0]])
+    return np.asarray(tris, np.float64)
+
+
+def mxu_adversarial(seed: int = 0, device="cpu"):
+    """(mesh, rays, cap): a TriangleMesh of _adversarial_triangles (one
+    cluster, BVH order) and rays, six float32 [N] components, with caps
+    [N] float32, aimed at the triangles' vertices, edge midpoints, points
+    just either side of an edge and centroids, from either side; grazing
+    the plane; scaled so that |det| sits within a few ulps of 1e-12; with
+    t at the t_min of 1e-3; a direction with a subnormal and a zero
+    component; and the ray whose u is a negative below 2^-149 * det on the
+    HUGE triangle, which rounds to -0.0 and so passes u >= 0. A third of
+    the caps are BIG, the rest at the ray's own t (which the exact test
+    then rejects) or one ulp above it, where the plain search finds it
+    (set on the CPU, by mesh_search_plain(mt="mxu") with no cap); the
+    last ray, whose u underflows, is uncapped."""
+    rng = np.random.default_rng(seed)
+    tris = _adversarial_triangles(rng)
+    o_list, d_list = [], []
+
+    def aim(origin, target, scale=1.0):
+        o_list.append(origin)
+        d_list.append((target - origin) * scale)
+
+    for v in tris[:-1]:
+        v0, e1, e2 = v[0], v[1] - v[0], v[2] - v[0]
+        n = np.cross(e1, e2)
+        n = n / np.linalg.norm(n)
+        size = max(np.linalg.norm(e1), np.linalg.norm(e2))
+        cen = v.mean(0)
+        for side in (1.0, -1.0):
+            o = cen + side * n * size * rng.uniform(0.5, 3.0) \
+                + rng.normal(size=3) * size * 0.3
+            for target in (*v, (v[0] + v[1]) / 2, (v[1] + v[2]) / 2,
+                           (v[0] + v[2]) / 2, cen):
+                aim(o, target)
+            mid = (v[1] + v[2]) / 2
+            out = mid - cen
+            for eps in (-1e-7, 1e-7):      # just inside and outside an edge
+                aim(o, mid + out * eps)
+            # Grazing: nearly in the plane.
+            aim(cen - e1 * 2.0, cen + n * size * 1e-6)
+        # |det| = |d . n_raw| near 1e-12: scale a ray at the centroid.
+        o = cen + n * size
+        d0 = cen - o
+        det = abs(np.dot(d0, np.cross(e1, e2)))
+        for k in range(-3, 4):
+            aim(o, cen, 1e-12 / det * (1.0 + k * 2.0 ** -22))
+        # t at t_min = 1e-3: the origin 1e-3 before the centroid; and t = 0
+        # (either sign): the origin on the triangle.
+        dd = -n
+        o_list.append(cen - dd * 1e-3)
+        d_list.append(dd)
+        for dd in (-n, n, rng.normal(size=3)):
+            o_list.append(cen)
+            d_list.append(dd)
+    o_list.append(np.array([0.3, 0.2, 1.0]))
+    d_list.append(np.array([1e-40, 0.0, -1.0]))
+    # u = x / HUGE with x = -1e-30: -1e-49 rounds to -0.0.
+    o_list.append(np.array([-1e-30, 0.5 * HUGE, 1.0]))
+    d_list.append(np.array([0.0, 0.0, -1.0]))
+    o = np.asarray(o_list, np.float32)
+    d = np.asarray(d_list, np.float32)
+    verts = tris.reshape(-1, 3)
+    faces = np.arange(verts.shape[0]).reshape(-1, 3)
+    mesh = build_mesh(verts, faces, builder="numpy", device="cpu")
+    mc = mi.prep_mesh_clusters(mesh, mt="mxu")
+    rays = [torch.from_numpy(np.ascontiguousarray(x[:, a]))
+            for x in (o, d) for a in range(3)]
+    n = o.shape[0]
+    alive = torch.ones(n, dtype=torch.bool)
+    t, _ = mi.mesh_search_plain(mc, *rays, 1e-3, alive,
+                                torch.full((n,), mi.BIG), mt="mxu")
+    pick = rng.integers(0, 3, n)
+    cap = np.where(pick == 0, mi.BIG,
+                   np.where(pick == 1, t.numpy(),
+                            np.nextafter(t.numpy(), np.float32(np.inf))))
+    cap = np.where(t.numpy() < mi.BIG, cap, mi.BIG).astype(np.float32)
+    cap[-1] = mi.BIG              # the ray whose u underflows: uncapped
+    cap = torch.from_numpy(cap)
+    mesh = mesh.to(device) if device != "cpu" else mesh
+    return mesh, [x.to(device) for x in rays], cap.to(device)
