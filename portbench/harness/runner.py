@@ -1,0 +1,361 @@
+"""One run of one cell: set-up, the measured window, the check against the
+plain reference, and the per-layer metrics of a traced run. The cell's
+traffic mix names its kind: "frames" (back-to-back renders through
+``render_linear``) or "train_steps" (back-to-back steps of the train step).
+
+``run`` returns the result's fields; ``portbench/run.py`` checks the cards
+first and prints the line. The CPU tests call ``run`` with device="cpu" on
+a shrunken cell.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import gc
+import math
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+from . import check, inputs, manifest, port, stats
+from . import trace as trace_mod
+from ..reference import rng, tracer, train as ref_train
+
+WARM_FOLD = 0xFFFFFFFE        # the key of the warm-up frame: never a unit's
+REF_DTYPE = torch.float64
+
+
+@dataclass
+class Run:
+    cfg: dict
+    traffic: dict
+    seed: int
+    seconds: float
+    trace: bool
+    device: torch.device
+    t_start: float
+    metrics: dict = field(default_factory=dict)
+    checks: dict = field(default_factory=dict)
+    attempted: int = 0
+    failed: int = 0
+    peak_bytes: int = 0
+    traces: list = field(default_factory=list)
+    traced_keys: list = field(default_factory=list)   # [2] key of each unit
+    phases: dict = field(default_factory=dict)        # seconds by phase
+    scene_inputs: dict | None = None
+    _wavefronts: dict = field(default_factory=dict)
+
+    @property
+    def cuda(self) -> bool:
+        return self.device.type == "cuda"
+
+    def sync(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+
+    # --- what the per-layer metrics read -------------------------------
+    @property
+    def trace_data(self):
+        return self.traces[0] if self.traces else None
+
+    def wavefronts(self, stride: int) -> list:
+        """The reference's bounce wavefronts of the traced units, traced on
+        every stride-th pixel: a list (one entry a bounce a unit) of
+        {"o", "d", "t_sphere", "t_hit"}."""
+        if stride not in self._wavefronts:
+            r = self.cfg["render"]
+            n = int(r["width"]) * int(r["height"])
+            sc = tracer.make_scene(self.scene_inputs, REF_DTYPE, self.device)
+            cam = tracer.make_camera(self.cfg["camera"],
+                                     r["width"] / r["height"], REF_DTYPE,
+                                     self.device)
+            rec: list = []
+            pix = torch.arange(0, n, stride, device=self.device)
+            with torch.no_grad():
+                for key in self.traced_keys:
+                    tracer.render_pixels(sc, cam, r, key.to(self.device), pix,
+                                         REF_DTYPE, record=rec)
+            self._wavefronts[stride] = rec
+        return self._wavefronts[stride]
+
+    def roofline_pct(self, layer: str):
+        """100 x the seconds the layer's work in the traced units needs at
+        the card's peaks, by the frozen rule roofline/<layer>.py, over the
+        device time of the rule's kernels in the trace; None without a
+        trace or where it holds none of them."""
+        tr = self.trace_data
+        if tr is None:
+            return None
+        rule = manifest.roofline_rule(layer)
+        kernel_s = tr.kernel_seconds(trace_mod.names(rule.KERNELS))
+        if kernel_s <= 0:
+            return None
+        waves = self.wavefronts(rule.STRIDE)
+        return 100.0 * rule.bound_s(waves, self.scene_inputs,
+                                    rule.STRIDE) / kernel_s
+
+
+def _trace_cm(run: Run, elapsed: float):
+    """(context, units, traced) for the next stretch: the profiler over the
+    traffic's trace_units once the window is trace_at through, else one
+    untraced unit."""
+    if run.trace and not run.traced_keys \
+            and elapsed >= float(run.traffic["trace_at"]) * run.seconds:
+        n = int(run.traffic["trace_units"])
+        return trace_mod.traced(n, run.traces), n, True
+    return contextlib.nullcontext(), 1, False
+
+
+def _free() -> None:
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- frames
+def frames(run: Run) -> None:
+    cfg, tr, dev = run.cfg, run.traffic, run.device
+    r = cfg["render"]
+    w, h, spp = int(r["width"]), int(r["height"]), int(r["spp"])
+    run.scene_inputs = inputs.scene_inputs(cfg["scene"])
+    scene = port.build_scene(run.scene_inputs, cfg, dev)
+    cam = port.build_camera(cfg, dev)
+    rcfg = port.render_config(cfg)
+    render = port.render_linear()
+    keys = inputs.unit_keys(run.seed, int(tr["max_units"])).to(dev)
+    pix = torch.as_tensor(inputs.sample_pixels(run.seed, w * h,
+                                               int(cfg["check"]["pixels"])),
+                          device=dev)
+    warm = rng.fold_in(inputs.base_key(run.seed), WARM_FOLD).to(dev)
+    for _ in range(int(tr.get("warmup_units", 1))):
+        render(scene, cam, rcfg, warm)
+        run.sync()
+    run.metrics["setup_s"] = time.perf_counter() - run.t_start
+
+    if run.cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    lat, ends, got = [], [], []
+    img = None
+    t0 = time.perf_counter()
+    k = 0
+    while k < keys.shape[0]:
+        now = time.perf_counter()
+        if now - t0 >= run.seconds:
+            break
+        cm, n, traced = _trace_cm(run, now - t0)
+        with cm:
+            for _ in range(n):
+                s = time.perf_counter()
+                img = render(scene, cam, rcfg, keys[k])
+                got.append(img.reshape(-1, 3).index_select(0, pix).cpu())
+                run.sync()
+                e = time.perf_counter()
+                lat.append(e - s)
+                ends.append(e)
+                k += 1
+        if traced:
+            run.traced_keys = [keys[i].cpu() for i in range(k - n, k)]
+    if run.cuda:
+        run.peak_bytes = int(torch.cuda.max_memory_allocated(dev))
+    done = [i for i, e in enumerate(ends) if e - t0 <= run.seconds]
+    run.attempted = len(lat)
+    if done:
+        last = ends[done[-1]]
+        rate = stats.window_rate(len(done) * w * h * spp, t0, last)
+        run.metrics["frame_msamples_s"] = rate / 1e6
+        run.metrics["frame_p95_ms"] = \
+            stats.percentile([lat[i] for i in done], 95) * 1e3
+    run.metrics["peak_mem_gib"] = run.peak_bytes / 2 ** 30
+    run.phases["window"] = time.perf_counter() - t0
+    del scene, cam, img
+    _free()
+    t_check = time.perf_counter()
+
+    # The check: sampled pixels of sampled frames against the reference.
+    ck = cfg["check"]
+    picks = inputs.sample_units(run.seed, len(done), int(ck["frames"]))
+    if not picks:
+        run.checks = check.judge({}, ck["limits"])
+        run.failed = run.attempted
+        return
+    sc = tracer.make_scene(run.scene_inputs, REF_DTYPE, dev)
+    rcam = tracer.make_camera(cfg["camera"], w / h, REF_DTYPE, dev)
+    p = pix.shape[0]
+    ray_keys = keys[picks].repeat_interleave(p, dim=0)
+    ray_pix = pix.repeat(len(picks))
+    with torch.no_grad():
+        ref = tracer.render_pixels(sc, rcam, r, ray_keys, ray_pix,
+                                   REF_DTYPE).reshape(len(picks), p, 3)
+    mine = torch.stack([got[i] for i in picks]).to(dev)
+    del sc
+    per_frame = [check.pixel_mismatch_share(mine[i], ref[i],
+                                            float(ck["atol"]),
+                                            float(ck["rtol"]))
+                 for i in range(len(picks))]
+    values = {"px_mismatch_share": check.pixel_mismatch_share(
+        mine, ref, float(ck["atol"]), float(ck["rtol"]))}
+    run.checks = check.judge(values, ck["limits"])
+    limit = ck["limits"]["px_mismatch_share"]
+    run.failed = sum(1 for v in per_frame if not v <= limit)
+    run.phases["check"] = time.perf_counter() - t_check
+
+
+# ----------------------------------------------------------- train steps
+def _adam_grads(state, leaves_fn) -> dict:
+    """The gradient each leaf's Adam got at its first step, worked out from
+    its state: exp_avg / (1 - beta1)."""
+    opt = state.opt_state
+    out = {}
+    for path, p in leaves_fn(state.params):
+        group = next(g for g in opt.param_groups
+                     if any(q is p for q in g["params"]))
+        out[path] = opt.state[p]["exp_avg"].detach().clone() / \
+            (1.0 - group["betas"][0])
+    return out
+
+
+def first_steps(cfg: dict, seed: int, dev, count: int, max_units: int):
+    """Set-up of a train cell: the target and the port's train step from
+    the starting point, driven through its first `count` steps with the
+    window's own call. Returns the objects the window goes on with and
+    the readings the check compares (each step's loss, the first gradient
+    as Adam got it, the change of every leaf after the steps)."""
+    t = cfg["train"]
+    true_inputs = inputs.scene_inputs(cfg["scene"])
+    start_inputs = inputs.scene_inputs(cfg["scene"], t.get("start"))
+    tkey = inputs.target_key(seed).to(dev)
+    target = port.mean_image(port.build_scene(true_inputs, cfg, dev),
+                             port.build_camera(cfg, dev), cfg, tkey)
+    scene = port.build_scene(start_inputs, cfg, dev)
+    cam = port.build_camera(cfg, dev, translate=t["pose_error"])
+    init, step, leaves_fn = port.train_step(scene, cam, cfg)
+    state = init()
+    first = {p: v.detach().clone() for p, v in leaves_fn(state.params)}
+    keys = inputs.unit_keys(seed, max_units).to(dev)
+    losses, grad1 = [], None
+    for k in range(count):
+        state, loss = step(state, target, keys[k])
+        losses.append(float(loss))
+        if k == 0:
+            grad1 = _adam_grads(state, leaves_fn)
+    after = {p: v.detach().clone() for p, v in leaves_fn(state.params)}
+    return {"state": state, "step": step, "target": target, "keys": keys,
+            "tkey": tkey, "true_inputs": true_inputs,
+            "start_inputs": start_inputs, "losses": losses, "grad": grad1,
+            "change": {p: after[p] - first[p] for p in after}}
+
+
+def reference_steps(fs: dict, cfg: dict, dev, count: int,
+                    dtype=REF_DTYPE) -> dict:
+    return ref_train.steps(fs["true_inputs"], fs["start_inputs"], cfg,
+                           fs["keys"][:count].cpu(), fs["tkey"].cpu(), dtype,
+                           dev, block=int(cfg["check"].get("block", 1 << 17)),
+                           count=count)
+
+
+def train_steps(run: Run) -> None:
+    cfg, tr, dev = run.cfg, run.traffic, run.device
+    n_check = int(tr["setup_steps"])
+    fs = first_steps(cfg, run.seed, dev, n_check, int(tr["max_units"]))
+    run.scene_inputs = fs["start_inputs"]
+    state, step, target, keys = fs["state"], fs["step"], fs["target"], \
+        fs["keys"]
+    loss = torch.tensor(fs["losses"][-1])
+    run.sync()
+    run.metrics["setup_s"] = time.perf_counter() - run.t_start
+
+    if run.cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    lat, ends = [], []
+    t0 = time.perf_counter()
+    k = n_check
+    while k < keys.shape[0]:
+        now = time.perf_counter()
+        if now - t0 >= run.seconds:
+            break
+        cm, n, traced = _trace_cm(run, now - t0)
+        with cm:
+            for _ in range(n):
+                s = time.perf_counter()
+                state, loss = step(state, target, keys[k])
+                run.sync()
+                e = time.perf_counter()
+                lat.append(e - s)
+                ends.append(e)
+                k += 1
+        if traced:
+            run.traced_keys = [keys[i].cpu() for i in range(k - n, k)]
+    if run.cuda:
+        run.peak_bytes = int(torch.cuda.max_memory_allocated(dev))
+    done = [i for i, e in enumerate(ends) if e - t0 <= run.seconds]
+    run.attempted = len(lat)
+    finite = math.isfinite(float(loss))
+    if done:
+        run.metrics["view_step_s"] = (ends[done[-1]] - t0) / len(done)
+    run.metrics["peak_mem_gib"] = run.peak_bytes / 2 ** 30
+    run.phases["window"] = time.perf_counter() - t0
+    kept = {k: fs[k] for k in ("losses", "grad", "change", "keys", "tkey",
+                               "true_inputs", "start_inputs")}
+    del state, step, target, loss, fs
+    _free()
+    t_check = time.perf_counter()
+
+    # The check: the reference follows the first steps from the same start.
+    ref = reference_steps(kept, cfg, dev, n_check)
+    run.checks = check.judge(compare_steps(kept, ref), cfg["check"]["limits"])
+    run.failed = sum(1 for v in run.checks.values() if not v["ok"]) + \
+        (0 if finite else 1)
+    run.phases["check"] = time.perf_counter() - t_check
+
+
+def compare_steps(got: dict, ref: dict) -> dict:
+    """The compared numbers of a train cell, from the port's first steps
+    ({"losses", "grad", "change"}) and the reference's
+    (``reference.train.steps``): the first step's loss, which both sides
+    compute from the same parameters, and the worst step's, which carries
+    the later steps' noise (Adam moves a leaf of small gradient by its
+    rate whatever the gradient's size); the first gradient's gap by the
+    worst leaf ("grad_gap") and for the median leaf ("grad_gap_median");
+    the change's by the worst leaf that moves. A configuration's limits
+    name the numbers that are compared."""
+    keep = check.moving_leaves(ref["grad"])
+    med = [check.median_leaf(ref["grad"])]
+    return {"loss1_gap": check.loss_gap(got["losses"][:1], ref["losses"][:1]),
+            "loss_gap": check.loss_gap(got["losses"], ref["losses"]),
+            "grad_gap": check.leaf_gap(got["grad"], ref["grad"]),
+            "grad_gap_median": check.leaf_gap(got["grad"], ref["grad"], med),
+            "change_gap": check.leaf_gap(got["change"], ref["change"], keep)}
+
+
+DRIVERS = {"frames": frames, "train_steps": train_steps}
+
+
+def run(cell_name: str, seed: int, seconds: float, trace: bool, device,
+        t_start: float, overrides: dict | None = None) -> dict:
+    """One run of the cell; the result line's fields but "device"'s card
+    name, and the Run for what else a caller reads."""
+    bench = manifest.load()
+    cell = manifest.cell(bench, cell_name)
+    cfg = manifest.config(bench, cell["config"], overrides)
+    traffic = manifest.traffic(cell["traffic"])
+    r = Run(cfg, traffic, int(seed), float(seconds), bool(trace),
+            torch.device(device), t_start)
+    DRIVERS[traffic["kind"]](r)
+    t_read = time.perf_counter()
+    if trace:
+        metrics = {}
+        for m in manifest.layer_metrics(bench, cell_name):
+            value = manifest.metric_module(m["name"]).read(r)
+            if value is not None:
+                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    else:
+        metrics = {m["name"]: {"value": r.metrics[m["name"]],
+                               "unit": m["unit"]}
+                   for m in manifest.e2e_metrics(bench, cell_name)
+                   if m["name"] in r.metrics}
+    r.phases["layer_metrics"] = time.perf_counter() - t_read
+    correct = bool(r.checks) and all(v["ok"] for v in r.checks.values()) \
+        and r.failed == 0 and r.attempted > 0
+    return {"correct": correct, "attempted": r.attempted, "failed": r.failed,
+            "metrics": metrics, "run": r}
