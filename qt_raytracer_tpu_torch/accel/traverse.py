@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core import vecmath as vm
+from ..runtime.spans import HIT_MESH, spanned
 from .mesh import TriangleMesh, TriHit, _dot3, moller_trumbore
 
 BIG = float(np.float32(3.0e38))
@@ -56,6 +57,7 @@ def _tri_hit_one(mesh: TriangleMesh, tri_idx, o, d, t_min: float, t_max):
     return torch.where(ok, t, BIG)
 
 
+@spanned(HIT_MESH)
 def intersect_mesh(mesh: TriangleMesh, origins, directions, t_min,
                    t_max=BIG, max_leaf: int = 4, alive=None,
                    exclude=None) -> TriHit:

@@ -7,8 +7,20 @@ formatted into statsText (SURVEY.md §5). Here:
   - trace(): a ``torch.profiler`` capture of host and card activity,
     written as a Chrome trace (view it in Perfetto or chrome://tracing).
   - annotate(): a named span inside the capture
-    (``torch.profiler.record_function``).
+    (``torch.profiler.record_function``), and the shared no-op context
+    when no profiler records (``runtime.spans``, which the port's own
+    layers call).
   - device_memory_stats(): live memory statistics of each CUDA card.
+
+An operator's look at where a frame's time goes::
+
+    with profiling.trace("traces"):
+        render_linear(scene, cam, cfg, 0)
+
+Perfetto then shows the port's ``qtrt.`` spans (``runtime.spans.SPANS``:
+pixel chunk, table prep, RNG, shading, mesh search, the train step's
+backward) on the host rows, above the card's kernels they launched. The
+spans cost nothing measurable when no profiler runs.
 """
 
 from __future__ import annotations
@@ -20,6 +32,8 @@ import time
 from typing import Iterator
 
 import torch
+
+from ..runtime.spans import annotate  # noqa: F401  (one implementation)
 
 
 @contextlib.contextmanager
@@ -45,11 +59,6 @@ def trace(logdir: str | None = None) -> Iterator[torch.profiler.profile]:
                     torch.cuda.synchronize()  # the card's work in the capture
     finally:
         prof.export_chrome_trace(prof.trace_path)
-
-
-def annotate(name: str):
-    """Named span inside a trace() capture (host-side annotation)."""
-    return torch.profiler.record_function(name)
 
 
 def device_memory_stats() -> list[dict]:

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from . import sampling
+from ..runtime import spans
 from .scene import DIELECTRIC, EMISSIVE, LAMBERTIAN, METAL, SphereScene
 from .vecmath import gather_rows, safe_sqrt
 from .config import MESH_KERNELS
@@ -282,6 +283,7 @@ def radiance_in_ray_order(s: RayState, n: int, compact: bool) -> torch.Tensor:
     return rad[:n]
 
 
+@spans.spanned(spans.SHADE)
 def _shade(s: RayState, h: dict, depth_idx: int, rr_start: int, emit_w,
            nee_fn):
     """The bounce after the hit query, shared by spheres and worlds:
@@ -486,7 +488,8 @@ def trace_flat(
                          "permutation would detach the exclusion)")
 
     def run():
-        tables = prep_fused_spheres(scene)
+        with spans.annotate(spans.PREP):
+            tables = prep_fused_spheres(scene)
         lights = scene.light_idx if nee and scene.num_lights > 0 else None
         state = initial_state(origins, directions, sample_keys)
         excl0 = None
@@ -754,7 +757,8 @@ def trace_flat_world(
                   visit=mesh_visit, mt=mesh_mt)
 
     def run():
-        wt = prep_world(world, mesh_cluster_rows, mesh_mt)
+        with spans.annotate(spans.PREP):
+            wt = prep_world(world, mesh_cluster_rows, mesh_mt)
         state = initial_state(origins, directions, sample_keys)
         for depth_idx in range(max_depth):
             if compact:

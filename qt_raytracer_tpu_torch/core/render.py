@@ -30,6 +30,7 @@ from .integrator import trace
 from .integrator_flat import trace_flat, trace_flat_world
 from .scene import SphereScene
 from .world import World, tensors_of
+from ..runtime import spans
 
 # Auto-chunk constants, as in the JAX package: chunks are multiples of the
 # 1024-ray kernel tile, ~414,720 rays (5 chunks at 1080p), and images under
@@ -185,10 +186,14 @@ def accumulate_pixels(scene, camera, cfg: RenderConfig, key, pixel_index,
                         (first_sample + num_samples) // spb)
 
         def one_batch(pk, ic, jc, b):
-            if spb == 1:
-                return _sample_radiance(scene, camera, cfg, pk, ic, jc, b)
-            return _merged_batch_radiance(scene, camera, cfg, pk, ic, jc, b,
-                                          spb)
+            # The span opens inside what checkpoint wraps: the recompute
+            # in the backward opens it again.
+            with spans.annotate(spans.CHUNK):
+                if spb == 1:
+                    return _sample_radiance(scene, camera, cfg, pk, ic, jc,
+                                            b)
+                return _merged_batch_radiance(scene, camera, cfg, pk, ic, jc,
+                                              b, spb)
 
         def render_chunk(pk, ic, jc):
             accum = torch.zeros((ic.shape[0], 3), dtype=torch.float32,

@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime.spans import RNG, spanned
+
 TWO_PI = 6.283185307179586
 
 # Stream ids inside one sample. Bounce b uses STREAM_BOUNCE0 + b.
@@ -121,6 +123,7 @@ def hash_pixel_states(key, pixel_index: torch.Tensor) -> torch.Tensor:
     return _lowbias32((((px * GOLDEN) & _MASK) + _lowbias32(seed)) & _MASK)
 
 
+@spanned(RNG)
 def pixel_states(key, pixel_index: torch.Tensor,
                  rng: str = "hash") -> torch.Tensor:
     """Per-pixel RNG states for explicit pixel indices [N]: [N] hash states
@@ -136,6 +139,7 @@ def _is_hash_state(x: torch.Tensor) -> bool:
     return x.dim() == 1
 
 
+@spanned(RNG)
 def sample_keys(pix_keys: torch.Tensor, sample_index) -> torch.Tensor:
     """Per-pixel state for one sample index; sample_index is an int or a
     per-pixel [N] tensor (merged sample batches)."""
@@ -145,6 +149,7 @@ def sample_keys(pix_keys: torch.Tensor, sample_index) -> torch.Tensor:
     return fold_in(pix_keys, sample_index)
 
 
+@spanned(RNG)
 def stream_uniforms(samp_keys: torch.Tensor, stream_id: int,
                     n: int) -> torch.Tensor:
     """[N, n] float32 uniforms in [0, 1) for one stream of each state."""

@@ -28,6 +28,7 @@ from ..accel.mesh import TriangleMesh
 from ..accel.traverse import intersect_mesh
 from . import vecmath as vm
 from ..kernels.mesh_intersect import CLUSTER_ROWS
+from ..runtime.spans import HIT_MESH, spanned
 from .config import MESH_KERNELS
 from .intersect import BIG, Hits, intersect_spheres
 from .scene import SphereScene
@@ -144,6 +145,7 @@ def _tri_t_diff(mesh: TriangleMesh, tri_idx, o, d, t_min, t_max):
     return t, ok & (t >= t_min) & (t <= t_max)
 
 
+@spanned(HIT_MESH)
 def search_mesh(mc, ox, oy, oz, dx, dy, dz, t_min: float,
                 alive, t_cap, *, mesh_kernel: str = "clustered",
                 depth_idx=None, pair_c: int = 6, sort0: bool = True,

@@ -33,6 +33,7 @@ from ..core.camera import Camera
 from ..core.config import RenderConfig
 from ..core.render import render_linear, resolve_intersector
 from ..parallel.sharding import check_mesh, render_linear_sharded
+from ..runtime import spans
 
 # Scene fields exposed to the optimizer by default.
 DEFAULT_TRAINABLE = ("albedo", "emission")
@@ -189,8 +190,9 @@ def value_and_grad(loss_fn, params: dict, *args):
     the loss does not reach gets a zero gradient, as in JAX."""
     named = dict(leaves(params))
     loss = loss_fn(params, *args)
-    grads = torch.autograd.grad(loss, list(named.values()),
-                                allow_unused=True)
+    with spans.annotate(spans.TRAIN_BACKWARD):
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True)
     return loss.detach(), {
         path: torch.zeros_like(p) if g is None else g
         for (path, p), g in zip(named.items(), grads)}

@@ -1336,6 +1336,44 @@ def test_trace_holds_the_annotated_span_and_kernels(card, tmp_path):
     assert any("fused_hit_kernel" in k for k in kernels), sorted(kernels)[:20]
 
 
+def test_trace_puts_the_backward_under_the_port_spans(card, tmp_path):
+    # On the card autograd runs the backward on its own thread: the chunk
+    # spans of the checkpoint's recompute open there, inside the calling
+    # thread's qtrt.train.backward, and launch the recompute's kernels.
+    from qt_raytracer_tpu_torch.app.profiling import trace
+    from qt_raytracer_tpu_torch.diff import inverse
+    from qt_raytracer_tpu_torch.runtime import spans
+    cfg = RenderConfig(width=64, height=36, spp=1, max_depth=3, nee=True)
+    scene, cam = scenes.get_scene("cornell", cfg.aspect_ratio)
+    init, step, _, _ = inverse.make_train_step(
+        scene, cam, cfg, inverse.adam(0.05), trainable=("albedo",))
+    target = torch.zeros((cfg.height, cfg.width, 3), device=card)
+    state, _ = step(init(), target, 0)         # build and warm up
+    with trace(str(tmp_path)) as prof:
+        step(state, target, 1)
+    import json
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ours = [e for e in events if e.get("cat") == "user_annotation"
+            and e["name"] in spans.SPANS]
+    back = [e for e in ours if e["name"] == spans.TRAIN_BACKWARD]
+    assert len(back) == 1
+    b0, b1 = back[0]["ts"], back[0]["ts"] + back[0]["dur"]
+    redo = [e for e in ours if e["name"] == spans.CHUNK
+            and b0 <= e["ts"] and e["ts"] + e["dur"] <= b1]
+    assert redo and all(e["tid"] != back[0]["tid"] for e in redo)
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") == "cuda_runtime" and "correlation" in
+             e.get("args", {})}
+    launched = [calls[k["args"]["correlation"]] for k in events
+                if k.get("cat") == "kernel"
+                and k["args"].get("correlation") in calls]
+    inside = [c for c in launched if any(
+        r["tid"] == c["tid"] and r["ts"] <= c["ts"] <= r["ts"] + r["dur"]
+        for r in redo)]
+    assert inside
+
+
 @pytest.fixture(scope="module")
 def walk_meshes(card):
     """The terrain crop, the Cornell mesh and the icosphere, on the card."""

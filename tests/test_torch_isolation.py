@@ -40,6 +40,7 @@ def test_import_loads_no_jax():
         "import qt_raytracer_tpu_torch.diff.multiview\n"
         "import qt_raytracer_tpu_torch.diff.edge\n"
         "import qt_raytracer_tpu_torch.runtime.device\n"
+        "import qt_raytracer_tpu_torch.runtime.spans\n"
         "import qt_raytracer_tpu_torch.runtime.native_bvh\n"
         "import qt_raytracer_tpu_torch.accel.traverse\n"
         "import qt_raytracer_tpu_torch.kernels.bvh_walk\n"
