@@ -3,7 +3,7 @@
 checkout's, on the same inputs, in one process on one CUDA card.
 
 Usage: python3 chip_ab.py OTHER_DIR [--ablation]
-           [--parts spheres,mesh,mxu,pairs,a6,boxes,paths]
+           [--parts spheres,mesh,mxu,pairs,a6,boxes,shade,paths]
 
 OTHER_DIR holds another checkout of the repository, for example the parent
 commit unpacked by ``git archive <commit> qt_raytracer_tpu_torch | tar -x -C
@@ -35,6 +35,12 @@ list width 1). Each pair of kernels must give the same bits on live lanes
 and dead lanes (A8: on every slot); then CUDA-event ms in turns (other,
 this, this, other).
 
+Shading (``integrator_flat._shade`` without NEE, after the hit query) on
+the book-cover wavefronts and the terrain's: this checkout's against the
+other's, every output field on every lane bit for bit, CUDA-event ms in
+turns (the shading kernel against its plain version, its device time and
+its bound are ``chip_smoke.py``'s).
+
 Paths: the 1080p book-cover frame, the 1080p terrain
 frame under the default options, under ``mesh_visit="rowgate"`` and under
 ``mesh_kernel="pairs"``, the 1080p clustered-scene frame, the 512x512
@@ -65,7 +71,7 @@ import torch
 from chip_smoke import (C5, C5_SPHERE_LR, C5_SPHERE_POSE_ERR, C5_SPHERE_VIEWS,
                         CORNELL, PAIR_C, SEED, TERRAIN, clustered_scene,
                         clustered_wavefronts, cornell_step_lanes,
-                        require_card, wall_s)
+                        float_bits, require_card, wall_s)
 
 OTHER = "qtrt_other"
 RUNS = 7
@@ -137,6 +143,31 @@ def report(name: str, entry: dict) -> None:
     print(f"{name}: {json.dumps(entry)}", flush=True)
 
 
+def shade_part(itg, fh, tab, fronts, wt, mesh_fronts, t_min_s, t_min_t):
+    """The shading step on the book-cover and terrain wavefronts: this
+    checkout's against the other's."""
+    o_itg = other_module("core.integrator_flat")
+    depth_of = {"primary": 0, "bounce2": 2, "bounce5": 5,
+                "primary_chunk2": 0, "bounce2_chunk2": 2}
+    cases = [(f"book_cover {k}", s, fh.fused_hit(tab, *(
+        s.ox, s.oy, s.oz, s.dx, s.dy, s.dz), s.alive, t_min_s))
+        for k, s in fronts.items()]
+    cases += [(f"terrain {k}", s, itg._world_hit_flat(
+        wt, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive, t_min_t, False, 0))
+        for k, s in mesh_fronts]
+    for label, s, h in cases:
+        depth = depth_of[label.split()[1]]
+        o_s = to_other(s)
+        this = lambda: itg._shade(s, h, depth, 0, 1.0, None)
+        other = lambda: o_itg._shade(o_s, h, depth, 0, 1.0, None)
+        for name, x, y in zip(itg.RayState._fields, this(), other()):
+            if not torch.equal(float_bits(x), float_bits(y)):
+                raise AssertionError(f"shade {label}: {name} differs")
+        report(f"shade {label}", {"rays": s.ox.shape[0],
+                                  "live": int(s.alive.sum()),
+                                  **in_turns(this, other, event_ms)})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", type=pathlib.Path)
@@ -145,9 +176,9 @@ def main() -> None:
                          "purpose and are timed only: differing bits are "
                          "printed, not raised")
     ap.add_argument("--parts",
-                    default="spheres,mesh,mxu,pairs,a6,boxes,paths",
-                    help="which of spheres, mesh, mxu, pairs, a6, boxes and "
-                         "paths to run")
+                    default="spheres,mesh,mxu,pairs,a6,boxes,shade,paths",
+                    help="which of spheres, mesh, mxu, pairs, a6, boxes, "
+                         "shade and paths to run")
     args = ap.parse_args()
     global ABLATION
     ABLATION = args.ablation
@@ -442,6 +473,8 @@ def main() -> None:
             "rays": sh[0].shape[0], "live": int(cand.sum()),
             **in_turns(lambda: run2(fh, wc.spheres),
                        lambda: run2(o_fh, o_wc), event_ms)})
+    if "shade" in parts:
+        shade_part(itg, fh, tab, fronts, wt, mesh_fronts, cfg.t_min, t_min)
     if "paths" not in parts:
         return
 

@@ -75,6 +75,13 @@ counts set to 0 just before it and read just after:
     within 1e-4 x max|g| of it, and whose parameters are equal on both
     ranks.
 
+The shading kernel (``shade_kernel``, a bounce's shading without NEE in
+one launch) is held bit for bit against its plain version,
+``integrator_flat._shade_plain``, on every output field and lane of the
+book-cover primary and bounce-2 wavefronts of chunk 0 and the terrain's of
+chunk 2 (414,720 lanes each; the bounce-2 ones also with Russian roulette
+on), and launches once per chunk and bounce of every frame without NEE.
+
 Before the frames, the mesh search's row-gated and bilinear-form instances
 are held against their plain versions and against the default instance on
 the terrain's sorted wavefronts, with and without the exclude operand; the
@@ -108,7 +115,9 @@ operations over 67 TFLOP/s, its TF32 tensor-core operations over 495
 TFLOP/s (A3m's products) and its bytes (inputs once, outputs once) over
 3.35 TB/s, all counted from this run's inputs (live lanes, chunks and
 clusters that the gates open); ``peak`` names which. A3m also prints the
-bound of the FP32 form it replaced. No single PyTorch call computes any of these
+bound of the FP32 form it replaced. The shading kernel's ``ms`` is its
+device time, its launches queued behind a sleep kernel, since the host
+time of its launch (also printed) is longer than the kernel. No single PyTorch call computes any of these
 functions, so ``library_ms`` is null throughout.
 
 Output: the card's name and power limit (nvidia-smi), per-phase numbers, a
@@ -152,7 +161,8 @@ KERNELS = ("fused_hit", "fused_hit_shadow", "mesh_first_cluster",
            "fused_hit[exclude]", "sphere_search[exclude]",
            "mesh_search[exclude]", "mesh_first_cluster[pair]",
            "mesh_crossing_lists", "mesh_pairs", "mesh_search[rowgate]",
-           "mesh_search[mxu]", "bvh_walk", "bvh_walk[exclude]")
+           "mesh_search[mxu]", "bvh_walk", "bvh_walk[exclude]",
+           "fused_shade")
 PAIR_C = 6                 # crossing-list width of the pair search
 CLUSTER_ROWS = (1, 2, 4)   # cluster sizes timed on the bounce wavefront
 PEAK_FP32 = 67e12          # FLOP/s outside the tensor cores (H100 SXM)
@@ -175,6 +185,14 @@ MXU_TRI_BYTES = 76         # 19 f32 factors per triangle
 MXU_PRODUCT_FLOPS = 60
 MXU_EPILOGUE_OPS = 17.5
 MXU_TILE_RAYS = 16         # rays a warp of A3m (mesh_intersect.MXU_RAYS)
+# shade_kernel (csrc/fused_shade.cu) moves 98 bytes a lane (12 state floats
+# and alive, in and out), 4 more a live one (t) and 72 more a live hit (the
+# other 14 hit floats, its int64 key, mat and ff); a live hit runs some 300
+# single-rounded operations.
+SHADE_LANE_BYTES, SHADE_LIVE_BYTES, SHADE_HIT_BYTES = 98, 4, 72
+SHADE_FLOPS = 300
+SHADE_HOST_CALLS = 50      # launches timed back to back
+SLEEP_CYCLES = 10 ** 8     # about 50 ms of the card's clock
 A6_SPHERES = 1061          # the clustered scene: 1,152 slots, 18 chunks
 # BASELINE config 5 (benchmarks/run_baselines.py:196-386).
 C5 = dict(width=1920, height=1080, spp=2, max_depth=4, rng="hash", nee=True,
@@ -351,10 +369,16 @@ def _bvh_walk_module():
     return bvh_walk
 
 
+def _fused_shade_module():
+    from qt_raytracer_tpu_torch.kernels import fused_shade
+    return fused_shade
+
+
 def reset_counts(fh, mi) -> None:
     si, mp = _sphere_search_module(), _mesh_pairs_module()
-    bw = _bvh_walk_module()
+    bw, fs = _bvh_walk_module(), _fused_shade_module()
     bw.launches = bw.exclude_launches = 0
+    fs.launches = 0
     fh.launches = fh.shadow_launches = 0
     fh.exclude_launches = fh.shadow_exclude_launches = 0
     mi.launches = mi.first_cluster_launches = mi.exclude_launches = 0
@@ -366,7 +390,7 @@ def reset_counts(fh, mi) -> None:
 
 def read_counts(fh, mi) -> dict:
     si, mp = _sphere_search_module(), _mesh_pairs_module()
-    bw = _bvh_walk_module()
+    bw, fs = _bvh_walk_module(), _fused_shade_module()
     return {"fused_hit": fh.launches, "fused_hit_shadow": fh.shadow_launches,
             "mesh_first_cluster": mi.first_cluster_launches,
             "mesh_search": mi.launches, "sphere_search": si.launches,
@@ -380,7 +404,8 @@ def read_counts(fh, mi) -> dict:
             "mesh_search[rowgate]": mi.rowgate_launches,
             "mesh_search[mxu]": mi.mxu_launches,
             "bvh_walk": bw.launches,
-            "bvh_walk[exclude]": bw.exclude_launches}
+            "bvh_walk[exclude]": bw.exclude_launches,
+            "fused_shade": fs.launches}
 
 
 def bound(flops: float, nbytes: float, tf32_flops: float = 0.0) -> dict:
@@ -396,6 +421,94 @@ def bound(flops: float, nbytes: float, tf32_flops: float = 0.0) -> dict:
             "bound_by": "bytes" if peak == "hbm" else "operations",
             "peak": peak, "flops": flops, "bytes": nbytes,
             **({"tf32_flops": tf32_flops} if tf32_flops else {})}
+
+
+def device_ms(fn, runs: int = SHADE_HOST_CALLS) -> float:
+    """Mean device milliseconds of fn()'s work, `runs` calls queued back to
+    back behind a sleep kernel between two CUDA events: the card reaches
+    the first event only once every call is queued, so a launch that takes
+    the host longer than the card does not pace the time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    queued_in_time = not start.query()
+    end.synchronize()
+    if not queued_in_time:
+        raise AssertionError("the sleep kernel ended before the calls were "
+                             "queued")
+    return start.elapsed_time(end) / runs
+
+
+def host_us(fn, calls: int = SHADE_HOST_CALLS) -> float:
+    """Host microseconds a call of fn, over `calls` calls issued back to
+    back: the launch's host time where the card keeps up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    sec = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return sec / calls * 1e6
+
+
+def float_bits(x: torch.Tensor) -> torch.Tensor:
+    """x's bits, so that NaN lanes compare too."""
+    return x.view(torch.int32) if x.is_floating_point() else x
+
+
+def shade_wavefront(itg, s, h, depth_idx: int, rr_start: int,
+                    big: float, roulette_at: int = 0) -> dict:
+    """shade_kernel (``fused_shade.fused_shade``) against its plain version
+    (``integrator_flat._shade_plain``) on one wavefront s with its hits h:
+    every output field on every lane, dead lanes included, bit for bit;
+    with ``roulette_at`` > 0 once more with Russian roulette from that
+    depth. Then the kernel's device ms (device_ms), the call's ms between
+    two CUDA events, the launch's host microseconds and the checks' of its
+    operands, the plain version's ms, and the bound of this wavefront."""
+    fs = _fused_shade_module()
+
+    def check(rr):
+        before = fs.launches
+        kern = fs.fused_shade(s, h, depth_idx, rr)
+        plain = itg._shade_plain(s, h, depth_idx, rr, 1.0, None)
+        if fs.launches != before + 1:
+            raise AssertionError("shade_kernel did not launch")
+        for name, a, b in zip(itg.RayState._fields, kern, plain):
+            differ = float_bits(a) != float_bits(b)
+            if bool(differ.any()):
+                raise AssertionError(
+                    f"shade_kernel differs from its plain version in {name} "
+                    f"on {int(differ.sum())} lanes (depth {depth_idx}, "
+                    f"rr_start {rr})")
+
+    check(rr_start)
+    if roulette_at:
+        check(roulette_at)
+    n, live = s.ox.shape[0], int(s.alive.sum())
+    hits = int((s.alive & (h["t"] < big)).sum())
+    nbytes = (SHADE_LANE_BYTES * n + SHADE_LIVE_BYTES * live
+              + SHADE_HIT_BYTES * hits)
+    call = lambda: fs.fused_shade(s, h, depth_idx, rr_start)
+    ops = ([getattr(s, k) for k in fs.STATE_FLOATS]
+           + [h[k] for k in fs.HIT_FLOATS] + [s.alive, s.keys]
+           + [h[k] for k in fs.HIT_INTS])
+    return {"rays": n, "live": live, "hits": hits, "bitwise": True,
+            "max_abs_err": 0.0, "roulette_checked": bool(roulette_at),
+            "ms": device_ms(call),
+            "call_ms": cuda_ms(call),
+            "launch_host_us": host_us(call),
+            "operand_check_host_us": host_us(
+                lambda: fs._pointers(ops, n, s.ox.device)),
+            "plain_ms": cuda_ms(lambda: itg._shade_plain(
+                s, h, depth_idx, rr_start, 1.0, None)),
+            **bound(SHADE_FLOPS * hits, nbytes)}
 
 
 def sweep_work(fh, spheres, boxes, rays, alive, t_min,
@@ -1606,10 +1719,11 @@ def sharded_rank(rank: int, tmp: str) -> None:
 def sharded_phase(fh, mi, render_linear, dev, terrain: dict) -> dict:
     """The sharded render and training (``parallel/``): (1) the main-path
     frame through render_linear_sharded over a world of one on NCCL, bit
-    for bit render_linear's, 50 A1 launches; (2) two ranks spawned on the
-    card over gloo: the frame at (1, 2) bit for bit (1)'s, at spp 2 over
-    (2, 1) within 3e-7 of render_linear's, and the terrain 1080p frame at
-    (1, 2) bit for bit terrain["img"], the single-process frame; (3) on the
+    for bit render_linear's, 50 A1 and 50 shading-kernel launches; (2) two
+    ranks spawned on the card over gloo: the frame at (1, 2) bit for bit
+    (1)'s, at spp 2 over (2, 1) within 3e-7 of render_linear's, and the
+    terrain 1080p frame at (1, 2) bit for bit terrain["img"], the
+    single-process frame; (3) on the
     same ranks, the dryrun_multichip parts, held against the same parts in
     this process on the kernels and on the plain route (dryrun_against),
     and a config-5 view-step over (1, 2) whose loss equals the
@@ -1635,7 +1749,8 @@ def sharded_phase(fh, mi, render_linear, dev, terrain: dict) -> dict:
         finally:
             dist.destroy_process_group()
         want = {**dict.fromkeys(KERNELS, 0),
-                "fused_hit": shard_chunks(cfg, mesh) * DEPTH}
+                **dict.fromkeys(("fused_hit", "fused_shade"),
+                                shard_chunks(cfg, mesh) * DEPTH)}
         if counts != want or not torch.equal(img, ref):
             raise AssertionError(f"world of one: launches {counts} (expected "
                                  f"{want}), equal {torch.equal(img, ref)}")
@@ -1668,12 +1783,12 @@ def sharded_phase(fh, mi, render_linear, dev, terrain: dict) -> dict:
     ref = ref.cpu()
     _, _, cfg2 = book_cover(dev, 2)
     ref2 = render_linear(scene, camera, cfg2, SEED).cpu()
-    # Sphere frames launch A1 at every bounce of every chunk; the terrain
-    # A1, A4 and A3.
-    kernels_of = {"frame_1x2": ("fused_hit",),
-                  "frame_2x1_spp2": ("fused_hit",),
+    # Sphere frames launch A1 and the shading kernel at every bounce of
+    # every chunk; the terrain also A4 and A3.
+    kernels_of = {"frame_1x2": ("fused_hit", "fused_shade"),
+                  "frame_2x1_spp2": ("fused_hit", "fused_shade"),
                   "terrain_1x2": ("fused_hit", "mesh_first_cluster",
-                                  "mesh_search")}
+                                  "mesh_search", "fused_shade")}
     for name, want_img in (("frame_1x2", ref), ("frame_2x1_spp2", ref2),
                            ("terrain_1x2", terrain["img"])):
         for r, img in enumerate(images[name]):
@@ -1916,11 +2031,24 @@ def main() -> None:
     print(f"A2 exclude: {json.dumps(a2x)}", flush=True)
     del first, excl, kern, plain
 
+    phase("shade_kernel vs its plain version (book cover, primary and "
+          "bounce-2 wavefronts of chunk 0)")
+    shade = {}
+    for name, depth_idx in (("primary_chunk0", 0), ("bounce2", 2)):
+        s = sweep_fronts[name]
+        h = fh.fused_hit(tables, *rays_of(s), s.alive, cfg.t_min)
+        shade[f"book_cover {name}"] = st = shade_wavefront(
+            itg, s, h, depth_idx, cfg.rr_start, fh.BIG,
+            roulette_at=depth_idx)
+        print(f"shade_kernel book_cover {name}: {json.dumps(st)}", flush=True)
+        del h
+
     phase("book-cover 1080p frame through render_linear")
     chunks = chunk_count(cfg)
     img, frame = drive_frame(
         fh, mi, render_linear, scene, camera, cfg,
-        {**dict.fromkeys(KERNELS, 0), "fused_hit": chunks * DEPTH})
+        {**dict.fromkeys(KERNELS, 0), "fused_hit": chunks * DEPTH,
+         "fused_shade": chunks * DEPTH})
     frame.update(against_plain_frame(render_linear, scene, camera, cfg, img))
     print(f"frame: {json.dumps(frame)}", flush=True)
     for k, v in frame["launches"].items():
@@ -2284,12 +2412,26 @@ def main() -> None:
     results["mesh_crossing_lists"] = (0.0, a7["bounce2_chunk2"])
     results["mesh_pairs"] = (0.0, a8["bounce2_chunk2"])
 
+    phase("shade_kernel vs its plain version (terrain, primary and "
+          "bounce-2 wavefronts of chunk 2)")
+    for name, depth_idx in (("primary_chunk2", 0), ("bounce2_chunk2", 2)):
+        s = wavefronts[name]
+        h = itg._world_hit_flat(wt, *rays_of(s), s.alive, t_min, False,
+                                depth_idx)
+        shade[f"terrain {name}"] = st = shade_wavefront(
+            itg, s, h, depth_idx, cfg_t.rr_start, fh.BIG,
+            roulette_at=depth_idx)
+        print(f"shade_kernel terrain {name}: {json.dumps(st)}", flush=True)
+        del h
+    results["fused_shade"] = (0.0, shade["book_cover primary_chunk0"])
+
     phase("terrain 1080p frame (BASELINE config 4) through render_linear")
     chunks = chunk_count(cfg_t)
     per = chunks * cfg_t.max_depth
     img_t, frame = drive_frame(
         fh, mi, render_linear, world, camera, cfg_t,
-        {"fused_hit": per, "mesh_first_cluster": per, "mesh_search": per})
+        {"fused_hit": per, "mesh_first_cluster": per, "mesh_search": per,
+         "fused_shade": per})
     w, h = TERRAIN_PLAIN_WH
     frame["vs_plain"] = against_plain_frame(
         render_linear, world, camera,
@@ -2326,7 +2468,7 @@ def main() -> None:
             fh, mi, render_linear, world, camera,
             dataclasses.replace(cfg_t, **option),
             {"fused_hit": per, "mesh_first_cluster": per, "mesh_search": per,
-             **counts})
+             "fused_shade": per, **counts})
         if name == "mxu":
             # Its candidates round otherwise: the flip budget, not the bits.
             bad = (img_v - img_t).abs() > IMG_ATOL + IMG_RTOL * img_t.abs()
@@ -2824,6 +2966,10 @@ def main() -> None:
     # No TPU kernel: the counterpart of the JAX package's portable walk.
     sources["bvh_walk"] = ("qt_raytracer_tpu_torch/csrc/bvh_walk.cu",
                            "qt_raytracer_tpu/accel/traverse.py:56")
+    # No TPU kernel: the counterpart of the JAX flat path's shading after
+    # its hit query (_scatter_flat and the bounce body), which XLA fuses.
+    sources["fused_shade"] = ("qt_raytracer_tpu_torch/csrc/fused_shade.cu",
+                              "qt_raytracer_tpu/core/integrator_flat.py:68")
     # The exclude and pair variants are template instances of their kernels.
     for name in KERNELS:
         if name.endswith(("[exclude]", "[pair]")):

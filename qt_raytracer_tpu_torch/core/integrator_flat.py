@@ -14,7 +14,10 @@ at the end; the image does not change by a bit. Next-event estimation
 casts one shadow ray per diffuse hit through the shadow-mode sphere sweep
 (kernel A2) and, in a world, the mesh search, and weighs it against the
 BSDF sample by the balance heuristic. The estimator, the uniform slots and
-the tie-breaks are the JAX package's, line by line.
+the tie-breaks are the JAX package's, line by line. Without NEE, on the
+card, with hash states and no autograd recording, the shading after each
+hit query is one launch of the shading kernel (``kernels/fused_shade.py``),
+which gives the bits of its PyTorch route, ``_shade_plain``.
 
 ``trace_flat(diff=True)`` is the gradient-capable sphere path: the
 shadow-mode kernel (A2) only selects the winner, and ``_rederive_hits_flat``
@@ -36,6 +39,7 @@ from .vecmath import gather_rows, safe_sqrt
 from .config import MESH_KERNELS
 from .world import (World, WorldLights, face_param_table, search_mesh,
                     tensors_of, world_lights)
+from ..kernels import fused_shade
 from ..kernels.fused_hit import (BIG, TILE, FusedSpheres, fused_hit,
                                  prep_fused_spheres)
 from ..kernels.mesh_intersect import (CLUSTER_ROWS, MeshClusters,
@@ -285,10 +289,25 @@ def radiance_in_ray_order(s: RayState, n: int, compact: bool) -> torch.Tensor:
 
 @spans.spanned(spans.SHADE)
 def _shade(s: RayState, h: dict, depth_idx: int, rr_start: int, emit_w,
-           nee_fn):
+           nee_fn, interpret: bool = False) -> RayState:
     """The bounce after the hit query, shared by spheres and worlds:
     scatter, sky and emission, NEE (nee_fn, or None), Russian roulette,
-    the continuing ray and its prev_pdf."""
+    the continuing ray and its prev_pdf. One launch of the shading kernel
+    where ``fused_shade.use_kernel`` allows it (CUDA tensors, not
+    interpret, hash states, no NEE, no autograd recording); else the
+    PyTorch route, ``_shade_plain``. Both give the same bits."""
+    if fused_shade.use_kernel(s.ox.device, interpret, s.keys,
+                              nee_fn is not None, (*s, *h.values())):
+        return RayState(*fused_shade.fused_shade(s, h, depth_idx, rr_start,
+                                                 emit_w),
+                        s.prev_pdf, s.keys, s.pid)
+    return _shade_plain(s, h, depth_idx, rr_start, emit_w, nee_fn)
+
+
+def _shade_plain(s: RayState, h: dict, depth_idx: int, rr_start: int,
+                 emit_w, nee_fn) -> RayState:
+    """_shade in PyTorch ops: the shading kernel's plain version, and the
+    route of NEE, threefry keys, autograd, interpret and CPU tensors."""
     hit = h["t"] < BIG
     ff = h["ff"] > 0
 
@@ -418,7 +437,7 @@ def bounce(tables: FusedSpheres, s: RayState, depth_idx: int, t_min: float,
             tables, light_idx, h["px"], h["py"], h["pz"], h["nx"], h["ny"],
             h["nz"], h["ax"], h["ay"], h["az"], s.tx, s.ty, s.tz, diffuse,
             uni, t_min, interpret)
-    return _shade(s, h, depth_idx, rr_start, emit_w, nee_fn)
+    return _shade(s, h, depth_idx, rr_start, emit_w, nee_fn, interpret)
 
 
 class _ForwardOnly(torch.autograd.Function):
@@ -707,7 +726,7 @@ def bounce_world(wt: WorldTables, s: RayState, depth_idx: int, t_min: float,
             wt, h["px"], h["py"], h["pz"], h["nx"], h["ny"], h["nz"],
             h["ax"], h["ay"], h["az"], s.tx, s.ty, s.tz, diffuse, uni,
             t_min, interpret, search)
-    return _shade(s, h, depth_idx, rr_start, emit_w, nee_fn)
+    return _shade(s, h, depth_idx, rr_start, emit_w, nee_fn, interpret)
 
 
 def trace_flat_world(

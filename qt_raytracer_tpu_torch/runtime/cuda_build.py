@@ -180,3 +180,8 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.qtrt_bvh_walk.restype = i
     lib.qtrt_bvh_walk.argtypes = [p] * 9 + [i] + [p] * 3 + [i, i, f, f, i] \
         + [p] * 3
+    # qtrt_fused_shade(ptrs, n_ptrs, stream_id, rr, emit_w, n, out,
+    #                  alive_out, stream); ptrs is a host array of device
+    # pointers.
+    lib.qtrt_fused_shade.restype = i
+    lib.qtrt_fused_shade.argtypes = [p, i, ctypes.c_uint, i, f, i] + [p] * 3

@@ -14,7 +14,7 @@ kernel under the innermost span around its launch.
 | ``qtrt.render.chunk`` | one (pixel chunk, sample batch) of ``render.accumulate_pixels``, inside the function ``torch.utils.checkpoint`` wraps, so the backward's recompute opens it again |
 | ``qtrt.prep`` | the kernel tables of one trace call (``prep_fused_spheres``, ``prep_world``) |
 | ``qtrt.rng`` | ``sampling.pixel_states``, ``sample_keys``, ``stream_uniforms`` |
-| ``qtrt.shade`` | ``integrator_flat._shade``: scatter, emission, NEE, roulette |
+| ``qtrt.shade`` | ``integrator_flat._shade``: scatter, emission, NEE, roulette (without NEE on the card: the one launch of ``shade_kernel``, its uniforms included) |
 | ``qtrt.hit.mesh`` | ``world.search_mesh`` and ``accel.traverse.intersect_mesh`` |
 | ``qtrt.train.backward`` | ``torch.autograd.grad`` of ``diff.inverse.value_and_grad`` |
 """

@@ -31,9 +31,12 @@ bitwise on tied copies and on ``torch_helpers.mxu_adversarial``, at t_min
 ``intersector="xla"`` equals its plain version bitwise on live lanes, with
 alive, exclude and a finite t_max, on the card and against the CPU; the
 [N, S] sphere search gives the same bits under the global TF32 switch.
-Renders: at most 1% of channels beyond 2e-3 + 2e-3 |ref|, as in
-``tests/test_torch_render.py``; render gradients within 2e-3 of the
-largest entry, the flip budget of a few rays.
+The shading kernel (``shade_kernel``) equals the PyTorch route of
+``integrator_flat._shade`` bit for bit on every output and lane, NaN and
+inf included, and a frame rendered with it equals the frame rendered
+without it bit for bit. Renders: at most 1% of channels beyond 2e-3 +
+2e-3 |ref|, as in ``tests/test_torch_render.py``; render gradients within
+2e-3 of the largest entry, the flip budget of a few rays.
 """
 
 import numpy as np
@@ -42,10 +45,11 @@ import torch
 
 from qt_raytracer_tpu_torch import RenderConfig, SceneBuilder, render_linear, scenes
 from qt_raytracer_tpu_torch.kernels import fused_hit as fh
+from qt_raytracer_tpu_torch.core import integrator_flat as itf
 from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
 from qt_raytracer_tpu_torch.models import meshes
 from test_torch_cluster_gate import WORLDS as GATE_WORLDS
-from torch_helpers import mxu_adversarial, with_copies
+from torch_helpers import mxu_adversarial, shade_inputs, with_copies
 
 pytestmark = pytest.mark.cuda
 
@@ -1490,3 +1494,90 @@ def test_xla_world_render_on_card_matches_cpu(card, name):
     bad = (got - want).abs() > 2e-3 + 2e-3 * want.abs()
     assert bool(torch.isfinite(got).all())
     assert float(bad.float().mean()) <= 0.01
+
+
+# ------------------------------------------------- the shading kernel
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.is_floating_point() else x
+
+
+def _assert_states_bitwise(got, want):
+    for name, a, b in zip(itf.RayState._fields, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(_bits(a), _bits(b)), name
+
+
+@pytest.mark.parametrize("depth_idx,rr_start", [(0, 0), (1, 2), (3, 2)])
+@pytest.mark.parametrize("n", [1, 1023, 1025, 414720])
+def test_shade_kernel_matches_pytorch_route(card, n, depth_idx, rr_start):
+    # Every output field on every lane, dead lanes, NaN and inf included,
+    # bit for bit against the PyTorch route on the card; roulette off, on
+    # below its start depth and on above it. _shade takes the kernel.
+    from qt_raytracer_tpu_torch.kernels import fused_shade as fs
+    s, h = shade_inputs(n, seed=n + depth_idx, depth_idx=depth_idx,
+                        device=card)
+    want = itf._shade_plain(s, h, depth_idx, rr_start, 1.0, None)
+    before = fs.launches
+    got = itf.RayState(*fs.fused_shade(s, h, depth_idx, rr_start),
+                       s.prev_pdf, s.keys, s.pid)
+    assert fs.launches == before + 1
+    _assert_states_bitwise(got, want)
+    routed = itf._shade(s, h, depth_idx, rr_start, 1.0, None)
+    assert fs.launches == before + 2
+    _assert_states_bitwise(routed, want)
+
+
+def _frame(name: str):
+    if name == "terrain48":
+        world = meshes.terrain_world(48, 48, device="cpu")
+        cfg = RenderConfig(width=48, height=48, spp=2, max_depth=5,
+                           rng="hash", pixel_chunk=-1)
+        cam = meshes.terrain_camera(cfg.aspect_ratio, device="cpu")
+        return world, cam, cfg, 2          # one chunk, two samples
+    cfg = RenderConfig(width=96, height=54, spp=1, max_depth=10, rng="hash",
+                       pixel_chunk=1024,
+                       rr_start=3 if name == "random_rr" else 0)
+    scene, cam = scenes.get_scene("random", cfg.aspect_ratio, device="cpu")
+    return scene, cam, cfg, 6              # 5,184 rays in 6 chunks
+
+
+@pytest.mark.parametrize("name", ["random", "random_rr", "terrain48"])
+def test_frames_with_shade_kernel_are_bit_identical(card, name, monkeypatch):
+    # A book-cover-like sphere frame and a mesh-world frame: the kernel on
+    # every bounce (calls x depth launches), and the frame equal bit for
+    # bit to the same frame with the PyTorch route on the card.
+    from qt_raytracer_tpu_torch.kernels import fused_shade as fs
+    scene, cam, cfg, calls = _frame(name)
+    scene, cam = scene.to(card), cam.to(card)
+    fs.launches = 0
+    got = render_linear(scene, cam, cfg, 7)
+    assert fs.launches == calls * cfg.max_depth
+    monkeypatch.setattr(fs, "use_kernel", lambda *a, **k: False)
+    want = render_linear(scene, cam, cfg, 7)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("how", ["nee", "threefry", "autograd", "interpret"])
+def test_shade_kernel_stays_off_its_routes(card, how):
+    # NEE, threefry keys, a render that records autograd and interpret mode
+    # take the PyTorch route: no launch.
+    import dataclasses
+    from qt_raytracer_tpu_torch.kernels import fused_shade as fs
+    cfg = RenderConfig(width=24, height=16, spp=2, max_depth=4, rng="hash",
+                       nee=how == "nee",
+                       intersector="fused_diff" if how == "autograd"
+                       else "fused_interpret" if how == "interpret"
+                       else "fused")
+    if how == "threefry":
+        cfg = dataclasses.replace(cfg, rng="threefry")
+    scene, cam = scenes.get_scene("cornell", cfg.aspect_ratio, device=card)
+    if how == "autograd":
+        scene = dataclasses.replace(
+            scene, albedo=scene.albedo.clone().requires_grad_(True))
+    fs.launches = 0
+    img = render_linear(scene, cam, cfg, 3)
+    assert fs.launches == 0
+    if how == "autograd":
+        torch.autograd.grad(img.mean(), [scene.albedo])
+    assert fs.launches == 0

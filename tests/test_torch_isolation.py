@@ -44,6 +44,7 @@ def test_import_loads_no_jax():
         "import qt_raytracer_tpu_torch.runtime.native_bvh\n"
         "import qt_raytracer_tpu_torch.accel.traverse\n"
         "import qt_raytracer_tpu_torch.kernels.bvh_walk\n"
+        "import qt_raytracer_tpu_torch.kernels.fused_shade\n"
         "import qt_raytracer_tpu_torch.testing.oracle\n"
         "import qt_raytracer_tpu_torch.testing.oracle_vec\n"
         "import qt_raytracer_tpu_torch.parallel.sharding\n"
@@ -144,7 +145,7 @@ def test_library_is_named_after_sources_and_flags():
     assert path.name.startswith("libqtrt_torch_kernels_") and path.suffix == ".so"
     assert path == cuda_build.library_path()
     for name in ("fused_hit.cu", "mesh_intersect.cu", "mesh_pairs.cu",
-                 "bvh_walk.cu", "mesh_common.cuh"):
+                 "bvh_walk.cu", "fused_shade.cu", "mesh_common.cuh"):
         assert (cuda_build.CSRC_DIR / name).is_file(), name
     assert "--use_fast_math" not in cuda_build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS

@@ -9,6 +9,8 @@
   others, for ties made on purpose.
 - ``mxu_adversarial``: triangles and rays on the edges of the tests of the
   bilinear-form search's TF32 filter.
+- ``shade_inputs``: a ray state and a hit dict that reach every branch of a
+  bounce's shading, for the shading kernel against its plain version.
 """
 
 import numpy as np
@@ -162,3 +164,68 @@ def mxu_adversarial(seed: int = 0, device="cpu"):
     cap = torch.from_numpy(cap)
     mesh = mesh.to(device) if device != "cpu" else mesh
     return mesh, [x.to(device) for x in rays], cap.to(device)
+
+
+def shade_inputs(n: int, seed: int, depth_idx: int = 0, device="cpu"):
+    """(RayState, hit dict) of n lanes for ``integrator_flat._shade``: the
+    four materials and an unknown id, both faces, fuzz 0 and above, iors
+    that give total internal reflection, misses, dead lanes, zero-length
+    directions, normals that make the Lambertian degenerate guard fire
+    (n = -random_unit_vector of the lane's own uniforms), and NaN, inf and
+    -0.0 in the state and the hit. Built on the CPU from numpy."""
+    from qt_raytracer_tpu_torch.core import sampling
+    from qt_raytracer_tpu_torch.core.integrator_flat import RayState
+    from qt_raytracer_tpu_torch.kernels.fused_hit import BIG
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda x: np.asarray(x, dtype=np.float32)
+    unit = lambda v: v / np.linalg.norm(v, axis=1, keepdims=True)
+    keys = rng.integers(0, 2 ** 32, n, dtype=np.int64)
+    d = f32(rng.normal(size=(n, 3)) * rng.choice([1.0, 1e-3, 40.0], (n, 1)))
+    d[rng.random(n) < 0.03] = 0.0                      # inv_len's guard
+    nrm = f32(unit(rng.normal(size=(n, 3))))
+    uni = sampling.stream_uniforms(torch.from_numpy(keys),
+                                   sampling.STREAM_BOUNCE0 + depth_idx,
+                                   sampling.UNIFORMS_PER_BOUNCE).numpy()
+    zc = 1.0 - 2.0 * uni[:, 0]
+    rr = np.sqrt(np.maximum(1.0 - zc * zc, 1e-20))
+    phi = np.float32(2 * np.pi) * uni[:, 1]
+    ru = f32(np.stack([rr * np.cos(phi), rr * np.sin(phi), zc], 1))
+    degen = rng.random(n) < 0.05
+    nrm[degen] = -ru[degen]                            # n + ru ~ 0
+    mat = rng.choice([0, 1, 2, 3, 5], n, p=[0.3, 0.25, 0.3, 0.1, 0.05])
+    ff = rng.integers(0, 2, n)
+    fuzz = f32(np.where(rng.random(n) < 0.5, 0.0, rng.random(n)))
+    ior = f32(rng.choice([1.5, 1.5, 2.4, 1.0, 0.0, -1.3], n))
+    t = f32(np.where(rng.random(n) < 0.2, BIG, rng.uniform(0.01, 50.0, n)))
+    tp = f32(rng.uniform(0.0, 1.0, (n, 3)))
+    tp[rng.random(n) < 0.1] *= np.float32(1e-3)        # roulette's p floor
+    rad = f32(rng.uniform(0.0, 3.0, (n, 3)))
+    rad[rng.random(n) < 0.05] = -0.0
+    state = {
+        "o": f32(rng.uniform(-20, 20, (n, 3))), "d": d, "tp": tp, "rad": rad,
+        "p": f32(rng.uniform(-20, 20, (n, 3))), "n": nrm,
+        "a": f32(rng.random((n, 3))), "e": f32(rng.uniform(0, 8, (n, 3))),
+    }
+    # Non-finite entries in every field, a few lanes each.
+    for x in state.values():
+        for v in (np.nan, np.inf, -np.inf):
+            x[rng.random(n) < 0.004, rng.integers(0, 3)] = v
+    t[rng.random(n) < 0.01] = np.nan
+    alive = rng.random(n) < 0.8
+    col = lambda x, k: torch.from_numpy(np.ascontiguousarray(x[:, k]))
+    o, dd, tt, rd = (state[k] for k in ("o", "d", "tp", "rad"))
+    s = RayState(*(col(x, k) for x in (o, dd, tt, rd) for k in range(3)),
+                 torch.from_numpy(alive), torch.full((n,), -1.0),
+                 torch.from_numpy(keys), torch.arange(n))
+    h = {"t": torch.from_numpy(t), "idx": torch.zeros(n, dtype=torch.int32),
+         "mat": torch.from_numpy(mat.astype(np.int32)),
+         "ff": torch.from_numpy(ff.astype(np.int32)),
+         "fuzz": torch.from_numpy(fuzz), "ior": torch.from_numpy(ior),
+         "rw": torch.zeros(n)}
+    for name, x in (("p", state["p"]), ("n", state["n"]), ("a", state["a"]),
+                    ("e", state["e"])):
+        for k, ax in enumerate("xyz"):
+            h[name + ax] = col(x, k)
+    s = RayState(*(x.to(device) for x in s))
+    return s, {k: v.to(device) for k, v in h.items()}
