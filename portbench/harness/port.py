@@ -1,12 +1,19 @@
 """The system under test: the port (qt_raytracer_tpu_torch), built from the
 benchmark's inputs through its public constructors, and its two entries,
-``render_linear`` and the train step of ``diff.inverse.make_train_step``.
-Everything the port derives (slot order, padding, BVH, clusters, tables)
-stays inside it."""
+``render_linear`` and the train step of ``diff.inverse.make_train_step``,
+the latter also sharded over a mesh of ranks (``parallel.distributed``,
+``parallel.sharding``). Everything the port derives (slot order, padding,
+BVH, clusters, tables) stays inside it."""
 
 from __future__ import annotations
 
+import datetime
+
 import torch
+
+# A rank that does not arrive, or a collective that does not complete,
+# fails after this many seconds.
+GROUP_TIMEOUT_S = 120
 
 
 def render_config(cfg: dict):
@@ -67,22 +74,50 @@ def render_linear():
     return fn
 
 
-def train_step(scene, camera, cfg: dict):
+def train_step(scene, camera, cfg: dict, mesh=None):
     """(init_state, step_fn, leaves) of the port's train step for the
-    configuration's "train" block."""
+    configuration's "train" block; with a mesh (``make_mesh``) every render
+    of the step is sharded over the ranks of the process group."""
     from qt_raytracer_tpu_torch.diff import inverse as inv
 
     tr = cfg["train"]
     init, step, _, _ = inv.make_train_step(
         scene, camera, render_config(cfg), inv.adam(dict(tr["lr"])),
         trainable=tuple(tr["trainable"]), train_camera=tr["train_camera"],
-        edge_aware=bool(tr.get("edge_aware", False)),
+        mesh=mesh, edge_aware=bool(tr.get("edge_aware", False)),
         loss=tr.get("loss", "l2"))
     return init, step, inv.leaves
 
 
-def mean_image(scene, camera, cfg: dict, key):
+def mean_image(scene, camera, cfg: dict, key, mesh=None):
     from qt_raytracer_tpu_torch.diff import inverse as inv
 
     with torch.no_grad():
-        return inv.mean_image(scene, camera, render_config(cfg), key)
+        return inv.mean_image(scene, camera, render_config(cfg), key, mesh)
+
+
+def build_kernels() -> None:
+    """Build the port's CUDA kernel library, which it otherwise builds on
+    first use, so that the ranks started afterwards load it and none of
+    them races another to build it."""
+    from qt_raytracer_tpu_torch.runtime import cuda_build
+
+    cuda_build.build()
+
+
+def join_ranks(ranks: int, store: str, rank: int, device: str):
+    """Join this process to a process group of `ranks` ranks through the
+    file store `store`, as rank `rank` (NCCL on cuda:rank, gloo on the
+    CPU), with a group timeout of GROUP_TIMEOUT_S; returns its device."""
+    from qt_raytracer_tpu_torch.parallel import distributed
+
+    return distributed.initialize(
+        f"file://{store}", ranks, rank,
+        device=None if device == "cuda" else device,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+
+
+def make_mesh(sp: int, px: int):
+    from qt_raytracer_tpu_torch.parallel.sharding import make_mesh as fn
+
+    return fn(sp, px)

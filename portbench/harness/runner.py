@@ -1,7 +1,9 @@
 """One run of one cell: set-up, the measured window, the check against the
 plain reference, and the per-layer metrics of a traced run. The cell's
 traffic mix names its kind: "frames" (back-to-back renders through
-``render_linear``) or "train_steps" (back-to-back steps of the train step).
+``render_linear``), "train_steps" (back-to-back steps of the train step)
+or "train_steps_sharded" (the train step over a mesh of ranks, one process
+a card: ``harness/ranks.py``).
 
 ``run`` returns the result's fields; ``portbench/run.py`` checks the cards
 first and prints the line. The CPU tests call ``run`` with device="cpu" on
@@ -24,6 +26,7 @@ from ..reference import rng, tracer, train as ref_train
 
 WARM_FOLD = 0xFFFFFFFE        # the key of the warm-up frame: never a unit's
 REF_DTYPE = torch.float64
+STOP, STEP, TRACED = 0, 1, 2  # what the window does next
 
 
 @dataclass
@@ -44,11 +47,22 @@ class Run:
     traced_keys: list = field(default_factory=list)   # [2] key of each unit
     phases: dict = field(default_factory=dict)        # seconds by phase
     scene_inputs: dict | None = None
+    fault: str | None = None                          # planted by each rank
+    rank_traces: list = field(default_factory=list)   # sharded: by rank
     _wavefronts: dict = field(default_factory=dict)
 
     @property
     def cuda(self) -> bool:
         return self.device.type == "cuda"
+
+    @property
+    def busy_s(self) -> float:
+        """Device seconds busy in the traced units, averaged over the
+        cards of a sharded run."""
+        if self.rank_traces:
+            return sum(t.busy_s for t in self.rank_traces) / \
+                len(self.rank_traces)
+        return self.trace_data.busy_s
 
     def sync(self) -> None:
         if self.cuda:
@@ -96,15 +110,29 @@ class Run:
                                     rule.STRIDE) / kernel_s
 
 
-def _trace_cm(run: Run, elapsed: float):
-    """(context, units, traced) for the next stretch: the profiler over the
-    traffic's trace_units once the window is trace_at through, else one
-    untraced unit."""
-    if run.trace and not run.traced_keys \
-            and elapsed >= float(run.traffic["trace_at"]) * run.seconds:
-        n = int(run.traffic["trace_units"])
-        return trace_mod.traced(n, run.traces), n, True
-    return contextlib.nullcontext(), 1, False
+def window_rule(trace: bool, traffic: dict, seconds: float, units: int):
+    """The window's rule, word(k, elapsed, traced): STOP once the window
+    has closed or the keys have run out, TRACED for the traced stretch of
+    a --trace 1 run once the window is trace_at through, else STEP."""
+    at = float(traffic["trace_at"]) * seconds
+
+    def word(k: int, elapsed: float, traced: bool) -> int:
+        if k >= units or elapsed >= seconds:
+            return STOP
+        if trace and not traced and elapsed >= at:
+            return TRACED
+        return STEP
+
+    return word
+
+
+def _stretch(word: int, traffic: dict, traces: list):
+    """(context, units) of the next stretch: the profiler over the
+    traffic's trace_units, or one untraced unit."""
+    if word == TRACED:
+        n = int(traffic["trace_units"])
+        return trace_mod.traced(n, traces), n
+    return contextlib.nullcontext(), 1
 
 
 def _free() -> None:
@@ -137,13 +165,14 @@ def frames(run: Run) -> None:
         torch.cuda.reset_peak_memory_stats(dev)
     lat, ends, got = [], [], []
     img = None
+    rule = window_rule(run.trace, tr, run.seconds, keys.shape[0])
     t0 = time.perf_counter()
     k = 0
-    while k < keys.shape[0]:
-        now = time.perf_counter()
-        if now - t0 >= run.seconds:
+    while True:
+        word = rule(k, time.perf_counter() - t0, bool(run.traced_keys))
+        if word == STOP:
             break
-        cm, n, traced = _trace_cm(run, now - t0)
+        cm, n = _stretch(word, tr, run.traces)
         with cm:
             for _ in range(n):
                 s = time.perf_counter()
@@ -154,7 +183,7 @@ def frames(run: Run) -> None:
                 lat.append(e - s)
                 ends.append(e)
                 k += 1
-        if traced:
+        if word == TRACED:
             run.traced_keys = [keys[i].cpu() for i in range(k - n, k)]
     if run.cuda:
         run.peak_bytes = int(torch.cuda.max_memory_allocated(dev))
@@ -215,10 +244,13 @@ def _adam_grads(state, leaves_fn) -> dict:
     return out
 
 
-def first_steps(cfg: dict, seed: int, dev, count: int, max_units: int):
+def first_steps(cfg: dict, seed: int, dev, count: int, max_units: int,
+                mesh=None):
     """Set-up of a train cell: the target and the port's train step from
     the starting point, driven through its first `count` steps with the
-    window's own call. Returns the objects the window goes on with and
+    window's own call; with a mesh, the target's render and every step are
+    sharded over its ranks. Returns the objects the window goes on with
+    (the state, the step and its leaves function, the target, the keys) and
     the readings the check compares (each step's loss, the first gradient
     as Adam got it, the change of every leaf after the steps)."""
     t = cfg["train"]
@@ -226,10 +258,10 @@ def first_steps(cfg: dict, seed: int, dev, count: int, max_units: int):
     start_inputs = inputs.scene_inputs(cfg["scene"], t.get("start"))
     tkey = inputs.target_key(seed).to(dev)
     target = port.mean_image(port.build_scene(true_inputs, cfg, dev),
-                             port.build_camera(cfg, dev), cfg, tkey)
+                             port.build_camera(cfg, dev), cfg, tkey, mesh)
     scene = port.build_scene(start_inputs, cfg, dev)
     cam = port.build_camera(cfg, dev, translate=t["pose_error"])
-    init, step, leaves_fn = port.train_step(scene, cam, cfg)
+    init, step, leaves_fn = port.train_step(scene, cam, cfg, mesh)
     state = init()
     first = {p: v.detach().clone() for p, v in leaves_fn(state.params)}
     keys = inputs.unit_keys(seed, max_units).to(dev)
@@ -240,9 +272,10 @@ def first_steps(cfg: dict, seed: int, dev, count: int, max_units: int):
         if k == 0:
             grad1 = _adam_grads(state, leaves_fn)
     after = {p: v.detach().clone() for p, v in leaves_fn(state.params)}
-    return {"state": state, "step": step, "target": target, "keys": keys,
-            "tkey": tkey, "true_inputs": true_inputs,
-            "start_inputs": start_inputs, "losses": losses, "grad": grad1,
+    return {"state": state, "step": step, "leaves": leaves_fn,
+            "target": target, "keys": keys, "tkey": tkey,
+            "true_inputs": true_inputs, "start_inputs": start_inputs,
+            "losses": losses, "grad": grad1,
             "change": {p: after[p] - first[p] for p in after}}
 
 
@@ -254,58 +287,99 @@ def reference_steps(fs: dict, cfg: dict, dev, count: int,
                            count=count)
 
 
+@dataclass
+class Window:
+    """What a train cell's window leaves: its start, each step's latency
+    and end, the keys of the traced steps, whether the last loss was
+    finite."""
+
+    t0: float
+    lat: list
+    ends: list
+    traced_keys: list
+    finite: bool
+
+    def metrics(self, seconds: float) -> dict:
+        """view_step_s: the window's start to the last step completed in
+        it, over those steps; nothing where none completed."""
+        done = [i for i, e in enumerate(self.ends) if e - self.t0 <= seconds]
+        if not done:
+            return {}
+        return {"view_step_s": (self.ends[done[-1]] - self.t0) / len(done)}
+
+
+def step_window(fs: dict, k: int, word, sync, traffic: dict,
+                traces: list) -> Window:
+    """The measured window of a train cell: the step of first_steps's
+    `fs` driven from key k on, back to back, each step ending in sync(),
+    while word(k, elapsed, traced) says STEP or TRACED; the traced stretch
+    runs under the profiler, its Trace appended to traces."""
+    state, step, target, keys = fs["state"], fs["step"], fs["target"], \
+        fs["keys"]
+    loss = torch.tensor(fs["losses"][-1])
+    lat, ends, traced_keys = [], [], []
+    t0 = time.perf_counter()
+    while True:
+        w = word(k, time.perf_counter() - t0, bool(traced_keys))
+        if w == STOP:
+            break
+        cm, n = _stretch(w, traffic, traces)
+        with cm:
+            for _ in range(n):
+                s = time.perf_counter()
+                state, loss = step(state, target, keys[k])
+                sync()
+                e = time.perf_counter()
+                lat.append(e - s)
+                ends.append(e)
+                k += 1
+        if w == TRACED:
+            traced_keys = [keys[i].cpu() for i in range(k - n, k)]
+    return Window(t0, lat, ends, traced_keys, math.isfinite(float(loss)))
+
+
+KEPT = ("losses", "grad", "change", "keys", "tkey", "true_inputs",
+        "start_inputs")
+
+
+def judge_steps(kept: dict, cfg: dict, dev, count: int, finite: bool,
+                values: dict | None = None, limits: dict | None = None):
+    """(checks, failed) of a train cell: the reference follows the port's
+    first `count` steps from the same start (``compare_steps``), judged by
+    the configuration's limits, with a traffic's own values and limits
+    beside them; a loss that ended not finite fails one more."""
+    ref = reference_steps(kept, cfg, dev, count)
+    checks = check.judge({**compare_steps(kept, ref), **(values or {})},
+                         {**cfg["check"]["limits"], **(limits or {})})
+    failed = sum(1 for v in checks.values() if not v["ok"]) + \
+        (0 if finite else 1)
+    return checks, failed
+
+
 def train_steps(run: Run) -> None:
     cfg, tr, dev = run.cfg, run.traffic, run.device
     n_check = int(tr["setup_steps"])
     fs = first_steps(cfg, run.seed, dev, n_check, int(tr["max_units"]))
     run.scene_inputs = fs["start_inputs"]
-    state, step, target, keys = fs["state"], fs["step"], fs["target"], \
-        fs["keys"]
-    loss = torch.tensor(fs["losses"][-1])
     run.sync()
     run.metrics["setup_s"] = time.perf_counter() - run.t_start
 
     if run.cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    lat, ends = [], []
-    t0 = time.perf_counter()
-    k = n_check
-    while k < keys.shape[0]:
-        now = time.perf_counter()
-        if now - t0 >= run.seconds:
-            break
-        cm, n, traced = _trace_cm(run, now - t0)
-        with cm:
-            for _ in range(n):
-                s = time.perf_counter()
-                state, loss = step(state, target, keys[k])
-                run.sync()
-                e = time.perf_counter()
-                lat.append(e - s)
-                ends.append(e)
-                k += 1
-        if traced:
-            run.traced_keys = [keys[i].cpu() for i in range(k - n, k)]
+    rule = window_rule(run.trace, tr, run.seconds, fs["keys"].shape[0])
+    win = step_window(fs, n_check, rule, run.sync, tr, run.traces)
     if run.cuda:
         run.peak_bytes = int(torch.cuda.max_memory_allocated(dev))
-    done = [i for i, e in enumerate(ends) if e - t0 <= run.seconds]
-    run.attempted = len(lat)
-    finite = math.isfinite(float(loss))
-    if done:
-        run.metrics["view_step_s"] = (ends[done[-1]] - t0) / len(done)
+    run.traced_keys = win.traced_keys
+    run.attempted = len(win.lat)
+    run.metrics.update(win.metrics(run.seconds))
     run.metrics["peak_mem_gib"] = run.peak_bytes / 2 ** 30
-    run.phases["window"] = time.perf_counter() - t0
-    kept = {k: fs[k] for k in ("losses", "grad", "change", "keys", "tkey",
-                               "true_inputs", "start_inputs")}
-    del state, step, target, loss, fs
+    run.phases["window"] = time.perf_counter() - win.t0
+    kept = {k: fs[k] for k in KEPT}
+    del fs
     _free()
     t_check = time.perf_counter()
-
-    # The check: the reference follows the first steps from the same start.
-    ref = reference_steps(kept, cfg, dev, n_check)
-    run.checks = check.judge(compare_steps(kept, ref), cfg["check"]["limits"])
-    run.failed = sum(1 for v in run.checks.values() if not v["ok"]) + \
-        (0 if finite else 1)
+    run.checks, run.failed = judge_steps(kept, cfg, dev, n_check, win.finite)
     run.phases["check"] = time.perf_counter() - t_check
 
 
@@ -328,19 +402,32 @@ def compare_steps(got: dict, ref: dict) -> dict:
             "change_gap": check.leaf_gap(got["change"], ref["change"], keep)}
 
 
-DRIVERS = {"frames": frames, "train_steps": train_steps}
+def train_steps_sharded(run: Run) -> None:
+    """Train steps sharded over a mesh of ranks, one process a card
+    (``harness/ranks.py``)."""
+    from . import ranks
+
+    ranks.drive(run)
+
+
+DRIVERS = {"frames": frames, "train_steps": train_steps,
+           "train_steps_sharded": train_steps_sharded}
 
 
 def run(cell_name: str, seed: int, seconds: float, trace: bool, device,
-        t_start: float, overrides: dict | None = None) -> dict:
+        t_start: float, overrides: dict | None = None,
+        fault: str | None = None) -> dict:
     """One run of the cell; the result line's fields but "device"'s card
-    name, and the Run for what else a caller reads."""
+    name, and the Run for what else a caller reads. fault: the name of a
+    fault of ``portbench/faults.py`` that each rank of a sharded cell
+    plants in its own process (the CPU tests; a cell that runs in this
+    process is broken by planting the fault here instead)."""
     bench = manifest.load()
     cell = manifest.cell(bench, cell_name)
     cfg = manifest.config(bench, cell["config"], overrides)
     traffic = manifest.traffic(cell["traffic"])
     r = Run(cfg, traffic, int(seed), float(seconds), bool(trace),
-            torch.device(device), t_start)
+            torch.device(device), t_start, fault=fault)
     DRIVERS[traffic["kind"]](r)
     t_read = time.perf_counter()
     if trace:

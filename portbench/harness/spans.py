@@ -61,9 +61,11 @@ class Attribution:
     launch: list         # per kernel: launch point in seconds, or None
     chains: list         # per kernel: tuple of Spans, innermost first
 
-    def kernel_seconds(self, kernels, take) -> float:
-        """Device seconds of the kernels whose chain take(chain) accepts."""
-        return sum(k[2] for k, c in zip(kernels, self.chains) if take(c))
+    def kernel_seconds(self, kernels, take, keep=None) -> float:
+        """Device seconds of the kernels whose chain take(chain) accepts
+        and, given keep, whose name keep(name) accepts."""
+        return sum(k[2] for k, c in zip(kernels, self.chains)
+                   if take(c) and (keep is None or keep(k[0])))
 
 
 def program_spans(tr) -> list:
@@ -298,20 +300,22 @@ def innermost_ms_per_unit(run, name: str):
     return _ms_per_unit(run, name, lambda c: bool(c) and c[0].name == name)
 
 
-def within_ms_per_unit(run, name: str):
+def within_ms_per_unit(run, name: str, keep=None):
     """Device ms a unit of kernels launched inside a span named name,
-    nested spans included; None as innermost_ms_per_unit."""
-    return _ms_per_unit(run, name, lambda c: any(sp.name == name for sp in c))
+    nested spans included, and, given keep, whose name keep(name) accepts;
+    None as innermost_ms_per_unit."""
+    return _ms_per_unit(run, name, lambda c: any(sp.name == name for sp in c),
+                        keep)
 
 
-def _ms_per_unit(run, name, take):
+def _ms_per_unit(run, name, take, keep=None):
     tr = run.trace_data
     if tr is None:
         return None
     att = attribute(tr)
     if not any(sp.name == name for sp in att.spans):
         return None
-    return att.kernel_seconds(tr.kernels, take) * 1e3 / tr.units
+    return att.kernel_seconds(tr.kernels, take, keep) * 1e3 / tr.units
 
 
 def recompute_ms_per_unit(run):

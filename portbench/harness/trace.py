@@ -44,7 +44,12 @@ class Trace:
 
     @property
     def busy_s(self) -> float:
-        ops = self.kernels + self.other_ops
+        return self.busy_s_of(lambda n: True)
+
+    def busy_s_of(self, keep) -> float:
+        """Seconds of the traced interval in which a device operation whose
+        name keep(name) accepts ran."""
+        ops = [op for op in self.kernels + self.other_ops if keep(op[0])]
         return stats.union_length(stats.clip(
             [(s, s + d) for _, s, d in ops], self.lo, self.hi))
 
@@ -59,6 +64,17 @@ class Trace:
     def kernel_seconds(self, match) -> float:
         """Device seconds of the kernels whose name match(name) accepts."""
         return sum(d for n, _, d in self.kernels if match(n))
+
+    def device_part(self) -> "Trace":
+        """This trace without its host operations, each kernel name held
+        once, so that it pickles small (a rank hands it to rank 0)."""
+        held: dict = {}
+
+        def ops(rows):
+            return [(held.setdefault(n, n), s, d) for n, s, d in rows]
+
+        return Trace(self.lo, self.hi, self.units, ops(self.kernels),
+                     ops(self.other_ops))
 
     def breakdown(self, top: int = 10) -> dict:
         by_name: dict[str, float] = {}
@@ -79,6 +95,30 @@ class Trace:
             if s <= t <= s + d and (best is None or d < best[1]):
                 best = (n, d)
         return f"host: {best[0][:NAME_CHARS]}" if best else "host: none"
+
+
+def collective(name: str) -> bool:
+    """True for a kernel of NCCL's (its name begins with "nccl", in any
+    case): a collective of a sharded step, which spins on the card until
+    every rank has arrived."""
+    return name.lower().startswith("nccl")
+
+
+def collective_seconds(traces: list):
+    """(transfer, per-rank) seconds of the collectives in the ranks'
+    traces of the same steps. Every rank runs the same collectives in the
+    same order, and the last rank to arrive at one waits least, so the
+    transfer is, collective by collective, the shortest of the ranks'
+    kernels; where the profiler lost a record and the ranks' counts
+    differ, the smallest rank's total. per-rank: each rank's whole NCCL
+    time, transfer and wait. None without a trace that holds one."""
+    per = [[d for n, _, d in sorted(tr.kernels, key=lambda k: k[1])
+            if collective(n)] for tr in traces]
+    if not per or not all(per):
+        return None
+    if len({len(p) for p in per}) == 1:
+        return sum(min(col) for col in zip(*per)), [sum(p) for p in per]
+    return min(sum(p) for p in per), [sum(p) for p in per]
 
 
 def names(kernels):

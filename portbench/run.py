@@ -37,7 +37,7 @@ def result_line(out: dict, run, kind: str, chips: int) -> dict:
               "memory_peak_bytes": run.peak_bytes}
     tr = run.trace_data
     if tr is not None:
-        device["busy_s"] = tr.busy_s
+        device["busy_s"] = run.busy_s
         device["window_s"] = tr.window_s
     line = {"correct": out["correct"], "attempted": out["attempted"],
             "failed": out["failed"], "metrics": out["metrics"],

@@ -8,7 +8,7 @@ import statistics
 import numpy as np
 import pytest
 
-from portbench.harness import check, stats, trace
+from portbench.harness import check, manifest, stats, trace
 
 
 def test_union_and_gaps():
@@ -92,3 +92,88 @@ def test_comparisons():
     assert check.median_leaf({"p": torch.ones(1), "q": torch.ones(2)}) == "p"
     judged = check.judge({"n": 0.5}, {"n": 1.0, "m": 2.0})
     assert judged["n"]["ok"] and not judged["m"]["ok"]
+
+
+def _ranks(*per_rank):
+    """A sharded run's stand-in: one Trace of two steps a rank."""
+    return type("R", (), {"rank_traces": [
+        trace.Trace(0.0, 1.0, units=2, kernels=list(k)) for k in per_rank]})()
+
+
+def test_allreduce_ms_reads_nccl_kernels_alone():
+    # NCCL's kernels by name, in any case, and no other; collective by
+    # collective the rank that spins least sets the transfer, even where
+    # each rank waits at another one: (0.3 + 0.2) ms over two steps.
+    other = [("void fused_hit_kernel<true, false>(...)", 0.3, 5e-3),
+             ("at::native::ncclish_elementwise", 0.4, 7e-3)]
+    nccl = "ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgs)"
+    rank0 = other + [(nccl, 0.1, 3e-4), ("NCCLKernel_x", 0.2, 2e-4)]
+    rank1 = [(nccl, 0.1, 9e-4), ("NCCLKernel_x", 0.2, 8e-4)] + other
+    rank2 = [(nccl, 0.1, 3e-4), ("NCCLKernel_x", 0.2, 5e-3)] + other
+    rank3 = [(nccl, 0.1, 4e-3), ("NCCLKernel_x", 0.2, 2e-4)] + other
+    read = manifest.metric_module("allreduce_ms_per_step").read
+    assert read(_ranks(rank0, rank1)) == pytest.approx(0.25)
+    assert read(_ranks(rank1, rank0)) == pytest.approx(0.25)
+    assert read(_ranks(rank2, rank3)) == pytest.approx(0.25)
+    # A lost record: the smallest rank's whole NCCL time, (0.9 + 0.8) ms.
+    assert read(_ranks(rank1, rank3[:1] + other)) == pytest.approx(0.85)
+    # Where a rank's trace holds none of them there is nothing to read.
+    assert read(_ranks(rank0, other)) is None
+    assert read(_ranks()) is None
+
+
+def test_allreduce_wait_is_the_spin_beyond_the_transfer():
+    # Ranks spin 0.5, 1.7 and 0.5 ms over two steps: the mean over the
+    # ranks of what lies beyond the transfer, 0.5 ms: 0.4 ms over two.
+    def rank(ms):
+        return [("ncclDevKernel_AllReduce", 0.1, ms * 1e-3),
+                ("void at::native::elementwise_kernel", 0.3, 5e-3)]
+
+    read = manifest.metric_module("allreduce_wait_ms_per_step").read
+    assert read(_ranks(rank(0.5), rank(1.7), rank(0.5))) == \
+        pytest.approx(0.2)
+    assert read(_ranks(rank(0.5), rank(0.5))) == pytest.approx(0.0)
+    assert read(_ranks(rank(0.5))) is None
+    assert read(_ranks(rank(0.5), [])) is None
+
+
+def test_device_part_keeps_the_device_operations():
+    tr = trace.Trace(0.0, 1.0, units=1,
+                     kernels=[("k", 0.1, 0.2), ("k", 0.5, 0.1)],
+                     other_ops=[("Memcpy DtoH", 0.7, 0.1)],
+                     host_ops=[("aten::mul", 0.0, 0.9)])
+    part = tr.device_part()
+    assert (part.lo, part.hi, part.units) == (0.0, 1.0, 1)
+    assert part.kernels == tr.kernels and part.other_ops == tr.other_ops
+    assert part.host_ops == [] and part.busy_s == pytest.approx(tr.busy_s)
+
+
+def test_rank_cores_split_the_cores_nearest_each_card():
+    from portbench.harness import ranks
+
+    allowed = list(range(32))
+    # Two NUMA nodes of 16 cores, two cards on each: 8 cores a rank.
+    node = [set(range(16)), set(range(16, 32))]
+    near = [node[0], node[0], node[1], node[1]]
+    got = [ranks.rank_cores(r, near, allowed) for r in range(4)]
+    assert got == [list(range(0, 8)), list(range(8, 16)),
+                   list(range(16, 24)), list(range(24, 32))]
+    # No node read, or one outside the allowed cores: every allowed core,
+    # split in rank order.
+    for near in ([set()] * 4, [set(range(64, 96))] * 4):
+        got = [ranks.rank_cores(r, near, list(range(4, 12)))
+               for r in range(4)]
+        assert got == [[4, 5], [6, 7], [8, 9], [10, 11]]
+    # Fewer cores than ranks: no share, and the rank is left unpinned.
+    assert ranks.rank_cores(3, [set()] * 4, [0, 1]) == []
+    assert ranks._cpulist("0-2,8,10-11\n") == {0, 1, 2, 8, 10, 11}
+
+
+def test_step_line_reads_quartiles_and_each_rank():
+    from portbench.harness import ranks
+
+    line = ranks.step_line([0.5, 0.6, 0.7, 0.8, 0.9],
+                           [[0.4, 0.5, 0.6], [0.3], []])
+    assert "5 steps" in line and "min 0.5000" in line
+    assert "max 0.9000" in line
+    assert line.endswith("0.5000, 0.3000, -")

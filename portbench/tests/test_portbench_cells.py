@@ -1,9 +1,14 @@
 """Whole runs of each cell on the CPU at a tiny size (the port's plain
-versions): a sound run is correct, its result line has the keys the driver
-reads, and a run with a fault planted under the timed path is not."""
+versions; a sharded cell's ranks as gloo processes): a sound run is
+correct, its result line has the keys the driver reads, a run with a fault
+planted under the timed path is not, and a rank that fails ends the run."""
 
 import importlib.util
+import multiprocessing
+import os
+import pathlib
 import time
+from multiprocessing import resource_tracker
 
 import pytest
 
@@ -25,18 +30,23 @@ OVERRIDES = {
 }
 CELLS = [w["name"] for w in manifest.load()["workloads"]]
 SEED = 2 ** 31 + 77
-
-
-def _run(cell, trace=False, seed=SEED):
-    bench = manifest.load()
-    cfg = manifest.cell(bench, cell)["config"]
-    return runner.run(cell, seed, 2.0, trace, "cpu", time.perf_counter(),
-                      overrides=OVERRIDES[cfg])
+# Windows long enough that a step lands in them on a loaded CPU (a 96 x 54
+# train step took 1.6-2.0 s there).
+SECONDS = {"frames": 2.0, "train_steps": 8.0, "train_steps_sharded": 8.0}
+SHARDED = "train_steps_sharded"
 
 
 def _kind(cell):
     bench = manifest.load()
     return manifest.traffic(manifest.cell(bench, cell)["traffic"])["kind"]
+
+
+def _run(cell, trace=False, seed=SEED, fault=None):
+    bench = manifest.load()
+    cfg = manifest.cell(bench, cell)["config"]
+    return runner.run(cell, seed, SECONDS[_kind(cell)], trace, "cpu",
+                      time.perf_counter(), overrides=OVERRIDES[cfg],
+                      fault=fault)
 
 
 def _run_py():
@@ -65,12 +75,19 @@ def test_sound_run_is_correct(cell):
 
 
 def _faults(cell):
-    return faults.FRAME_FAULTS if _kind(cell) == "frames" else faults.FAULTS
+    kind = _kind(cell)
+    if kind == "frames":
+        return faults.FRAME_FAULTS
+    return faults.FAULTS + (faults.SHARD_FAULTS if kind == SHARDED else ())
 
 
 @pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS
                                         for f in _faults(c)])
 def test_planted_fault_is_not_correct(cell, fault):
+    if _kind(cell) == SHARDED:
+        out = _run(cell, fault=fault)
+        assert not out["correct"], out["run"].checks
+        return
     plant = faults.plant_frame if _kind(cell) == "frames" \
         else faults.plant_train
     undo = plant(fault)
@@ -79,6 +96,93 @@ def test_planted_fault_is_not_correct(cell, fault):
     finally:
         undo()
     assert not out["correct"], out["run"].checks
+
+
+@pytest.mark.parametrize("cell", [c for c in CELLS
+                                  if _kind(c).startswith("train_steps")])
+def test_control_is_not_correct(cell):
+    """The reference in bfloat16 in the port's place fails the cell's
+    numbers (the sharded cell's target too) at the test size."""
+    import torch
+
+    from portbench.harness import check, inputs, ranks
+    from portbench.reference import tracer
+
+    bench = manifest.load()
+    w = manifest.cell(bench, cell)
+    cfg = manifest.config(bench, w["config"], OVERRIDES[w["config"]])
+    traffic = manifest.traffic(w["traffic"])
+    n = int(traffic["setup_steps"])
+    base = {"keys": inputs.unit_keys(SEED, n),
+            "tkey": inputs.target_key(SEED),
+            "true_inputs": inputs.scene_inputs(cfg["scene"]),
+            "start_inputs": inputs.scene_inputs(cfg["scene"],
+                                                cfg["train"]["start"])}
+    dev = torch.device("cpu")
+    ref = runner.reference_steps(base, cfg, dev, n)
+    control = runner.reference_steps(base, cfg, dev, n, dtype=torch.bfloat16)
+    values = runner.compare_steps(control, ref)
+    limits = dict(cfg["check"]["limits"])
+    if "check" in traffic:
+        r = cfg["render"]
+        ck = traffic["check"]
+        pix = torch.as_tensor(inputs.sample_pixels(
+            SEED, r["width"] * r["height"], ck["pixels"]))
+        sc = tracer.make_scene(base["true_inputs"], torch.bfloat16, dev)
+        cam = tracer.make_camera(cfg["camera"], r["width"] / r["height"],
+                                 torch.bfloat16, dev)
+        with torch.no_grad():
+            got = tracer.render_pixels(sc, cam, r, base["tkey"], pix,
+                                       torch.bfloat16) / r["spp"]
+        values["target_mismatch_share"] = ranks.target_mismatch_share(
+            got, base, cfg, ck, pix)
+        limits["target_mismatch_share"] = \
+            ck["limits"]["target_mismatch_share"]
+    checks = check.judge(values, limits)
+    assert not all(v["ok"] for v in checks.values()), checks
+    if "check" in traffic:
+        assert not checks["target_mismatch_share"]["ok"], checks
+
+
+def _children() -> list:
+    """Processes whose parent is this one, from /proc. The first spawn
+    starts multiprocessing's resource tracker, which lives as long as this
+    process and is no rank: it is started before the count."""
+    resource_tracker.ensure_running()
+    out = []
+    for stat in pathlib.Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == os.getpid():
+            out.append(int(stat.parent.name))
+    return out
+
+
+@pytest.mark.parametrize("cell", [c for c in CELLS if _kind(c) == SHARDED])
+def test_failed_rank_ends_the_run(cell):
+    before = set(_children())
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="exit code"):
+        _run(cell, fault=faults.CRASH)
+    assert time.monotonic() - t0 < 120
+    assert not multiprocessing.active_children()
+    assert set(_children()) <= before
+
+
+@pytest.mark.parametrize("cell", [c for c in CELLS if _kind(c) == SHARDED])
+def test_jax_loaded_in_the_check_ends_the_run(cell, capfd):
+    """Rank 0 runs the check after the ranks have compared their modules;
+    a JAX module that the check loads still ends the run, and rank 0 names
+    it on standard error."""
+    before = set(_children())
+    with pytest.raises(RuntimeError, match="rank 0 of .* exit code"):
+        _run(cell, fault=faults.LOADS_JAX)
+    assert "rank 0 loaded JAX modules in the check: ['jax']" in \
+        capfd.readouterr().err
+    assert not multiprocessing.active_children()
+    assert set(_children()) <= before
 
 
 def test_traced_run_reports_layer_metrics_on_cpu():
@@ -91,8 +195,26 @@ def test_traced_run_reports_layer_metrics_on_cpu():
     assert line["checks"]
 
 
+def test_traced_sharded_run_reports_its_step_per_layer():
+    cell = next(c for c in CELLS if _kind(c) == SHARDED)
+    bench = manifest.load()
+    assert "view_step_s" not in {
+        m["name"] for m in manifest.e2e_metrics(bench, cell)}
+    out = _run(cell, trace=True)
+    run = out.pop("run")
+    assert out["correct"], run.checks
+    step = out["metrics"]["view_step_s.px4"]
+    assert step == {"value": run.metrics["view_step_s"], "unit": "s"}
+    assert step["value"] > 0
+
+
 @pytest.mark.cuda
 def test_card_run_of_each_cell_is_correct(card):
+    import torch
+
+    bench = manifest.load()
     for cell in CELLS:
+        if manifest.cell(bench, cell)["chips"] > torch.cuda.device_count():
+            continue
         out = runner.run(cell, SEED, 2.0, False, card, time.perf_counter())
         assert out["correct"], out["run"].checks

@@ -7,7 +7,7 @@ import re
 
 import pytest
 
-from portbench.harness import manifest
+from portbench.harness import manifest, runner
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -53,8 +53,11 @@ def test_cells_find_their_files(bench):
         cfg = manifest.config(bench, w["config"])
         assert cfg["name"] == w["config"]
         traffic = manifest.traffic(w["traffic"])
-        assert traffic["kind"] in ("frames", "train_steps")
+        assert traffic["kind"] in runner.DRIVERS
         assert w["chips"] in (1, 4)
+        if "ranks" in traffic:
+            mesh = traffic["mesh"]
+            assert traffic["ranks"] == w["chips"] == mesh["sp"] * mesh["px"]
 
 
 def test_bounds(bench):

@@ -21,6 +21,7 @@ DRIFT = 1.0008          # device clock over host clock
 MAIN, AUTOGRAD = 1, 2   # thread ids
 HANDWRITTEN = "void (anonymous namespace)::mesh_search_kernel<false, 0>(float)"
 SPHERE = "void (anonymous namespace)::fused_hit_kernel<false, false>(float)"
+NCCL = "ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage)"
 
 
 class Program:
@@ -99,9 +100,10 @@ class Program:
         self.t += us
 
 
-def program(seed=17, with_spans=True, frames=UNITS, lost=()):
+def program(seed=17, with_spans=True, frames=UNITS, lost=(), nccl=False):
     """Frames and a backward; returns (Program, chrome trace dict). lost:
-    the launches (counted from 1) whose kernel records are dropped."""
+    the launches (counted from 1) whose kernel records are dropped; nccl:
+    the backward ends in a long NCCL kernel, as a sharded step's does."""
     p = Program(seed, with_spans, lost)
     lo = p.t
     p.t += 5.0
@@ -155,6 +157,8 @@ def program(seed=17, with_spans=True, frames=UNITS, lost=()):
     p.pop()
     for _ in range(15):
         p.launch(tid=AUTOGRAD)
+    if nccl:
+        p.launch(tid=AUTOGRAD, name=NCCL, long=True)
     p.pop()
     p.idle(200.0)
     p.events.append({"ph": "X", "cat": "cuda_runtime",
@@ -263,6 +267,28 @@ def test_span_readers_read_what_the_ids_say(traced):
     att = spans.attribute(tr)
     assert sum(k[2] for k in tr.kernels) == pytest.approx(
         att.kernel_seconds(tr.kernels, lambda c: True))
+
+
+def test_collectives_leave_the_backward_and_count_as_idle(tmp_path):
+    # A sharded step's NCCL kernel inside the backward: the backward's
+    # metric leaves it out, and the train idle share counts it as idle.
+    p, doc = program(nccl=True)
+    tr = _read(tmp_path, doc)
+    run = _run(tr)
+    back = manifest.metric_module("backward_ms_per_step").read(run)
+    assert back == pytest.approx(_truth_ms(
+        p, lambda k: spans.TRAIN_BACKWARD in k["chain"]
+        and k["name"] != NCCL), rel=1e-9)
+    assert back < _truth_ms(p, lambda k: spans.TRAIN_BACKWARD in k["chain"])
+    spin = sum(k["dur"] for k in p.kernels if k["name"] == NCCL) * 1e-6
+    idle = manifest.metric_module("idle_pct.train").read(run)
+    assert idle - tr.idle_pct == pytest.approx(100.0 * spin / tr.window_s,
+                                               rel=1e-6)
+    # Without one, both read what they read before.
+    _, plain = program()
+    tr = _read(tmp_path, plain)
+    assert manifest.metric_module("idle_pct.train").read(_run(tr)) == \
+        tr.idle_pct
 
 
 def test_mesh_kernels_fall_inside_the_mesh_span(traced):
