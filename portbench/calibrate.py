@@ -10,10 +10,14 @@ place, on the sampled pixels of the sampled frames that a run with
 --frames-done completed frames checks, against the float64 reference.
 Train cells: the control's three steps (bfloat16) against the float64
 reference's, the port's own (the lower reading) and, with --faults, the
-port with each fault of ``faults.py`` planted. Both also read the
+port with each fault of ``faults.py`` planted, each as every number
+``runner.compare_steps`` gives: beside ``grad_gap_median`` the first
+gradient's gap for each leaf alone (``grad_gap[<leaf>]``), from which a
+configuration can set a limit on its own leaf. Both also read the
 reference computed in float32 ("f32"): what rounding to the
 configuration's own precision alone gives, a second witness beside the
-port. One JSON line a reading.
+port. Every reading is the configuration's own reference's
+(``manifest.reference``). One JSON line a reading.
 """
 
 from __future__ import annotations
@@ -34,7 +38,6 @@ def frame_control(cfg: dict, seed: int, done: int, dev) -> dict:
     import torch
 
     from portbench.harness import check, inputs
-    from portbench.reference import tracer
 
     r = cfg["render"]
     w, h = int(r["width"]), int(r["height"])
@@ -46,14 +49,15 @@ def frame_control(cfg: dict, seed: int, done: int, dev) -> dict:
     scene = inputs.scene_inputs(cfg["scene"])
     ray_keys = keys.to(dev).repeat_interleave(pix.shape[0], dim=0)
     ray_pix = pix.repeat(len(picks))
+    plain = manifest.reference(cfg)
     out = {}
     for name, dtype in (("f64", torch.float64), ("f32", torch.float32),
                         ("bf16", torch.bfloat16)):
-        sc = tracer.make_scene(scene, dtype, dev)
-        cam = tracer.make_camera(cfg["camera"], w / h, dtype, dev)
+        sc = plain.make_scene(scene, dtype, dev)
+        cam = plain.make_camera(cfg["camera"], w / h, dtype, dev)
         with torch.no_grad():
-            out[name] = tracer.render_pixels(sc, cam, r, ray_keys, ray_pix,
-                                             dtype)
+            out[name] = plain.render_pixels(sc, cam, r, ray_keys, ray_pix,
+                                            dtype)
     return {what: {"px_mismatch_share": check.pixel_mismatch_share(
         out[name], out["f64"], float(ck["atol"]), float(ck["rtol"]))}
         for what, name in (("control", "bf16"), ("f32", "f32"))}

@@ -1,7 +1,8 @@
 """BENCHMARK.json and the files it names, found by name: a cell's
 configuration (its "file"), its traffic mix (traffic/<mix>.json), each
 per-layer metric (metrics/<metric>.py), each roofline rule
-(roofline/<layer>.py) and each scene kind (scenes/<kind>.py)."""
+(roofline/<layer>.py), each scene kind (scenes/<kind>.py) and each
+configuration's plain reference (reference/<name>.py)."""
 
 from __future__ import annotations
 
@@ -10,9 +11,11 @@ import importlib
 import importlib.util
 import json
 import pathlib
+import re
 
 PB = pathlib.Path(__file__).resolve().parents[1]
 ROOT = PB.parent
+NAME = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")     # a module's plain name
 
 
 def load(root: pathlib.Path = ROOT) -> dict:
@@ -69,6 +72,38 @@ def roofline_rule(layer: str):
 
 def scene_kind(kind: str):
     return importlib.import_module(f"portbench.scenes.{kind}")
+
+
+# The reference of a configuration without a "reference" key: the
+# pathwise train step, whose frame interface is the reference tracer's.
+DEFAULT_REFERENCE = "train"
+FRAME_INTERFACE = ("make_scene", "make_camera", "render_pixels")
+
+
+def reference(cfg: dict):
+    """The plain reference that the configuration's check reads: the module
+    reference/<name>.py of its "reference" key (``DEFAULT_REFERENCE``
+    without one), holding the frame interface and, for a train
+    configuration, ``steps`` (the contract: reference/__init__.py)."""
+    name = cfg.get("reference", DEFAULT_REFERENCE)
+    path = f"portbench.reference.{name}"
+    mod = None
+    if NAME.match(name):
+        try:
+            mod = importlib.import_module(path)
+        except ModuleNotFoundError as exc:
+            if exc.name != path:
+                raise
+    if mod is None:
+        known = sorted(p.stem for p in (PB / "reference").glob("*.py")
+                       if p.stem != "__init__")
+        raise KeyError(f"no reference {name!r} under portbench/reference; "
+                       f"modules: {known}")
+    want = FRAME_INTERFACE + (("steps",) if "train" in cfg else ())
+    missing = [f for f in want if not callable(getattr(mod, f, None))]
+    if missing:
+        raise KeyError(f"reference {name!r} lacks {missing}")
+    return mod
 
 
 def e2e_metrics(bench: dict, cell_name: str) -> list[dict]:

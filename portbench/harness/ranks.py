@@ -63,8 +63,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from . import check, env, inputs, port, runner
-from ..reference import tracer
+from . import check, env, inputs, manifest, port, runner
 
 # The longest the starting process waits for ranks that neither end nor
 # fail: past a first run's build and compile, never reached otherwise.
@@ -345,12 +344,13 @@ def target_mismatch_share(got, kept: dict, cfg: dict, ck: dict,
     finite: every rank's pixel range, as the frame cells check theirs."""
     r = cfg["render"]
     dev = got.device
-    sc = tracer.make_scene(kept["true_inputs"], runner.REF_DTYPE, dev)
-    cam = tracer.make_camera(cfg["camera"], r["width"] / r["height"],
-                             runner.REF_DTYPE, dev)
+    plain = manifest.reference(cfg)
+    sc = plain.make_scene(kept["true_inputs"], runner.REF_DTYPE, dev)
+    cam = plain.make_camera(cfg["camera"], r["width"] / r["height"],
+                            runner.REF_DTYPE, dev)
     with torch.no_grad():
-        ref = tracer.render_pixels(sc, cam, r, kept["tkey"].to(dev), pix,
-                                   runner.REF_DTYPE) / int(r["spp"])
+        ref = plain.render_pixels(sc, cam, r, kept["tkey"].to(dev), pix,
+                                  runner.REF_DTYPE) / int(r["spp"])
     return check.pixel_mismatch_share(got, ref, float(ck["atol"]),
                                       float(ck["rtol"]))
 

@@ -22,7 +22,7 @@ import torch
 
 from . import check, inputs, manifest, port, stats
 from . import trace as trace_mod
-from ..reference import rng, tracer, train as ref_train
+from ..reference import rng
 
 WARM_FOLD = 0xFFFFFFFE        # the key of the warm-up frame: never a unit's
 REF_DTYPE = torch.float64
@@ -80,16 +80,17 @@ class Run:
         if stride not in self._wavefronts:
             r = self.cfg["render"]
             n = int(r["width"]) * int(r["height"])
-            sc = tracer.make_scene(self.scene_inputs, REF_DTYPE, self.device)
-            cam = tracer.make_camera(self.cfg["camera"],
-                                     r["width"] / r["height"], REF_DTYPE,
-                                     self.device)
+            plain = manifest.reference(self.cfg)
+            sc = plain.make_scene(self.scene_inputs, REF_DTYPE, self.device)
+            cam = plain.make_camera(self.cfg["camera"],
+                                    r["width"] / r["height"], REF_DTYPE,
+                                    self.device)
             rec: list = []
             pix = torch.arange(0, n, stride, device=self.device)
             with torch.no_grad():
                 for key in self.traced_keys:
-                    tracer.render_pixels(sc, cam, r, key.to(self.device), pix,
-                                         REF_DTYPE, record=rec)
+                    plain.render_pixels(sc, cam, r, key.to(self.device), pix,
+                                        REF_DTYPE, record=rec)
             self._wavefronts[stride] = rec
         return self._wavefronts[stride]
 
@@ -208,14 +209,15 @@ def frames(run: Run) -> None:
         run.checks = check.judge({}, ck["limits"])
         run.failed = run.attempted
         return
-    sc = tracer.make_scene(run.scene_inputs, REF_DTYPE, dev)
-    rcam = tracer.make_camera(cfg["camera"], w / h, REF_DTYPE, dev)
+    plain = manifest.reference(cfg)
+    sc = plain.make_scene(run.scene_inputs, REF_DTYPE, dev)
+    rcam = plain.make_camera(cfg["camera"], w / h, REF_DTYPE, dev)
     p = pix.shape[0]
     ray_keys = keys[picks].repeat_interleave(p, dim=0)
     ray_pix = pix.repeat(len(picks))
     with torch.no_grad():
-        ref = tracer.render_pixels(sc, rcam, r, ray_keys, ray_pix,
-                                   REF_DTYPE).reshape(len(picks), p, 3)
+        ref = plain.render_pixels(sc, rcam, r, ray_keys, ray_pix,
+                                  REF_DTYPE).reshape(len(picks), p, 3)
     mine = torch.stack([got[i] for i in picks]).to(dev)
     del sc
     per_frame = [check.pixel_mismatch_share(mine[i], ref[i],
@@ -281,10 +283,12 @@ def first_steps(cfg: dict, seed: int, dev, count: int, max_units: int,
 
 def reference_steps(fs: dict, cfg: dict, dev, count: int,
                     dtype=REF_DTYPE) -> dict:
-    return ref_train.steps(fs["true_inputs"], fs["start_inputs"], cfg,
-                           fs["keys"][:count].cpu(), fs["tkey"].cpu(), dtype,
-                           dev, block=int(cfg["check"].get("block", 1 << 17)),
-                           count=count)
+    """The configuration's reference following the first `count` steps of
+    first_steps's `fs` from the same start, in `dtype`."""
+    return manifest.reference(cfg).steps(
+        fs["true_inputs"], fs["start_inputs"], cfg, fs["keys"][:count].cpu(),
+        fs["tkey"].cpu(), dtype, dev,
+        block=int(cfg["check"].get("block", 1 << 17)), count=count)
 
 
 @dataclass
@@ -385,21 +389,26 @@ def train_steps(run: Run) -> None:
 
 def compare_steps(got: dict, ref: dict) -> dict:
     """The compared numbers of a train cell, from the port's first steps
-    ({"losses", "grad", "change"}) and the reference's
-    (``reference.train.steps``): the first step's loss, which both sides
-    compute from the same parameters, and the worst step's, which carries
-    the later steps' noise (Adam moves a leaf of small gradient by its
-    rate whatever the gradient's size); the first gradient's gap by the
-    worst leaf ("grad_gap") and for the median leaf ("grad_gap_median");
+    ({"losses", "grad", "change"}) and the reference's (its ``steps``):
+    the first step's loss, which both sides compute from the same
+    parameters, and the worst step's, which carries the later steps' noise
+    (Adam moves a leaf of small gradient by its rate whatever the
+    gradient's size); the first gradient's gap by the worst leaf
+    ("grad_gap"), for the median leaf ("grad_gap_median") and for each
+    leaf alone ("grad_gap[<leaf>]", such as "grad_gap[camera/translate]");
     the change's by the worst leaf that moves. A configuration's limits
     name the numbers that are compared."""
     keep = check.moving_leaves(ref["grad"])
     med = [check.median_leaf(ref["grad"])]
-    return {"loss1_gap": check.loss_gap(got["losses"][:1], ref["losses"][:1]),
-            "loss_gap": check.loss_gap(got["losses"], ref["losses"]),
-            "grad_gap": check.leaf_gap(got["grad"], ref["grad"]),
-            "grad_gap_median": check.leaf_gap(got["grad"], ref["grad"], med),
-            "change_gap": check.leaf_gap(got["change"], ref["change"], keep)}
+    out = {"loss1_gap": check.loss_gap(got["losses"][:1], ref["losses"][:1]),
+           "loss_gap": check.loss_gap(got["losses"], ref["losses"]),
+           "grad_gap": check.leaf_gap(got["grad"], ref["grad"]),
+           "grad_gap_median": check.leaf_gap(got["grad"], ref["grad"], med)}
+    for leaf in ref["grad"]:
+        out[f"grad_gap[{leaf}]"] = check.leaf_gap(got["grad"], ref["grad"],
+                                                  [leaf])
+    out["change_gap"] = check.leaf_gap(got["change"], ref["change"], keep)
+    return out
 
 
 def train_steps_sharded(run: Run) -> None:

@@ -5,6 +5,9 @@ plain PyTorch on the reference tracer, pixel block by pixel block.
 The leaves are named as the port names them: "scene/albedo",
 "scene/emission" ([S, 3], the input spheres in input order) and
 "camera/translate" ([3]).
+
+The reference of every configuration without a "reference" key: its frame
+interface is the tracer's.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import tracer
+from .tracer import make_camera, make_scene, render_pixels  # noqa: F401
 
 BETAS = (0.9, 0.999)
 EPS = 1e-8

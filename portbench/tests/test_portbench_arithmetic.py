@@ -8,7 +8,7 @@ import statistics
 import numpy as np
 import pytest
 
-from portbench.harness import check, manifest, stats, trace
+from portbench.harness import check, manifest, runner, stats, trace
 
 
 def test_union_and_gaps():
@@ -92,6 +92,38 @@ def test_comparisons():
     assert check.median_leaf({"p": torch.ones(1), "q": torch.ones(2)}) == "p"
     judged = check.judge({"n": 0.5}, {"n": 1.0, "m": 2.0})
     assert judged["n"]["ok"] and not judged["m"]["ok"]
+
+
+def test_compare_steps_gives_each_leaf_its_first_gradient_gap():
+    import torch
+
+    ref = {"losses": [1.0, 0.9, 0.8],
+           "grad": {"scene/albedo": torch.ones(4),
+                    "scene/emission": torch.full((2,), 10.0),
+                    "camera/translate": torch.full((3,), 1e-3)},
+           "change": {"scene/albedo": torch.ones(4),
+                      "scene/emission": torch.ones(2),
+                      "camera/translate": torch.ones(3)}}
+    got = {"losses": [1.0, 0.9, 0.8],
+           "grad": {"scene/albedo": torch.ones(4) * 1.1,
+                    "scene/emission": torch.full((2,), 10.0),
+                    "camera/translate": torch.full((3,), 3e-3)},
+           "change": ref["change"]}
+    out = runner.compare_steps(got, ref)
+    # Over the median leaf's norm, 2: albedo |2.2 - 2| / 2; translate
+    # |3e-3 - 1e-3| sqrt(3) / 2, its own norm being below the median's.
+    assert out["grad_gap[scene/albedo]"] == pytest.approx(0.1, rel=1e-6)
+    assert out["grad_gap[scene/emission]"] == 0.0
+    assert out["grad_gap[camera/translate]"] == \
+        pytest.approx(1e-3 * 3 ** 0.5, rel=1e-5)
+    for leaf in ref["grad"]:
+        assert out[f"grad_gap[{leaf}]"] == \
+            check.leaf_gap(got["grad"], ref["grad"], [leaf])
+    assert out["grad_gap"] == max(out[f"grad_gap[{k}]"] for k in ref["grad"])
+    assert list(out).index("grad_gap[scene/albedo]") == \
+        list(out).index("grad_gap_median") + 1
+    # Only the numbers a configuration's limits name are judged.
+    assert set(check.judge(out, {"loss1_gap": 0.005})) == {"loss1_gap"}
 
 
 def _ranks(*per_rank):

@@ -1,13 +1,16 @@
 """Whole runs of each cell on the CPU at a tiny size (the port's plain
 versions; a sharded cell's ranks as gloo processes): a sound run is
 correct, its result line has the keys the driver reads, a run with a fault
-planted under the timed path is not, and a rank that fails ends the run."""
+planted under the timed path is not, nor one whose configuration names a
+reference that renders otherwise, and a rank that fails ends the run."""
 
 import importlib.util
 import multiprocessing
 import os
 import pathlib
+import sys
 import time
+import types
 from multiprocessing import resource_tracker
 
 import pytest
@@ -28,6 +31,9 @@ OVERRIDES = {
                                         "grad_gap_median": 0.05,
                                         "change_gap": 0.3}}},
 }
+# grad_gap[camera/translate] at 96 x 54 on the CPU: sound 0.00014-0.134
+# over 13 seeds; "half_batch" 0.748-3.35 over 5, "altered" 0.109-0.364.
+LEAF_LIMIT = 0.35
 CELLS = [w["name"] for w in manifest.load()["workloads"]]
 SEED = 2 ** 31 + 77
 # Windows long enough that a step lands in them on a loaded CPU (a 96 x 54
@@ -41,12 +47,14 @@ def _kind(cell):
     return manifest.traffic(manifest.cell(bench, cell)["traffic"])["kind"]
 
 
-def _run(cell, trace=False, seed=SEED, fault=None):
+def _run(cell, trace=False, seed=SEED, fault=None, more=None):
+    """One run of the cell at its test size; more: overrides merged over
+    the test size's."""
     bench = manifest.load()
     cfg = manifest.cell(bench, cell)["config"]
+    over = manifest._merge(OVERRIDES[cfg], more or {})
     return runner.run(cell, seed, SECONDS[_kind(cell)], trace, "cpu",
-                      time.perf_counter(), overrides=OVERRIDES[cfg],
-                      fault=fault)
+                      time.perf_counter(), overrides=over, fault=fault)
 
 
 def _run_py():
@@ -142,6 +150,91 @@ def test_control_is_not_correct(cell):
     assert not all(v["ok"] for v in checks.values()), checks
     if "check" in traffic:
         assert not checks["target_mismatch_share"]["ok"], checks
+
+
+STAND_IN = "scaled"
+
+
+def _stand_in_reference(monkeypatch) -> None:
+    """reference/scaled.py's stand-in, in this process alone: the default
+    reference (its own copy of ``train``) with every image its tracer
+    renders scaled by faults.ALTER, a frame's and a step's alike."""
+    from portbench.reference import tracer
+
+    name = f"portbench.reference.{STAND_IN}"
+    spec = importlib.util.spec_from_file_location(
+        name, manifest.PB / "reference" / "train.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def render_pixels(*args, **kwargs):
+        return tracer.render_pixels(*args, **kwargs) * faults.ALTER
+
+    mod.render_pixels = render_pixels
+    mod.tracer = types.SimpleNamespace(make_scene=tracer.make_scene,
+                                       make_camera=tracer.make_camera,
+                                       render_pixels=render_pixels)
+    monkeypatch.setitem(sys.modules, name, mod)
+
+
+@pytest.mark.parametrize("cell", [c for c in CELLS
+                                  if _kind(c) in ("frames", "train_steps")])
+def test_named_reference_is_what_the_check_reads(cell, monkeypatch):
+    """A sound run fails once its configuration names a reference that
+    renders otherwise: the check reads the named module, frames and steps
+    alike."""
+    _stand_in_reference(monkeypatch)
+    out = _run(cell, more={"reference": STAND_IN})
+    assert not out["correct"], out["run"].checks
+
+
+@pytest.mark.parametrize("cell", [c for c in CELLS if _kind(c) == SHARDED])
+def test_sharded_target_check_reads_the_named_reference(cell, monkeypatch):
+    """The sharded cell's target check (it runs on rank 0, in a process of
+    its own, so it is driven here directly) on the port's target: within
+    its limit against the configuration's reference, beyond it against a
+    named reference that renders otherwise."""
+    import torch
+
+    from portbench.harness import inputs, port, ranks
+
+    _stand_in_reference(monkeypatch)
+    bench = manifest.load()
+    w = manifest.cell(bench, cell)
+    cfg = manifest.config(bench, w["config"], OVERRIDES[w["config"]])
+    ck = manifest.traffic(w["traffic"])["check"]
+    r = cfg["render"]
+    dev = torch.device("cpu")
+    kept = {"true_inputs": inputs.scene_inputs(cfg["scene"]),
+            "tkey": inputs.target_key(SEED)}
+    pix = torch.as_tensor(inputs.sample_pixels(
+        SEED, r["width"] * r["height"], ck["pixels"]))
+    target = port.mean_image(port.build_scene(kept["true_inputs"], cfg, dev),
+                             port.build_camera(cfg, dev), cfg, kept["tkey"])
+    got = target.reshape(-1, 3).index_select(0, pix)
+    limit = ck["limits"]["target_mismatch_share"]
+    assert ranks.target_mismatch_share(got, kept, cfg, ck, pix) <= limit
+    named = {**cfg, "reference": STAND_IN}
+    assert not ranks.target_mismatch_share(got, kept, named, ck, pix) <= limit
+
+
+def test_named_leaf_limit_holds_the_first_gradient():
+    """A limit on one leaf's first-gradient gap is judged like any other:
+    camera/translate's passes on a sound run and fails where half of the
+    batch is left out of the loss ("altered" reads within the sound seeds'
+    spread at this size: LEAF_LIMIT)."""
+    cell = next(c for c in CELLS if _kind(c) == "train_steps")
+    name = "grad_gap[camera/translate]"
+    more = {"check": {"limits": {name: LEAF_LIMIT}}}
+    out = _run(cell, more=more)
+    assert out["correct"], out["run"].checks
+    assert name in out["run"].checks
+    undo = faults.plant_train("half_batch")
+    try:
+        out = _run(cell, more=more)
+    finally:
+        undo()
+    assert not out["run"].checks[name]["ok"], out["run"].checks
 
 
 def _children() -> list:

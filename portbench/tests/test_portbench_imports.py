@@ -5,6 +5,8 @@ import subprocess
 import sys
 import types
 
+import pytest
+
 from portbench.harness import env, manifest
 
 
@@ -28,9 +30,11 @@ def _loaded_by(code: str) -> set:
     return set(eval(out.stdout.strip().splitlines()[-1]))
 
 
-def test_reference_loads_nothing_of_the_port_or_jax():
-    tops = _loaded_by("import portbench.reference.tracer, "
-                      "portbench.reference.train, portbench.reference.rng")
+@pytest.mark.parametrize("module", sorted(
+    p.stem for p in (manifest.PB / "reference").glob("*.py")
+    if p.stem != "__init__"))
+def test_reference_loads_nothing_of_the_port_or_jax(module):
+    tops = _loaded_by(f"import portbench.reference.{module}")
     assert not tops & {"jax", "jaxlib", "flax", "qt_raytracer_tpu",
                        "qt_raytracer_tpu_torch"}
 

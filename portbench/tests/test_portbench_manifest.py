@@ -1,6 +1,6 @@
 """BENCHMARK.json against the benchmark's contract and its files: every
-cell's configuration, traffic mix and metric is a file of its own, found
-by name, and run.py names no cell."""
+cell's configuration, traffic mix, metric and plain reference is a file of
+its own, found by name, and run.py names no cell."""
 
 import json
 import re
@@ -106,3 +106,31 @@ def test_run_py_names_no_cell(bench):
         body = path.read_text()
         for w in bench["workloads"]:
             assert w["name"] not in body, path
+
+
+@pytest.mark.parametrize("config", [c["name"]
+                                    for c in manifest.load()["configs"]])
+def test_config_without_a_reference_key_reads_tracer_and_train(bench,
+                                                               config):
+    from portbench.reference import tracer, train
+
+    cfg = manifest.config(bench, config)
+    assert "reference" not in cfg
+    plain = manifest.reference(cfg)
+    for name in manifest.FRAME_INTERFACE:
+        assert getattr(plain, name) is getattr(tracer, name)
+    if "train" in cfg:
+        assert plain.steps is train.steps
+
+
+def test_unknown_reference_raises_naming_the_modules():
+    with pytest.raises(KeyError, match=r"no reference 'nope'.*"
+                       r"\['rng', 'tracer', 'train'"):
+        manifest.reference({"reference": "nope"})
+    with pytest.raises(KeyError, match="no reference '../tracer'"):
+        manifest.reference({"reference": "../tracer"})
+    # A module that lacks the interface its configuration needs.
+    with pytest.raises(KeyError, match=r"'rng' lacks \['make_scene'"):
+        manifest.reference({"reference": "rng"})
+    with pytest.raises(KeyError, match=r"'tracer' lacks \['steps'\]"):
+        manifest.reference({"reference": "tracer", "train": {}})
