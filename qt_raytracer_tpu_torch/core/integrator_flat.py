@@ -48,6 +48,12 @@ from ..kernels.mesh_intersect import (CLUSTER_ROWS, MeshClusters,
 TWO_PI = 6.283185307179586
 INV_PI = 0.3183098861837907
 
+# Kernel-table builds for a trace (build_tables: prep_fused_spheres or
+# prep_world); a run resets it to 0 and reads it back to show how often its
+# tables were built (one a trace call, or one a render call that hands its
+# tables to every trace).
+table_builds = 0
+
 
 def _safe_rsqrt_len2(x, y, z):
     """(n2, inv_len), with inv_len = 0 where n2 <= 1e-20."""
@@ -484,6 +490,7 @@ def trace_flat(
     diff: bool = False,
     compact: bool = False,
     exclude_prim0=None,
+    tables: FusedSpheres | None = None,
 ) -> torch.Tensor:
     """Radiance [N,3] of rays origins/directions [N,3] with per-ray RNG
     states sample_keys ([N] hash or [N,2] threefry), traced for max_depth
@@ -499,16 +506,20 @@ def trace_flat(
     diff=False: the full-mode kernel (A1) computes every hit quantity,
     detached; forward only (differentiating raises). diff=True: the
     shadow-mode kernel (A2) selects and every differentiable quantity is
-    re-derived from the scene tensors (the 'fused_diff' intersector)."""
+    re-derived from the scene tensors (the 'fused_diff' intersector).
+
+    tables: the scene's build_tables(scene), built by the caller for
+    several traces of the unchanged scene; None builds them here."""
     if not isinstance(scene, SphereScene):
         raise TypeError("trace_flat handles SphereScene only")
+    if tables is not None and not isinstance(tables, FusedSpheres):
+        raise TypeError("trace_flat takes FusedSpheres tables")
     if exclude_prim0 is not None and compact:
         raise ValueError("exclude_prim0 is incompatible with compact (lane "
                          "permutation would detach the exclusion)")
 
     def run():
-        with spans.annotate(spans.PREP):
-            tables = prep_fused_spheres(scene)
+        ft = build_tables(scene) if tables is None else tables
         lights = scene.light_idx if nee and scene.num_lights > 0 else None
         state = initial_state(origins, directions, sample_keys)
         excl0 = None
@@ -520,7 +531,7 @@ def trace_flat(
         for depth_idx in range(max_depth):
             if compact:
                 state = compact_state(state)
-            state = bounce(tables, state, depth_idx, float(t_min),
+            state = bounce(ft, state, depth_idx, float(t_min),
                            int(rr_start), interpret, lights, diff,
                            excl0 if depth_idx == 0 else None)
         return radiance_in_ray_order(state, origins.shape[0], compact)
@@ -533,7 +544,8 @@ def trace_flat(
 
 # ------------------------------------------------------------ mesh worlds
 class WorldTables(NamedTuple):
-    """Kernel-layout world data, built once per trace."""
+    """Kernel-layout world data (build_tables), built once per trace call,
+    or once per forward render call, which hands it to every trace."""
 
     spheres: FusedSpheres
     mesh: MeshClusters
@@ -551,6 +563,20 @@ def prep_world(world: World, cluster_rows: int = CLUSTER_ROWS,
                                           cluster_rows=cluster_rows, mt=mt),
                        face_param_table(world.mesh).contiguous(),
                        world_lights(world), world.spheres.num_spheres)
+
+
+def build_tables(scene, cluster_rows: int = CLUSTER_ROWS,
+                 mt: str = "vpu"):
+    """The kernel tables a trace reads, under the qtrt.prep span and
+    counted in table_builds: prep_fused_spheres of a SphereScene (for
+    trace_flat), prep_world of a World (for trace_flat_world; cluster_rows
+    and mt as there)."""
+    global table_builds
+    table_builds += 1
+    with spans.annotate(spans.PREP):
+        if isinstance(scene, SphereScene):
+            return prep_fused_spheres(scene)
+        return prep_world(scene, cluster_rows, mt)
 
 
 def _world_hit_flat(wt: WorldTables, ox, oy, oz, dx, dy, dz, alive, t_min,
@@ -747,6 +773,7 @@ def trace_flat_world(
     mesh_visit: str = "full",
     mesh_mt: str = "vpu",
     mesh_cluster_rows: int = CLUSTER_ROWS,
+    tables: WorldTables | None = None,
 ) -> torch.Tensor:
     """Radiance [N,3] of rays in a mesh world (spheres + triangles), on the
     world's device; the same estimator and uniform slots as trace_flat.
@@ -764,9 +791,15 @@ def trace_flat_world(
     mesh_cluster_rows its cluster size in 128-triangle rows. compact=True
     sorts the carry before every bounce, live rays first. None of these
     changes a bit of the image but mesh_mt="mxu", whose candidates round
-    otherwise."""
+    otherwise.
+
+    tables: the world's build_tables(world, mesh_cluster_rows, mesh_mt),
+    built by the caller for several traces of the unchanged world; None
+    builds them here."""
     if not isinstance(world, World) or world.mesh is None:
         raise TypeError("trace_flat_world handles a World with a mesh")
+    if tables is not None and not isinstance(tables, WorldTables):
+        raise TypeError("trace_flat_world takes WorldTables tables")
     if mesh_kernel not in MESH_KERNELS:
         raise ValueError(f"mesh_kernel must be one of {MESH_KERNELS}, got "
                          f"{mesh_kernel!r}")
@@ -776,8 +809,8 @@ def trace_flat_world(
                   visit=mesh_visit, mt=mesh_mt)
 
     def run():
-        with spans.annotate(spans.PREP):
-            wt = prep_world(world, mesh_cluster_rows, mesh_mt)
+        wt = (build_tables(world, mesh_cluster_rows, mesh_mt)
+              if tables is None else tables)
         state = initial_state(origins, directions, sample_keys)
         for depth_idx in range(max_depth):
             if compact:

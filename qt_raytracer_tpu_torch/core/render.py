@@ -27,7 +27,7 @@ from . import camera as cam_mod
 from . import sampling, tonemap
 from .config import RenderConfig, mesh_search_options
 from .integrator import trace
-from .integrator_flat import trace_flat, trace_flat_world
+from .integrator_flat import build_tables, trace_flat, trace_flat_world
 from .scene import SphereScene
 from .world import World, tensors_of
 from ..runtime import spans
@@ -62,37 +62,69 @@ def resolve_pixel_chunk(cfg: RenderConfig) -> int:
     return -(-per_chunk // _CHUNK_TILE) * _CHUNK_TILE
 
 
-def _trace_dispatch(scene, origins, directions, samp_keys, cfg: RenderConfig):
-    """Route as the JAX package does. A World without a mesh renders its
-    spheres. "fused*" on a SphereScene takes trace_flat (diff=True for
-    "fused_diff*"); "fused"/"fused_interpret" on a mesh world take
-    trace_flat_world; "fused_diff*" on a mesh world and "pallas*" anywhere
-    take the [N,3] integrator trace with "pallas[_interpret]"; "xla" takes
-    it with "xla", on sphere scenes and mesh worlds alike. Both mesh paths
-    get cfg's mesh-search options (which "xla" ignores); cfg.mesh_compact
-    and cfg.mesh_sort0 belong to the flat world path alone, as in JAX."""
+def _route(scene, cfg: RenderConfig):
+    """(scene, route) as the JAX package routes. A World without a mesh
+    renders its spheres. "fused*" on a SphereScene takes trace_flat
+    (route "flat"; diff=True for "fused_diff*"); "fused"/"fused_interpret"
+    on a mesh world take trace_flat_world ("flat_world"); "fused_diff*" on
+    a mesh world and "pallas*" anywhere take the [N,3] integrator trace
+    with "pallas[_interpret]"; "xla" takes it with "xla", on sphere scenes
+    and mesh worlds alike. Any route but the two flat ones is the
+    integrator's intersector."""
     backend = resolve_intersector(cfg)
-    kw = dict(nee=cfg.nee, rr_start=cfg.rr_start)
-    mesh_kw = mesh_search_options(cfg)
     if isinstance(scene, World) and scene.mesh is None:
         scene = scene.spheres
     if backend.startswith("fused"):
-        interpret = backend.endswith("interpret")
-        diff = backend.startswith("fused_diff")
         if isinstance(scene, SphereScene):
-            return trace_flat(scene, origins, directions, samp_keys,
-                              cfg.max_depth, cfg.t_min, interpret=interpret,
-                              diff=diff, **kw)
-        if not diff:
-            return trace_flat_world(scene, origins, directions, samp_keys,
-                                    cfg.max_depth, cfg.t_min,
-                                    interpret=interpret,
-                                    compact=cfg.mesh_compact,
-                                    mesh_sort0=cfg.mesh_sort0, **kw,
-                                    **mesh_kw)
-        backend = "pallas_interpret" if interpret else "pallas"
+            return scene, "flat"
+        if not backend.startswith("fused_diff"):
+            return scene, "flat_world"
+        return scene, ("pallas_interpret" if backend.endswith("interpret")
+                       else "pallas")
+    return scene, backend
+
+
+def _trace_dispatch(scene, origins, directions, samp_keys, cfg: RenderConfig,
+                    tables=None):
+    """Trace along _route(scene, cfg). Both mesh paths get cfg's
+    mesh-search options (which "xla" ignores); cfg.mesh_compact and
+    cfg.mesh_sort0 belong to the flat world path alone, as in JAX. tables:
+    the flat route's shared_tables(scene, cfg), or None to build them in
+    the trace."""
+    backend = resolve_intersector(cfg)
+    kw = dict(nee=cfg.nee, rr_start=cfg.rr_start)
+    mesh_kw = mesh_search_options(cfg)
+    scene, route = _route(scene, cfg)
+    interpret = backend.endswith("interpret")
+    if route == "flat":
+        return trace_flat(scene, origins, directions, samp_keys,
+                          cfg.max_depth, cfg.t_min, interpret=interpret,
+                          diff=backend.startswith("fused_diff"),
+                          tables=tables, **kw)
+    if route == "flat_world":
+        return trace_flat_world(scene, origins, directions, samp_keys,
+                                cfg.max_depth, cfg.t_min,
+                                interpret=interpret,
+                                compact=cfg.mesh_compact,
+                                mesh_sort0=cfg.mesh_sort0, tables=tables,
+                                **kw, **mesh_kw)
     return trace(scene, origins, directions, samp_keys, cfg.max_depth,
-                 cfg.t_min, intersector=backend, **kw, **mesh_kw)
+                 cfg.t_min, intersector=route, **kw, **mesh_kw)
+
+
+def shared_tables(scene, cfg: RenderConfig):
+    """The kernel tables of the flat trace that scene takes under cfg,
+    built once (integrator_flat.build_tables, with cfg's cluster rows and
+    mt) for every trace of a forward render: they are a deterministic
+    function of the unchanged scene, so each trace reads the bits it would
+    build. None where the trace builds its own: a route but the two flat
+    ones, and edge-aware renders. Call it only without autograd: under
+    grad each checkpointed (chunk, batch) rebuilds its differentiable
+    parameter table, the recompute too."""
+    scene, route = _route(scene, cfg)
+    if cfg.edge_aware or route not in ("flat", "flat_world"):
+        return None
+    return build_tables(scene, cfg.mesh_cluster_rows, cfg.mesh_mt)
 
 
 def pixel_grid(cfg: RenderConfig, device=None):
@@ -118,10 +150,10 @@ def _camera_rays(camera, cfg: RenderConfig, samp_keys, i, j):
 
 
 def _sample_radiance(scene, camera, cfg: RenderConfig, pix_keys, i, j,
-                     sample_idx: int):
+                     sample_idx: int, tables=None):
     """Trace one sample for every pixel; returns [N,3] linear radiance.
     With cfg.edge_aware, the same radiance plus the primal-zero boundary
-    term of ``diff.edge``."""
+    term of ``diff.edge``. tables as _trace_dispatch."""
     if cfg.edge_aware:
         from ..diff.edge import sample_radiance_edge_aware
 
@@ -129,21 +161,23 @@ def _sample_radiance(scene, camera, cfg: RenderConfig, pix_keys, i, j,
                                           i, j, sample_idx)
     samp_keys = sampling.sample_keys(pix_keys, sample_idx)
     origins, directions = _camera_rays(camera, cfg, samp_keys, i, j)
-    return _trace_dispatch(scene, origins, directions, samp_keys, cfg)
+    return _trace_dispatch(scene, origins, directions, samp_keys, cfg,
+                           tables)
 
 
 def _merged_batch_radiance(scene, camera, cfg: RenderConfig, pix_keys, i, j,
-                           batch_idx: int, spb: int):
+                           batch_idx: int, spb: int, tables=None):
     """Trace spb samples of every pixel as one merged wavefront; the
-    per-pixel sum runs in ascending sample order."""
+    per-pixel sum runs in ascending sample order. tables as
+    _trace_dispatch."""
     n = i.shape[0]
     rep = lambda x: torch.cat([x] * spb)
     sample_ids = batch_idx * spb + torch.arange(
         spb, dtype=torch.int64, device=i.device).repeat_interleave(n)
     samp_keys = sampling.sample_keys(rep(pix_keys), sample_ids)
     origins, directions = _camera_rays(camera, cfg, samp_keys, rep(i), rep(j))
-    rad = _trace_dispatch(scene, origins, directions, samp_keys,
-                          cfg).reshape(spb, n, 3)
+    rad = _trace_dispatch(scene, origins, directions, samp_keys, cfg,
+                          tables).reshape(spb, n, 3)
     acc = rad[0]
     for k in range(1, spb):
         acc = acc + rad[k]
@@ -174,11 +208,14 @@ def accumulate_pixels(scene, camera, cfg: RenderConfig, key, pixel_index,
     resolve_pixel_chunk(cfg), the last one padded to the chunk's shape by
     replaying the first pixels (their keys are real; the results are sliced
     off); each (chunk, batch) runs under ``torch.utils.checkpoint`` when a
-    scene or camera tensor requires grad. The building block of
-    ``render_linear`` and of the sharded render's pixel range."""
+    scene or camera tensor requires grad, and builds its own kernel tables;
+    otherwise the render builds them once (shared_tables) for every (chunk,
+    batch). The building block of ``render_linear`` and of the sharded
+    render's pixel range."""
     dev = _check_devices(scene, camera)
     grad = needs_grad(scene, camera)
     with torch.set_grad_enabled(grad):
+        tables = None if grad else shared_tables(scene, cfg)
         i = (pixel_index % cfg.width).to(torch.float32)
         j = (cfg.height - 1 - pixel_index // cfg.width).to(torch.float32)
         pix_keys = sampling.pixel_states(key, pixel_index, cfg.rng)
@@ -191,9 +228,9 @@ def accumulate_pixels(scene, camera, cfg: RenderConfig, key, pixel_index,
             with spans.annotate(spans.CHUNK):
                 if spb == 1:
                     return _sample_radiance(scene, camera, cfg, pk, ic, jc,
-                                            b)
+                                            b, tables)
                 return _merged_batch_radiance(scene, camera, cfg, pk, ic, jc,
-                                              b, spb)
+                                              b, spb, tables)
 
         def render_chunk(pk, ic, jc):
             accum = torch.zeros((ic.shape[0], 3), dtype=torch.float32,
@@ -243,14 +280,17 @@ def render_sample_batch(scene, camera, cfg: RenderConfig, key,
                         start_sample: int, num_samples: int) -> torch.Tensor:
     """Linear radiance sum [H, W, 3] of samples [start, start + num), one
     wavefront per sample over the whole image (the progressive building
-    block; no chunking, as in the JAX package)."""
+    block; no chunking, as in the JAX package). Without autograd the kernel
+    tables are built once for every sample (shared_tables)."""
     dev = _check_devices(scene, camera)
-    with torch.set_grad_enabled(needs_grad(scene, camera)):
+    grad = needs_grad(scene, camera)
+    with torch.set_grad_enabled(grad):
+        tables = None if grad else shared_tables(scene, cfg)
         i, j, pixel_index = pixel_grid(cfg, dev)
         pix_keys = sampling.pixel_states(key, pixel_index, cfg.rng)
         accum = torch.zeros((cfg.num_pixels, 3), dtype=torch.float32,
                             device=dev)
         for k in range(num_samples):
             accum = accum + _sample_radiance(scene, camera, cfg, pix_keys, i,
-                                             j, int(start_sample) + k)
+                                             j, int(start_sample) + k, tables)
         return accum.reshape(cfg.height, cfg.width, 3)

@@ -66,7 +66,9 @@ shadow_exclude_launches = 0
 
 
 class FusedSpheres(NamedTuple):
-    """Kernel-layout sphere data, built once per trace."""
+    """Kernel-layout sphere data, built once per trace call, or once per
+    forward render call, which hands it to every trace
+    (``integrator_flat.build_tables``)."""
 
     spheres: torch.Tensor  # [S, 4] f32: cx cy cz |c|^2-r^2 (+BIG if inactive)
     params: torch.Tensor   # [S, 16] f32: packed_param_table rows

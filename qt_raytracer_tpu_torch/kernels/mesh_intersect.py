@@ -167,7 +167,9 @@ def cluster_rows_for(num_tris: int, cluster_rows: int = CLUSTER_ROWS) -> int:
 
 
 class MeshClusters(NamedTuple):
-    """Kernel-layout mesh data, built once per trace. group_boxes must hold
+    """Kernel-layout mesh data (prep_mesh_clusters; the flat world path
+    builds it once per forward render call, or once per trace call under
+    autograd: integrator_flat.build_tables). group_boxes must hold
     box_planes: A4 and A7 on the card skip the members of a group whose box
     a ray misses, so a cluster box that leaves its group's box loses its
     crossings there, while the ungated plain versions on the CPU still find

@@ -12,7 +12,7 @@ kernel under the innermost span around its launch.
 | span | opened around |
 |---|---|
 | ``qtrt.render.chunk`` | one (pixel chunk, sample batch) of ``render.accumulate_pixels``, inside the function ``torch.utils.checkpoint`` wraps, so the backward's recompute opens it again |
-| ``qtrt.prep`` | the kernel tables of one trace call (``prep_fused_spheres``, ``prep_world``) |
+| ``qtrt.prep`` | one build of the kernel tables (``integrator_flat.build_tables``: ``prep_fused_spheres``, ``prep_world``): once a forward render call, before its chunks (``render.shared_tables``), or once a trace call under autograd and on the routes that build their own |
 | ``qtrt.rng`` | ``sampling.pixel_states``, ``sample_keys``, ``stream_uniforms`` |
 | ``qtrt.shade`` | ``integrator_flat._shade``: scatter, emission, NEE, roulette (without NEE on the card: the one launch of ``shade_kernel``, its uniforms included) |
 | ``qtrt.hit.mesh`` | ``world.search_mesh`` and ``accel.traverse.intersect_mesh`` |

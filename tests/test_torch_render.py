@@ -27,7 +27,13 @@ from qt_raytracer_tpu.models import scenes as jscenes
 from qt_raytracer_tpu_torch import RenderConfig as TConfig
 from qt_raytracer_tpu_torch import render as t_render
 from qt_raytracer_tpu_torch import render_linear as t_render_linear
+from qt_raytracer_tpu_torch import render_sample_batch as t_render_sample_batch
+from qt_raytracer_tpu_torch import scenes as tscenes
+from qt_raytracer_tpu_torch.core import integrator_flat as t_itg
+from qt_raytracer_tpu_torch.core import render as t_render_mod
+from qt_raytracer_tpu_torch.core import sampling as tsam
 from qt_raytracer_tpu_torch.core.integrator_flat import trace_flat as t_trace_flat
+from qt_raytracer_tpu_torch.diff import inverse as t_inverse
 from qt_raytracer_tpu_torch.utils.convert import camera_from_arrays, scene_from_arrays
 from torch_helpers import _one_thread  # noqa: F401
 
@@ -172,3 +178,99 @@ def test_trace_flat_is_forward_only():
     assert out.shape == (4, 3) and out.requires_grad
     with pytest.raises(ValueError, match="forward-only"):
         out.sum().backward()
+
+
+# 16x12 = 192 pixels in chunks of 96: 2 chunks.
+SHARED = dict(width=16, height=12, max_depth=2, rng="hash", pixel_chunk=96)
+
+
+def _builds(fn):
+    """(fn(), the kernel-table builds it made)."""
+    before = t_itg.table_builds
+    out = fn()
+    return out, t_itg.table_builds - before
+
+
+@pytest.mark.parametrize("spb", [1, 2])
+@pytest.mark.parametrize("name", ["three_sphere", "terrain"])
+def test_forward_render_builds_its_tables_once(name, spb, monkeypatch):
+    cfg = TConfig(spp=2, samples_per_batch=spb, **SHARED)
+    sc, cam = tscenes.get_scene(name, cfg.aspect_ratio, device="cpu")
+    img, builds = _builds(lambda: t_render_linear(sc, cam, cfg, SEED))
+    assert builds == 1
+    # Each (chunk, batch) building its own tables gives the same bits.
+    monkeypatch.setattr(t_render_mod, "shared_tables", lambda *a: None)
+    own, builds = _builds(lambda: t_render_linear(sc, cam, cfg, SEED))
+    assert builds == 2 * (cfg.spp // spb)
+    assert torch.equal(img, own)
+
+
+@pytest.mark.parametrize("name", ["three_sphere", "terrain"])
+def test_forward_sample_batch_builds_its_tables_once(name):
+    cfg = TConfig(spp=3, **SHARED)
+    sc, cam = tscenes.get_scene(name, cfg.aspect_ratio, device="cpu")
+    _, builds = _builds(
+        lambda: t_render_sample_batch(sc, cam, cfg, SEED, 0, 3))
+    assert builds == 1
+
+
+def test_grad_render_builds_its_tables_in_every_batch():
+    # Under autograd each (chunk, batch) rebuilds its differentiable table,
+    # in the forward and again in the checkpoint's recompute.
+    cfg = TConfig(spp=2, samples_per_batch=1, nee=True, **SHARED)
+    sc, cam = tscenes.get_scene("three_sphere", cfg.aspect_ratio,
+                                device="cpu")
+    init, step, _, _ = t_inverse.make_train_step(
+        sc, cam, cfg, t_inverse.adam(0.05), trainable=("albedo",))
+    state = init()
+    target = torch.zeros((cfg.height, cfg.width, 3))
+    _, builds = _builds(lambda: step(state, target, 1))
+    assert builds == 2 * 2 * 2
+
+
+# (scene, cfg fields, table builds of a 2-chunk 2-spp forward render): the
+# routes that build their own tables. The [N,3] integrator builds none of
+# trace_flat's; edge-aware builds two a (chunk, batch), its two flat traces.
+OWN_TABLES = {
+    "pallas": ("three_sphere", dict(intersector="pallas"), 0),
+    "xla": ("terrain", dict(intersector="xla"), 0),
+    "fused_diff_world": ("terrain", dict(intersector="fused_diff"), 0),
+    "edge_aware": ("three_sphere", dict(edge_aware=True), 2 * 2 * 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OWN_TABLES))
+def test_other_routes_build_their_own_tables(case):
+    name, kw, want = OWN_TABLES[case]
+    cfg = TConfig(spp=2, **SHARED, **kw)
+    sc, cam = tscenes.get_scene(name, cfg.aspect_ratio, device="cpu")
+    assert t_render_mod.shared_tables(sc, cfg) is None
+    _, builds = _builds(lambda: t_render_linear(sc, cam, cfg, SEED))
+    assert builds == want
+
+
+@pytest.mark.parametrize("name", ["three_sphere", "terrain"])
+def test_trace_with_tables_gives_the_bits_of_its_own_build(name):
+    cfg = TConfig(spp=1, nee=True, **SHARED)
+    sc, cam = tscenes.get_scene(name, cfg.aspect_ratio, device="cpu")
+    i, j, pixel_index = t_render_mod.pixel_grid(cfg)
+    keys = tsam.sample_keys(tsam.pixel_states(SEED, pixel_index, cfg.rng), 0)
+    o, d = t_render_mod._camera_rays(cam, cfg, keys, i, j)
+    if name == "terrain":
+        kw = dict(nee=True, mesh_cluster_rows=2)
+        trace = t_itg.trace_flat_world
+        tables = t_itg.build_tables(sc, 2, "vpu")
+        wrong = t_itg.build_tables(sc.spheres)
+    else:
+        kw = dict(nee=True)
+        trace = t_itg.trace_flat
+        tables = t_itg.build_tables(sc)
+        wrong = tuple(tables)
+    own, builds = _builds(lambda: trace(sc, o, d, keys, 3, **kw))
+    assert builds == 1
+    shared, builds = _builds(lambda: trace(sc, o, d, keys, 3, tables=tables,
+                                           **kw))
+    assert builds == 0
+    assert torch.equal(own, shared)
+    with pytest.raises(TypeError, match="tables"):
+        trace(sc, o, d, keys, 1, tables=wrong, **kw)

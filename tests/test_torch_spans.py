@@ -56,10 +56,12 @@ def test_chunked_render_spans(tmp_path, spp, spb):
     batches = 3 * (spp // spb)
     chunks = [s for s in found if s[0] == spans.CHUNK]
     assert len(chunks) == batches
-    # One trace call a (chunk, batch), and one table prep in each.
+    # A forward render builds its tables once, before its chunks, and
+    # hands them to every (chunk, batch).
     preps = [s for s in found if s[0] == spans.PREP]
-    assert len(preps) == batches
-    assert all(any(_inside(p, c) for c in chunks) for p in preps)
+    assert len(preps) == 1
+    assert not any(_inside(preps[0], c) for c in chunks)
+    assert all(preps[0][2] <= c[1] for c in chunks)
     # Every bounce shades once, inside its chunk; the RNG runs inside the
     # chunks (sample keys, camera jitter) and inside the shading (the
     # bounce's uniforms), bar the pixel states made once before them.
@@ -80,7 +82,9 @@ def test_mesh_world_render_spans(tmp_path):
     found = _spans(tmp_path, lambda: render_linear(world, cam, cfg, 0))
     chunks = [s for s in found if s[0] == spans.CHUNK]
     assert len(chunks) == 3
-    assert _count(found, spans.PREP) == 3
+    preps = [s for s in found if s[0] == spans.PREP]
+    assert len(preps) == 1
+    assert all(preps[0][2] <= c[1] for c in chunks)
     # The mesh search of every bounce, inside its chunk.
     hits = [s for s in found if s[0] == spans.HIT_MESH]
     assert len(hits) == 3 * cfg.max_depth
@@ -117,6 +121,11 @@ def test_train_step_backward_holds_the_recompute(tmp_path):
     assert len(within) == 6
     assert len(chunks) == 12
     assert all(c[2] <= back[0][1] for c in chunks if c not in within)
+    # Under grad every (chunk, batch) builds its own tables, the recompute
+    # too: one table prep inside every chunk span.
+    preps = [s for s in found if s[0] == spans.PREP]
+    assert len(preps) == len(chunks)
+    assert all(sum(_inside(p, c) for p in preps) == 1 for c in chunks)
 
 
 def test_spans_names_every_span_the_port_opens(tmp_path):
