@@ -374,38 +374,15 @@ def _fused_shade_module():
     return fused_shade
 
 
-def reset_counts(fh, mi) -> None:
-    si, mp = _sphere_search_module(), _mesh_pairs_module()
-    bw, fs = _bvh_walk_module(), _fused_shade_module()
-    bw.launches = bw.exclude_launches = 0
-    fs.launches = 0
-    fh.launches = fh.shadow_launches = 0
-    fh.exclude_launches = fh.shadow_exclude_launches = 0
-    mi.launches = mi.first_cluster_launches = mi.exclude_launches = 0
-    mi.first_cluster_pair_launches = mi.rowgate_launches = 0
-    mi.mxu_launches = 0
-    si.launches = si.clustered_launches = si.exclude_launches = 0
-    mp.crossing_lists_launches = mp.pair_hits_launches = 0
+def reset_counts() -> None:
+    from qt_raytracer_tpu_torch.runtime import spans
+    spans.counts.clear()
 
 
-def read_counts(fh, mi) -> dict:
-    si, mp = _sphere_search_module(), _mesh_pairs_module()
-    bw, fs = _bvh_walk_module(), _fused_shade_module()
-    return {"fused_hit": fh.launches, "fused_hit_shadow": fh.shadow_launches,
-            "mesh_first_cluster": mi.first_cluster_launches,
-            "mesh_search": mi.launches, "sphere_search": si.launches,
-            "sphere_search_clustered": si.clustered_launches,
-            "fused_hit[exclude]": fh.exclude_launches,
-            "sphere_search[exclude]": si.exclude_launches,
-            "mesh_search[exclude]": mi.exclude_launches,
-            "mesh_first_cluster[pair]": mi.first_cluster_pair_launches,
-            "mesh_crossing_lists": mp.crossing_lists_launches,
-            "mesh_pairs": mp.pair_hits_launches,
-            "mesh_search[rowgate]": mi.rowgate_launches,
-            "mesh_search[mxu]": mi.mxu_launches,
-            "bvh_walk": bw.launches,
-            "bvh_walk[exclude]": bw.exclude_launches,
-            "fused_shade": fs.launches}
+def read_counts() -> dict:
+    """The launch counts of KERNELS since the last reset_counts."""
+    from qt_raytracer_tpu_torch.runtime import spans
+    return {k: spans.counts[k] for k in KERNELS}
 
 
 def bound(flops: float, nbytes: float, tf32_flops: float = 0.0) -> dict:
@@ -475,10 +452,10 @@ def shade_wavefront(itg, s, h, depth_idx: int, rr_start: int,
     fs = _fused_shade_module()
 
     def check(rr):
-        before = fs.launches
+        before = read_counts()["fused_shade"]
         kern = fs.fused_shade(s, h, depth_idx, rr)
         plain = itg._shade_plain(s, h, depth_idx, rr, 1.0, None)
-        if fs.launches != before + 1:
+        if read_counts()["fused_shade"] != before + 1:
             raise AssertionError("shade_kernel did not launch")
         for name, a, b in zip(itg.RayState._fields, kern, plain):
             differ = float_bits(a) != float_bits(b)
@@ -720,7 +697,7 @@ def compare_grads(a, b, rtol: float, what: str) -> dict:
     return out
 
 
-def train_steps(step_fn, state, targets, key, fh, mi, errs, steps,
+def train_steps(step_fn, state, targets, key, errs, steps,
                 per_step: dict) -> tuple:
     """`steps` train steps: per step the seconds, the loss, the errors,
     peak memory and the launches, which must be per_step for every kernel;
@@ -730,9 +707,9 @@ def train_steps(step_fn, state, targets, key, fh, mi, errs, steps,
     log, launches, first_grads = [], None, None
     for k in range(steps):
         torch.cuda.reset_peak_memory_stats()
-        reset_counts(fh, mi)
+        reset_counts()
         (state, loss), sec = wall_s(lambda: step_fn(state, targets, key))
-        counts = read_counts(fh, mi)
+        counts = read_counts()
         launches = counts if launches is None else \
             {n: launches[n] + c for n, c in counts.items()}
         grads = {p: t.grad for p, t in leaves(state.params)}
@@ -772,13 +749,13 @@ def pose_gradient_differs(edge: dict, pathwise: dict, what: str) -> float:
     return rel
 
 
-def drive_frame(fh, mi, render_linear, scene, camera, cfg, expected: dict,
+def drive_frame(render_linear, scene, camera, cfg, expected: dict,
                 steady_runs: int = 3) -> tuple[torch.Tensor, dict]:
     """Drive one path through render_linear: launch counts set to 0 just
     before its first frame and read just after, then steady frames."""
-    reset_counts(fh, mi)
+    reset_counts()
     img, first_s = wall_s(lambda: render_linear(scene, camera, cfg, SEED))
-    counts = read_counts(fh, mi)
+    counts = read_counts()
     expected = {**dict.fromkeys(KERNELS, 0), **expected}
     if counts != expected:
         raise AssertionError(f"kernel launches {counts}, expected {expected}")
@@ -1093,7 +1070,7 @@ def small_args(scene: str) -> list[str]:
                                  for a in (f"--{k}", str(v))]
 
 
-def cli_phase(fh, mi, scenes, render_linear, RenderConfig) -> dict:
+def cli_phase(scenes, render_linear, RenderConfig) -> dict:
     """The port's app layer on the card through the entry points a user
     calls. Raises on any failure; returns the phase's numbers and the
     launches of its counted runs."""
@@ -1107,7 +1084,7 @@ def cli_phase(fh, mi, scenes, render_linear, RenderConfig) -> dict:
     out = {"launches": dict.fromkeys(KERNELS, 0)}
 
     def count(what: str, expected: dict, at_least: tuple = ()) -> dict:
-        counts = read_counts(fh, mi)
+        counts = read_counts()
         for k, v in counts.items():
             out["launches"][k] += v
         want = {**dict.fromkeys(KERNELS, 0), **expected}
@@ -1137,7 +1114,7 @@ def cli_phase(fh, mi, scenes, render_linear, RenderConfig) -> dict:
     scene, cam = scenes.get_scene("random", cfg.aspect_ratio)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        reset_counts(fh, mi)
+        reset_counts()
         t1 = time.perf_counter()
         pr = ProgressiveRenderer(scene, cam, cfg, seed=SEED)
         while pr.frame_index < PANEL_CHECKPOINT:
@@ -1176,7 +1153,7 @@ def cli_phase(fh, mi, scenes, render_linear, RenderConfig) -> dict:
             raise AssertionError(f"progressive render in steps of "
                                  f"{PANEL_STEP} spp differs from the batch "
                                  f"render: max abs err {float(err.max())}")
-        reset_counts(fh, mi)
+        reset_counts()
         ones = ProgressiveRenderer(scene, cam, cfg, seed=SEED)
         for _ in range(cfg.spp):
             ones.step(1)
@@ -1195,7 +1172,7 @@ def cli_phase(fh, mi, scenes, render_linear, RenderConfig) -> dict:
                                  "mesh_search")),
                 ("cornell", ["--nee"], ("fused_hit", "fused_hit_shadow"))):
             png = tmp / f"{name}.png"
-            reset_counts(fh, mi)
+            reset_counts()
             rc, text = run_cli(cli, ["render", *small_args(name), *extra,
                                      "--out", str(png)])
             per = CLI_SMALL["spp"] * CLI_SMALL["depth"]
@@ -1231,7 +1208,7 @@ def cli_phase(fh, mi, scenes, render_linear, RenderConfig) -> dict:
         what = " ".join(["cli invert", *extra])
         argv = ["invert", *small_args("random"), "--steps", str(steps),
                 *extra]
-        reset_counts(fh, mi)
+        reset_counts()
         rc, text = run_cli(cli, argv)
         printed = [line.split()[-1] for line in text.splitlines()
                    if line.startswith("step")]
@@ -1382,7 +1359,7 @@ def walk_step_wavefront(bw, mesh, o, d, t_min, t_max, alive, excl) -> dict:
     return out
 
 
-def xla_phase(fh, mi, render_linear, RenderConfig, scenes, terrain, book,
+def xla_phase(mi, render_linear, RenderConfig, scenes, terrain, book,
               world, camw, cfg5, key, results) -> dict:
     """The portable route, intersector="xla", on the card: (a) the BVH walk
     against its plain version on two terrain wavefronts; (b) the terrain
@@ -1434,8 +1411,8 @@ def xla_phase(fh, mi, render_linear, RenderConfig, scenes, terrain, book,
         scene = ref["world"] if "world" in ref else ref["scene"]
         cfg = dataclasses.replace(ref["cfg"], intersector="xla")
         torch.cuda.reset_peak_memory_stats()
-        img, fr = drive_frame(fh, mi, render_linear, scene, ref["camera"],
-                              cfg, expected)
+        img, fr = drive_frame(render_linear, scene, ref["camera"], cfg,
+                              expected)
         bad = (img - ref["img"]).abs() > IMG_ATOL + IMG_RTOL * ref["img"].abs()
         fr.update(default_steady_s=ref["frame_s"],
                   mismatch_frac_vs_default=float(bad.float().mean()),
@@ -1464,11 +1441,11 @@ def xla_phase(fh, mi, render_linear, RenderConfig, scenes, terrain, book,
             world, camw, cfg_e, key, tgt, ("translate",)))
         cfg_x = dataclasses.replace(cfg_e, intersector="xla")
         torch.cuda.reset_peak_memory_stats()
-        reset_counts(fh, mi)
+        reset_counts()
         with capture_exclude_walk(bw) as seen:
             got, sec = wall_s(lambda: view_loss_and_grads(
                 world, camw, cfg_x, key, tgt, ("translate",)))
-        counts = read_counts(fh, mi)
+        counts = read_counts()
         want = {**dict.fromkeys(KERNELS, 0), "bvh_walk": evals * per_eval,
                 "bvh_walk[exclude]": evals * excl}
         if counts != want:
@@ -1545,8 +1522,6 @@ def c5_view_step(dev, mesh) -> dict:
     from qt_raytracer_tpu_torch import RenderConfig, scenes
     from qt_raytracer_tpu_torch.core import sampling
     from qt_raytracer_tpu_torch.diff import inverse as inv
-    from qt_raytracer_tpu_torch.kernels import fused_hit as fh
-    from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
     cfg5 = RenderConfig(**C5)
     sph = scenes.cornell_box_spheres(device=dev)
     cam = scenes.cornell_box_camera(cfg5.aspect_ratio, device=dev)
@@ -1566,9 +1541,9 @@ def c5_view_step(dev, mesh) -> dict:
         trainable=("albedo", "emission"), train_camera="pose", mesh=mesh)
     state = init()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(fh, mi)
+    reset_counts()
     (state, loss), sec = wall_s(lambda: step(state, target, key))
-    counts = read_counts(fh, mi)
+    counts = read_counts()
     leaves = dict(inv.leaves(state.params))
     return {"loss": loss.cpu(),
             "grads": {p: t.grad.detach().cpu() for p, t in leaves.items()},
@@ -1681,8 +1656,6 @@ def sharded_rank(rank: int, tmp: str) -> None:
     tmp."""
     import torch.distributed as dist
     from qt_raytracer_tpu_torch import RenderConfig, scenes
-    from qt_raytracer_tpu_torch.kernels import fused_hit as fh
-    from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
     from qt_raytracer_tpu_torch.parallel import distributed, sharding
     dev = distributed.initialize(f"file://{tmp}/store", SHARD_RANKS, rank,
                                  backend="gloo", timeout=SHARD_GROUP_TIMEOUT)
@@ -1696,18 +1669,18 @@ def sharded_rank(rank: int, tmp: str) -> None:
                   "terrain_1x2": (1, tworld, tcam, cfg_t)}
         for name, (sp, scene, camera, cfg) in frames.items():
             mesh = sharding.make_mesh(sp=sp)
-            reset_counts(fh, mi)
+            reset_counts()
             img, sec = wall_s(lambda: sharding.render_linear_sharded(
                 scene, camera, cfg, SEED, mesh))
-            out[name] = {"launches": read_counts(fh, mi), "s": sec,
+            out[name] = {"launches": read_counts(), "s": sec,
                          "chunks": shard_chunks(cfg, mesh),
                          "depth": cfg.max_depth}
             torch.save(img.cpu(), pathlib.Path(tmp) / f"{name}_{rank}.pt")
             del img
-        reset_counts(fh, mi)
+        reset_counts()
         out["dryrun"], out["dryrun_s"] = wall_s(
             lambda: dryrun_parts(dev, sharding.make_mesh(sp=2), tworld))
-        out["dryrun_launches"] = read_counts(fh, mi)
+        out["dryrun_launches"] = read_counts()
         mesh = sharding.make_mesh(sp=1)
         out["c5"] = c5_view_step(dev, mesh)
         out["c5"]["chunks"] = shard_chunks(RenderConfig(**C5), mesh)
@@ -1716,7 +1689,7 @@ def sharded_rank(rank: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def sharded_phase(fh, mi, render_linear, dev, terrain: dict) -> dict:
+def sharded_phase(render_linear, dev, terrain: dict) -> dict:
     """The sharded render and training (``parallel/``): (1) the main-path
     frame through render_linear_sharded over a world of one on NCCL, bit
     for bit render_linear's, 50 A1 and 50 shading-kernel launches; (2) two
@@ -1741,10 +1714,10 @@ def sharded_phase(fh, mi, render_linear, dev, terrain: dict) -> dict:
         try:
             mesh = sharding.make_mesh()
             ref = render_linear(scene, camera, cfg, SEED)
-            reset_counts(fh, mi)
+            reset_counts()
             img, sec = wall_s(lambda: sharding.render_linear_sharded(
                 scene, camera, cfg, SEED, mesh))
-            counts = read_counts(fh, mi)
+            counts = read_counts()
             backend = dist.get_backend()
         finally:
             dist.destroy_process_group()
@@ -2046,7 +2019,7 @@ def main() -> None:
     phase("book-cover 1080p frame through render_linear")
     chunks = chunk_count(cfg)
     img, frame = drive_frame(
-        fh, mi, render_linear, scene, camera, cfg,
+        render_linear, scene, camera, cfg,
         {**dict.fromkeys(KERNELS, 0), "fused_hit": chunks * DEPTH,
          "fused_shade": chunks * DEPTH})
     frame.update(against_plain_frame(render_linear, scene, camera, cfg, img))
@@ -2429,7 +2402,7 @@ def main() -> None:
     chunks = chunk_count(cfg_t)
     per = chunks * cfg_t.max_depth
     img_t, frame = drive_frame(
-        fh, mi, render_linear, world, camera, cfg_t,
+        render_linear, world, camera, cfg_t,
         {"fused_hit": per, "mesh_first_cluster": per, "mesh_search": per,
          "fused_shade": per})
     w, h = TERRAIN_PLAIN_WH
@@ -2465,7 +2438,7 @@ def main() -> None:
     }
     for name, (option, counts) in variants.items():
         img_v, fr = drive_frame(
-            fh, mi, render_linear, world, camera,
+            render_linear, world, camera,
             dataclasses.replace(cfg_t, **option),
             {"fused_hit": per, "mesh_first_cluster": per, "mesh_search": per,
              "fused_shade": per, **counts})
@@ -2554,7 +2527,7 @@ def main() -> None:
     chunks = chunk_count(cfg_c)
     per = chunks * (cfg_c.spp // cfg_c.samples_per_batch) * cfg_c.max_depth
     _, frame = drive_frame(
-        fh, mi, render_linear, world, camera, cfg_c,
+        render_linear, world, camera, cfg_c,
         {"fused_hit": per, "fused_hit_shadow": per, "mesh_search": 2 * per})
     frame["vs_plain"] = against_plain_frame(
         render_linear, world, camera,
@@ -2568,9 +2541,9 @@ def main() -> None:
                            nee=True, rr_start=2, rng="hash")
     s_cpu, c_cpu = scenes.get_scene("cornell", nee_cfg.aspect_ratio,
                                     device="cpu")
-    reset_counts(fh, mi)
+    reset_counts()
     on_card = render_linear(s_cpu.to(dev), c_cpu.to(dev), nee_cfg, SEED)
-    counts = read_counts(fh, mi)
+    counts = read_counts()
     on_card = on_card.cpu()
     on_cpu = render_linear(s_cpu, c_cpu, nee_cfg, SEED)
     bad = float(((on_card - on_cpu).abs()
@@ -2601,9 +2574,9 @@ def main() -> None:
     for name, (tab, mono_tab, rays, al) in fronts6.items():
         run = lambda tab_, **kw: si.sphere_search_flat(tab_, *rays, al,
                                                        cfg6.t_min, **kw)
-        before = si.clustered_launches
+        before = read_counts()["sphere_search_clustered"]
         kern, plain, mono = run(tab), run(tab, interpret=True), run(mono_tab)
-        if si.clustered_launches != before + 1:
+        if read_counts()["sphere_search_clustered"] != before + 1:
             raise AssertionError("the clustered table did not take A6")
         gated = si.sphere_search_clustered_gated_plain(tab, *rays, al,
                                                        cfg6.t_min)
@@ -2664,7 +2637,7 @@ def main() -> None:
     phase("clustered-scene 1080p frame through render_linear "
           "(intersector 'pallas')")
     img, frame = drive_frame(
-        fh, mi, render_linear, many, cam6, cfg6,
+        render_linear, many, cam6, cfg6,
         {"sphere_search_clustered": chunk_count(cfg6) * DEPTH})
     frame.update(against_plain_frame(render_linear, many, cam6, cfg6, img,
                                      plain="pallas_interpret"))
@@ -2776,7 +2749,7 @@ def main() -> None:
               f"{json.dumps(sphere_errs(init()))}", flush=True)
     # Pathwise: per evaluation A2 selects and A2 shadows at every bounce.
     _, c5s, counts, g_path = train_steps(
-        step, init(), targets, key7, fh, mi, sphere_errs, C5_PATHWISE_STEPS,
+        step, init(), targets, key7, sphere_errs, C5_PATHWISE_STEPS,
         {"fused_hit_shadow": views * evals * 2 * bounces})
     for k, v in counts.items():
         train_launches[k] += v
@@ -2786,7 +2759,7 @@ def main() -> None:
     # the first vertex's shadow ray.
     print("edge-aware:", flush=True)
     _, c5s_edge, counts, g_edge = train_steps(
-        step_edge, init(), targets, key7, fh, mi, sphere_errs, C5_STEPS,
+        step_edge, init(), targets, key7, sphere_errs, C5_STEPS,
         {"fused_hit": views * evals * (1 + bounces),
          "fused_hit[exclude]": views * evals,
          "fused_hit_shadow": views * evals * 3 * bounces,
@@ -2828,7 +2801,7 @@ def main() -> None:
     # every bounce, each A5 then A3 (one cluster: no A4).
     per = views * evals * 2 * bounces
     _, c5m, counts, g_path = train_steps(
-        step, init(), targets, key11, fh, mi, mesh_errs, C5_PATHWISE_STEPS,
+        step, init(), targets, key11, mesh_errs, C5_PATHWISE_STEPS,
         {"sphere_search": per, "mesh_search": per})
     for k, v in counts.items():
         train_launches[k] += v
@@ -2838,7 +2811,7 @@ def main() -> None:
     print("edge-aware:", flush=True)
     per = views * evals * (4 * bounces + 2)
     _, c5m_edge, counts, g_edge = train_steps(
-        step_edge, init(), targets, key11, fh, mi, mesh_errs, C5_STEPS,
+        step_edge, init(), targets, key11, mesh_errs, C5_STEPS,
         {"sphere_search": per, "mesh_search": per,
          "sphere_search[exclude]": views * evals,
          "mesh_search[exclude]": views * evals})
@@ -2856,8 +2829,7 @@ def main() -> None:
         inv.adam(2.5e-2), trainable=(), train_camera="pose")
     per = views * evals * 2 * bounces
     _, c5m_pairs, counts, g_pairs = train_steps(
-        step_p, init_p(), targets, key11, fh, mi, mesh_errs,
-        C5_PATHWISE_STEPS,
+        step_p, init_p(), targets, key11, mesh_errs, C5_PATHWISE_STEPS,
         {"sphere_search": per, "mesh_search": per,
          "mesh_crossing_lists": per, "mesh_pairs": per})
     for k, v in counts.items():
@@ -2913,7 +2885,7 @@ def main() -> None:
     phase("intersector='xla': the BVH walk vs its plain version (terrain), "
           "terrain and book-cover 1080p frames, config-5 true-Cornell "
           "view-steps, a small frame vs the f64 oracle")
-    xla_out = xla_phase(fh, mi, render_linear, RenderConfig, scenes,
+    xla_out = xla_phase(mi, render_linear, RenderConfig, scenes,
                         xla_terrain, xla_book, world, camw, cfg5, key11,
                         results)
     for k, v in xla_out["launches"].items():
@@ -2927,13 +2899,13 @@ def main() -> None:
     phase("the CLI on the card: bench, a progressive render with a "
           "checkpoint, mesh and NEE renders, invert; each against the "
           "plain route")
-    cli_out = cli_phase(fh, mi, scenes, render_linear, RenderConfig)
+    cli_out = cli_phase(scenes, render_linear, RenderConfig)
     print(f"cli phase: {json.dumps(cli_out)}", flush=True)
 
     phase("sharded render and training (parallel/): the main-path frame over "
           "a world of one on NCCL, then two ranks on the one card over gloo "
           "(they share the card: no scaling is measured)")
-    shard_out = sharded_phase(fh, mi, render_linear, dev, shard_terrain)
+    shard_out = sharded_phase(render_linear, dev, shard_terrain)
     del shard_terrain
     print(f"sharded phase: {json.dumps(shard_out)}", flush=True)
 

@@ -48,12 +48,6 @@ from ..kernels.mesh_intersect import (CLUSTER_ROWS, MeshClusters,
 TWO_PI = 6.283185307179586
 INV_PI = 0.3183098861837907
 
-# Kernel-table builds for a trace (build_tables: prep_fused_spheres or
-# prep_world); a run resets it to 0 and reads it back to show how often its
-# tables were built (one a trace call, or one a render call that hands its
-# tables to every trace).
-table_builds = 0
-
 
 def _safe_rsqrt_len2(x, y, z):
     """(n2, inv_len), with inv_len = 0 where n2 <= 1e-20."""
@@ -568,11 +562,11 @@ def prep_world(world: World, cluster_rows: int = CLUSTER_ROWS,
 def build_tables(scene, cluster_rows: int = CLUSTER_ROWS,
                  mt: str = "vpu"):
     """The kernel tables a trace reads, under the qtrt.prep span and
-    counted in table_builds: prep_fused_spheres of a SphereScene (for
-    trace_flat), prep_world of a World (for trace_flat_world; cluster_rows
-    and mt as there)."""
-    global table_builds
-    table_builds += 1
+    counted in spans.counts["table_builds"] (one a trace call, or one a
+    render call that hands its tables to every trace): prep_fused_spheres
+    of a SphereScene (for trace_flat), prep_world of a World (for
+    trace_flat_world; cluster_rows and mt as there)."""
+    spans.counts["table_builds"] += 1
     with spans.annotate(spans.PREP):
         if isinstance(scene, SphereScene):
             return prep_fused_spheres(scene)

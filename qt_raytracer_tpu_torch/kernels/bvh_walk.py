@@ -33,13 +33,8 @@ import torch
 from ..accel.mesh import TriangleMesh
 from ..accel.traverse import BIG, _slab_test, _tri_hit_one
 from ..runtime import cuda_build
-from .fused_hit import check_exclude, excl_ptr
-from .mesh_intersect import _route, _stream, slab_inv
-
-# Launches of the kernel; a run resets them to 0 and reads them back to
-# show that its path went through the kernel.
-launches = 0
-exclude_launches = 0   # the launches of the exclude instance
+from .fused_hit import check_exclude, excl_ptr, launch_counts
+from .mesh_intersect import slab_inv
 
 # id(bvh_count) -> (a weak reference to it, its largest leaf).
 _leaf_sizes: dict[int, tuple] = {}
@@ -106,7 +101,7 @@ def bvh_walk(mesh: TriangleMesh, origins: torch.Tensor,
     optional [N] integer BVH-order triangle id left out of each lane's walk
     (-1 for none)."""
     dev = origins.device
-    kernel = _route(dev, interpret)
+    kernel = cuda_build.use_kernel(dev, interpret, "bvh_walk")
     _check(mesh, origins, directions, alive, max_leaf)
     exclude = check_exclude(exclude, origins[:, 0])
     if not kernel:
@@ -122,28 +117,21 @@ def bvh_walk(mesh: TriangleMesh, origins: torch.Tensor,
 def _launch(mesh: TriangleMesh, o, d, alive, exclude, t_min: float,
             t_max: float, max_leaf: int):
     """The kernel on checked operands: (t, idx)."""
-    global launches, exclude_launches
     dev = o.device
     bmin, bmax, esc, start, count, v0, e1, e2 = (
         x.detach().contiguous() for x in (
             mesh.bvh_min, mesh.bvh_max, mesh.bvh_escape, mesh.bvh_start,
             mesh.bvh_count, mesh.v0, mesh.e1, mesh.e2))
-    lib = cuda_build.load_library()
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.qtrt_bvh_walk(
-            o.data_ptr(), d.data_ptr(), alive.data_ptr(), excl_ptr(exclude),
-            bmin.data_ptr(), bmax.data_ptr(), esc.data_ptr(),
-            start.data_ptr(), count.data_ptr(), esc.shape[0],
-            v0.data_ptr(), e1.data_ptr(), e2.data_ptr(), v0.shape[0],
-            max_leaf, t_min, t_max, n, t.data_ptr(), idx.data_ptr(),
-            _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"BVH walk kernel launch failed: cudaError_t {err}")
-    launches += 1
-    exclude_launches += exclude is not None
+    cuda_build.launch(
+        "qtrt_bvh_walk", o.data_ptr(), d.data_ptr(), alive.data_ptr(),
+        excl_ptr(exclude), bmin.data_ptr(), bmax.data_ptr(), esc.data_ptr(),
+        start.data_ptr(), count.data_ptr(), esc.shape[0], v0.data_ptr(),
+        e1.data_ptr(), e2.data_ptr(), v0.shape[0], max_leaf, t_min, t_max,
+        n, t.data_ptr(), idx.data_ptr(), device=dev,
+        counted=launch_counts("bvh_walk", exclude))
     return t, idx
 
 

@@ -55,15 +55,6 @@ FLOAT_DEFAULTS = (BIG, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0,
                   0.0, 0.0, 0.0, 0.0)
 INT_DEFAULTS = (0, 0, 0)
 
-# Kernel launches by fused_hit, full mode (A1) and shadow mode (A2); a run
-# resets them to 0 and reads them back to show that its path went through
-# the kernels.
-launches = 0
-shadow_launches = 0
-# Of those, the launches with an exclude operand (the kernels' EXCL variants).
-exclude_launches = 0
-shadow_exclude_launches = 0
-
 
 class FusedSpheres(NamedTuple):
     """Kernel-layout sphere data, built once per trace call, or once per
@@ -142,12 +133,9 @@ def fused_hit(tables: FusedSpheres, ox, oy, oz, dx, dy, dz, alive,
     rays = (ox, oy, oz, dx, dy, dz)
     _check(tables, rays, alive)
     exclude = check_exclude(exclude, ox)
-    dev = ox.device
-    if interpret or dev.type == "cpu":
+    if not cuda_build.use_kernel(ox.device, interpret, "fused_hit"):
         return fused_hit_plain(tables, *rays, alive, t_min,
                                shadow_only=shadow_only, exclude=exclude)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_hit runs on cpu or cuda tensors, got {dev}")
     if shadow_only:
         return _launch_shadow(tables, rays, alive, float(t_min), exclude)
     return _launch(tables, rays, alive, float(t_min), exclude)
@@ -170,7 +158,17 @@ def excl_ptr(exclude):
     return None if exclude is None else exclude.data_ptr()
 
 
-def _check(tables: FusedSpheres, rays, alive) -> None:
+def launch_counts(name: str, exclude) -> tuple:
+    """The count names of a launch of kernel name: name, and name[exclude]
+    with an exclude operand."""
+    return (name,) if exclude is None else (name, f"{name}[exclude]")
+
+
+def check_rays(rays, alive) -> None:
+    """The ray operands the hit kernels share: rays, the [N] float32 per-ray
+    operands (the six components, then t_cap where a kernel takes one),
+    contiguous and on one device; alive, a contiguous [N] bool on their
+    device, or None where the kernel reads none; 0 < N < 2^31."""
     n = rays[0].shape[0]
     dev = rays[0].device
     for x in rays:
@@ -180,10 +178,18 @@ def _check(tables: FusedSpheres, rays, alive) -> None:
         if x.device != dev or not x.is_contiguous():
             raise ValueError("ray components must be contiguous and on one "
                              "device")
-    if alive.dtype != torch.bool or alive.shape != (n,) or alive.device != dev:
-        raise ValueError("alive must be an [N] bool tensor on the rays' device")
-    if not alive.is_contiguous():
-        raise ValueError("alive must be contiguous")
+    if alive is not None and (
+            alive.dtype != torch.bool or alive.shape != (n,)
+            or alive.device != dev or not alive.is_contiguous()):
+        raise ValueError("alive must be a contiguous [N] bool tensor on the "
+                         "rays' device")
+    if n == 0 or n >= 2 ** 31:
+        raise ValueError(f"the hit kernels take 0 < N < 2^31 rays, got {n}")
+
+
+def _check(tables: FusedSpheres, rays, alive) -> None:
+    check_rays(rays, alive)
+    dev = rays[0].device
     s = tables.spheres.shape[0]
     for x, shape in ((tables.spheres, (s, 4)), (tables.params, (s, 16)),
                      (tables.boxes, (-(-s // GROUP_S), 8))):
@@ -191,15 +197,12 @@ def _check(tables: FusedSpheres, rays, alive) -> None:
                 or not x.is_contiguous() or x.device != dev):
             raise ValueError("tables must come from prep_fused_spheres on the "
                              "rays' device")
-    if n == 0 or n >= 2 ** 31 or s == 0:
-        raise ValueError(f"fused_hit takes 0 < N < 2^31 rays and S > 0 "
-                         f"spheres, got N={n}, S={s}")
+    if s == 0:
+        raise ValueError("fused_hit takes S > 0 spheres, got S=0")
 
 
 def _launch(tables: FusedSpheres, rays, alive, t_min: float,
             exclude=None) -> dict:
-    global launches, exclude_launches
-    lib = cuda_build.load_library()
     dev = rays[0].device
     n = rays[0].shape[0]
     fout = torch.empty((len(FLOAT_NAMES), n), dtype=torch.float32, device=dev)
@@ -207,43 +210,29 @@ def _launch(tables: FusedSpheres, rays, alive, t_min: float,
     for x in (tables.spheres, tables.boxes, tables.params, fout, iout):
         if x.data_ptr() % 16:
             raise ValueError("kernel operands must be 16-byte aligned")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.qtrt_fused_hit(
-            *(x.data_ptr() for x in rays), alive.data_ptr(),
-            excl_ptr(exclude), tables.spheres.data_ptr(),
-            tables.boxes.data_ptr(), tables.params.data_ptr(),
-            tables.spheres.shape[0], GROUP_S, t_min, n,
-            fout.data_ptr(), iout.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_hit kernel launch failed: cudaError_t {err}")
-    launches += 1
-    exclude_launches += exclude is not None
+    cuda_build.launch(
+        "qtrt_fused_hit", *(x.data_ptr() for x in rays), alive.data_ptr(),
+        excl_ptr(exclude), tables.spheres.data_ptr(), tables.boxes.data_ptr(),
+        tables.params.data_ptr(), tables.spheres.shape[0], GROUP_S, t_min, n,
+        fout.data_ptr(), iout.data_ptr(), device=dev,
+        counted=launch_counts("fused_hit", exclude))
     return _as_dict(fout, iout)
 
 
 def _launch_shadow(tables: FusedSpheres, rays, alive, t_min: float,
                    exclude=None) -> dict:
-    global shadow_launches, shadow_exclude_launches
-    lib = cuda_build.load_library()
     dev = rays[0].device
     n = rays[0].shape[0]
     t = torch.empty(n, dtype=torch.float32, device=dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     if tables.spheres.data_ptr() % 16 or tables.boxes.data_ptr() % 16:
         raise ValueError("kernel operands must be 16-byte aligned")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.qtrt_fused_hit_shadow(
-            *(x.data_ptr() for x in rays), alive.data_ptr(),
-            excl_ptr(exclude), tables.spheres.data_ptr(),
-            tables.boxes.data_ptr(), tables.spheres.shape[0], GROUP_S, t_min,
-            n, t.data_ptr(), idx.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_hit shadow kernel launch failed: cudaError_t {err}")
-    shadow_launches += 1
-    shadow_exclude_launches += exclude is not None
+    cuda_build.launch(
+        "qtrt_fused_hit_shadow", *(x.data_ptr() for x in rays),
+        alive.data_ptr(), excl_ptr(exclude), tables.spheres.data_ptr(),
+        tables.boxes.data_ptr(), tables.spheres.shape[0], GROUP_S, t_min, n,
+        t.data_ptr(), idx.data_ptr(), device=dev,
+        counted=launch_counts("fused_hit_shadow", exclude))
     return {"t": t, "idx": idx}
 
 

@@ -35,17 +35,16 @@ HIT_INTS = ("mat", "ff")
 DTYPES = ((torch.float32,) * (len(STATE_FLOATS) + len(HIT_FLOATS))
           + (torch.bool, torch.int64) + (torch.int32,) * len(HIT_INTS))
 
-# Kernel launches; a run resets it to 0 and reads it back to show that its
-# bounces went through the kernel (chunks x depth for a frame without NEE).
-launches = 0
-
 
 def use_kernel(device: torch.device, interpret: bool, keys: torch.Tensor,
                nee: bool, tensors) -> bool:
     """True when ``_shade`` launches the kernel: tensors on a CUDA device,
     not interpret, hash states ([N] keys, not [N, 2] threefry keys), no
     NEE, and autograd not recording any of tensors (the state's and the
-    hit's) that requires grad."""
+    hit's) that requires grad. Unlike ``cuda_build.use_kernel``, the rule
+    of the hit kernels, it returns False, never raises, on any other
+    device: ``_shade_plain`` serves every device and every case the kernel
+    does not take."""
     if device.type != "cuda" or interpret or keys.dim() != 1 or nee:
         return False
     return not (torch.is_grad_enabled()
@@ -60,26 +59,19 @@ def fused_shade(s, h: dict, depth_idx: int, rr_start: int,
     i32). Returns the new (ox, oy, oz, dx, dy, dz, tx, ty, tz, rx, ry, rz,
     alive), none of them recorded by autograd; prev_pdf, keys and pid are
     unchanged without NEE. Raises on operands the kernel does not take; it
-    never falls back."""
-    global launches
+    never falls back. Each launch counts once under "fused_shade"."""
     ops = ([getattr(s, k) for k in STATE_FLOATS] + [h[k] for k in HIT_FLOATS]
            + [s.alive, s.keys] + [h[k] for k in HIT_INTS])
     n = s.ox.shape[0]
     dev = s.ox.device
     ptrs, _copies = _pointers(ops, n, dev)
-    lib = cuda_build.load_library()
     out = torch.empty((len(STATE_FLOATS), n), dtype=torch.float32, device=dev)
     alive = torch.empty(n, dtype=torch.bool, device=dev)
     roulette = rr_start > 0 and depth_idx >= rr_start
-    with torch.cuda.device(dev):
-        err = lib.qtrt_fused_shade(
-            ptrs, len(ops), STREAM_BOUNCE0 + int(depth_idx), int(roulette),
-            float(emit_w), n, out.data_ptr(), alive.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_shade kernel launch failed: cudaError_t "
-                           f"{err}")
-    launches += 1
+    cuda_build.launch(
+        "qtrt_fused_shade", ptrs, len(ops), STREAM_BOUNCE0 + int(depth_idx),
+        int(roulette), float(emit_w), n, out.data_ptr(), alive.data_ptr(),
+        device=dev, counted=("fused_shade",))
     return (*out.unbind(0), alive)
 
 

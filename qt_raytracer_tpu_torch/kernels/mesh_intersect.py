@@ -76,7 +76,8 @@ import torch
 
 from ..accel.mesh import TriangleMesh
 from ..runtime import cuda_build
-from .fused_hit import BIG, check_exclude, excl_ptr
+from .fused_hit import (BIG, check_exclude, check_rays, excl_ptr,
+                        launch_counts)
 
 LANE = 128
 CLUSTER_ROWS = 4          # 128-triangle rows per cluster (multi-cluster)
@@ -108,15 +109,6 @@ K_UV = 1.0 + 2.0 ** -19
 MXU_ACC = 2.0 ** -19
 # A3's template instances (csrc/mesh_intersect.cu, enum SearchMode).
 _VPU, _ROWGATE, _MXU = 0, 1, 2
-
-# Kernel launches, A3 (mesh_hits) and A4 (first_crossed_cluster); a run
-# resets them to 0 and reads them back to show its path went through them.
-launches = 0          # every A3 launch, whatever its instance
-first_cluster_launches = 0
-first_cluster_pair_launches = 0   # the A4 launches with the second output
-exclude_launches = 0   # the A3 launches that had an exclude operand
-rowgate_launches = 0   # the A3 launches of the row-gated instance
-mxu_launches = 0       # the A3 launches of the bilinear-form instance
 
 CROSSING2_MAX_K = 254  # (c1 * (k + 1) + c2) << 15 fits int32 up to here
 
@@ -346,20 +338,8 @@ def sort_keys(ox, oy, oz, dx, dy, dz, alive, lo, hi):
 
 
 def _check(mc: MeshClusters, rays, alive, t_cap) -> None:
-    n = rays[0].shape[0]
+    check_rays((*rays, t_cap), alive)
     dev = rays[0].device
-    for x in (*rays, t_cap):
-        if x.dtype != torch.float32 or x.dim() != 1 or x.shape[0] != n:
-            raise ValueError("ray components and t_cap must be [N] float32 "
-                             "tensors of one length")
-        if x.device != dev or not x.is_contiguous():
-            raise ValueError("ray components and t_cap must be contiguous and "
-                             "on one device")
-    if alive is not None and (
-            alive.dtype != torch.bool or alive.shape != (n,)
-            or alive.device != dev or not alive.is_contiguous()):
-        raise ValueError("alive must be a contiguous [N] bool tensor on the "
-                         "rays' device")
     for x, rows in ((mc.tri_planes, 9), (mc.box_planes, 6)):
         if (x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != rows
                 or not x.is_contiguous() or x.device != dev):
@@ -374,8 +354,6 @@ def _check(mc: MeshClusters, rays, alive, t_cap) -> None:
         raise ValueError(f"group_boxes must be the [6, {ng}] float32 "
                          f"prep_group_boxes of the {mc.k} clusters, on the "
                          f"rays' device")
-    if n == 0 or n >= 2 ** 31:
-        raise ValueError(f"the mesh kernels take 0 < N < 2^31 rays, got {n}")
 
 
 def _defaults(ox, alive, t_cap):
@@ -384,20 +362,6 @@ def _defaults(ox, alive, t_cap):
     if t_cap is None:
         t_cap = torch.full_like(ox, BIG)
     return alive, t_cap
-
-
-def _route(dev: torch.device, interpret: bool) -> bool:
-    """True for the kernel, False for the plain version."""
-    if interpret or dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"the mesh kernels run on cpu or cuda tensors, "
-                         f"got {dev}")
-    return True
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 # --------------------------------------------------------------- A4
@@ -409,33 +373,25 @@ def first_crossed_cluster(mc: MeshClusters, ox, oy, oz, dx, dy, dz,
     lanes. pair=True returns (c1, c2): also the lowest such id above c1, k
     when none. The kernel walks the group boxes first
     (crossing_walk_gated_plain), which changes no id."""
-    global first_cluster_launches, first_cluster_pair_launches
     rays = (ox, oy, oz, dx, dy, dz)
     alive, t_cap = _defaults(ox, alive, t_cap)
     _check(mc, rays, alive, t_cap)
     dev = ox.device
-    if not _route(dev, interpret):
+    if not cuda_build.use_kernel(dev, interpret, "first_crossed_cluster"):
         return first_crossed_cluster_plain(mc, *rays, t_min, alive, t_cap,
                                            pair=pair)
-    lib = cuda_build.load_library()
     n = ox.shape[0]
     out = torch.empty(n, dtype=torch.int32, device=dev)
     out2 = torch.empty(n, dtype=torch.int32, device=dev) if pair else None
-    with torch.cuda.device(dev):
-        err = lib.qtrt_mesh_first_cluster(
-            *(x.data_ptr() for x in rays), alive.data_ptr(),
-            t_cap.data_ptr(), mc.box_planes.data_ptr(), mc.k,
-            mc.box_planes.shape[1], mc.group_boxes.data_ptr(),
-            mc.group_boxes.shape[1], float(t_min), n, out.data_ptr(),
-            out2.data_ptr() if pair else None, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"mesh first-cluster kernel launch failed: "
-                           f"cudaError_t {err}")
-    if pair:
-        first_cluster_pair_launches += 1
-        return out, out2
-    first_cluster_launches += 1
-    return out
+    cuda_build.launch(
+        "qtrt_mesh_first_cluster", *(x.data_ptr() for x in rays),
+        alive.data_ptr(), t_cap.data_ptr(), mc.box_planes.data_ptr(), mc.k,
+        mc.box_planes.shape[1], mc.group_boxes.data_ptr(),
+        mc.group_boxes.shape[1], float(t_min), n, out.data_ptr(),
+        out2.data_ptr() if pair else None, device=dev,
+        counted=("mesh_first_cluster[pair]",) if pair
+        else ("mesh_first_cluster",))
+    return (out, out2) if pair else out
 
 
 def slab_inv(d):
@@ -607,7 +563,6 @@ def mesh_hits(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     lanes. exclude: optional [N] integer BVH-order triangle id the lane
     never accepts (-1 for none). mt and visit pick the instance (module
     docstring); "subtile" and "sliced" launch the "full" one."""
-    global launches, exclude_launches, rowgate_launches, mxu_launches
     check_search_options(mt, visit)
     rays = (ox, oy, oz, dx, dy, dz)
     alive, t_cap = _defaults(ox, alive, t_cap)
@@ -615,31 +570,25 @@ def mesh_hits(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     _check_tables(mc, mt, visit)
     exclude = check_exclude(exclude, ox)
     dev = ox.device
-    if not _route(dev, interpret):
+    if not cuda_build.use_kernel(dev, interpret, "mesh_hits"):
         return mesh_search_plain(mc, *rays, t_min, alive, t_cap,
                                  exclude=exclude, mt=mt, visit=visit)
     inst = _instance(mt, visit)
     tris = mc.mt_planes if inst == _MXU else mc.tri_planes
     rows = mc.row_boxes if inst == _ROWGATE else None
-    lib = cuda_build.load_library()
     n = ox.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.qtrt_mesh_search(
-            *(x.data_ptr() for x in rays), alive.data_ptr(),
-            t_cap.data_ptr(), excl_ptr(exclude), tris.data_ptr(),
-            tris.shape[1], None if rows is None else rows.data_ptr(),
-            0 if rows is None else rows.shape[1], mc.box_planes.data_ptr(),
-            mc.k, mc.box_planes.shape[1], mc.tris_per_cluster, inst,
-            float(t_min), n, t.data_ptr(), idx.data_ptr(), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"mesh search kernel launch failed: "
-                           f"cudaError_t {err}")
-    launches += 1
-    exclude_launches += exclude is not None
-    rowgate_launches += inst == _ROWGATE
-    mxu_launches += inst == _MXU
+    counted = launch_counts("mesh_search", exclude) + {
+        _VPU: (), _ROWGATE: ("mesh_search[rowgate]",),
+        _MXU: ("mesh_search[mxu]",)}[inst]
+    cuda_build.launch(
+        "qtrt_mesh_search", *(x.data_ptr() for x in rays), alive.data_ptr(),
+        t_cap.data_ptr(), excl_ptr(exclude), tris.data_ptr(), tris.shape[1],
+        None if rows is None else rows.data_ptr(),
+        0 if rows is None else rows.shape[1], mc.box_planes.data_ptr(), mc.k,
+        mc.box_planes.shape[1], mc.tris_per_cluster, inst, float(t_min), n,
+        t.data_ptr(), idx.data_ptr(), device=dev, counted=counted)
     return t, idx
 
 

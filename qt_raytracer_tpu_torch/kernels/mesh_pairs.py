@@ -46,18 +46,13 @@ from ..runtime import cuda_build
 from .fused_hit import BIG
 from .mesh_intersect import (LANE, PLAIN_SLICE_CLUSTERS, PLAIN_SLICE_RAYS,
                              MeshClusters, _check, _check_tables, _defaults,
-                             _moller_trumbore, _route, _stream,
-                             check_search_options, crossing_mask,
-                             mesh_search, slab_boxes, slab_inv)
+                             _moller_trumbore, check_search_options,
+                             crossing_mask, mesh_search, slab_boxes,
+                             slab_inv)
 
 GROUPS = 8                # the slot count is a multiple of GROUPS * LANE
 PLAIN_SLICE_TILES = 16    # 128-pair tiles per block of the plain A8
 REDUCE_DUMP = 4096        # scatter targets of the slots that hold no hit
-
-# Kernel launches, A7 (crossing_lists) and A8 (pair_hits); a run resets them
-# to 0 and reads them back to show its path went through them.
-crossing_lists_launches = 0
-pair_hits_launches = 0
 
 
 def cluster_bounds(mc: MeshClusters):
@@ -78,7 +73,6 @@ def crossing_lists(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
     list is a transposed view of plane-major storage. The kernel walks the
     group boxes first (mesh_intersect.crossing_walk_gated_plain), which
     changes no id and no count."""
-    global crossing_lists_launches
     rays = (ox, oy, oz, dx, dy, dz)
     alive, t_cap = _defaults(ox, alive, t_cap)
     _check(mc, rays, alive, t_cap)
@@ -86,23 +80,17 @@ def crossing_lists(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_min: float,
         raise ValueError(f"c_max must lie in [1, {mc.k}] (the cluster "
                          f"count), got {c_max}")
     dev = ox.device
-    if not _route(dev, interpret):
+    if not cuda_build.use_kernel(dev, interpret, "crossing_lists"):
         return crossing_lists_plain(mc, *rays, t_min, alive, t_cap, c_max)
-    lib = cuda_build.load_library()
     n = ox.shape[0]
     lists = torch.empty((c_max, n), dtype=torch.int32, device=dev)
     ncross = torch.empty(n, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.qtrt_mesh_crossing_lists(
-            *(x.data_ptr() for x in rays), alive.data_ptr(),
-            t_cap.data_ptr(), mc.box_planes.data_ptr(), mc.k,
-            mc.box_planes.shape[1], mc.group_boxes.data_ptr(),
-            mc.group_boxes.shape[1], float(t_min), n, c_max,
-            lists.data_ptr(), ncross.data_ptr(), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"mesh crossing-lists kernel launch failed: "
-                           f"cudaError_t {err}")
-    crossing_lists_launches += 1
+    cuda_build.launch(
+        "qtrt_mesh_crossing_lists", *(x.data_ptr() for x in rays),
+        alive.data_ptr(), t_cap.data_ptr(), mc.box_planes.data_ptr(), mc.k,
+        mc.box_planes.shape[1], mc.group_boxes.data_ptr(),
+        mc.group_boxes.shape[1], float(t_min), n, c_max, lists.data_ptr(),
+        ncross.data_ptr(), device=dev, counted=("mesh_crossing_lists",))
     return lists.T, ncross
 
 
@@ -162,29 +150,23 @@ def pair_hits(mc: MeshClusters, ox, oy, oz, dx, dy, dz, t_cap, ray_buf, gmap,
     (BIG, 0) where none beats the cap and on padding slots. The kernel
     sweeps a 128-triangle row of the cluster only where the pair's row gate
     passes (pair_hits_gated_plain), which drops no winner."""
-    global pair_hits_launches
     rays = (ox, oy, oz, dx, dy, dz)
     _check(mc, rays, None, t_cap)
     _check_tables(mc, "vpu", "rowgate")
     _check_slots(rays, ray_buf, gmap)
     dev = ox.device
-    if not _route(dev, interpret):
+    if not cuda_build.use_kernel(dev, interpret, "pair_hits"):
         return pair_hits_plain(mc, *rays, t_cap, ray_buf, gmap, t_min)
-    lib = cuda_build.load_library()
     b = ray_buf.shape[0]
     t = torch.empty(b, dtype=torch.float32, device=dev)
     idx = torch.empty(b, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.qtrt_mesh_pairs(
-            *(x.data_ptr() for x in rays), t_cap.data_ptr(),
-            ray_buf.data_ptr(), gmap.data_ptr(), mc.tri_planes.data_ptr(),
-            mc.tri_planes.shape[1], mc.row_boxes.data_ptr(),
-            mc.row_boxes.shape[1], mc.tris_per_cluster, float(t_min),
-            ox.shape[0], b, t.data_ptr(), idx.data_ptr(), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"mesh pairs kernel launch failed: "
-                           f"cudaError_t {err}")
-    pair_hits_launches += 1
+    cuda_build.launch(
+        "qtrt_mesh_pairs", *(x.data_ptr() for x in rays), t_cap.data_ptr(),
+        ray_buf.data_ptr(), gmap.data_ptr(), mc.tri_planes.data_ptr(),
+        mc.tri_planes.shape[1], mc.row_boxes.data_ptr(),
+        mc.row_boxes.shape[1], mc.tris_per_cluster, float(t_min),
+        ox.shape[0], b, t.data_ptr(), idx.data_ptr(), device=dev,
+        counted=("mesh_pairs",))
     return t, idx
 
 

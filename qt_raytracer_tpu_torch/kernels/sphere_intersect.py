@@ -41,20 +41,14 @@ from ..core import vecmath as vm
 from ..core.scene import SphereScene
 from ..runtime import cuda_build
 from .fused_hit import (BIG, GROUP_S, PLAIN_SLICE, _sweep, check_exclude,
-                        excl_ptr, group_gate, min_then_match, sweep_boxes,
-                        sweep_candidates)
+                        excl_ptr, group_gate, launch_counts, min_then_match,
+                        sweep_boxes, sweep_candidates)
 from .mesh_intersect import slab_inv
 
 CHUNK_S = 64                 # the table is padded to a multiple of this
 MIN_CHUNKS_FOR_CULLING = 16  # from 16 chunks (1,024 slots) the TPU takes A6
 ROW = 128                    # rays per row: the unit of A6's chunk gate
 BOX_PAD = 8                  # the box table is padded to a multiple of this
-
-# Launches of the A5 and A6 kernels; a run resets them to 0 and reads them
-# back to show that its path went through the kernels.
-launches = 0
-clustered_launches = 0
-exclude_launches = 0   # the A5 launches that had an exclude operand
 
 
 class SearchSpheres(NamedTuple):
@@ -167,20 +161,15 @@ def sphere_search_flat(tables: SearchSpheres, ox, oy, oz, dx, dy, dz, alive,
                          "clustered (S >= 1024) sphere sweep")
     exclude = check_exclude(exclude, ox)
     rays = (ox, oy, oz, dx, dy, dz)
-    if interpret or dev.type == "cpu":
+    if not cuda_build.use_kernel(dev, interpret, "sphere_search"):
         if clustered:
             return sphere_search_clustered_plain(tables, *rays, alive, t_min)
         return sphere_search_plain(tables, *rays, alive, t_min,
                                    exclude=exclude)
-    if dev.type != "cuda":
-        raise ValueError(f"sphere_search runs on cpu or cuda tensors, "
-                         f"got {dev}")
     return _launch(tables, rays, alive, float(t_min), exclude)
 
 
 def _launch(tables: SearchSpheres, rays, alive, t_min: float, exclude):
-    global launches, clustered_launches, exclude_launches
-    lib = cuda_build.load_library()
     dev = rays[0].device
     n = rays[0].shape[0]
     if not all(x.is_contiguous() for x in (*rays, alive)):
@@ -192,30 +181,21 @@ def _launch(tables: SearchSpheres, rays, alive, t_min: float, exclude):
     if tables.boxes.shape != (tables.spheres.shape[0] // GROUP_S, 8):
         raise ValueError("tables must come from prep_sphere_search")
     ray_ptrs = [x.data_ptr() for x in rays]
-    outs = (t.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    with torch.cuda.device(dev):
-        if tables.num_chunks > 0:
-            err = lib.qtrt_sphere_search_clustered(
-                *ray_ptrs, alive.data_ptr(), tables.spheres.data_ptr(),
-                tables.boxes.data_ptr(), GROUP_S,
-                tables.chunk_boxes.data_ptr(), tables.num_chunks,
-                tables.chunk_boxes.shape[1], tables.num_spheres, t_min, n,
-                *outs)
-        else:
-            err = lib.qtrt_sphere_search(
-                *ray_ptrs, alive.data_ptr(), excl_ptr(exclude),
-                tables.spheres.data_ptr(), tables.boxes.data_ptr(),
-                tables.spheres.shape[0], GROUP_S, tables.num_spheres, t_min,
-                n, *outs)
-    if err != 0:
-        raise RuntimeError(f"sphere search kernel launch failed: "
-                           f"cudaError_t {err}")
+    outs = (t.data_ptr(), idx.data_ptr())
     if tables.num_chunks > 0:
-        clustered_launches += 1
+        cuda_build.launch(
+            "qtrt_sphere_search_clustered", *ray_ptrs, alive.data_ptr(),
+            tables.spheres.data_ptr(), tables.boxes.data_ptr(), GROUP_S,
+            tables.chunk_boxes.data_ptr(), tables.num_chunks,
+            tables.chunk_boxes.shape[1], tables.num_spheres, t_min, n, *outs,
+            device=dev, counted=("sphere_search_clustered",))
     else:
-        launches += 1
-        exclude_launches += exclude is not None
+        cuda_build.launch(
+            "qtrt_sphere_search", *ray_ptrs, alive.data_ptr(),
+            excl_ptr(exclude), tables.spheres.data_ptr(),
+            tables.boxes.data_ptr(), tables.spheres.shape[0], GROUP_S,
+            tables.num_spheres, t_min, n, *outs, device=dev,
+            counted=launch_counts("sphere_search", exclude))
     return t, idx
 
 

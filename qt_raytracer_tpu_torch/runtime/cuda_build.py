@@ -10,6 +10,10 @@ unchanged one is reused. Nothing is built at import. Every failure raises: a
 missing ``nvcc``, a failed build or a library that will not load leaves the
 caller nothing to carry on with. ``build_log`` keeps what ptxas reported
 (registers, shared memory, spills) for the last build.
+
+Every kernel wrapper reaches the library through this module: ``use_kernel``
+is their route rule and ``launch`` their one launch, which counts each
+launch in ``spans.counts``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,10 @@ import pathlib
 import shutil
 import subprocess
 import threading
+
+import torch
+
+from . import spans
 
 _PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -124,6 +132,32 @@ def load_library() -> ctypes.CDLL:
             _configure(lib)
             _lib = lib
         return _lib
+
+
+def use_kernel(device: torch.device, interpret: bool, what: str) -> bool:
+    """The wrappers' route rule: False (the plain version) with interpret or
+    on a CPU device, True (the kernel) on a CUDA device; any other device
+    raises ValueError. A CUDA tensor never falls back to the plain version."""
+    if interpret or device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda tensors, got {device}")
+    return True
+
+
+def launch(symbol: str, *args, device: torch.device, counted=()) -> None:
+    """Launch the library's symbol on device with args and the device's
+    current stream as its last argument. A nonzero cudaError_t raises
+    RuntimeError and counts nothing; a launch adds 1 to spans.counts under
+    each name in counted."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = getattr(lib, symbol)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
+    for name in counted:
+        spans.counts[name] += 1
 
 
 def _configure(lib: ctypes.CDLL) -> None:

@@ -17,10 +17,17 @@ kernel under the innermost span around its launch.
 | ``qtrt.shade`` | ``integrator_flat._shade``: scatter, emission, NEE, roulette (without NEE on the card: the one launch of ``shade_kernel``, its uniforms included) |
 | ``qtrt.hit.mesh`` | ``world.search_mesh`` and ``accel.traverse.intersect_mesh`` |
 | ``qtrt.train.backward`` | ``torch.autograd.grad`` of ``diff.inverse.value_and_grad`` |
+
+``counts`` is the port's one registry of counts, always on: every launch of
+a hand-written kernel adds 1 under the names its wrapper hands
+``cuda_build.launch`` (``"fused_hit"``, ``"mesh_search[exclude]"``, ...),
+and ``integrator_flat.build_tables`` under ``"table_builds"``. A run clears
+it and reads it back to show which kernels its path went through.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 
@@ -36,6 +43,8 @@ TRAIN_BACKWARD = "qtrt.train.backward"
 SPANS = (CHUNK, PREP, RNG, SHADE, HIT_MESH, TRAIN_BACKWARD)
 
 _OFF = contextlib.nullcontext()
+
+counts: collections.Counter = collections.Counter()
 
 
 def annotate(name: str):

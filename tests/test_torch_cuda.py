@@ -48,6 +48,7 @@ from qt_raytracer_tpu_torch.kernels import fused_hit as fh
 from qt_raytracer_tpu_torch.core import integrator_flat as itf
 from qt_raytracer_tpu_torch.kernels import mesh_intersect as mi
 from qt_raytracer_tpu_torch.models import meshes
+from qt_raytracer_tpu_torch.runtime import spans
 from test_torch_cluster_gate import WORLDS as GATE_WORLDS
 from torch_helpers import mxu_adversarial, shade_inputs, with_copies
 
@@ -61,6 +62,11 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda", 0)
+
+
+def _counts(*names) -> tuple:
+    """The launch counts under names, in order."""
+    return tuple(spans.counts[k] for k in names)
 
 
 def _scene(num_spheres: int, seed: int):
@@ -121,11 +127,11 @@ def _assert_hits_agree(kern: dict, plain: dict, alive: torch.Tensor):
 def test_kernel_matches_plain_version(card, n, num_spheres):
     tables = fh.prep_fused_spheres(_scene(num_spheres, seed=num_spheres).to(card))
     rays, alive = _rays(n, seed=n, device=card)
-    before = fh.launches
+    before = spans.counts["fused_hit"]
     kern = fh.fused_hit(tables, *rays, alive, T_MIN)
-    assert fh.launches == before + 1
+    assert spans.counts["fused_hit"] == before + 1
     plain = fh.fused_hit(tables, *rays, alive, T_MIN, interpret=True)
-    assert fh.launches == before + 1        # the plain version counts nothing
+    assert spans.counts["fused_hit"] == before + 1   # the plain one counts 0
     torch.cuda.synchronize()
     assert all(v.device == card for v in kern.values())
     _assert_hits_agree(kern, plain, alive)
@@ -154,9 +160,10 @@ def test_render_on_card_matches_cpu(card, name):
     cfg = RenderConfig(width=48, height=32, spp=2, max_depth=5, rng="hash",
                        pixel_chunk=512)
     scene, cam = scenes.get_scene(name, cfg.aspect_ratio, device="cpu")
-    fh.launches = 0
+    spans.counts.clear()
     got = render_linear(scene.to(card), cam.to(card), cfg, 5)
-    assert fh.launches == 3 * cfg.spp * cfg.max_depth    # 3 chunks of 512
+    # 3 chunks of 512
+    assert spans.counts["fused_hit"] == 3 * cfg.spp * cfg.max_depth
     assert got.device == card and bool(torch.isfinite(got).all())
     want = render_linear(scene, cam, cfg, 5)
     bad = (got.cpu() - want).abs() > 2e-3 + 2e-3 * want.abs()
@@ -168,12 +175,13 @@ def test_render_on_card_matches_cpu(card, name):
 def test_shadow_kernel_matches_plain_version(card, n, num_spheres):
     tables = fh.prep_fused_spheres(_scene(num_spheres, seed=num_spheres).to(card))
     rays, alive = _rays(n, seed=n + 7, device=card)
-    before = (fh.launches, fh.shadow_launches)
+    before = _counts("fused_hit", "fused_hit_shadow")
     kern = fh.fused_hit(tables, *rays, alive, T_MIN, shadow_only=True)
-    assert (fh.launches, fh.shadow_launches) == (before[0], before[1] + 1)
+    assert _counts("fused_hit", "fused_hit_shadow") == (before[0],
+                                                         before[1] + 1)
     plain = fh.fused_hit(tables, *rays, alive, T_MIN, shadow_only=True,
                          interpret=True)
-    assert fh.shadow_launches == before[1] + 1
+    assert spans.counts["fused_hit_shadow"] == before[1] + 1
     torch.cuda.synchronize()
     assert sorted(kern) == ["idx", "t"]
     alive = alive.cpu()
@@ -215,9 +223,9 @@ def test_mesh_kernels_match_plain_versions(card, mesh_worlds, name, n, capped):
     mc = mesh_worlds[name]
     rays, alive, cap = _mesh_rays(mc, n, seed=n, device=card)
     cap = cap if capped else None
-    before = (mi.first_cluster_launches, mi.launches)
+    before = _counts("mesh_first_cluster", "mesh_search")
     c1 = mi.first_crossed_cluster(mc, *rays, T_MIN, alive, cap)
-    assert mi.first_cluster_launches == before[0] + 1
+    assert spans.counts["mesh_first_cluster"] == before[0] + 1
     c1_plain = mi.first_crossed_cluster(mc, *rays, T_MIN, alive, cap,
                                         interpret=True)
     assert torch.equal(c1.cpu(), c1_plain.cpu())
@@ -234,8 +242,8 @@ def test_mesh_kernels_match_plain_versions(card, mesh_worlds, name, n, capped):
         assert torch.all(got[0].cpu()[~live] == fh.BIG)
         assert torch.all(got[1].cpu()[~live] == 0)
     sorted_run = n >= mi.SORT_MIN_RAYS and mc.k > 1
-    assert mi.launches == before[1] + 2
-    assert mi.first_cluster_launches == before[0] + 1 + sorted_run
+    assert spans.counts["mesh_search"] == before[1] + 2
+    assert spans.counts["mesh_first_cluster"] == before[0] + 1 + sorted_run
     if capped and n >= 1000:
         # The finite caps prune hits that the uncapped search finds.
         free = mi.mesh_search(mc, *rays, T_MIN, alive=alive, interpret=True)
@@ -271,11 +279,10 @@ def test_world_render_on_card_matches_cpu(card, name):
         # 2 chunks x 2 samples x 5 bounces; two mesh searches per bounce,
         # one cluster, so no sort.
         want_counts = (20, 20, 0, 40)
-    fh.launches = fh.shadow_launches = 0
-    mi.launches = mi.first_cluster_launches = 0
+    spans.counts.clear()
     got = render_linear(world.to(card), cam.to(card), cfg, 5)
-    assert (fh.launches, fh.shadow_launches, mi.first_cluster_launches,
-            mi.launches) == want_counts
+    assert _counts("fused_hit", "fused_hit_shadow", "mesh_first_cluster",
+                   "mesh_search") == want_counts
     assert got.device == card and bool(torch.isfinite(got).all())
     want = render_linear(world, cam, cfg, 5)
     bad = (got.cpu() - want).abs() > 2e-3 + 2e-3 * want.abs()
@@ -293,11 +300,11 @@ def test_sphere_search_kernel_matches_plain_version(card, n, num_spheres):
     comps, alive = _rays(n, seed=n + 11, device=card)
     o = torch.stack(comps[:3], dim=1)
     d = torch.stack(comps[3:], dim=1)
-    before = si.launches
+    before = spans.counts["sphere_search"]
     kern = si.sphere_search(scene, o, d, T_MIN, alive=alive)
-    assert si.launches == before + 1
+    assert spans.counts["sphere_search"] == before + 1
     plain = si.sphere_search(scene, o, d, T_MIN, alive=alive, interpret=True)
-    assert si.launches == before + 1        # the plain version counts nothing
+    assert spans.counts["sphere_search"] == before + 1   # the plain: 0
     torch.cuda.synchronize()
     alive = alive.cpu()
     for a, b in zip(kern, plain):
@@ -336,9 +343,9 @@ def test_gradients_on_card_match_cpu(card, name, intersector):
         return [x.cpu() for x in (loss, *torch.autograd.grad(loss,
                                                              [alb, tr]))]
 
-    si.launches = fh.shadow_launches = 0
+    spans.counts.clear()
     on_card = grads(card)
-    counts = (si.launches, fh.shadow_launches)
+    counts = _counts("sphere_search", "fused_hit_shadow")
     assert counts[0] > 0 if intersector == "pallas" else counts[1] > 0
     on_cpu = grads("cpu")
     for a, b in zip(on_card, on_cpu):
@@ -381,7 +388,7 @@ def test_fused_hit_exclude_matches_plain_version(card, n, num_spheres):
     rays, alive = _rays(n, seed=n + 3, device=card)
     first = fh.fused_hit(tables, *rays, alive, T_MIN, shadow_only=True)
     excl = _own_winner(first["idx"], first["t"], alive)
-    before = (fh.launches, fh.shadow_launches)
+    before = _counts("fused_hit", "fused_hit_shadow")
     kern = fh.fused_hit(tables, *rays, alive, T_MIN, exclude=excl)
     plain = fh.fused_hit(tables, *rays, alive, T_MIN, exclude=excl,
                          interpret=True)
@@ -389,8 +396,8 @@ def test_fused_hit_exclude_matches_plain_version(card, n, num_spheres):
                           shadow_only=True)
     shadow_plain = fh.fused_hit(tables, *rays, alive, T_MIN, exclude=excl,
                                 shadow_only=True, interpret=True)
-    assert (fh.launches, fh.shadow_launches) == (before[0] + 1,
-                                                 before[1] + 1)
+    assert _counts("fused_hit", "fused_hit_shadow") == (before[0] + 1,
+                                                         before[1] + 1)
     torch.cuda.synchronize()
     _assert_hits_agree(kern, plain, alive)
     live = alive.cpu()
@@ -416,9 +423,9 @@ def test_sphere_search_exclude_matches_plain_version(card, n, num_spheres):
     d = torch.stack(comps[3:], dim=1)
     t0, i0 = si.sphere_search(scene, o, d, T_MIN, alive=alive)
     excl = _own_winner(i0, t0, alive)
-    before = si.launches
+    before = spans.counts["sphere_search"]
     kern = si.sphere_search(scene, o, d, T_MIN, alive=alive, exclude=excl)
-    assert si.launches == before + 1
+    assert spans.counts["sphere_search"] == before + 1
     plain = si.sphere_search(scene, o, d, T_MIN, alive=alive, exclude=excl,
                              interpret=True)
     torch.cuda.synchronize()
@@ -481,14 +488,15 @@ def test_clustered_sphere_search_matches_plain_version(card, n, num_spheres):
     if n >= 512:
         alive[256:384] = False
     o, d, alive = (torch.from_numpy(x).to(card) for x in (o, d, alive))
-    before = (si.launches, si.clustered_launches)
+    before = _counts("sphere_search", "sphere_search_clustered")
     kern = si.sphere_search(scene, o, d, T_MIN, alive=alive)
-    assert (si.launches, si.clustered_launches) == (before[0], before[1] + 1)
+    assert _counts("sphere_search", "sphere_search_clustered") == (
+        before[0], before[1] + 1)
     plain = si.sphere_search(scene, o, d, T_MIN, alive=alive, interpret=True)
     mono = si.sphere_search(scene, o, d, T_MIN, alive=alive,
                             min_chunks=10 ** 6)
-    assert (si.launches, si.clustered_launches) == (before[0] + 1,
-                                                    before[1] + 1)
+    assert _counts("sphere_search", "sphere_search_clustered") == (
+        before[0] + 1, before[1] + 1)
     torch.cuda.synchronize()
     live = alive.cpu()
     for a, b, c in zip(kern, plain, mono):
@@ -569,12 +577,12 @@ def test_crossing_kernels_match_plain_versions(card, gate_worlds, name,
         rays, alive, cap = _mesh_rays(mc, n, seed=n + 17, device=card)
     n = rays[0].shape[0]
     cap = cap if capped else None
-    before = (mi.first_cluster_launches, mi.first_cluster_pair_launches,
-              mp.crossing_lists_launches)
+    before = _counts("mesh_first_cluster", "mesh_first_cluster[pair]",
+                     "mesh_crossing_lists")
     c1, c2 = mi.first_crossed_cluster(mc, *rays, T_MIN, alive, cap, pair=True)
     p1, p2 = mi.first_crossed_cluster(mc, *rays, T_MIN, alive, cap, pair=True,
                                       interpret=True)
-    assert (mi.first_cluster_launches, mi.first_cluster_pair_launches) == \
+    assert _counts("mesh_first_cluster", "mesh_first_cluster[pair]") == \
         (before[0], before[1] + 1)
     assert torch.equal(c1.cpu(), p1.cpu()) and torch.equal(c2.cpu(), p2.cpu())
     assert torch.equal(c1, mi.first_crossed_cluster(mc, *rays, T_MIN, alive,
@@ -588,7 +596,7 @@ def test_crossing_kernels_match_plain_versions(card, gate_worlds, name,
     assert torch.equal(c1, pair[0][:, 0]) and torch.equal(c2, pair[0][:, 1])
     for j, c_max in enumerate(_list_widths(mc.k)):
         lists, ncross = mp.crossing_lists(mc, *rays, T_MIN, alive, cap, c_max)
-        assert mp.crossing_lists_launches == before[2] + j + 1
+        assert spans.counts["mesh_crossing_lists"] == before[2] + j + 1
         pl, pn = mp.crossing_lists(mc, *rays, T_MIN, alive, cap, c_max,
                                    interpret=True)
         assert lists.shape == (n, c_max) and lists.dtype == torch.int32
@@ -601,7 +609,8 @@ def test_crossing_kernels_match_plain_versions(card, gate_worlds, name,
             assert torch.equal(lists[:, 1], c2)
         assert torch.all(lists.cpu()[dead] == mc.k)
         assert torch.all(ncross.cpu()[dead] == 0)
-    assert mp.crossing_lists_launches == before[2] + len(_list_widths(mc.k))
+    assert spans.counts["mesh_crossing_lists"] == \
+        before[2] + len(_list_widths(mc.k))
     # The walk's work: every group box of a live ray, members of open
     # groups only.
     assert torch.all(walk[2][alive] == mi.num_groups(mc.k))
@@ -645,12 +654,12 @@ def test_pair_kernel_matches_plain_version(card, mesh_worlds, name, n):
         lists, _ = mp.crossing_lists(mc, *rays, T_MIN, alive, cap, c_max)
         ray_buf, gmap = mp.pair_slots(lists, mc.k)
         valid = ray_buf >= 0
-        before = mp.pair_hits_launches
+        before = spans.counts["mesh_pairs"]
         t, idx = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, T_MIN)
-        assert mp.pair_hits_launches == before + 1
+        assert spans.counts["mesh_pairs"] == before + 1
         pt, pidx = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, T_MIN,
                                 interpret=True)
-        assert mp.pair_hits_launches == before + 1
+        assert spans.counts["mesh_pairs"] == before + 1
         torch.cuda.synchronize()
         assert torch.equal(t.cpu(), pt.cpu())
         assert torch.equal(idx.cpu(), pidx.cpu())
@@ -703,11 +712,11 @@ def test_sort_modes_on_card_keep_live_lanes(card, mesh_worlds, sort_mode):
     mc = mesh_worlds["terrain48"]
     rays, alive, cap = _mesh_rays(mc, 4097, seed=31, device=card)
     ref = mi.mesh_search(mc, *rays, T_MIN, alive=alive, t_cap=cap)
-    before = (mi.first_cluster_launches, mi.first_cluster_pair_launches)
+    before = _counts("mesh_first_cluster", "mesh_first_cluster[pair]")
     got = mi.mesh_search(mc, *rays, T_MIN, alive=alive, t_cap=cap,
                          sort_mode=sort_mode)
     pair = sort_mode == "crossing2"
-    assert (mi.first_cluster_launches, mi.first_cluster_pair_launches) == \
+    assert _counts("mesh_first_cluster", "mesh_first_cluster[pair]") == \
         (before[0], before[1] + pair)
     for a, b in zip(got, ref):
         assert torch.equal(a[alive], b[alive])
@@ -729,14 +738,12 @@ def test_world_render_options_on_card_are_bit_identical(card, option):
                        pixel_chunk=-1)
     cam = meshes.terrain_camera(cfg.aspect_ratio, device="cpu").to(card)
     want = render_linear(world, cam, cfg, 5)
-    mi.launches = mi.first_cluster_launches = 0
-    mi.first_cluster_pair_launches = 0
-    mp.crossing_lists_launches = mp.pair_hits_launches = 0
+    spans.counts.clear()
     got = render_linear(world, cam, dataclasses.replace(cfg, **option), 5)
     assert torch.equal(got, want)
-    counts = (mi.launches, mi.first_cluster_launches,
-              mi.first_cluster_pair_launches, mp.crossing_lists_launches,
-              mp.pair_hits_launches)
+    counts = _counts("mesh_search", "mesh_first_cluster",
+                     "mesh_first_cluster[pair]", "mesh_crossing_lists",
+                     "mesh_pairs")
     kernel = option.get("mesh_kernel", "clustered")
     if kernel == "pairs":
         assert counts == (10, 10, 0, 10, 10)
@@ -780,14 +787,12 @@ def test_mesh_bodies_match_plain_versions(card, mesh_bodies, name, body, n,
     kw = dict(visit="rowgate") if body == "rowgate" else dict(mt="mxu")
     base = mi.mesh_hits(mc, *rays, T_MIN, alive, cap)
     excl = _own_winner(base[1], base[0], alive) if exclude else None
-    before = (mi.launches, mi.rowgate_launches, mi.mxu_launches,
-              mi.exclude_launches)
+    a3 = ("mesh_search", "mesh_search[rowgate]", "mesh_search[mxu]",
+          "mesh_search[exclude]")
+    before = _counts(*a3)
     got = mi.mesh_hits(mc, *rays, T_MIN, alive, cap, exclude=excl, **kw)
-    assert (mi.launches, mi.rowgate_launches, mi.mxu_launches,
-            mi.exclude_launches) == (before[0] + 1,
-                                     before[1] + (body == "rowgate"),
-                                     before[2] + (body == "mxu"),
-                                     before[3] + exclude)
+    assert _counts(*a3) == (before[0] + 1, before[1] + (body == "rowgate"),
+                            before[2] + (body == "mxu"), before[3] + exclude)
     plain = mi.mesh_hits(mc, *rays, T_MIN, alive, cap, exclude=excl,
                          interpret=True, **kw)
     torch.cuda.synchronize()
@@ -846,9 +851,10 @@ def test_world_render_search_bodies_on_card(card, option):
                        pixel_chunk=-1)
     cam = meshes.terrain_camera(cfg.aspect_ratio, device="cpu").to(card)
     want = render_linear(world, cam, cfg, 5)
-    mi.launches = mi.rowgate_launches = mi.mxu_launches = 0
+    spans.counts.clear()
     got = render_linear(world, cam, dataclasses.replace(cfg, **option), 5)
-    assert (mi.launches, mi.rowgate_launches, mi.mxu_launches) == (
+    assert _counts("mesh_search", "mesh_search[rowgate]",
+                   "mesh_search[mxu]") == (
         10, 10 * (option.get("mesh_visit") == "rowgate"),
         10 * (option.get("mesh_mt") == "mxu"))
     if "mesh_mt" in option:
@@ -1152,9 +1158,9 @@ def test_clustered_sweep_bitwise_on_ties(card, num_spheres, n):
     assert tables.num_chunks == num_spheres // 64
     rays, alive = _aimed_rays(scene.center.numpy(), aim, n, seed=n + 5,
                               device=card)
-    before = si.clustered_launches
+    before = spans.counts["sphere_search_clustered"]
     kern = si.sphere_search_flat(tables, *rays, alive, T_MIN)
-    assert si.clustered_launches == before + 1
+    assert spans.counts["sphere_search_clustered"] == before + 1
     plain = si.sphere_search_flat(tables, *rays, alive, T_MIN,
                                   interpret=True)
     _bitwise(kern, plain)
@@ -1214,9 +1220,9 @@ def test_pair_kernel_bitwise_on_ties(card, tie_meshes, name, n):
     mc, srcs = tie_meshes[name]
     rays, alive, cap = _tie_mesh_rays(mc, srcs, n, seed=n + 2, device=card)
     ray_buf, gmap = _pair_slots_of(mp, mc, rays, alive, cap)
-    before = mp.pair_hits_launches
+    before = spans.counts["mesh_pairs"]
     kern = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, T_MIN)
-    assert mp.pair_hits_launches == before + 1
+    assert spans.counts["mesh_pairs"] == before + 1
     plain = mp.pair_hits(mc, *rays, cap, ray_buf, gmap, T_MIN,
                          interpret=True)
     _bitwise(kern, plain)
@@ -1346,7 +1352,6 @@ def test_trace_puts_the_backward_under_the_port_spans(card, tmp_path):
     # thread's qtrt.train.backward, and launch the recompute's kernels.
     from qt_raytracer_tpu_torch.app.profiling import trace
     from qt_raytracer_tpu_torch.diff import inverse
-    from qt_raytracer_tpu_torch.runtime import spans
     cfg = RenderConfig(width=64, height=36, spp=1, max_depth=3, nee=True)
     scene, cam = scenes.get_scene("cornell", cfg.aspect_ratio)
     init, step, _, _ = inverse.make_train_step(
@@ -1417,10 +1422,10 @@ def test_bvh_walk_matches_plain_version(card, walk_meshes, name, n, opts):
     t_max = 1.5 if opts == "t_max" else bw.BIG
     plain = bw.bvh_walk(mesh, o, d, T_MIN, t_max, **kw)
     on = mesh.to(card)
-    before = (bw.launches, bw.exclude_launches)
+    before = _counts("bvh_walk", "bvh_walk[exclude]")
     got = bw.bvh_walk(on, o.to(card), d.to(card), T_MIN, t_max,
                       **{k: v.to(card) for k, v in kw.items()})
-    assert (bw.launches, bw.exclude_launches) == (
+    assert _counts("bvh_walk", "bvh_walk[exclude]") == (
         before[0] + 1, before[1] + (opts == "exclude"))
     on_card = bw.bvh_walk(on, o.to(card), d.to(card), T_MIN, t_max,
                           interpret=True,
@@ -1472,10 +1477,10 @@ def test_bvh_walk_raises_when_the_library_cannot_build(card, walk_meshes,
     monkeypatch.setattr(cuda_build, "load_library", unbuildable)
     mesh = walk_meshes["terrain48"].to(card)
     o, d, _, _ = _walk_rays(walk_meshes["terrain48"], 64, seed=2)
-    before = bw.launches
+    before = spans.counts["bvh_walk"]
     with pytest.raises(RuntimeError, match="cannot be built"):
         bw.bvh_walk(mesh, o.to(card), d.to(card), T_MIN)
-    assert bw.launches == before
+    assert spans.counts["bvh_walk"] == before
 
 
 @pytest.mark.parametrize("name", ["cornell_mesh_nee", "terrain48"])
@@ -1487,9 +1492,9 @@ def test_xla_world_render_on_card_matches_cpu(card, name):
         "cornell") else meshes.terrain_world(48, 48, device="cpu")
     cam = (meshes.cornell_box_mesh_camera if name.startswith("cornell")
            else meshes.terrain_camera)(cfg.aspect_ratio, device="cpu")
-    before = bw.launches
+    before = spans.counts["bvh_walk"]
     got = render_linear(world.to(card), cam.to(card), cfg, 3).cpu()
-    assert bw.launches > before
+    assert spans.counts["bvh_walk"] > before
     want = render_linear(world, cam, cfg, 3)
     bad = (got - want).abs() > 2e-3 + 2e-3 * want.abs()
     assert bool(torch.isfinite(got).all())
@@ -1517,13 +1522,13 @@ def test_shade_kernel_matches_pytorch_route(card, n, depth_idx, rr_start):
     s, h = shade_inputs(n, seed=n + depth_idx, depth_idx=depth_idx,
                         device=card)
     want = itf._shade_plain(s, h, depth_idx, rr_start, 1.0, None)
-    before = fs.launches
+    before = spans.counts["fused_shade"]
     got = itf.RayState(*fs.fused_shade(s, h, depth_idx, rr_start),
                        s.prev_pdf, s.keys, s.pid)
-    assert fs.launches == before + 1
+    assert spans.counts["fused_shade"] == before + 1
     _assert_states_bitwise(got, want)
     routed = itf._shade(s, h, depth_idx, rr_start, 1.0, None)
-    assert fs.launches == before + 2
+    assert spans.counts["fused_shade"] == before + 2
     _assert_states_bitwise(routed, want)
 
 
@@ -1549,9 +1554,9 @@ def test_frames_with_shade_kernel_are_bit_identical(card, name, monkeypatch):
     from qt_raytracer_tpu_torch.kernels import fused_shade as fs
     scene, cam, cfg, calls = _frame(name)
     scene, cam = scene.to(card), cam.to(card)
-    fs.launches = 0
+    spans.counts.clear()
     got = render_linear(scene, cam, cfg, 7)
-    assert fs.launches == calls * cfg.max_depth
+    assert spans.counts["fused_shade"] == calls * cfg.max_depth
     monkeypatch.setattr(fs, "use_kernel", lambda *a, **k: False)
     want = render_linear(scene, cam, cfg, 7)
     assert bool(torch.isfinite(got).all())
@@ -1575,9 +1580,9 @@ def test_shade_kernel_stays_off_its_routes(card, how):
     if how == "autograd":
         scene = dataclasses.replace(
             scene, albedo=scene.albedo.clone().requires_grad_(True))
-    fs.launches = 0
+    spans.counts.clear()
     img = render_linear(scene, cam, cfg, 3)
-    assert fs.launches == 0
+    assert spans.counts["fused_shade"] == 0
     if how == "autograd":
         torch.autograd.grad(img.mean(), [scene.albedo])
-    assert fs.launches == 0
+    assert spans.counts["fused_shade"] == 0

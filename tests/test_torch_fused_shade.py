@@ -21,6 +21,7 @@ from qt_raytracer_tpu_torch.core import integrator_flat as itf
 from qt_raytracer_tpu_torch.core import sampling
 from qt_raytracer_tpu_torch.kernels import fused_shade as fs
 from qt_raytracer_tpu_torch.kernels.fused_hit import BIG
+from qt_raytracer_tpu_torch.runtime import spans
 from torch_helpers import _one_thread, shade_inputs  # noqa: F401
 
 CUDA = torch.device("cuda")
@@ -64,10 +65,10 @@ def test_cpu_takes_the_pytorch_route(rr_start, depth_idx):
     # On CPU tensors _shade is _shade_plain, bit for bit, and launches
     # nothing.
     s, h = shade_inputs(4099, seed=depth_idx, depth_idx=depth_idx)
-    before = fs.launches
+    before = spans.counts["fused_shade"]
     got = itf._shade(s, h, depth_idx, rr_start, 1.0, None)
     want = itf._shade_plain(s, h, depth_idx, rr_start, 1.0, None)
-    assert fs.launches == before
+    assert spans.counts["fused_shade"] == before
     for a, b in zip(got, want):
         assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
                            b.view(torch.int32) if b.is_floating_point() else b)
@@ -77,19 +78,20 @@ def test_wrapper_refuses_cpu_tensors():
     # A CPU tensor never reaches the kernel, and the wrapper does not fall
     # back to the PyTorch route either.
     s, h = shade_inputs(16, seed=1)
-    before = fs.launches
+    before = spans.counts["fused_shade"]
     with pytest.raises(ValueError, match="cuda"):
         fs.fused_shade(s, h, 0, 0)
-    assert fs.launches == before
+    assert spans.counts["fused_shade"] == before
 
 
 def test_cpu_render_launches_nothing():
     cfg = RenderConfig(width=16, height=8, spp=1, max_depth=3, rng="hash")
     scene, cam = scenes.get_scene("three_sphere", cfg.aspect_ratio,
                                   device="cpu")
-    fs.launches = 0
+    spans.counts.clear()
     img = render_linear(scene, cam, cfg, 2)
-    assert fs.launches == 0 and bool(torch.isfinite(img).all())
+    assert spans.counts["fused_shade"] == 0
+    assert bool(torch.isfinite(img).all())
 
 
 GOLDEN = np.uint32(0x9E3779B9)

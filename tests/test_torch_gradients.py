@@ -38,7 +38,7 @@ from qt_raytracer_tpu_torch.core.scene import SceneBuilder
 from qt_raytracer_tpu_torch.core.world import intersect_world
 from qt_raytracer_tpu_torch.diff.inverse import (image_loss, mean_image,
                                                  split_scene)
-from qt_raytracer_tpu_torch.kernels import sphere_intersect as tsi
+from qt_raytracer_tpu_torch.runtime import spans
 from qt_raytracer_tpu_torch.utils.convert import (camera_from_arrays,
                                                   scene_from_arrays,
                                                   world_from_arrays)
@@ -317,9 +317,10 @@ def test_kernel_counts_stay_zero_on_the_cpu():
     cfg = TConfig(width=8, height=8, spp=1, max_depth=2, rng="hash",
                   intersector="pallas", nee=True)
     (_, _), (world, cam) = _both("cornell_mesh", 1.0)
-    before = tsi.launches
+    before = spans.counts["sphere_search"]
     img = t_render_linear(world, cam, cfg, 0)
-    assert tsi.launches == before and bool(torch.isfinite(img).all())
+    assert spans.counts["sphere_search"] == before
+    assert bool(torch.isfinite(img).all())
 
 
 @pytest.mark.parametrize("rows,cols", [(9, 16), (5, 3)])

@@ -12,7 +12,7 @@ import torch
 
 from qt_raytracer_tpu_torch import RenderConfig, render_linear, scenes
 from qt_raytracer_tpu_torch.kernels import fused_hit as fh
-from qt_raytracer_tpu_torch.runtime import cuda_build
+from qt_raytracer_tpu_torch.runtime import cuda_build, spans
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 APP_IMPORTS = "".join(
@@ -125,10 +125,24 @@ def test_kernel_route_raises_instead_of_falling_back():
     # The kernel route itself builds or raises: here there is no nvcc.
     tables = fh.prep_fused_spheres(scene)
     rays, alive = _rays("cpu")
-    before = fh.launches
+    before = spans.counts["fused_hit"]
     with pytest.raises(RuntimeError, match="nvcc"):
         fh._launch(tables, rays, alive, 1e-3)
-    assert fh.launches == before
+    assert spans.counts["fused_hit"] == before
+
+
+@pytest.mark.parametrize("device, interpret, want", [
+    ("cpu", False, False),      # a CPU tensor: the plain version
+    ("meta", True, False),      # interpret: the plain version, any device
+    ("meta", False, None),      # neither CPU nor CUDA: refused
+])
+def test_use_kernel_route_rule(device, interpret, want):
+    dev = torch.empty(0, device=device).device
+    if want is None:
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            cuda_build.use_kernel(dev, interpret, "the kernel")
+    else:
+        assert cuda_build.use_kernel(dev, interpret, "the kernel") is want
 
 
 def test_kernel_build_raises_without_nvcc():

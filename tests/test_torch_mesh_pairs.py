@@ -28,6 +28,7 @@ from qt_raytracer_tpu.models import meshes as jmeshes
 from qt_raytracer_tpu_torch.core.world import search_mesh
 from qt_raytracer_tpu_torch.kernels import mesh_intersect as tmi
 from qt_raytracer_tpu_torch.kernels import mesh_pairs as tmp
+from qt_raytracer_tpu_torch.runtime import spans
 from qt_raytracer_tpu_torch.utils.convert import mesh_from_arrays
 from test_torch_mesh_kernel import _arrays, _mt_rtol, _rays
 from torch_helpers import _one_thread  # noqa: F401
@@ -150,11 +151,11 @@ def test_pair_search_equals_clustered_search_bitwise(case, which):
     _, _, ta, tc, live = _masks(case, masked)
     mc, rays = case["mc"], case["t_rays"]
     ref = tmi.mesh_search(mc, *rays, T_MIN, alive=ta, t_cap=tc)
-    tmi.launches = tmp.crossing_lists_launches = tmp.pair_hits_launches = 0
+    spans.counts.clear()
     got = tmp.mesh_search_pairs(mc, *rays, T_MIN, ta, tc, **kw)
     # On the CPU the wrappers take the plain versions and count nothing.
-    assert (tmi.launches, tmp.crossing_lists_launches,
-            tmp.pair_hits_launches) == (0, 0, 0)
+    assert (spans.counts["mesh_search"], spans.counts["mesh_crossing_lists"],
+            spans.counts["mesh_pairs"]) == (0, 0, 0)
     live_t = torch.from_numpy(live)
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
     assert torch.equal(got[0][live_t], ref[0][live_t])

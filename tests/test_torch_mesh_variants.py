@@ -23,6 +23,7 @@ import torch
 from qt_raytracer_tpu.kernels import mesh_intersect as jmi
 from qt_raytracer_tpu_torch import RenderConfig
 from qt_raytracer_tpu_torch.kernels import mesh_intersect as tmi
+from qt_raytracer_tpu_torch.runtime import spans
 from test_torch_mesh_kernel import N, T_MIN, _cap, case  # noqa: F401
 from torch_helpers import _one_thread  # noqa: F401
 
@@ -52,12 +53,12 @@ def test_first_crossed_cluster_pair_bitwise(case, capped):
     _, t_cap = _cap(case, capped)
     want1, want2 = map(np.asarray, _jax_pair(case, capped))
     alive = torch.from_numpy(case["alive"])
-    tmi.first_cluster_launches = tmi.first_cluster_pair_launches = 0
+    spans.counts.clear()
     got1, got2 = tmi.first_crossed_cluster(case["mc"], *case["t_rays"], T_MIN,
                                            alive, t_cap, pair=True)
     # On the CPU the wrapper takes the plain version and counts nothing.
-    assert (tmi.first_cluster_launches,
-            tmi.first_cluster_pair_launches) == (0, 0)
+    assert (spans.counts["mesh_first_cluster"],
+            spans.counts["mesh_first_cluster[pair]"]) == (0, 0)
     assert got1.dtype == got2.dtype == torch.int32
     np.testing.assert_array_equal(got1.numpy(), want1)
     np.testing.assert_array_equal(got2.numpy(), want2)

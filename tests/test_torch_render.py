@@ -34,6 +34,7 @@ from qt_raytracer_tpu_torch.core import render as t_render_mod
 from qt_raytracer_tpu_torch.core import sampling as tsam
 from qt_raytracer_tpu_torch.core.integrator_flat import trace_flat as t_trace_flat
 from qt_raytracer_tpu_torch.diff import inverse as t_inverse
+from qt_raytracer_tpu_torch.runtime import spans
 from qt_raytracer_tpu_torch.utils.convert import camera_from_arrays, scene_from_arrays
 from torch_helpers import _one_thread  # noqa: F401
 
@@ -186,9 +187,9 @@ SHARED = dict(width=16, height=12, max_depth=2, rng="hash", pixel_chunk=96)
 
 def _builds(fn):
     """(fn(), the kernel-table builds it made)."""
-    before = t_itg.table_builds
+    before = spans.counts["table_builds"]
     out = fn()
-    return out, t_itg.table_builds - before
+    return out, spans.counts["table_builds"] - before
 
 
 @pytest.mark.parametrize("spb", [1, 2])

@@ -31,6 +31,7 @@ from qt_raytracer_tpu.core.intersect import intersect_spheres as j_isect
 from qt_raytracer_tpu.kernels import sphere_intersect as jsi
 from qt_raytracer_tpu_torch.core.intersect import intersect_spheres
 from qt_raytracer_tpu_torch.kernels import sphere_intersect as tsi
+from qt_raytracer_tpu_torch.runtime import spans
 from qt_raytracer_tpu_torch.utils.convert import scene_from_arrays
 from test_torch_sphere_search import _t_tol
 from torch_helpers import _one_thread  # noqa: F401
@@ -98,10 +99,11 @@ def test_clustered_search_matches_pallas_interpret(case):
         c["js"], jnp.asarray(c["o"]), jnp.asarray(c["d"]), T_MIN,
         interpret=True, alive=jnp.asarray(c["alive"]))
     jt, ji = np.asarray(jt), np.asarray(ji)
-    before = (tsi.launches, tsi.clustered_launches)
+    a5_a6 = ("sphere_search", "sphere_search_clustered")
+    before = tuple(spans.counts[k] for k in a5_a6)
     tt, ti = tsi.sphere_search(c["ts"], c["to"], c["td"], T_MIN,
                                alive=c["talive"])
-    assert (tsi.launches, tsi.clustered_launches) == before   # CPU: plain
+    assert tuple(spans.counts[k] for k in a5_a6) == before   # CPU: plain
     assert tt.dtype == torch.float32 and ti.dtype == torch.int32
     # The kernel's gates (the row's chunk mask, then the group gate), run in
     # plain PyTorch, give the same bits on every lane.

@@ -28,6 +28,7 @@ from qt_raytracer_tpu.models import scenes as jscenes
 from qt_raytracer_tpu_torch.core.intersect import sphere_hit_ts
 from qt_raytracer_tpu_torch.core.scene import SceneBuilder
 from qt_raytracer_tpu_torch.kernels import sphere_intersect as tsi
+from qt_raytracer_tpu_torch.runtime import spans
 from qt_raytracer_tpu_torch.utils.convert import scene_from_arrays
 
 N = 333
@@ -88,11 +89,11 @@ def test_plain_search_matches_pallas_interpret(name):
     jt, ji = sphere_search_pallas(js, jnp.asarray(o), jnp.asarray(d), T_MIN,
                                   interpret=True, alive=jnp.asarray(alive))
     jt, ji = np.asarray(jt), np.asarray(ji)
-    before = tsi.launches
+    before = spans.counts["sphere_search"]
     tt, ti = tsi.sphere_search(scene_from_arrays(_arrays(js), device="cpu"),
                                torch.from_numpy(o), torch.from_numpy(d),
                                T_MIN, alive=torch.from_numpy(alive))
-    assert tsi.launches == before          # CPU tensors: the plain version
+    assert spans.counts["sphere_search"] == before   # CPU tensors: plain
     assert tt.dtype == torch.float32 and ti.dtype == torch.int32
     tt, ti = tt.numpy(), ti.numpy()
 

@@ -31,6 +31,7 @@ from qt_raytracer_tpu_torch.accel.traverse import (BIG, intersect_mesh,
                                                    intersect_mesh_brute)
 from qt_raytracer_tpu_torch.kernels import bvh_walk as bw
 from qt_raytracer_tpu_torch.kernels import mesh_intersect as tmi
+from qt_raytracer_tpu_torch.runtime import spans
 from qt_raytracer_tpu_torch.utils.convert import mesh_from_arrays
 from torch_helpers import _one_thread  # noqa: F401
 
@@ -214,9 +215,9 @@ def test_walk_matches_jax(case, opts):
                exclude=torch.from_numpy(case["excl"])) if full else {}
     want = jtrav.intersect_mesh(case["jm"], jnp.asarray(o), jnp.asarray(d),
                                 T_MIN, t_max=np.float32(t_max), **jkw)
-    before = bw.launches
+    before = spans.counts["bvh_walk"]
     got = intersect_mesh(case["tm"], _t(o), _t(d), T_MIN, t_max, **tkw)
-    assert bw.launches == before            # CPU tensors: the plain version
+    assert spans.counts["bvh_walk"] == before   # CPU tensors: the plain walk
     assert got.t.dtype == torch.float32 and got.tri_idx.dtype == torch.int32
     wt, wi, wh = (np.asarray(x) for x in want)
     gt, gi, gh = got.t.numpy(), got.tri_idx.numpy(), got.hit.numpy()
@@ -339,8 +340,8 @@ def test_kernel_route_raises_instead_of_falling_back():
     mesh = build_mesh(*_random_tris(20, seed=9), builder="numpy",
                       device="cpu")
     o, d = torch.zeros(4, 3), torch.ones(4, 3)
-    before = bw.launches
+    before = spans.counts["bvh_walk"]
     with pytest.raises(RuntimeError, match="nvcc"):
         bw._launch(mesh, o, d, torch.ones(4, dtype=torch.bool), None, T_MIN,
                    BIG, 4)
-    assert bw.launches == before
+    assert spans.counts["bvh_walk"] == before

@@ -27,8 +27,7 @@ from qt_raytracer_tpu.models import meshes as jmeshes
 from qt_raytracer_tpu_torch import RenderConfig as TConfig
 from qt_raytracer_tpu_torch import render_linear as t_render_linear
 from qt_raytracer_tpu_torch.core.integrator_flat import trace_flat_world as t_trace_world
-from qt_raytracer_tpu_torch.kernels import fused_hit as tfh
-from qt_raytracer_tpu_torch.kernels import mesh_intersect as tmi
+from qt_raytracer_tpu_torch.runtime import spans
 from qt_raytracer_tpu_torch.utils.convert import camera_from_arrays, world_from_arrays
 from torch_helpers import _one_thread  # noqa: F401
 
@@ -99,14 +98,14 @@ def test_trace_flat_world_matches_jax(case):
     want = np.asarray(j_trace_world(jw, jnp.asarray(o), jnp.asarray(d),
                                     jnp.asarray(keys), depth, 1e-3, nee=nee,
                                     rr_start=rr_start, interpret=True))
-    tfh.launches = tfh.shadow_launches = 0
-    tmi.launches = tmi.first_cluster_launches = 0
+    spans.counts.clear()
     got = t_trace_world(tw, torch.tensor(o), torch.tensor(d),
                         torch.tensor(keys.astype(np.int64)), depth, 1e-3,
                         nee=nee, rr_start=rr_start)
     # On the CPU the wrappers take the plain versions and count nothing.
-    assert (tfh.launches, tfh.shadow_launches, tmi.launches,
-            tmi.first_cluster_launches) == (0, 0, 0, 0)
+    assert tuple(spans.counts[k] for k in (
+        "fused_hit", "fused_hit_shadow", "mesh_search",
+        "mesh_first_cluster")) == (0, 0, 0, 0)
     assert got.shape == (n, 3) and got.dtype == torch.float32
     assert bool(torch.isfinite(got).all())
     assert float((want > 0).mean()) > 0.3          # the rays do carry light

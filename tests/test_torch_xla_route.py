@@ -42,8 +42,8 @@ from qt_raytracer_tpu_torch import render_linear as t_render_linear
 from qt_raytracer_tpu_torch.core.integrator import trace
 from qt_raytracer_tpu_torch.core.intersect import intersect_spheres
 from qt_raytracer_tpu_torch.core.world import intersect_world
-from qt_raytracer_tpu_torch.kernels import bvh_walk as bw
 from qt_raytracer_tpu_torch.kernels import mesh_pairs
+from qt_raytracer_tpu_torch.runtime import spans
 from qt_raytracer_tpu_torch.utils.convert import (camera_from_arrays,
                                                   scene_from_arrays,
                                                   world_from_arrays)
@@ -182,9 +182,9 @@ def test_render_matches_jax(case):
     tcfg = TConfig(intersector="xla", **kw)
     (js, jc), (ts, tc) = _both(name, jcfg.aspect_ratio)
     want = np.asarray(j_render_linear(js, jc, jcfg, jax.random.PRNGKey(3)))
-    before = bw.launches
+    before = spans.counts["bvh_walk"]
     got = t_render_linear(ts, tc, tcfg, 3)
-    assert bw.launches == before
+    assert spans.counts["bvh_walk"] == before
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     assert float((want > 0).mean()) > 0.3
     mismatch = np.abs(got.numpy() - want) > ATOL + RTOL * np.abs(want)
