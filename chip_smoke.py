@@ -75,6 +75,15 @@ counts set to 0 just before it and read just after:
     within 1e-4 x max|g| of it, and whose parameters are equal on both
     ranks.
 
+The differentiable bounce (``kernels/diff_bounce.py``: F1, F2 forward, B
+backward, counted ``diff_bounce[shadow_rays]``, ``diff_bounce`` and
+``diff_bounce[backward]``) is held against the PyTorch route of
+``bounce(diff=True)`` on config 5's chunk-2 wavefront (414,720 lanes):
+the new carry bit for bit, the gradients within 1e-4 of the largest
+input's norm, two backward calls bit for bit; each kernel's device ms
+beside its bound and ptxas's registers and spills; and it launches on
+every bounce of every gradient step on a sphere scene with hash keys.
+
 The shading kernel (``shade_kernel``, a bounce's shading without NEE in
 one launch) is held bit for bit against its plain version,
 ``integrator_flat._shade_plain``, on every output field and lane of the
@@ -162,7 +171,8 @@ KERNELS = ("fused_hit", "fused_hit_shadow", "mesh_first_cluster",
            "mesh_search[exclude]", "mesh_first_cluster[pair]",
            "mesh_crossing_lists", "mesh_pairs", "mesh_search[rowgate]",
            "mesh_search[mxu]", "bvh_walk", "bvh_walk[exclude]",
-           "fused_shade")
+           "fused_shade", "diff_bounce", "diff_bounce[shadow_rays]",
+           "diff_bounce[backward]")
 PAIR_C = 6                 # crossing-list width of the pair search
 CLUSTER_ROWS = (1, 2, 4)   # cluster sizes timed on the bounce wavefront
 PEAK_FP32 = 67e12          # FLOP/s outside the tensor cores (H100 SXM)
@@ -192,6 +202,17 @@ MXU_TILE_RAYS = 16         # rays a warp of A3m (mesh_intersect.MXU_RAYS)
 SHADE_LANE_BYTES, SHADE_LIVE_BYTES, SHADE_HIT_BYTES = 98, 4, 72
 SHADE_FLOPS = 300
 SHADE_HOST_CALLS = 50      # launches timed back to back
+# The differentiable bounce (csrc/diff_bounce.cu), bytes a lane each kernel
+# moves: F1 reads the ray, alive, the winner's id and t and the key (41)
+# and writes the shadow ray and cand (25); F2 reads the carry, t, the
+# shadow t and id, alive, the key and the winner's id (77) and writes the
+# new carry and alive (53); B reads F2's operands but the radiance (65) and
+# 13 upstream gradients (52), and writes 10 gradients (40). The params rows
+# stay in L2. Operations a lane: about 150 (F1), 350 (F2) single-rounded
+# FP32, and B's recompute plus some 400 adjoint operations in FP64, at
+# half the FP32 rate (counted twice).
+DIFF_F1_BYTES, DIFF_F2_BYTES, DIFF_B_BYTES = 66, 130, 157
+DIFF_F1_FLOPS, DIFF_F2_FLOPS, DIFF_B_FLOPS = 150, 350, 350 + 2 * 400
 SLEEP_CYCLES = 10 ** 8     # about 50 ms of the card's clock
 A6_SPHERES = 1061          # the clustered scene: 1,152 slots, 18 chunks
 # BASELINE config 5 (benchmarks/run_baselines.py:196-386).
@@ -449,6 +470,7 @@ def shade_wavefront(itg, s, h, depth_idx: int, rr_start: int,
     depth. Then the kernel's device ms (device_ms), the call's ms between
     two CUDA events, the launch's host microseconds and the checks' of its
     operands, the plain version's ms, and the bound of this wavefront."""
+    from qt_raytracer_tpu_torch.runtime import cuda_build
     fs = _fused_shade_module()
 
     def check(rr):
@@ -482,10 +504,132 @@ def shade_wavefront(itg, s, h, depth_idx: int, rr_start: int,
             "call_ms": cuda_ms(call),
             "launch_host_us": host_us(call),
             "operand_check_host_us": host_us(
-                lambda: fs._pointers(ops, n, s.ox.device)),
+                lambda: cuda_build.pointers("fused_shade", ops, fs.DTYPES, n,
+                                            s.ox.device)),
             "plain_ms": cuda_ms(lambda: itg._shade_plain(
                 s, h, depth_idx, rr_start, 1.0, None)),
             **bound(SHADE_FLOPS * hits, nbytes)}
+
+
+def diff_bounce_counts(units: int, depth: int) -> dict:
+    """The differentiable bounce's launches over `units` checkpointed
+    (chunk, sample) units of `depth` bounces with NEE: F2 and F1 in the
+    forward and again in the recompute; B once a unit and bounce."""
+    return {"diff_bounce": 2 * units * depth,
+            "diff_bounce[shadow_rays]": 2 * units * depth,
+            "diff_bounce[backward]": units * depth}
+
+
+def ptxas_lines(cuda_build, kernel: str) -> dict:
+    """Registers and spilled bytes ptxas reported for kernel in the last
+    build (cuda_build.build_log; empty when this process built nothing)."""
+    lines = cuda_build.build_log.splitlines()
+    for k, line in enumerate(lines):
+        if f"{kernel}E" in line and "Function properties" in line:
+            spill, regs = lines[k + 1].strip(), lines[k + 2].strip()
+            return {"spill": spill, "registers": regs.split(":", 1)[-1]}
+    return {}
+
+
+def diff_bounce_wavefront(itg, db, fh, cuda_build, tables, s, lights,
+                          t_min: float) -> dict:
+    """F1, F2 and B (kernels/diff_bounce.py) on one bounce-0 wavefront s of
+    a sphere scene with NEE: the new carry bit for bit against the PyTorch
+    route of bounce(diff=True), each input's gradient within 1e-4 of the
+    larger of its norm and the median input's of that route's, B twice bit
+    for bit; then each kernel's device ms beside its bound, the bounce's
+    forward and backward ms on both routes, and ptxas's registers."""
+    plain_rule = db.use_kernel
+    gen = torch.Generator().manual_seed(0)
+    weights = [torch.randn(s.ox.shape, generator=gen).to(s.ox.device)
+               for _ in range(13)]
+
+    def run(kernel: bool):
+        """(new carry, loss, leaves) of the bounce along the kernels' route
+        or the PyTorch route, the carry and the params table as leaves."""
+        db.use_kernel = plain_rule if kernel else (lambda *a, **k: False)
+        try:
+            params = tables.params.detach().clone().requires_grad_(True)
+            carry = {k: getattr(s, k).detach().clone().requires_grad_(True)
+                     for k in db.CARRY}
+            tab = fh.FusedSpheres(tables.spheres, params, tables.boxes)
+            out = itg.bounce(tab, s._replace(**carry), 0, t_min, 0, False,
+                             lights, True)
+            loss = sum((w * x).sum() for w, x in
+                       zip(weights, (*out[:12], out[13])))
+            return out, loss, [params, *carry.values()]
+        finally:
+            db.use_kernel = plain_rule
+
+    before = read_counts()
+    got, loss_k, leaves_k = run(True)
+    want, loss_p, leaves_p = run(False)
+    after = read_counts()
+    if (after["diff_bounce"] - before["diff_bounce"],
+            after["diff_bounce[shadow_rays]"]
+            - before["diff_bounce[shadow_rays]"]) != (1, 1):
+        raise AssertionError("the differentiable bounce did not launch")
+    for name, a, b in zip(itg.RayState._fields, got, want):
+        differ = float_bits(a) != float_bits(b)
+        if bool(differ.any()):
+            raise AssertionError(f"diff_bounce's forward differs from the "
+                                 f"PyTorch route in {name} on "
+                                 f"{int(differ.sum())} lanes")
+    gk = torch.autograd.grad(loss_k, leaves_k, retain_graph=True)
+    again = torch.autograd.grad(loss_k, leaves_k, retain_graph=True)
+    gp = torch.autograd.grad(loss_p, leaves_p, retain_graph=True)
+    if not all(torch.equal(float_bits(a), float_bits(b))
+               for a, b in zip(gk, again)):
+        raise AssertionError("diff_bounce's backward is not deterministic")
+    norms = [float(g.double().norm()) for g in gp]
+    med = float(np.median(norms))
+    rel = max(float((a.double() - b.double()).norm()) / max(n, med)
+              for a, b, n in zip(gk, gp, norms))
+    if not rel <= GRAD_RTOL_PLAIN:
+        raise AssertionError(f"diff_bounce's gradients differ from the "
+                             f"PyTorch route's: {rel}")
+
+    # The kernels alone, on the same wavefront's operands.
+    sel = fh.fused_hit(tables, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive,
+                       t_min, shadow_only=True)
+    st = db._Setup(tables, s.alive, s.keys, sel["idx"], sel["t"],
+                   db._lights(lights, s.ox.device), 1, 0, t_min)
+    ops = {**{k: getattr(s, k) for k in db.CARRY}, "t_sel": sel["t"],
+           "alive": s.alive, "keys": s.keys, "idx": sel["idx"]}
+    params = tables.params.detach()
+    rays, cand = db.shadow_rays(st, params, ops)
+    sh = fh.fused_hit(tables, *rays.unbind(0), cand, t_min, shadow_only=True)
+    ops.update(sh_t=sh["t"], sh_idx=sh["idx"])
+    b_ops = {k: v for k, v in ops.items() if k not in ("rx", "ry", "rz")}
+    ups = [torch.randn(s.ox.shape[0], device=s.ox.device)
+           for _ in db.CARRY]
+    n, live = s.ox.shape[0], int(s.alive.sum())
+    out = {"rays": n, "live": live, "cand": int(cand.sum()),
+           "bitwise": True, "grad_rel_err": rel}
+    for name, fn, nbytes, flops, kernel in (
+            ("F1", lambda: db.shadow_rays(st, params, ops), DIFF_F1_BYTES,
+             DIFF_F1_FLOPS, "diff_bounce_shadow_kernel"),
+            ("F2", lambda: db.forward(st, params, ops), DIFF_F2_BYTES,
+             DIFF_F2_FLOPS, "diff_bounce_kernel"),
+            ("B", lambda: db.backward((1, 0, t_min), params, st.lights,
+                                      b_ops, ups, True), DIFF_B_BYTES,
+             DIFF_B_FLOPS, "diff_bounce_backward_kernel")):
+        out[name] = {"ms": device_ms(fn), "call_ms": cuda_ms(fn),
+                     "launch_host_us": host_us(fn),
+                     **ptxas_lines(cuda_build, kernel),
+                     **bound(flops * n, nbytes * n)}
+    # The whole bounce after the leaves' copies (13 of them) and with its
+    # loss (26 launches): A2's two calls, F1 and F2 against the PyTorch
+    # route's forward; then each route's backward alone.
+    out["bounce_forward_ms"] = cuda_ms(lambda: run(True))
+    out["bounce_forward_plain_ms"] = cuda_ms(lambda: run(False))
+    _, loss_k, leaves_k = run(True)
+    _, loss_p, leaves_p = run(False)
+    out["bounce_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        loss_k, leaves_k, retain_graph=True))
+    out["bounce_backward_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        loss_p, leaves_p, retain_graph=True))
+    return out
 
 
 def sweep_work(fh, spheres, boxes, rays, alive, t_min,
@@ -1197,7 +1341,8 @@ def cli_phase(scenes, render_linear, RenderConfig) -> dict:
             print(f"cli render --scene {name}: {text.strip()}", flush=True)
 
     # (d) `invert`: the target render (A1), then train steps on the gradient
-    # path (A2 selects, autograd re-derives); with --edge-aware also the
+    # path (A2 selects, autograd re-derives: the CLI's threefry keys keep
+    # the PyTorch route, no diff_bounce launch); with --edge-aware also the
     # background re-trace (A1's exclude instance). Each run's first printed
     # loss is the plain route's first step, printed the same way.
     per = CLI_SMALL["spp"] * CLI_SMALL["depth"]
@@ -1801,9 +1946,11 @@ def sharded_phase(render_linear, dev, terrain: dict) -> dict:
     for r, rk in enumerate(ranks):
         st = rk["c5"]
         # Pathwise: per (chunk, sample), forward and recompute, A2 selects
-        # and A2 shadows at every bounce.
+        # and A2 shadows at every bounce, around F1 and F2; B once.
         want = {**dict.fromkeys(KERNELS, 0), "fused_hit_shadow":
-                st["chunks"] * C5["spp"] * 2 * 2 * C5["max_depth"]}
+                st["chunks"] * C5["spp"] * 2 * 2 * C5["max_depth"],
+                **diff_bounce_counts(st["chunks"] * C5["spp"],
+                                     C5["max_depth"])}
         if st["launches"] != want:
             raise AssertionError(f"config-5 view-step rank {r}: launches "
                                  f"{st['launches']}, expected {want}")
@@ -2709,6 +2856,21 @@ def main() -> None:
     del o5, d5, t5, i5, excl, kx
     del sh0, hit, uni, ldx, ldy, ldz, ok, cos_s, cand
 
+    phase("differentiable bounce: F1, F2 and B vs the PyTorch route "
+          "(config-5 chunk-2 wavefront)")
+    from qt_raytracer_tpu_torch.kernels import diff_bounce as db
+    dbw = diff_bounce_wavefront(itg, db, fh, cuda_build, tab5,
+                                primary(cam5, cfg5, index=2), sph.light_idx,
+                                cfg5.t_min)
+    print(f"diff_bounce c5_chunk2: {json.dumps(dbw)}", flush=True)
+    for name, part in (("diff_bounce", "F2"),
+                       ("diff_bounce[shadow_rays]", "F1"),
+                       ("diff_bounce[backward]", "B")):
+        plain_ms = dbw["bounce_backward_plain_ms"] if part == "B" else \
+            dbw["bounce_forward_plain_ms"]
+        results[name] = ((dbw["grad_rel_err"] if part == "B" else 0.0),
+                         {**dbw[part], "plain_ms": plain_ms})
+
     # (chunk, sample) evaluations per view-step: forward and recompute.
     evals = chunk_count(cfg5) * cfg5.spp * 2
     bounces = cfg5.max_depth
@@ -2747,23 +2909,27 @@ def main() -> None:
     with torch.no_grad():
         print(f"targets: 4 views in {tgt_s:.3f} s; start "
               f"{json.dumps(sphere_errs(init()))}", flush=True)
-    # Pathwise: per evaluation A2 selects and A2 shadows at every bounce.
+    # Pathwise: per evaluation A2 selects and A2 shadows at every bounce,
+    # around F1 and F2; B once a (chunk, sample) and bounce.
+    units = views * evals // 2
     _, c5s, counts, g_path = train_steps(
         step, init(), targets, key7, sphere_errs, C5_PATHWISE_STEPS,
-        {"fused_hit_shadow": views * evals * 2 * bounces})
+        {"fused_hit_shadow": views * evals * 2 * bounces,
+         **diff_bounce_counts(units, bounces)})
     for k, v in counts.items():
         train_launches[k] += v
     # Edge-aware, per evaluation: the pathwise trace (2 A2 per bounce), A1
     # for the bounce-0 winner, the background re-trace (A1 and an A2 shadow
     # per bounce, the first A1 with the exclude operand) and one A5 for
-    # the first vertex's shadow ray.
+    # the first vertex's shadow ray. The pathwise trace takes F1, F2 and B.
     print("edge-aware:", flush=True)
     _, c5s_edge, counts, g_edge = train_steps(
         step_edge, init(), targets, key7, sphere_errs, C5_STEPS,
         {"fused_hit": views * evals * (1 + bounces),
          "fused_hit[exclude]": views * evals,
          "fused_hit_shadow": views * evals * 3 * bounces,
-         "sphere_search": views * evals})
+         "sphere_search": views * evals,
+         **diff_bounce_counts(units, bounces)})
     for k, v in counts.items():
         train_launches[k] += v
     rel = pose_gradient_differs(g_edge, g_path, "sphere Cornell box")
@@ -2942,6 +3108,13 @@ def main() -> None:
     # its hit query (_scatter_flat and the bounce body), which XLA fuses.
     sources["fused_shade"] = ("qt_raytracer_tpu_torch/csrc/fused_shade.cu",
                               "qt_raytracer_tpu/core/integrator_flat.py:68")
+    # No TPU kernel: the gradient path's bounce after A2's selection
+    # (_rederive_hits_flat, the NEE and shading steps), which jax.grad
+    # differentiates through XLA's fusions.
+    for name in ("diff_bounce", "diff_bounce[shadow_rays]",
+                 "diff_bounce[backward]"):
+        sources[name] = ("qt_raytracer_tpu_torch/csrc/diff_bounce.cu",
+                         "qt_raytracer_tpu/core/integrator_flat.py:712")
     # The exclude and pair variants are template instances of their kernels.
     for name in KERNELS:
         if name.endswith(("[exclude]", "[pair]")):

@@ -22,8 +22,12 @@ which gives the bits of its PyTorch route, ``_shade_plain``.
 ``trace_flat(diff=True)`` is the gradient-capable sphere path: the
 shadow-mode kernel (A2) only selects the winner, and ``_rederive_hits_flat``
 re-derives t, the hit point, the normal and the material parameters from
-the scene tensors, so autograd reaches them. The other paths are forward
-only: a render of tensors that require grad runs, and its backward raises.
+the scene tensors, so autograd reaches them. On the card, with hash states,
+the rest of that bounce, NEE included, is the differentiable bounce's
+kernels (``kernels/diff_bounce.py``), forward and backward, which give the
+bits of that PyTorch route forward and its gradients. The other paths are
+forward only: a render of tensors that require grad runs, and its backward
+raises.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from .vecmath import gather_rows, safe_sqrt
 from .config import MESH_KERNELS
 from .world import (World, WorldLights, face_param_table, search_mesh,
                     tensors_of, world_lights)
-from ..kernels import fused_shade
+from ..kernels import diff_bounce, fused_shade
 from ..kernels.fused_hit import (BIG, TILE, FusedSpheres, fused_hit,
                                  prep_fused_spheres)
 from ..kernels.mesh_intersect import (CLUSTER_ROWS, MeshClusters,
@@ -306,8 +310,10 @@ def _shade(s: RayState, h: dict, depth_idx: int, rr_start: int, emit_w,
 
 def _shade_plain(s: RayState, h: dict, depth_idx: int, rr_start: int,
                  emit_w, nee_fn) -> RayState:
-    """_shade in PyTorch ops: the shading kernel's plain version, and the
-    route of NEE, threefry keys, autograd, interpret and CPU tensors."""
+    """_shade in PyTorch ops: the plain version of the shading kernel and
+    (with _rederive_hits_flat) of the differentiable bounce's, and the
+    route of forward NEE, threefry keys, interpret, CPU tensors and the
+    gradient routes the kernels do not take."""
     hit = h["t"] < BIG
     ff = h["ff"] > 0
 
@@ -424,6 +430,9 @@ def bounce(tables: FusedSpheres, s: RayState, depth_idx: int, t_min: float,
         sel = fused_hit(tables, s.ox, s.oy, s.oz, s.dx, s.dy, s.dz, s.alive,
                         t_min, shadow_only=True, interpret=interpret,
                         exclude=exclude)
+        if diff_bounce.use_kernel(s.ox.device, interpret, s.keys, tables):
+            return _shade_diff(tables, s, sel, depth_idx, t_min, rr_start,
+                               light_idx)
         h = _rederive_hits_flat(tables.params, s.ox, s.oy, s.oz, s.dx, s.dy,
                                 s.dz, sel["t"], sel["idx"], t_min)
     else:
@@ -438,6 +447,19 @@ def bounce(tables: FusedSpheres, s: RayState, depth_idx: int, t_min: float,
             h["nz"], h["ax"], h["ay"], h["az"], s.tx, s.ty, s.tz, diffuse,
             uni, t_min, interpret)
     return _shade(s, h, depth_idx, rr_start, emit_w, nee_fn, interpret)
+
+
+@spans.spanned(spans.SHADE)
+def _shade_diff(tables: FusedSpheres, s: RayState, sel: dict, depth_idx: int,
+                t_min: float, rr_start: int, light_idx) -> RayState:
+    """bounce(diff=True) after A2's selection sel, where
+    ``diff_bounce.use_kernel`` allows it: the re-derivation, NEE (with
+    light_idx) and _shade's step in the differentiable bounce's kernels,
+    which give _rederive_hits_flat's and _shade_plain's bits and, backward,
+    their gradients."""
+    *carry, alive = diff_bounce.diff_bounce(tables, s, sel, depth_idx, t_min,
+                                            rr_start, light_idx)
+    return RayState(*carry[:12], alive, carry[12], s.keys, s.pid)
 
 
 class _ForwardOnly(torch.autograd.Function):

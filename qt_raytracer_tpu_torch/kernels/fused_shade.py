@@ -12,14 +12,15 @@ kernel equals it bit for bit on the card, dead lanes included.
 
 ``use_kernel`` is the route rule, read from the inputs alone: the kernel
 for CUDA tensors, outside interpret mode, with hash states for keys, no
-NEE, and no autograd recording a tensor that requires grad. The NEE step
-launches A2 and a mesh search mid-shading and the gradient path needs
-autograd's graph, so both keep the PyTorch route.
+NEE, and no autograd recording a tensor that requires grad. A forward
+render with NEE keeps the PyTorch route (its step launches A2 and, in a
+world, a mesh search mid-shading). The sphere gradient route,
+``bounce(diff=True)``, NEE included, takes the differentiable bounce's
+kernels on the card instead (``kernels/diff_bounce.py``), which share
+this kernel's device helpers (``csrc/shade_math.cuh``).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -64,7 +65,7 @@ def fused_shade(s, h: dict, depth_idx: int, rr_start: int,
            + [s.alive, s.keys] + [h[k] for k in HIT_INTS])
     n = s.ox.shape[0]
     dev = s.ox.device
-    ptrs, _copies = _pointers(ops, n, dev)
+    ptrs, _copies = cuda_build.pointers("fused_shade", ops, DTYPES, n, dev)
     out = torch.empty((len(STATE_FLOATS), n), dtype=torch.float32, device=dev)
     alive = torch.empty(n, dtype=torch.bool, device=dev)
     roulette = rr_start > 0 and depth_idx >= rr_start
@@ -73,28 +74,3 @@ def fused_shade(s, h: dict, depth_idx: int, rr_start: int,
         int(roulette), float(emit_w), n, out.data_ptr(), alive.data_ptr(),
         device=dev, counted=("fused_shade",))
     return (*out.unbind(0), alive)
-
-
-def _pointers(ops, n: int, dev: torch.device):
-    """(ctypes array of the operands' device pointers, in the kernel's
-    order; the contiguous copies made of strided operands, to be kept until
-    the launch). Raises ValueError on a device, dtype or shape the kernel
-    does not take. One pass over the operands: this runs on every bounce."""
-    if dev.type != "cuda":
-        raise ValueError(f"fused_shade runs on cuda tensors, got {dev}")
-    if not 0 < n < 2 ** 31:
-        raise ValueError(f"fused_shade takes 0 < N < 2^31 lanes, got {n}")
-    ptrs = (ctypes.c_void_p * len(ops))()
-    copies = []
-    index = dev.index
-    for k, (x, dtype) in enumerate(zip(ops, DTYPES)):
-        if x.dtype is not dtype or x.shape != (n,) or \
-                x.get_device() != index:
-            raise ValueError("fused_shade operands must be [N] tensors on one "
-                             "cuda device: f32 state and hit fields, bool "
-                             "alive, int64 hash states, i32 mat and ff")
-        if not x.is_contiguous():
-            x = x.contiguous()
-            copies.append(x)
-        ptrs[k] = x.data_ptr()
-    return ptrs, copies

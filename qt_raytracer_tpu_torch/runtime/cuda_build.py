@@ -160,6 +160,34 @@ def launch(symbol: str, *args, device: torch.device, counted=()) -> None:
         spans.counts[name] += 1
 
 
+def pointers(what: str, ops, dtypes, n: int, dev: torch.device):
+    """(ctypes array of the operands' device pointers, in order, a null
+    pointer for an operand that is None; the contiguous copies made of
+    strided operands, to be kept until the launch) for the kernels that
+    take their [N] operands as one host array of pointers. Raises
+    ValueError on a device, dtype or shape the kernel `what` does not take.
+    One pass over the operands: this runs on every bounce."""
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on cuda tensors, got {dev}")
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"{what} takes 0 < N < 2^31 lanes, got {n}")
+    ptrs = (ctypes.c_void_p * len(ops))()
+    copies = []
+    index = dev.index
+    for k, (x, dtype) in enumerate(zip(ops, dtypes)):
+        if x is None:
+            continue
+        if x.dtype is not dtype or x.shape != (n,) or \
+                x.get_device() != index:
+            raise ValueError(f"{what} operands must be [N] tensors of their "
+                             f"dtypes on one cuda device")
+        if not x.is_contiguous():
+            x = x.contiguous()
+            copies.append(x)
+        ptrs[k] = x.data_ptr()
+    return ptrs, copies
+
+
 def _configure(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # excl is a device pointer, or None (a null pointer) for no operand.
@@ -219,3 +247,20 @@ def _configure(lib: ctypes.CDLL) -> None:
     # pointers.
     lib.qtrt_fused_shade.restype = i
     lib.qtrt_fused_shade.argtypes = [p, i, ctypes.c_uint, i, f, i] + [p] * 3
+    u = ctypes.c_uint
+    # qtrt_diff_bounce_shadow(ptrs, n_ptrs, params, light_idx, n_lights,
+    #                         stream_id, t_min, n, rays, cand, stream)
+    lib.qtrt_diff_bounce_shadow.restype = i
+    lib.qtrt_diff_bounce_shadow.argtypes = [p, i, p, p, i, u, f, i] + [p] * 3
+    # qtrt_diff_bounce(ptrs, n_ptrs, params, light_idx, n_lights, stream_id,
+    #                  rr, t_min, n, out, alive_out, stream)
+    lib.qtrt_diff_bounce.restype = i
+    lib.qtrt_diff_bounce.argtypes = [p, i, p, p, i, u, i, f, i] + [p] * 3
+    # qtrt_diff_bounce_backward(ptrs, n_ptrs, grads, strides, params,
+    #                           light_idx, n_lights, slots, stream_id, rr,
+    #                           t_min, n, grid, gout, partials, gparams,
+    #                           stream); grads and strides are host arrays,
+    # partials and gparams device pointers or both None.
+    lib.qtrt_diff_bounce_backward.restype = i
+    lib.qtrt_diff_bounce_backward.argtypes = ([p, i, p, p, p, p, i, i, u, i,
+                                               f, i, i] + [p] * 4)
